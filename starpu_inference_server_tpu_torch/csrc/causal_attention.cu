@@ -1,0 +1,114 @@
+// causal_attention: flash causal self-attention over a prefill block.
+//
+//   q [B, T, Hq, D], k/v [B, T, Hkv, D] (bf16 or f32, one dtype);
+//   query t attends keys 0..t; GQA without repeats (query head h*rep+r
+//   reads KV head h). out [B, T, Hq, D] in the input dtype.
+//
+// Replaces the TPU kernel starpu_inference_server_tpu/ops/
+// prefill_attention.py causal_attention (_causal_kernel). Rows past the
+// prompt length are padding: computed, never read (the decoder ignores
+// them), exactly as on the TPU.
+//
+// Bound on the H100: at the main-path shapes (T = 256 or 512) the least
+// time is the few MB of q, k, v and out at the memory rate, with the
+// bf16 tensor-core time for the ~T*T/2*Hq*D*4 FLOPs close behind; this
+// kernel computes in f32 on CUDA cores, so its own limit is the FMA
+// rate. Design: one block per (query tile, KV head, batch row); its
+// 128 threads are the tile's query rows for all rep heads of the KV
+// head (128/rep query positions), each holding its q row and f32
+// accumulator in registers.
+// The block loops over 64-key chunks of K/V up to the tile's last query
+// position (chunks above the diagonal are never loaded), stages each
+// chunk in shared memory once for all 128 rows, and runs the online
+// softmax in sub-blocks of 16 keys (common.cuh FlashRow). The [Hq, T, T]
+// scores never exist in device memory. CUDA cores only in this version.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kRows = 128;
+constexpr int kSB = 16;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows)
+causal_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, T* __restrict__ out, int Tlen, int Hkv,
+                        int rep, float inv_sqrt_d) {
+  constexpr int BK = 4096 / D;  // keys per staged chunk (32 KB of K+V)
+  __shared__ __align__(16) float ks_s[BK * D];
+  __shared__ __align__(16) float vs_s[BK * D];
+
+  const int bq = kRows / rep;  // query positions per tile
+  const int q0 = blockIdx.x * bq;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int t = q0 + tid / rep;
+  const int head = h * rep + tid % rep;
+  const int hq = Hkv * rep;
+
+  sis::FlashRow<D, kSB> row;
+  row.init();
+  if (t < Tlen) {
+    const T* qr = q + (((size_t)b * Tlen + t) * hq + head) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) row.q[d] = sis::to_f(qr[d]);
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) row.q[d] = 0.f;
+  }
+
+  const int last = min(q0 + bq, Tlen) - 1;  // last key any row of the tile needs
+  for (int k0 = 0; k0 <= last; k0 += BK) {
+    const int nk = min(BK, last + 1 - k0);
+    __syncthreads();
+    for (int i = tid; i < BK * D; i += kRows) {
+      const int j = i / D;
+      const int d = i % D;
+      float kv = 0.f, vv = 0.f;
+      if (j < nk) {
+        const size_t off = (((size_t)b * Tlen + k0 + j) * Hkv + h) * D + d;
+        kv = sis::to_f(k[off]);
+        vv = sis::to_f(v[off]);
+      }
+      ks_s[i] = kv;
+      vs_s[i] = vv;
+    }
+    __syncthreads();
+    row.consume(ks_s, vs_s, nk, k0, t, inv_sqrt_d);
+  }
+  if (t < Tlen) row.store(out + (((size_t)b * Tlen + t) * hq + head) * D);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int B, int Tlen, int Hkv,
+           int rep, int D, cudaStream_t st) {
+  const int bq = kRows / rep;
+  const dim3 grid((Tlen + bq - 1) / bq, Hkv, B);
+  const float inv = 1.f / sqrtf(static_cast<float>(D));
+  if (D == 64) {
+    causal_attention_kernel<T, 64><<<grid, kRows, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), Tlen, Hkv, rep, inv);
+  } else if (D == 128) {
+    causal_attention_kernel<T, 128><<<grid, kRows, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), Tlen, Hkv, rep, inv);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int sis_causal_attention(const void* q, const void* k, const void* v, void* out,
+                                    int B, int Tlen, int Hkv, int rep, int D, int dtype,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rep < 1 || kRows % rep != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == sis::kBF16)
+    return launch<__nv_bfloat16>(q, k, v, out, B, Tlen, Hkv, rep, D, st);
+  return launch<float>(q, k, v, out, B, Tlen, Hkv, rep, D, st);
+}

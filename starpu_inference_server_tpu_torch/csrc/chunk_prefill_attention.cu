@@ -1,0 +1,144 @@
+// chunk_prefill_attention: one prompt chunk attends the slot's int8 cache
+// row (positions < start) and its own keys (causally) under ONE softmax.
+//
+//   q [C, Hq, D] (bf16 or f32); k_row/v_row int8 [T, Hkv, D] with f32
+//   scales [T, Hkv]; k_cur/v_cur [C, Hkv, D] in the q dtype; start is the
+//   chunk's absolute offset. Query row c attends cache positions
+//   p < start and in-chunk keys j <= c. out [C, Hq, D] in the q dtype.
+//
+// Replaces the TPU kernel starpu_inference_server_tpu/ops/
+// prefill_attention.py chunk_prefill_attention (_chunk_kernel). The TPU
+// grid walked the cache chunks and then the in-chunk keys as sequential
+// steps carrying m/l/acc in scratch; here both loops run inside one
+// block. `start` arrives as a kernel argument: the engine tracks chunk
+// offsets on the host, so no layer ever syncs the device to learn it.
+//
+// Bound on the H100: bytes and bf16 operations about even at start =
+// 256, operations for longer pasts (C*start*Hq*D*4 FLOPs against
+// start*Hkv*D*2 bytes of int8 cache); this kernel computes in f32 on
+// CUDA cores, so its own limit is the FMA rate. Design: as
+// causal_attention.cu, one block per (query tile, KV head) with one
+// query row per thread for all rep heads. Cache chunks are dequantized
+// (int8 * scale -> f32) while they are staged in shared memory, once for
+// all 128 rows, so the cache is read in its int8 form once per tile.
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kRows = 128;
+constexpr int kSB = 16;
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kRows)
+chunk_prefill_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_row,
+                     const int8_t* __restrict__ v_row, const float* __restrict__ k_scale,
+                     const float* __restrict__ v_scale, const T* __restrict__ k_cur,
+                     const T* __restrict__ v_cur, T* __restrict__ out, int C, int Tmax,
+                     int Hkv, int rep, int start, float inv_sqrt_d) {
+  constexpr int BK = 4096 / D;
+  __shared__ __align__(16) float ks_s[BK * D];
+  __shared__ __align__(16) float vs_s[BK * D];
+
+  const int bq = kRows / rep;
+  const int q0 = blockIdx.x * bq;
+  const int h = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int c = q0 + tid / rep;
+  const int head = h * rep + tid % rep;
+  const int hq = Hkv * rep;
+
+  sis::FlashRow<D, kSB> row;
+  row.init();
+  if (c < C) {
+    const T* qr = q + ((size_t)c * hq + head) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) row.q[d] = sis::to_f(qr[d]);
+  } else {
+#pragma unroll
+    for (int d = 0; d < D; ++d) row.q[d] = 0.f;
+  }
+
+  // part 1: the slot's int8 cache row, positions < start
+  const int past = min(start, Tmax);
+  for (int k0 = 0; k0 < past; k0 += BK) {
+    const int nk = min(BK, past - k0);
+    __syncthreads();
+    for (int i = tid; i < BK * D; i += kRows) {
+      const int j = i / D;
+      const int d = i % D;
+      float kv = 0.f, vv = 0.f;
+      if (j < nk) {
+        const size_t pos = (size_t)(k0 + j) * Hkv + h;
+        kv = static_cast<float>(k_row[pos * D + d]) * k_scale[pos];
+        vv = static_cast<float>(v_row[pos * D + d]) * v_scale[pos];
+      }
+      ks_s[i] = kv;
+      vs_s[i] = vv;
+    }
+    __syncthreads();
+    row.consume(ks_s, vs_s, nk, k0, past - 1, inv_sqrt_d);
+  }
+
+  // part 2: the chunk's own keys, causal (key j <= row c)
+  const int last = min(q0 + bq, C) - 1;
+  for (int k0 = 0; k0 <= last; k0 += BK) {
+    const int nk = min(BK, last + 1 - k0);
+    __syncthreads();
+    for (int i = tid; i < BK * D; i += kRows) {
+      const int j = i / D;
+      const int d = i % D;
+      float kv = 0.f, vv = 0.f;
+      if (j < nk) {
+        const size_t off = ((size_t)(k0 + j) * Hkv + h) * D + d;
+        kv = sis::to_f(k_cur[off]);
+        vv = sis::to_f(v_cur[off]);
+      }
+      ks_s[i] = kv;
+      vs_s[i] = vv;
+    }
+    __syncthreads();
+    row.consume(ks_s, vs_s, nk, k0, c, inv_sqrt_d);
+  }
+  if (c < C) row.store(out + ((size_t)c * hq + head) * D);
+}
+
+template <typename T>
+int launch(const void* q, const void* kr, const void* vr, const void* ksc, const void* vsc,
+           const void* kc, const void* vc, void* out, int C, int Tmax, int Hkv, int rep, int D,
+           int start, cudaStream_t st) {
+  const int bq = kRows / rep;
+  const dim3 grid((C + bq - 1) / bq, Hkv);
+  const float inv = 1.f / sqrtf(static_cast<float>(D));
+#define SIS_CHUNK_LAUNCH(DD)                                                              \
+  chunk_prefill_kernel<T, DD><<<grid, kRows, 0, st>>>(                                    \
+      static_cast<const T*>(q), static_cast<const int8_t*>(kr),                           \
+      static_cast<const int8_t*>(vr), static_cast<const float*>(ksc),                     \
+      static_cast<const float*>(vsc), static_cast<const T*>(kc), static_cast<const T*>(vc), \
+      static_cast<T*>(out), C, Tmax, Hkv, rep, start, inv)
+  if (D == 64) {
+    SIS_CHUNK_LAUNCH(64);
+  } else if (D == 128) {
+    SIS_CHUNK_LAUNCH(128);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SIS_CHUNK_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int sis_chunk_prefill_attention(const void* q, const void* k_row, const void* v_row,
+                                           const void* k_scale, const void* v_scale,
+                                           const void* k_cur, const void* v_cur, void* out,
+                                           int C, int Tmax, int Hkv, int rep, int D, int start,
+                                           int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (rep < 1 || kRows % rep != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == sis::kBF16)
+    return launch<__nv_bfloat16>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax,
+                                 Hkv, rep, D, start, st);
+  return launch<float>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv, rep,
+                       D, start, st);
+}

@@ -1,0 +1,474 @@
+"""Llama-class decoder with an INT8 KV cache (standard layered layout).
+
+Counterpart of ``starpu_inference_server_tpu/models/decoder.py``: the
+same variants, parameter tree (fused qkv and gate_up projections), RNG
+order, RMSNorm, half-split rotary embedding, per-(token, head) int8 KV
+quantization and the same ``forward_logits`` / ``prefill`` /
+``prefill_chunk`` / ``decode_step`` contracts, with the same kernel
+gates. Where a gate is closed the attention runs the JAX package's jnp
+path, written in torch (-1e9 masks, probabilities cast to the compute
+dtype).
+
+PyTorch runs eagerly and its tensors are mutable, so the cache is
+updated IN PLACE: where the JAX functions returned a new cache whose
+buffers XLA aliased through donation, these write into ``cache.k[li]``
+etc. and return the same ``KVCache`` object.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import List
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops import nn
+from ..utils.config import TensorSpec
+from .registry import ModelDefinition, register_family
+
+# variant -> (hidden, layers, q_heads, kv_heads, intermediate, vocab,
+#             num_experts, experts_per_token); MoE variants wait for a
+#             later slice
+_VARIANTS = {
+    "llama-tiny": (256, 4, 8, 4, 688, 2048, 0, 2),
+    "llama-1b": (2048, 16, 32, 8, 5504, 32000, 0, 2),
+    "llama-7b": (4096, 32, 32, 32, 11008, 32000, 0, 2),
+}
+
+ROPE_THETA = 10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class DecoderSpec:
+    hidden: int
+    layers: int
+    q_heads: int
+    kv_heads: int
+    intermediate: int
+    vocab: int
+    num_experts: int = 0
+    experts_per_token: int = 2
+
+    def __post_init__(self):
+        if self.num_experts:
+            raise NotImplementedError(
+                "mixture-of-experts decoders are not yet ported (ROADMAP)"
+            )
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden // self.q_heads
+
+    @property
+    def rep(self) -> int:
+        return self.q_heads // self.kv_heads
+
+
+@dataclasses.dataclass
+class KVCache:
+    """INT8 KV cache, LAYERED: ``k``/``v`` are per-layer lists of int8
+    [S, T, H_kv, D], scales per-layer f32 [S, T, H_kv], ``lengths`` int32
+    [S]. Updated in place (the JAX package's donated buffers)."""
+
+    k: List[torch.Tensor]
+    v: List[torch.Tensor]
+    k_scale: List[torch.Tensor]
+    v_scale: List[torch.Tensor]
+    lengths: torch.Tensor
+
+    @property
+    def num_slots(self) -> int:
+        return self.k[0].shape[0]
+
+    @property
+    def max_len(self) -> int:
+        return self.k[0].shape[1]
+
+
+def init_cache(spec: DecoderSpec, num_slots: int, max_len: int, device="cpu") -> KVCache:
+    shape = (num_slots, max_len, spec.kv_heads, spec.head_dim)
+
+    def zeros(shp, dt):
+        return [torch.zeros(shp, dtype=dt, device=device) for _ in range(spec.layers)]
+
+    return KVCache(
+        k=zeros(shape, torch.int8),
+        v=zeros(shape, torch.int8),
+        k_scale=zeros(shape[:-1], torch.float32),
+        v_scale=zeros(shape[:-1], torch.float32),
+        lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
+    )
+
+
+# -- params ----------------------------------------------------------------
+
+def _linear(rng, cin, cout):
+    return {"w": (rng.standard_normal((cin, cout)) * (1.0 / math.sqrt(cin))).astype(np.float32)}
+
+
+def init_params(spec: DecoderSpec, rng: np.random.Generator):
+    """numpy tree, drawn in the JAX package's order (``decoder.py:225``)."""
+    qkv_out = (spec.q_heads + 2 * spec.kv_heads) * spec.head_dim
+    layers = []
+    for _ in range(spec.layers):
+        mlp = {
+            "gate_up": _linear(rng, spec.hidden, 2 * spec.intermediate),
+            "down": _linear(rng, spec.intermediate, spec.hidden),
+        }
+        layers.append({
+            "attn_norm": {"gamma": np.ones((spec.hidden,), np.float32)},
+            "attn": {
+                "qkv": _linear(rng, spec.hidden, qkv_out),
+                "o": _linear(rng, spec.q_heads * spec.head_dim, spec.hidden),
+            },
+            "mlp_norm": {"gamma": np.ones((spec.hidden,), np.float32)},
+            "mlp": mlp,
+        })
+    return {
+        "embed": {"w": (rng.standard_normal((spec.vocab, spec.hidden)) * 0.02).astype(np.float32)},
+        "layers": layers,
+        "final_norm": {"gamma": np.ones((spec.hidden,), np.float32)},
+        "lm_head": _linear(rng, spec.hidden, spec.vocab),
+    }
+
+
+# -- building blocks -------------------------------------------------------
+
+def _project_qkv(spec: DecoderSpec, layer, h, dtype):
+    fused = nn.dense(layer["attn"]["qkv"], h, dtype)
+    dq = spec.q_heads * spec.head_dim
+    dkv = spec.kv_heads * spec.head_dim
+    return fused[..., :dq], fused[..., dq:dq + dkv], fused[..., dq + dkv:]
+
+
+def _fused_mlp(layer, x, dtype):
+    fused = nn.dense(layer["mlp"]["gate_up"], x, dtype)
+    inter = fused.shape[-1] // 2
+    gate, up = fused[..., :inter], fused[..., inter:]
+    act = F.silu(gate.to(torch.float32)).to(dtype) * up
+    return nn.dense(layer["mlp"]["down"], act, dtype)
+
+
+def rms_norm(p, x, eps=1e-5):
+    xf = x.to(torch.float32)
+    scale = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * scale * p["gamma"].to(torch.float32)).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Half-split rotary embedding. x: [..., T, H, D]; positions: [..., T]."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(ROPE_THETA, dtype=torch.float32, device=x.device), exps)
+    angles = positions.unsqueeze(-1).to(torch.float32) * freqs  # [..., T, half]
+    cos = torch.cos(angles).unsqueeze(-2)  # [..., T, 1, half]
+    sin = torch.sin(angles).unsqueeze(-2)
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def _quantize_kv(t: torch.Tensor):
+    """Per-(token, head) symmetric int8: [..., H, D] -> (int8, f32 [..., H])."""
+    tf = t.to(torch.float32)
+    absmax = tf.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(tf / scale.unsqueeze(-1)), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return (q.to(torch.float32) * scale.unsqueeze(-1)).to(dtype)
+
+
+def _softmax_cast(logits: torch.Tensor, dtype) -> torch.Tensor:
+    """jax.nn.softmax(...).astype(dtype), then back to f32 for the
+    f32-accumulated product (bf16 products are exact in f32)."""
+    return torch.softmax(logits, dim=-1).to(dtype).to(torch.float32)
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32)
+
+
+# -- kernel gates (decoder.py:622-652) ---------------------------------------
+
+def _use_fused_decode_attention(spec: DecoderSpec, t_max: int, ref: torch.Tensor) -> bool:
+    return (
+        nn.use_kernels(ref)
+        and spec.head_dim >= 64
+        and t_max % 128 == 0
+        and spec.q_heads % spec.kv_heads == 0
+    )
+
+
+def _use_fused_prefill_attention(spec: DecoderSpec, seq: int, ref: torch.Tensor,
+                                 min_seq: int = 256) -> bool:
+    return (
+        nn.use_kernels(ref)
+        and spec.head_dim >= 64
+        and seq >= min_seq
+        and seq % 128 == 0
+        and spec.q_heads % spec.kv_heads == 0
+    )
+
+
+# -- full (teacher-forcing) forward ----------------------------------------
+
+def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype) -> torch.Tensor:
+    """Causal forward over a [B, T] batch, returns [B, T, vocab] f32 logits."""
+    b, t = ids.shape
+    dev = ids.device
+    positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(b, t)
+    x = nn.embedding(params["embed"], ids, dtype)
+    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()[None, None]
+    rep = spec.rep
+    for layer in params["layers"]:
+        h = rms_norm(layer["attn_norm"], x)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
+        q = rope(qf.reshape(b, t, spec.q_heads, spec.head_dim), positions)
+        k = rope(kf.reshape(b, t, spec.kv_heads, spec.head_dim), positions)
+        v = vf.reshape(b, t, spec.kv_heads, spec.head_dim)
+        if _use_fused_prefill_attention(spec, t, ids):
+            from ..ops.prefill_attention import causal_attention
+
+            attn = causal_attention(q, k, v, rep=rep, out_dtype=dtype)
+        else:
+            kr = k.repeat_interleave(rep, dim=2)
+            vr = v.repeat_interleave(rep, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kr)) / math.sqrt(spec.head_dim)
+            logits = torch.where(causal, logits, torch.full_like(logits, -1e9))
+            probs = _softmax_cast(logits, dtype)
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
+        attn = attn.reshape(b, t, spec.q_heads * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+        h = rms_norm(layer["mlp_norm"], x)
+        x = x + _fused_mlp(layer, h, dtype)
+    x = rms_norm(params["final_norm"], x)
+    return nn.dense(params["lm_head"], x, dtype).to(torch.float32)
+
+
+# -- prefill: write a prompt into one cache slot ---------------------------
+
+def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
+            length: int, slot: int, dtype):
+    """``ids`` int [P] padded prompt, ``length`` true prompt length,
+    ``slot`` target slot (host ints). Writes the prompt's int8 KV into
+    slot rows [0, P) and returns (cache, last_logits f32 [vocab])."""
+    p = ids.shape[0]
+    dev = ids.device
+    positions = torch.arange(p, dtype=torch.int32, device=dev)
+    x = nn.embedding(params["embed"], ids[None, :], dtype)  # [1, P, D]
+    valid = positions < length
+    causal = (torch.ones((p, p), dtype=torch.bool, device=dev).tril() & valid[None, :])[None, None]
+    rep = spec.rep
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(layer["attn_norm"], x)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
+        q = rope(qf.reshape(1, p, spec.q_heads, spec.head_dim), positions[None])
+        k = rope(kf.reshape(1, p, spec.kv_heads, spec.head_dim), positions[None])
+        v = vf.reshape(1, p, spec.kv_heads, spec.head_dim)
+        kq, kscale = _quantize_kv(k[0])
+        vq, vscale = _quantize_kv(v[0])
+        # in-place write of slot rows [0, P); rows past ``length`` hold
+        # stale values that are overwritten before they can be attended
+        cache.k[li][slot, :p] = kq
+        cache.v[li][slot, :p] = vq
+        cache.k_scale[li][slot, :p] = kscale
+        cache.v_scale[li][slot, :p] = vscale
+        if _use_fused_prefill_attention(spec, p, ids):
+            from ..ops.prefill_attention import causal_attention
+
+            # pure causal == causal & valid for every row < length (rows
+            # past length are garbage either way and never read)
+            attn = causal_attention(q, k, v, rep=rep, out_dtype=dtype)
+        else:
+            kr = k.repeat_interleave(rep, dim=2)
+            vr = v.repeat_interleave(rep, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kr)) / math.sqrt(spec.head_dim)
+            logits = torch.where(causal, logits, torch.full_like(logits, -1e9))
+            probs = _softmax_cast(logits, dtype)
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
+        attn = attn.reshape(1, p, spec.q_heads * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+        h = rms_norm(layer["mlp_norm"], x)
+        x = x + _fused_mlp(layer, h, dtype)
+    cache.lengths[slot] = length
+    x = rms_norm(params["final_norm"], x)
+    last = x[0, length - 1]
+    logits = nn.dense(params["lm_head"], last[None, :], dtype)[0]
+    return cache, logits.to(torch.float32)
+
+
+# -- chunked prefill: write one prompt chunk into a cache slot --------------
+
+def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
+                  start: int, valid: int, slot: int, dtype):
+    """Process ``C`` prompt tokens at absolute positions start..start+C-1
+    and write their int8 KV into slot rows [start, start+C). Returns
+    (cache, logits f32 [vocab]) for chunk row ``valid-1``. Keys before
+    ``start`` are read back from the int8 cache (decode numerics); the
+    in-chunk keys stay at compute precision, causally masked. ``start``,
+    ``valid`` and ``slot`` are host ints (the engine tracks them)."""
+    c = ids.shape[0]
+    dev = ids.device
+    t_max = cache.max_len
+    positions = start + torch.arange(c, dtype=torch.int32, device=dev)
+    x = nn.embedding(params["embed"], ids[None, :], dtype)
+    key_pos = torch.arange(t_max, device=dev)
+    past_mask = (key_pos[None, :] < start)[None, None]
+    cur_mask = torch.ones((c, c), dtype=torch.bool, device=dev).tril()[None, None]
+    inv = 1.0 / math.sqrt(spec.head_dim)
+    rep = spec.rep
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(layer["attn_norm"], x)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
+        q = rope(qf.reshape(1, c, spec.q_heads, spec.head_dim), positions[None])
+        k = rope(kf.reshape(1, c, spec.kv_heads, spec.head_dim), positions[None])
+        v = vf.reshape(1, c, spec.kv_heads, spec.head_dim)
+        kq, kscale = _quantize_kv(k[0])
+        vq, vscale = _quantize_kv(v[0])
+        cache.k[li][slot, start:start + c] = kq
+        cache.v[li][slot, start:start + c] = vq
+        cache.k_scale[li][slot, start:start + c] = kscale
+        cache.v_scale[li][slot, start:start + c] = vscale
+        row_ck, row_cv = cache.k[li][slot], cache.v[li][slot]
+        row_cks, row_cvs = cache.k_scale[li][slot], cache.v_scale[li][slot]
+        if _use_fused_prefill_attention(spec, t_max, ids, min_seq=512):
+            from ..ops.prefill_attention import chunk_prefill_attention
+
+            attn = chunk_prefill_attention(
+                q[0], row_ck, row_cv, row_cks, row_cvs, k[0], v[0], start,
+                rep=rep, out_dtype=dtype,
+            ).reshape(1, c, spec.q_heads * spec.head_dim)
+        else:
+            row_k = _dequantize_kv(row_ck, row_cks, dtype).repeat_interleave(rep, dim=1)[None]
+            row_v = _dequantize_kv(row_cv, row_cvs, dtype).repeat_interleave(rep, dim=1)[None]
+            s_past = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(row_k)) * inv
+            s_past = torch.where(past_mask, s_past, torch.full_like(s_past, -1e9))
+            kc = k.repeat_interleave(rep, dim=2)
+            vc = v.repeat_interleave(rep, dim=2)
+            s_cur = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kc)) * inv
+            s_cur = torch.where(cur_mask, s_cur, torch.full_like(s_cur, -1e9))
+            probs = _softmax_cast(torch.cat([s_past, s_cur], dim=-1), dtype)
+            p_past, p_cur = probs[..., :t_max], probs[..., t_max:]
+            attn = torch.einsum("bhqk,bkhd->bqhd", p_past, _f32(row_v))
+            attn = attn + torch.einsum("bhqk,bkhd->bqhd", p_cur, _f32(vc))
+            attn = attn.reshape(1, c, spec.q_heads * spec.head_dim)
+        x = x + nn.dense(layer["attn"]["o"], attn.to(dtype), dtype)
+        h = rms_norm(layer["mlp_norm"], x)
+        x = x + _fused_mlp(layer, h, dtype)
+    cache.lengths[slot] = start + valid
+    x = rms_norm(params["final_norm"], x)
+    last = x[0, valid - 1]
+    logits = nn.dense(params["lm_head"], last[None, :], dtype)[0]
+    return cache, logits.to(torch.float32)
+
+
+# -- decode: advance every active slot one token ---------------------------
+
+def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
+                active: torch.Tensor, dtype):
+    """``ids`` int [S] current token per slot, ``active`` bool [S].
+    Returns (cache, logits f32 [S, vocab]); inactive slots are computed
+    and masked (the continuous-batching contract)."""
+    s = ids.shape[0]
+    dev = ids.device
+    positions = cache.lengths.clone()  # the new token goes at ``length``
+    x = nn.embedding(params["embed"], ids[:, None], dtype)  # [S, 1, D]
+    t_max = cache.max_len
+    key_pos = torch.arange(t_max, device=dev)[None, :]
+    mask = (key_pos <= positions.to(torch.int64)[:, None])[:, None, None, :]  # [S,1,1,T]
+    slot_idx = torch.arange(s, device=dev)
+    # INACTIVE slots park their (discarded) write at t_max-1, so a decode
+    # block interleaved with another slot's chunked prefill never
+    # clobbers that slot's fresh prompt rows (decoder.py:686-693)
+    write_pos = torch.where(active, positions, torch.full_like(positions, t_max - 1)).to(torch.int64)
+    rep = spec.rep
+    fused = _use_fused_decode_attention(spec, t_max, ids)
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(layer["attn_norm"], x)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
+        q = rope(qf.reshape(s, 1, spec.q_heads, spec.head_dim), positions[:, None])
+        k = rope(kf.reshape(s, 1, spec.kv_heads, spec.head_dim), positions[:, None])
+        v = vf.reshape(s, 1, spec.kv_heads, spec.head_dim)
+        kq, kscale = _quantize_kv(k[:, 0])
+        vq, vscale = _quantize_kv(v[:, 0])
+        cache.k[li][slot_idx, write_pos] = kq
+        cache.v[li][slot_idx, write_pos] = vq
+        cache.k_scale[li][slot_idx, write_pos] = kscale
+        cache.v_scale[li][slot_idx, write_pos] = vscale
+        if fused:
+            from ..ops.decode_attention import decode_attention
+
+            attn = decode_attention(
+                q[:, 0], cache.k[li], cache.v[li], cache.k_scale[li],
+                cache.v_scale[li], positions, rep=rep,
+            ).reshape(s, 1, spec.q_heads * spec.head_dim).to(dtype)
+        else:
+            k_all = _dequantize_kv(cache.k[li], cache.k_scale[li], dtype).repeat_interleave(rep, dim=2)
+            v_all = _dequantize_kv(cache.v[li], cache.v_scale[li], dtype).repeat_interleave(rep, dim=2)
+            logits = torch.einsum("sqhd,skhd->shqk", _f32(q), _f32(k_all)) / math.sqrt(spec.head_dim)
+            logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+            probs = _softmax_cast(logits, dtype)
+            attn = torch.einsum("shqk,skhd->sqhd", probs, _f32(v_all)).reshape(
+                s, 1, spec.q_heads * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+        h = rms_norm(layer["mlp_norm"], x)
+        x = x + _fused_mlp(layer, h, dtype)
+    x = rms_norm(params["final_norm"], x)
+    logits = nn.dense(params["lm_head"], x[:, 0], dtype).to(torch.float32)
+    cache.lengths.copy_(torch.where(active, positions + 1, positions))
+    return cache, logits
+
+
+# -- registry glue ---------------------------------------------------------
+
+def get_spec(variant: str, options) -> DecoderSpec:
+    if variant not in _VARIANTS:
+        raise NotImplementedError(
+            f"decoder variant {variant!r} is not yet ported; ported: "
+            f"{', '.join(sorted(_VARIANTS))}"
+        )
+    hidden, layers, qh, kvh, inter, vocab, experts, top_k = _VARIANTS[variant]
+    return DecoderSpec(
+        hidden=int(options.get("hidden", hidden)),
+        layers=int(options.get("layers", layers)),
+        q_heads=int(options.get("q_heads", qh)),
+        kv_heads=int(options.get("kv_heads", kvh)),
+        intermediate=int(options.get("intermediate", inter)),
+        vocab=int(options.get("vocab", vocab)),
+        num_experts=int(options.get("num_experts", experts)),
+        experts_per_token=int(options.get("experts_per_token", top_k)),
+    )
+
+
+def _build_decoder(variant: str, options) -> ModelDefinition:
+    if int(options.get("copy_model_cycle", 0)):
+        raise NotImplementedError("copy_model_cycle (benchmark rig) is not yet ported")
+    spec = get_spec(variant, options)
+    seq_len = int(options.get("seq_len", 128))
+
+    def apply(params, inputs, dtype):
+        ids = inputs["input_ids"].to(torch.int64)
+        return {"logits": forward_logits(spec, params, ids, dtype)}
+
+    return ModelDefinition(
+        family=variant,
+        init_params=lambda rng: init_params(spec, rng),
+        apply=apply,
+        input_specs=(TensorSpec("input_ids", (seq_len,), "INT64"),),
+        output_specs=(TensorSpec("logits", (seq_len, spec.vocab), "FP32"),),
+        supports_generation=True,
+        spec=spec,
+    )
+
+
+for _variant in _VARIANTS:
+    register_family(_variant)(
+        lambda options, _v=_variant: _build_decoder(_v, options)
+    )

@@ -1,0 +1,117 @@
+"""Quantized matmul kernels: counterpart of ``ops/pallas_kernels.py``.
+
+``int4_matmul`` replaces the TPU kernel
+``starpu_inference_server_tpu/ops/pallas_kernels.py:int4_matmul``
+(``_int4_matmul_kernel``) with the hand-written CUDA kernel in
+``csrc/int4_matmul.cu``. Bound on the H100: at the decode batch of 128
+rows the bf16 tensor-core time and the packed-weight bytes are about
+even (2*M FLOPs per weight); below that, bytes. Design: a shared-memory
+tiled SIMT GEMM that unpacks the pairwise nibbles into shared memory
+once per tile, so device memory only ever holds the packed weight;
+tensor cores are the next step (ROADMAP).
+
+Beside it, :func:`int4_matmul_plain` is the same function in plain
+PyTorch: CPU tensors take it, and on the card it only serves as the
+reference the kernel is checked against.
+
+``int8_matmul`` (K2) and ``int4_matmul_w4a8`` (K6) are not ported yet
+(ROADMAP, batch-pipeline slice): their plain versions serve CPU tensors,
+and CUDA tensors raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .quant import unpack_int4
+
+# launches of the CUDA kernel (not of the plain version)
+launches = {"int4_matmul": 0}
+
+_fn = None
+
+
+def int4_matmul_plain(x: torch.Tensor, w_p4: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """y[M,N] f32 = (bf16(x[M,K]) @ unpack(w_p4[K/2,N])) * scale[1,N]:
+    x is rounded to bfloat16 (as the kernel does, also at FP32 compute),
+    the int4 values are exact in f32, the product accumulates in f32."""
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    w = unpack_int4(w_p4).to(torch.float32)
+    return (xb @ w) * scale.reshape(1, -1).to(torch.float32)
+
+
+def int4_matmul(x: torch.Tensor, w_p4: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """y = (x[M,K] @ unpack(w_p4[K//2,N])) * scale[1,N], f32 output.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    m, k = x.shape
+    khalf, n = w_p4.shape
+    if k != 2 * khalf:
+        raise ValueError(f"x {tuple(x.shape)} does not match packed w {tuple(w_p4.shape)}")
+    if not x.is_cuda:
+        return int4_matmul_plain(x, w_p4, scale)
+    global _fn
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int4_matmul takes f32 or bf16 activations, got {x.dtype}")
+    if w_p4.dtype != torch.uint8 or not w_p4.is_cuda:
+        raise TypeError("int4_matmul needs a uint8 packed weight on the same device")
+    x = x.contiguous()
+    w_p4 = w_p4.contiguous()
+    scale = scale.reshape(-1).to(torch.float32).contiguous()
+    if scale.numel() != n:
+        raise ValueError(f"scale has {scale.numel()} entries for {n} columns")
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    if _fn is None:
+        _fn = _build.bind("int4_matmul", "sis_int4_matmul", 4, 4)
+    rc = _fn(x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+             m, n, k, _build.BF16 if x.dtype == torch.bfloat16 else _build.F32,
+             _build.stream_ptr(x))
+    _build.check(rc, "int4_matmul")
+    launches["int4_matmul"] += 1
+    return y
+
+
+def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """(bf16(x) @ w_q) * scale[1,N], f32 accumulation (TPU kernel K2)."""
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    return (xb @ w_q.to(torch.float32)) * scale.reshape(1, -1).to(torch.float32)
+
+
+def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if x.is_cuda:
+        raise NotImplementedError(
+            "int8_matmul (TPU kernel K2) has no CUDA kernel yet: ROADMAP "
+            "queue 2, batch ModelInfer pipeline slice"
+        )
+    return int8_matmul_plain(x, w_q, scale)
+
+
+def int4_matmul_w4a8_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
+                           w_p4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(x_q int8 @ unpack(w_p4)) * x_scale[M,1] * scale[1,N]; the integer
+    contraction runs in float64, where every partial sum is exact."""
+    acc = x_q.to(torch.float64) @ unpack_int4(w_p4).to(torch.float64)
+    return (acc.to(torch.float32) * x_scale.reshape(-1, 1)
+            * scale.reshape(1, -1).to(torch.float32))
+
+
+def int4_matmul_w4a8(x_q: torch.Tensor, x_scale: torch.Tensor,
+                     w_p4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    if x_q.is_cuda:
+        raise NotImplementedError(
+            "int4_matmul_w4a8 (TPU kernel K6) has no CUDA kernel yet: "
+            "ROADMAP queue 2, batch ModelInfer pipeline slice"
+        )
+    return int4_matmul_w4a8_plain(x_q, x_scale, w_p4, scale)
+
+
+__all__ = [
+    "int4_matmul", "int4_matmul_plain", "int8_matmul", "int8_matmul_plain",
+    "int4_matmul_w4a8", "int4_matmul_w4a8_plain", "launches",
+]

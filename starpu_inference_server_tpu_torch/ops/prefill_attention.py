@@ -1,0 +1,146 @@
+"""Fused prefill attention: causal self-attention and chunked prefill.
+
+- ``causal_attention`` replaces the TPU kernel
+  ``starpu_inference_server_tpu/ops/prefill_attention.py:causal_attention``
+  (``_causal_kernel``) with ``csrc/causal_attention.cu``.
+- ``chunk_prefill_attention`` replaces ``chunk_prefill_attention``
+  (``_chunk_kernel``) with ``csrc/chunk_prefill_attention.cu``.
+
+Bound on the H100: at the main-path shapes (256- to 512-row blocks) the
+least time is set by the few MB of inputs and outputs, with the bf16
+tensor-core rate close behind; these first kernels run on CUDA cores in
+f32, so their own limit is the FMA rate. Design: one block per (query
+tile, KV head), one query row per thread for all ``rep`` heads, K/V
+chunks staged once per block in shared memory (dequantized there for
+the int8 past), online softmax in registers; the [Hq, T, T] scores
+never reach device memory.
+
+The ``*_plain`` functions beside them compute the same function in plain
+PyTorch: CPU tensors take them, and on the card they are only the
+references the kernels are checked against.
+Layouts are the JAX package's: q ``[B, T, Hq, D]`` / ``[C, Hq, D]``, K/V
+with ``Hkv`` heads and no GQA repeats.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+launches = {"causal_attention": 0, "chunk_prefill_attention": 0}
+
+_fns = {}
+
+_NEG = -1e30
+
+
+def _bound(name: str, symbol: str, n_ptrs: int, n_ints: int):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = _build.bind(name, symbol, n_ptrs, n_ints)
+    return fn
+
+
+def _check_kernel_args(q, rep: int, d: int, what: str) -> None:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} takes f32 or bf16, got {q.dtype}")
+    if d not in (64, 128) or 128 % rep:
+        raise ValueError(f"{what} kernel needs D in (64, 128) and rep dividing 128 "
+                         f"(D={d}, rep={rep})")
+
+
+def causal_attention_plain(q, k, v, rep: int, out_dtype=None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D), causal, -1e30 mask) v in f32."""
+    b, t, hq, d = q.shape
+    out_dtype = out_dtype or q.dtype
+    kf = k.to(torch.float32).repeat_interleave(rep, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) / math.sqrt(d)
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(causal[None, None], logits, torch.full_like(logits, _NEG))
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(out_dtype)
+
+
+def causal_attention(q, k, v, rep: int, out_dtype=None) -> torch.Tensor:
+    """Flash causal attention, q [B, T, Hq, D] against k/v [B, T, Hkv, D].
+    Rows attend keys at positions <= their own; padding rows come out as
+    garbage callers never read (the TPU kernel's contract)."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    if hq != hkv * rep:
+        raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}, rep {rep}")
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return causal_attention_plain(q, k, v, rep, out_dtype)
+    _check_kernel_args(q, rep, d, "causal_attention")
+    q, k, v = (a.to(q.dtype).contiguous() for a in (q, k, v))
+    out = torch.empty_like(q)
+    fn = _bound("causal_attention", "sis_causal_attention", 4, 6)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, t, hkv,
+            rep, d, _build.BF16 if q.dtype == torch.bfloat16 else _build.F32,
+            _build.stream_ptr(q))
+    _build.check(rc, "causal_attention")
+    launches["causal_attention"] += 1
+    return out if out_dtype == q.dtype else out.to(out_dtype)
+
+
+def chunk_prefill_attention_plain(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur,
+                                  start: int, rep: int, out_dtype=None) -> torch.Tensor:
+    """prefill_chunk's two-part attention under one f32 softmax: cache
+    positions < start (int8 * scale) then in-chunk keys j <= row."""
+    c, hq, d = q.shape
+    t = k_row.shape[0]
+    out_dtype = out_dtype or q.dtype
+    qf = q.to(torch.float32)
+    inv = 1.0 / math.sqrt(d)
+    past_k = (k_row.to(torch.float32) * k_scale.unsqueeze(-1)).repeat_interleave(rep, dim=1)
+    past_v = (v_row.to(torch.float32) * v_scale.unsqueeze(-1)).repeat_interleave(rep, dim=1)
+    cur_k = k_cur.to(torch.float32).repeat_interleave(rep, dim=1)
+    cur_v = v_cur.to(torch.float32).repeat_interleave(rep, dim=1)
+    s_past = torch.einsum("qhd,khd->hqk", qf, past_k) * inv
+    pos = torch.arange(t, device=q.device)
+    s_past = torch.where((pos < start)[None, None, :], s_past,
+                         torch.full_like(s_past, _NEG))
+    s_cur = torch.einsum("qhd,khd->hqk", qf, cur_k) * inv
+    causal = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    s_cur = torch.where(causal[None], s_cur, torch.full_like(s_cur, _NEG))
+    probs = torch.softmax(torch.cat([s_past, s_cur], dim=-1), dim=-1)
+    out = torch.einsum("hqk,khd->qhd", probs[..., :t], past_v)
+    out = out + torch.einsum("hqk,khd->qhd", probs[..., t:], cur_v)
+    return out.to(out_dtype)
+
+
+def chunk_prefill_attention(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur,
+                            start: int, rep: int, out_dtype=None) -> torch.Tensor:
+    """One prompt chunk q [C, Hq, D] against the slot's int8 cache row
+    [T, Hkv, D] (positions < ``start``) and its own keys [C, Hkv, D]
+    (causal), under one softmax. ``start`` is a host int: the engine
+    tracks chunk offsets on the host, so no layer syncs the device."""
+    c, hq, d = q.shape
+    t, hkv, _ = k_row.shape
+    if hq != hkv * rep:
+        raise ValueError(f"q {tuple(q.shape)} vs cache row {tuple(k_row.shape)}, rep {rep}")
+    start = int(start)
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return chunk_prefill_attention_plain(q, k_row, v_row, k_scale, v_scale,
+                                             k_cur, v_cur, start, rep, out_dtype)
+    _check_kernel_args(q, rep, d, "chunk_prefill_attention")
+    if k_row.dtype != torch.int8 or v_row.dtype != torch.int8:
+        raise TypeError("chunk_prefill_attention needs an int8 cache row")
+    tensors = [q.contiguous(), k_row.contiguous(), v_row.contiguous(),
+               k_scale.to(torch.float32).contiguous(),
+               v_scale.to(torch.float32).contiguous(),
+               k_cur.to(q.dtype).contiguous(), v_cur.to(q.dtype).contiguous()]
+    out = torch.empty((c, hq, d), dtype=q.dtype, device=q.device)
+    fn = _bound("chunk_prefill_attention", "sis_chunk_prefill_attention", 8, 7)
+    rc = fn(*(a.data_ptr() for a in tensors), out.data_ptr(), c, t, hkv, rep, d, start,
+            _build.BF16 if q.dtype == torch.bfloat16 else _build.F32,
+            _build.stream_ptr(q))
+    _build.check(rc, "chunk_prefill_attention")
+    launches["chunk_prefill_attention"] += 1
+    return out if out_dtype == q.dtype else out.to(out_dtype)

@@ -1,0 +1,34 @@
+"""Parameter trees from numpy.
+
+:func:`params_from_numpy` turns a parameter tree of the JAX package's
+shape (nested dicts and lists; leaves numpy arrays, or anything
+``np.asarray`` takes, including quantized leaves ``{'w_q', 'scale',
+'bits'}`` and packed ones ``{'w_p4', 'scale', 'bits'}``) into the port's
+tree of torch tensors on ``device``. Both packages then compute on the
+very same weights. Python scalars (``bits``) stay as they are.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_numpy(tree, device="cpu"):
+    dev = torch.device(device)
+
+    def rec(node):
+        if isinstance(node, dict):
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rec(v) for v in node)
+        if node is None or isinstance(node, (bool, int, float, str)):
+            return node
+        if isinstance(node, torch.Tensor):
+            return node.to(dev)
+        arr = np.ascontiguousarray(np.asarray(node))
+        if not arr.flags.writeable:  # e.g. a view of a jax.Array
+            arr = arr.copy()
+        return torch.from_numpy(arr).to(dev)
+
+    return rec(tree)

@@ -1,0 +1,119 @@
+"""Guards of the port's boundaries.
+
+- In a fresh interpreter, importing every module of
+  ``starpu_inference_server_tpu_torch`` and ``chip_smoke`` leaves
+  ``jax`` and the JAX package out of ``sys.modules``; the engine path
+  (config -> model -> engine, and chip_smoke) also stays clear of
+  ``grpc`` and ``yaml``.
+- Every file in ``configs/`` parses to the same values in both packages.
+- ``chip_smoke.py`` fails, printing no result, without CUDA and outside
+  a checkout.
+"""
+
+import dataclasses
+import enum
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from starpu_inference_server_tpu.utils import config as jcfg
+from starpu_inference_server_tpu_torch.utils import config as tcfg
+from starpu_inference_server_tpu_torch.utils import dtypes as tdt
+from starpu_inference_server_tpu_torch.utils.exceptions import UnknownConfigKeyError
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = "starpu_inference_server_tpu_torch"
+
+ALL_MODULES = """
+import importlib, pkgutil, sys
+import {pkg}
+for info in pkgutil.walk_packages({pkg}.__path__, "{pkg}."):
+    importlib.import_module(info.name)
+import chip_smoke
+"""
+
+ENGINE_PATH = """
+import sys
+from {pkg}.serving.generation import build_generation_engine
+from {pkg}.utils.config import parse_config
+from {pkg}.ops import decode_attention, prefill_attention, matmul_kernels, nn
+import chip_smoke
+"""
+
+
+def _leaked(code, banned):
+    check = (
+        "\nbad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\nprint(bad)\n" % (banned,)
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code.format(pkg=PKG) + check], cwd=ROOT,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return out.stdout.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("which", ["all_modules", "engine_path"])
+def test_port_imports_no_jax(which):
+    code = ALL_MODULES if which == "all_modules" else ENGINE_PATH
+    banned = ("jax", "jaxlib", "starpu_inference_server_tpu")
+    if which == "engine_path":
+        banned += ("grpc", "yaml")
+    assert _leaked(code, banned) == "[]"
+
+
+def _plain(obj):
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _plain(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    if isinstance(obj, enum.Enum):
+        return obj.value
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_plain(v) for v in obj]
+    return obj
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "configs").glob("*.yml")), ids=lambda p: p.stem)
+def test_every_config_parses_to_equal_values(path):
+    assert _plain(tcfg.load_config(str(path))) == _plain(jcfg.load_config(str(path)))
+
+
+def test_config_keeps_strict_keys_and_suggestions():
+    raw = {"name": "m", "model": "llama-tiny", "inputs": [{"name": "x", "dims": [2],
+                                                          "dtype": "INT64"}],
+           "outputs": [{"name": "y", "dims": [2], "dtype": "FP32"}], "pool_size": 1,
+           "batch_coalesce_timeout_ms": 0, "batching_strategy": "disabled",
+           "max_queu_size": 4}
+    with pytest.raises(UnknownConfigKeyError, match="max_queue_size"):
+        tcfg.parse_config(raw)
+
+
+def test_wire_dtypes_without_ml_dtypes():
+    import numpy as np
+    import torch
+
+    bf = torch.tensor([1.5, -2.25], dtype=torch.bfloat16)
+    raw = bf.view(torch.uint16).numpy().tobytes()
+    assert torch.equal(tdt.torch_from_wire(raw, "BF16"), bf)
+    assert tdt.numpy_dtype("BF16") == np.uint16 and tdt.torch_dtype("bf16") == torch.bfloat16
+    assert tdt.wire_name(torch.int64) == "INT64" and tdt.wire_name(np.float32) == "FP32"
+    assert tdt.element_size("BF16") == 2
+
+
+@pytest.mark.parametrize("where", ["checkout", "alone"])
+def test_chip_smoke_fails_without_cuda_or_repo(where, tmp_path):
+    script = ROOT / "chip_smoke.py"
+    if where == "alone":
+        shutil.copy(script, tmp_path / "chip_smoke.py")
+        script, cwd = tmp_path / "chip_smoke.py", tmp_path
+    else:
+        cwd = ROOT
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
