@@ -6,40 +6,66 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then runs three phases and fails
-(exit 1) if any of them fails:
+(one nvcc per source, all at once), then drives two paths and fails
+(exit 1) if any phase fails.
 
-1. kernels: each kernel of the decoder path at the shapes the main path
-   gives it (configs/llama_decoder.yml: llama-1b, 128 slots, max_len
-   1024, int4 weights, int8 KV cache, bf16), held against its plain
-   PyTorch version on the same inputs, and timed with CUDA events
-   beside the plain version, a library yardstick the port never calls,
-   and the least time the card could take (bytes or operations);
+The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
+max_len 1024, int4 weights, int8 KV cache, bf16):
+
+1. kernels: each kernel of the path at the shapes the path gives it,
+   held against its plain PyTorch version on the same inputs, and timed
+   with CUDA events beside the plain version, a library yardstick the
+   port never calls, and the least time the card could take (bytes or
+   operations);
 2. model: llama-1b at full width and depth, one 300-token prompt through
-   the chunked-prefill path plus 4 decode steps, kernels on and off;
-3. serving: the generation engine built from configs/llama_decoder.yml
-   answers concurrent greedy requests (bucket 64, bucket 256, chunked);
-   every kernel's launch counter is zeroed just before and must be > 0
-   just after. The model phase also counts each kernel's launches in
-   one decode step.
+   the chunked-prefill path plus 4 decode steps, kernels on and off,
+   with each kernel's launches in one decode step;
+3. serving: the generation engine answers concurrent greedy requests
+   (bucket 64, bucket 256, chunked).
+
+The batch ModelInfer path (configs/bert_long.yml: BERT-base s=512 W8A8;
+configs/resnet18_int8.yml: ResNet-18 int8 with ``stem_fused`` set on
+in code):
+
+4. kernels: int8_matmul, bidirectional_attention and fused_stem at the
+   path's shapes, checked and timed as in 1;
+5. model: BERT-base at full depth, B=16, kernels on against off;
+   ResNet-18 at B=32, fused stem against the s2d stem; launches per
+   forward, and the host-clock time of one forward at two batch sizes;
+6. serving: the port's gRPC InferenceServer on a local port for each
+   config, warmed up, answers concurrent ModelInfer calls (64 BERT
+   requests with varied padding, 128 ResNet images), each response held
+   against a batch-1 ``model.apply`` of the same sample; the mean of the
+   server's per-phase timing fields says where a request's time went.
+   Then two BERT witnesses, off the main path: the same model and
+   requests at int8 weight-only (BF16) and unquantized at FP32, which
+   show where the W8A8 model's gap to the batch-1 apply comes from.
+
+Every serving phase zeroes the launch counters just before its requests
+and reads them just after; each kernel of that path must show > 0.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Without CUDA, or
 without the rest of the repository beside it, it exits 1 and prints no
-result. Weights are random, from ``seed`` in the config.
+result. Weights are random, from ``seed`` in each config.
 """
 
 from __future__ import annotations
 
+import asyncio
+import dataclasses
 import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "llama_decoder.yml"
+BERT_CONFIG = ROOT / "configs" / "bert_long.yml"
+RESNET_CONFIG = ROOT / "configs" / "resnet18_int8.yml"
 
 # H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor FLOP/s
 PEAK_BYTES = 3.35e12
@@ -50,7 +76,50 @@ TPU_SITES = {
     "decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:304",
     "causal_attention": "starpu_inference_server_tpu/ops/prefill_attention.py:182",
     "chunk_prefill_attention": "starpu_inference_server_tpu/ops/prefill_attention.py:453",
+    "int8_matmul": "starpu_inference_server_tpu/ops/pallas_kernels.py:193",
+    "bidirectional_attention": "starpu_inference_server_tpu/ops/prefill_attention.py:301",
+    "fused_stem": "starpu_inference_server_tpu/ops/stem_kernel.py:109",
 }
+DECODER_KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
+                   "chunk_prefill_attention")
+BERT_KERNELS = ("bidirectional_attention",)
+RESNET_KERNELS = ("int8_matmul", "fused_stem")
+
+# Model-level tolerances, by mean relative error |a - b|.mean() / |b|.mean().
+# BERT kernels on vs off: the off path rounds the attention probabilities
+# to bf16 before P.V (the kernel keeps them f32) and the W8A8 FFN
+# requantizes activations per row, so a last-bit difference can move an
+# activation to the neighbouring int8 level; 12 layers of that stay in
+# the low 1e-2. ResNet fused vs s2d stem: the JAX package's own limit
+# (tests/unit/test_stem_kernel.py), at FP32 compute as there, where the
+# fused stem's bf16 stem operands are the only difference. ResNet served
+# vs batch-1 apply, at the config's BF16 compute: logits of magnitude
+# 30-60 carry one bf16 ulp of 2^-8 (4e-3 relative), and convolutions at
+# another batch size may sum in another order, so the limit is 1e-2,
+# with the argmax equal.
+BERT_TOL = 5e-2
+RESNET_TOL = 2e-3
+RESNET_SERVE_TOL = 1e-2
+# Witnesses of where the BERT W8A8 gap comes from, run after the main
+# path (their launches are not the path's): the same model and requests
+# at int8 weight-only (BF16 compute, no activation requantization) and
+# with no quantization at FP32 compute, each with its own limits on the
+# kernels on/off and the served/batch-1 mean relative errors; the FP32
+# responses are also held element by element, |got - ref| <= atol +
+# rtol |ref|, which a padding or slicing fault would break. On an H100
+# the FP32 witness read ~1e-6 for both errors and 4e-3 of a (1e-3, 1e-3)
+# element limit, the int8/BF16 one ~1.0e-2, against ~2.4e-2 at W8A8: the
+# limits below keep about 10x and 3x headroom over those readings, and
+# BERT_TOL's 2x over W8A8 rests on them (padding and slicing are exact,
+# the rest is bf16 and int8 requantization).
+# (quantization, compute dtype, on/off tol, served tol, (atol, rtol) or None)
+BERT_CONTROLS = (
+    ("int8", "BF16", 3e-2, 3e-2, None),
+    ("none", "FP32", 1e-5, 1e-5, (1e-4, 1e-4)),
+)
+
+BERT_REQUESTS = 64
+RESNET_IMAGES = 128
 
 
 class SmokeFailure(Exception):
@@ -386,8 +455,8 @@ def serving_phase(engine, counters, card):
         require(len(out) == new, f"request {i} returned {len(out)} tokens")
         require(all(0 <= t < vocab for t in out), f"request {i} returned out-of-vocab tokens")
     require(outs[0] == outs[3], "the same prompt twice gave different tokens")
-    for name, n in launches.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    for name in DECODER_KERNELS:
+        require(launches[name] > 0, f"kernel {name} was not launched on the decoder path")
     step_s = engine.loop_timers["step"]
     decode_tokens = len(reqs) * (new - 1)
     print(f"serving on {card}: {len(reqs)} greedy requests (prompts {check_lens} + "
@@ -399,9 +468,437 @@ def serving_phase(engine, counters, card):
     return launches
 
 
+# -- phase 4: kernels of the batch ModelInfer path ------------------------------
+
+def rel_err(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).abs().mean() / b.abs().mean()).item()
+
+
+def batch_kernel_phase(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+    from starpu_inference_server_tpu_torch.ops import stem_kernel as sk
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf16 = torch.bfloat16
+    rows = {}
+
+    # int8_matmul at the ResNet-18 fc: rows = batch bucket, K = 512,
+    # N = 1000 (not a multiple of 16 bytes: the kernel masks the edge).
+    # The row reports M = 32 (the largest bucket); copies of the weight,
+    # cycled, keep each call's weight out of the 50 MB L2.
+    k, n = 512, 1000
+    copies = math.ceil(120e6 / (k * n))
+    wqs = [torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+           for _ in range(copies)]
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
+    per_shape = []
+    for m in (1, 8, 32):
+        x = torch.randn(m, k, device=dev, generator=g).to(bf16)
+        got = mk.int8_matmul(x, wqs[0], sc)
+        ref = mk.int8_matmul_plain(x, wqs[0], sc)
+        err = max_err(got, ref)
+        tol = 1e-4 * ref.abs().max().item()
+        shape = f"M={m} K={k} N={n}"
+        print(f"kernel int8_matmul {shape}: max_abs_err={err:.3e} tol={tol:.3e} (1e-4 max|ref|; "
+              f"median |ref| {ref.abs().median().item():.3e})")
+        require(err <= tol, f"int8_matmul M={m} disagrees with its plain version")
+        it = iter(range(10 ** 9))
+        ms = time_ms(lambda: mk.int8_matmul(x, wqs[next(it) % copies], sc))
+        plain_ms = time_ms(lambda: mk.int8_matmul_plain(x, wqs[0], sc), iters=5)
+        w_deq = (wqs[0].float() * sc).to(bf16)
+        lib_ms = time_ms(lambda: torch.matmul(x, w_deq))
+        b_ms, b_by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 4, 2.0 * m * k * n)
+        print(f"time int8_matmul {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.matmul bf16 {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, shape=shape)
+        per_shape.append(row)
+        if m == 32:
+            rows["int8_matmul"] = dict(row, per_shape=per_shape,
+                                       library="torch.matmul on the pre-dequantized bf16 weight")
+    del wqs
+
+    # bidirectional_attention at BERT-base s=512, B=16: sharp logits
+    # (q = 3 N(0,1), so q.k/8 has std ~3); samples 0-2 padded at three
+    # lengths, sample 3 fully masked (every key -1e9: the mean of v)
+    b, t, h, d = 16, 512, 12, 64
+    q = (3 * torch.randn(b, t, h, d, device=dev, generator=g)).to(bf16)
+    kk = torch.randn(b, t, h, d, device=dev, generator=g).to(bf16)
+    v = torch.randn(b, t, h, d, device=dev, generator=g).to(bf16)
+    bias = torch.zeros(b, t, device=dev)
+    for i, length in enumerate((100, 300, 450)):
+        bias[i, length:] = -1e9
+    bias[3] = -1e9
+    got = pa.bidirectional_attention(q, kk, v, bias)
+    ref = pa.bidirectional_attention_plain(q, kk, v, bias)
+    require(bool(torch.isfinite(got.float()).all()), "bidirectional_attention gave non-finite values")
+    err = attn_check(f"bidirectional_attention B={b} T={t} H={h} D={d}", got, ref)
+    ms = time_ms(lambda: pa.bidirectional_attention(q, kk, v, bias))
+    plain_ms = time_ms(lambda: pa.bidirectional_attention_plain(q, kk, v, bias), iters=3)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, kk, v))
+    mask = bias[:, None, None, :].to(bf16)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound_ms(4 * b * t * h * d * 2 + b * t * 4, 4.0 * b * h * t * t * d)
+    print(f"time bidirectional_attention B={b} T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, sdpa (float mask) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    rows["bidirectional_attention"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, shape=f"B={b} T={t} H={h} D={d}",
+        library="scaled_dot_product_attention with a float mask")
+    del q, kk, v, qt, kt, vt
+
+    # fused_stem at B=1 and B=32 (the row): the padded s2d image of a
+    # random input, a folded random stem weight and a BN affine
+    for bsz in (1, 32):
+        zp = torch.zeros(bsz, 118, 118, 12, device=dev)
+        zp[:, 3:115, 3:115] = torch.randn(bsz, 112, 112, 12, device=dev, generator=g)
+        w = (torch.randn(192, 64, device=dev, generator=g) * 0.1).to(bf16)
+        scale = torch.rand(64, device=dev, generator=g) + 0.5
+        shift = torch.randn(64, device=dev, generator=g) * 0.1
+        got = sk.fused_stem(zp, w, scale, shift)
+        ref = sk.fused_stem_plain(zp, w, scale, shift)
+        err = attn_check(f"fused_stem B={bsz}", got, ref)
+        if bsz != 32:
+            continue
+        ms = time_ms(lambda: sk.fused_stem(zp, w, scale, shift))
+        plain_ms = time_ms(lambda: sk.fused_stem_plain(zp, w, scale, shift), iters=5)
+        zb = zp.to(bf16).permute(0, 3, 1, 2).contiguous()
+        wk = w.reshape(4, 4, 12, 64).permute(3, 2, 0, 1).contiguous()
+        sc4, sh4 = scale.reshape(1, -1, 1, 1).to(bf16), shift.reshape(1, -1, 1, 1).to(bf16)
+
+        def sequence():
+            y = F.conv2d(zb, wk)[:, :, :113, :113]
+            return F.max_pool2d(torch.relu(y * sc4 + sh4), kernel_size=3, stride=2)
+
+        lib_ms = time_ms(sequence)
+        nbytes = bsz * 118 * 118 * 12 * 2 + 192 * 64 * 2 + 2 * 64 * 4 + bsz * 56 * 56 * 64 * 2
+        b_ms, b_by = bound_ms(nbytes, 2.0 * bsz * 112 * 112 * 192 * 64)
+        print(f"time fused_stem B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"sequence conv2d+affine+relu+max_pool2d (bf16 cuDNN) {lib_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        rows["fused_stem"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, shape=f"B={bsz} zp [118,118,12] -> [56,56,64]",
+            library="sequence, not one call: conv2d + affine + relu + max_pool2d (bf16 cuDNN)")
+    return rows
+
+
+# -- phase 5: models of the batch path -----------------------------------------
+
+def forward_ms(model, inputs, reps: int = 3) -> float:
+    """Median host-clock time of ``reps`` forwards, each ended by a
+    synchronise: the time of one batch on an otherwise idle host."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            model.apply(inputs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[reps // 2]
+
+def bert_model_phase(model, dev, counters, what="w8a8", tol=BERT_TOL, timed=True):
+    """BERT-base s=512 at full depth, B=16, kernels on against off;
+    returns each kernel's launches in one forward."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import nn
+
+    rng = np.random.default_rng(21)
+    b, s = 16, 512
+    ids = torch.from_numpy(rng.integers(0, 30522, (b, s))).to(dev)
+    mask = torch.ones(b, s, dtype=torch.int64)
+    for i in range(b):
+        mask[i, int(rng.integers(64, s + 1)):] = 0
+    inputs = {"input_ids": ids, "attention_mask": mask.to(dev)}
+    outs = {}
+    per_forward = {}
+    for kernels in (True, False):
+        nn.set_use_kernels(kernels)
+        try:
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            with torch.inference_mode():
+                outs[kernels] = model.apply(inputs)["last_hidden_state"]
+            torch.cuda.synchronize()
+            if kernels:
+                per_forward = read_counts(counters)
+        finally:
+            nn.set_use_kernels(None)
+    on, off = outs[True], outs[False]
+    require(bool(torch.isfinite(on).all()), "BERT hidden states are not finite")
+    require(tuple(on.shape) == (b, s, 768), f"BERT output shape {tuple(on.shape)}")
+    rel = rel_err(on, off)
+    layers = len(model.params["layers"])
+    print(f"model bert-base {layers} layers s={s} B={b} {what}: kernels on vs off: mean rel err "
+          f"{rel:.3e} (tol {tol}); launches in one forward: {json.dumps(per_forward)}")
+    require(rel <= tol, f"BERT {what} with kernels on and off disagree")
+    require(per_forward["bidirectional_attention"] == layers,
+            f"bidirectional_attention ran {per_forward['bidirectional_attention']} times in "
+            f"one forward of {layers} layers")
+    if timed:
+        one = {k: v[:1] for k, v in inputs.items()}
+        print(f"model bert-base forward, kernels on (host clock, synchronised, median of 3): "
+              f"B={b} {forward_ms(model, inputs):.2f} ms, B=1 {forward_ms(model, one):.2f} ms")
+    return per_forward
+
+
+def resnet_model_phase(model, options, dev, counters):
+    """ResNet-18 int8 at B=32, fused stem against the s2d stem, both with
+    kernels on: at the config's BF16 compute (launches per forward, the
+    difference printed) and at FP32 compute, where the JAX package's
+    limit holds; returns each kernel's launches in one forward."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.registry import get_family
+
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal((32, 3, 224, 224))
+                         .astype(np.float32)).to(dev)
+    unfused = get_family("resnet18", dict(options, stem_fused=False))
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    with torch.inference_mode():
+        fused_out = model.apply({"input": x})["output"]
+    torch.cuda.synchronize()
+    per_forward = read_counts(counters)
+    require(bool(torch.isfinite(fused_out).all()), "ResNet logits are not finite")
+    require(tuple(fused_out.shape) == (32, 1000), f"ResNet output shape {tuple(fused_out.shape)}")
+    outs = {}
+    with torch.inference_mode():
+        ref_bf16 = unfused.apply(model.params, {"input": x}, model.compute_dtype)["output"]
+        for name, definition in (("fused", model.definition), ("s2d", unfused)):
+            outs[name] = definition.apply(model.params, {"input": x}, torch.float32)["output"]
+    rel_bf16 = rel_err(fused_out, ref_bf16)
+    rel = rel_err(outs["fused"], outs["s2d"])
+    agree = (outs["fused"].argmax(-1) == outs["s2d"].argmax(-1)).float().mean().item()
+    print(f"model resnet18 int8 B=32: fused stem vs s2d stem: FP32 compute mean rel err "
+          f"{rel:.3e} (tol {RESNET_TOL}), argmax agreement {agree:.3f}; BF16 compute mean rel "
+          f"err {rel_bf16:.3e}; launches in one forward: {json.dumps(per_forward)}")
+    require(rel <= RESNET_TOL, "ResNet with the fused and the s2d stem disagree")
+    require(agree == 1.0, "ResNet argmax differs between the fused and the s2d stem")
+    require(per_forward["fused_stem"] == 1 and per_forward["int8_matmul"] == 1,
+            "ResNet forward did not run fused_stem and int8_matmul once each")
+    print(f"model resnet18 int8 forward, fused stem (host clock, synchronised, median of 3): "
+          f"B=32 {forward_ms(model, {'input': x}):.2f} ms, "
+          f"B=8 {forward_ms(model, {'input': x[:8]}):.2f} ms")
+    return per_forward
+
+
+# -- phase 6: serving the batch path over gRPC --------------------------------
+
+class LocalServer:
+    """The port's InferenceServer on a local port, on its own asyncio
+    loop thread; warmup runs before it reports ready."""
+
+    def __init__(self, cfg):
+        from starpu_inference_server_tpu_torch.grpc.server import InferenceServer
+
+        cfg = dataclasses.replace(cfg, server=dataclasses.replace(cfg.server,
+                                                                  address="127.0.0.1:0"))
+        self.server = InferenceServer(cfg, device="cuda")
+        self.ready = threading.Event()
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.error = None
+
+    def _run(self):
+        asyncio.set_event_loop(self.loop)
+        try:
+            self.loop.run_until_complete(self.server.serve(warmup=True, ready_event=self.ready))
+        except BaseException as exc:  # noqa: BLE001 - reported by start()
+            self.error = exc
+            self.ready.set()
+
+    def start(self, timeout=900):
+        t0 = time.perf_counter()
+        self.thread.start()
+        require(self.ready.wait(timeout) and self.error is None,
+                f"server {self.server.cfg.name} failed to start: {self.error!r}")
+        print(f"server {self.server.cfg.name}: built, warmed up and serving in "
+              f"{time.perf_counter() - t0:.1f} s on port {self.server.bound_port}")
+        return f"127.0.0.1:{self.server.bound_port}"
+
+    def stop(self):
+        self.loop.call_soon_threadsafe(self.server.request_stop)
+        self.thread.join(timeout=120)
+        require(not self.thread.is_alive(), f"server {self.server.cfg.name} did not stop")
+
+
+def infer_all(target, requests):
+    """Send every request at once; returns (responses, per-request
+    latency in ms on the host clock, wall seconds)."""
+    import grpc
+
+    from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
+
+    async def go():
+        opts = [("grpc.max_receive_message_length", 64 << 20)]
+        async with grpc.aio.insecure_channel(target, options=opts) as channel:
+            call = channel.unary_unary(
+                "/inference.GRPCInferenceService/ModelInfer",
+                request_serializer=pb.ModelInferRequest.SerializeToString,
+                response_deserializer=pb.ModelInferResponse.FromString)
+
+            async def one(req):
+                t0 = time.perf_counter()
+                resp = await call(req, timeout=600)
+                return resp, (time.perf_counter() - t0) * 1e3
+
+            t0 = time.perf_counter()
+            done = await asyncio.gather(*(one(r) for r in requests))
+            return done, time.perf_counter() - t0
+
+    done, wall = asyncio.run(go())
+    return [d[0] for d in done], [d[1] for d in done], wall
+
+
+def make_request(name, arrays, rid):
+    from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
+
+    req = pb.ModelInferRequest(model_name=name, id=rid)
+    for key, arr in arrays.items():
+        t = req.inputs.add()
+        t.name, t.datatype = key, {"float32": "FP32", "int64": "INT64"}[arr.dtype.name]
+        t.shape.extend(arr.shape)
+        req.raw_input_contents.append(arr.tobytes())
+    return req
+
+
+def batch_serving_phase(what, bundle, samples, output, tol, counters, path_kernels, card,
+                        unit, check_argmax=False, elem_tol=None):
+    """Serve ``samples`` (one request each) through the batch pipeline;
+    hold every response against a batch-1 apply of the same sample (mean
+    relative error <= ``tol``; with ``elem_tol`` = (atol, rtol) also
+    |got - ref| <= atol + rtol |ref| at every element)."""
+    import numpy as np
+    import torch
+
+    server = bundle.server
+    target = bundle.target
+    requests = [make_request(server.cfg.name, arrays, str(i)) for i, arrays in enumerate(samples)]
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    before = {size: agg["count"] for size, agg in server.runner.dispatcher.batch_stats.items()}
+    resps, lat, wall = infer_all(target, requests)
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    formed = {size: int(agg["count"] - before.get(size, 0))
+              for size, agg in sorted(server.runner.dispatcher.batch_stats.items())}
+    formed = {size: c for size, c in formed.items() if c}
+    for name in path_kernels:
+        require(launches[name] > 0, f"kernel {name} was not launched on the {what} path")
+    model = server.engine.model
+    worst, worst_elem, argmax_ok = 0.0, 0.0, True
+    for arrays, resp in zip(samples, resps):
+        spec = next(s for s in server.cfg.outputs if s.name == output)
+        got = np.frombuffer(resp.raw_output_contents[0], np.float32).reshape(1, *spec.dims)
+        with torch.inference_mode():
+            ref = model.apply({k: torch.from_numpy(v).to(model.device)
+                               for k, v in arrays.items()})[output].float().cpu()
+        got_t = torch.from_numpy(got.copy())
+        require(bool(torch.isfinite(got_t).all()), f"{what}: a response is not finite")
+        worst = max(worst, rel_err(got_t, ref))
+        if elem_tol is not None:
+            limit = elem_tol[0] + elem_tol[1] * ref.abs()
+            worst_elem = max(worst_elem, ((got_t - ref).abs() / limit).max().item())
+        if check_argmax:
+            argmax_ok &= bool((got_t.argmax(-1) == ref.argmax(-1)).all())
+    lat_sorted = sorted(lat)
+    p50 = lat_sorted[len(lat) // 2]
+    p99 = lat_sorted[min(len(lat) - 1, math.ceil(0.99 * len(lat)) - 1)]
+    print(f"serving {what} on {card}: {len(requests)} concurrent ModelInfer requests in "
+          f"{wall:.3f} s = {len(requests) / wall:.1f} {unit}/s; latency p50 {p50:.1f} ms, "
+          f"p99 {p99:.1f} ms (host clock, client side); batches formed {json.dumps(formed)}; "
+          f"worst response vs batch-1 apply: mean rel err {worst:.3e} (tol {tol})"
+          + (f", worst element err/limit {worst_elem:.3f} (limit {elem_tol[0]} + "
+             f"{elem_tol[1]} |ref|)" if elem_tol is not None else ""))
+    # where a request's time went, from the server's own timing fields
+    # (host clock; overall = receive to send, the rest is gRPC and client)
+    phases = ("preprocess", "queue", "batch", "submit", "scheduling", "codelet", "inference",
+              "callback", "total", "postprocess", "overall")
+    mean_ms = {p: sum(getattr(r, f"server_{p}_ms") for r in resps) / len(resps) for p in phases}
+    mean_ms["client"] = sum(lat) / len(lat)
+    print(f"serving {what} mean ms per request by phase: {json.dumps(mean_ms)}")
+    print(f"serving {what} launches: {json.dumps(launches)}")
+    require(worst <= tol, f"{what}: a served response disagrees with a batch-1 apply")
+    require(worst_elem <= 1.0, f"{what}: a served element disagrees with the batch-1 apply")
+    require(argmax_ok, f"{what}: a served argmax differs from the batch-1 apply")
+    return launches
+
+
+def bert_path(counters, card):
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.utils.config import QuantMode, load_config
+
+    cfg = load_config(str(BERT_CONFIG))
+    rng = np.random.default_rng(31)
+    samples = []
+    for i in range(BERT_REQUESTS):
+        ids = rng.integers(0, 30522, (1, 512)).astype(np.int64)
+        mask = np.zeros((1, 512), np.int64)
+        mask[0, :int(rng.integers(16, 513))] = 1  # varied padding
+        samples.append({"input_ids": ids, "attention_mask": mask})
+    bundle = LocalServer(cfg)
+    bundle.target = bundle.start()
+    try:
+        per_forward = bert_model_phase(bundle.server.engine.model, bundle.server.engine.device,
+                                       counters)
+        launches = batch_serving_phase("bert_long", bundle, samples, "last_hidden_state",
+                                       BERT_TOL, counters, BERT_KERNELS, card, "seq")
+    finally:
+        bundle.stop()
+    for quant, dtype, model_tol, serve_tol, elem_tol in BERT_CONTROLS:
+        what = f"bert_long_{quant}_{dtype.lower()}"
+        model = dataclasses.replace(cfg.model, quantization=QuantMode(quant), compute_dtype=dtype)
+        control = LocalServer(dataclasses.replace(cfg, name=what, model=model))
+        control.target = control.start()
+        try:
+            bert_model_phase(control.server.engine.model, control.server.engine.device,
+                             counters, what, model_tol, timed=False)
+            batch_serving_phase(what, control, samples, "last_hidden_state", serve_tol,
+                                counters, BERT_KERNELS, card, "seq", elem_tol=elem_tol)
+        finally:
+            control.stop()
+    return launches, per_forward
+
+
+def resnet_path(counters, card):
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(RESNET_CONFIG))
+    options = dict(cfg.model.options, stem_fused=True)  # the K8 route, set in code
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=options))
+    bundle = LocalServer(cfg)
+    bundle.target = bundle.start()
+    try:
+        per_forward = resnet_model_phase(bundle.server.engine.model, options,
+                                         bundle.server.engine.device, counters)
+        rng = np.random.default_rng(32)
+        samples = [{"input": rng.standard_normal((1, 3, 224, 224)).astype(np.float32)}
+                   for _ in range(RESNET_IMAGES)]
+        launches = batch_serving_phase("resnet18_int8", bundle, samples, "output", RESNET_SERVE_TOL,
+                                       counters, RESNET_KERNELS, card, "img", check_argmax=True)
+    finally:
+        bundle.stop()
+    return launches, per_forward
+
+
 def main() -> int:
     pkg = ROOT / "starpu_inference_server_tpu_torch"
-    if not pkg.is_dir() or not CONFIG.is_file():
+    if not pkg.is_dir() or not all(c.is_file() for c in (CONFIG, BERT_CONFIG, RESNET_CONFIG)):
         print("chip_smoke: FAIL: run from a checkout of the repository "
               "(starpu_inference_server_tpu_torch/ and configs/ not found)", file=sys.stderr)
         return 1
@@ -419,6 +916,7 @@ def main() -> int:
     from starpu_inference_server_tpu_torch.ops import decode_attention as da
     from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
     from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+    from starpu_inference_server_tpu_torch.ops import stem_kernel as sk
     from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
     from starpu_inference_server_tpu_torch.utils.config import load_config
 
@@ -435,22 +933,36 @@ def main() -> int:
     print(f"engine: {cfg.model.family} ({cfg.model.quantization.value}, "
           f"{cfg.model.compute_dtype}) built in {time.perf_counter() - t0:.1f} s")
 
-    counters = [mk.launches, da.launches, pa.launches]
+    counters = [mk.launches, da.launches, pa.launches, sk.launches]
     rows = kernel_phase(engine.spec, cfg.model.options, dev)
     per_step = model_phase(engine, dev, counters)
     launches = serving_phase(engine, counters, card)
+    del engine
+    torch.cuda.empty_cache()
+
+    rows.update(batch_kernel_phase(dev))
+    bert_launches, bert_forward = bert_path(counters, card)
+    resnet_launches, resnet_forward = resnet_path(counters, card)
+    for name in BERT_KERNELS:
+        launches[name] = bert_launches[name]
+    for name in RESNET_KERNELS:
+        launches[name] = resnet_launches[name]
 
     kernels = []
     for name in _build.KERNELS:
         r = rows[name]
+        if name in DECODER_KERNELS:
+            extra = {"launches_per_decode_step": per_step[name]}
+        else:
+            forward = bert_forward if name in BERT_KERNELS else resnet_forward
+            extra = {"launches_per_forward": forward[name], "library": r["library"]}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",
             "replaces": TPU_SITES[name], "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"], "shape": r["shape"],
-            "launches_per_decode_step": per_step[name],
+            "library_ms": r["library_ms"], "shape": r["shape"], **extra,
             **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
     print(card)

@@ -1,0 +1,146 @@
+"""ModelEngine: eager execution of one model on one device.
+
+Counterpart of ``starpu_inference_server_tpu/core/engine.py`` (reference:
+the StarPU codelet and model loader, starpu_setup.cpp:594-846 and
+inference_runner.cpp:243-275). What changes on the card:
+
+- there is no jit: the model runs eagerly, and :meth:`prime` runs each
+  batch bucket once at warmup, which builds the CUDA kernels of the path
+  and warms cuDNN's algorithm choice for that shape;
+- one device, ``cuda`` unless the caller asks for the CPU (the model is
+  built there by ``models.registry.build_model``); a device mesh
+  (``devices.mesh.size > 1``) raises ``NotImplementedError``;
+- :meth:`put_inputs` is a non-blocking H2D copy from the pinned slot,
+  :meth:`fetch` one D2H copy per output and then a synchronise of the
+  current stream, which inside an execution lane is the lane's own
+  stream (serving/lanes.py), so lanes fence only their own work.
+
+``staging_specs`` keeps the JAX engine's choice: FP32 wire inputs are
+staged as BF16 when the compute dtype is bf16 (the model casts at once
+anyway), which halves the H2D bytes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+
+from ..models.registry import BuiltModel
+from ..utils.config import QuantMode, RuntimeConfig
+from ..utils.dtypes import canonical_dtype_name, torch_dtype
+from ..utils.logger import get_logger
+
+
+class ModelEngine:
+    def __init__(self, cfg: RuntimeConfig, model: BuiltModel):
+        from ..ops import nn
+        from ..ops.quant import pack_int4_tree
+
+        if cfg.devices.mesh.size > 1:
+            raise NotImplementedError(
+                f"devices.mesh of size {cfg.devices.mesh.size}: multi-device serving is "
+                "not yet ported to the PyTorch package (ROADMAP queue 1, the multi-device "
+                "slice); the batch pipeline runs on one device"
+            )
+        self.cfg = cfg
+        self.model = model
+        self.device = model.device
+        nn.set_w8a8(model.quant in (QuantMode.W8A8, QuantMode.W4A8))
+        if nn.use_kernels(self.device) and model.quant in (QuantMode.INT4, QuantMode.W4A8):
+            # the int4 kernels read pairwise-packed weights
+            model.params = pack_int4_tree(model.params)
+        if self.device.type == "cuda":
+            # params were made on the default stream; lanes read them on theirs
+            torch.cuda.synchronize(self.device)
+        self._compile_lock = threading.Lock()
+        self._primed: set = set()  # buckets
+
+    @property
+    def buckets(self) -> Sequence[int]:
+        return list(self.cfg.buckets)
+
+    def staging_specs(self):
+        """Input specs with the dtype the staging buffers hold: float wire
+        inputs at bf16 when the model computes in bf16."""
+        specs = []
+        for spec in self.cfg.inputs:
+            if self.model.compute_dtype == torch.bfloat16 and spec.dtype in ("FP32", "FP64"):
+                specs.append(dataclasses.replace(spec, dtype="BF16"))
+            else:
+                specs.append(spec)
+        return specs
+
+    def device_name(self) -> str:
+        if self.device.type == "cuda":
+            return f"cuda:{self.device.index or 0}"
+        return str(self.device)
+
+    # ------------------------------------------------------------------
+
+    def put_inputs(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Host -> device copy of a padded batch, asynchronous from pinned
+        memory on the current stream (a copy on the CPU too, so nothing
+        the model returns aliases the slot, which is reused)."""
+        return {name: t.to(self.device, non_blocking=True, copy=True)
+                for name, t in inputs.items()}
+
+    def execute(self, inputs_on_device: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Run the model; returns device tensors as soon as the work is
+        enqueued (the lane decides when to fence)."""
+        with torch.inference_mode():
+            return self.model.apply(inputs_on_device)
+
+    def run_padded(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return self.execute(self.put_inputs(inputs))
+
+    def fetch(self, outputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One D2H copy per output tensor, then a synchronise of the
+        current stream: the fence of this batch only."""
+        host = {name: t.to("cpu", non_blocking=True) for name, t in outputs.items()}
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return host
+
+    def conform_outputs(self, outputs: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+        """Host tensors -> numpy in their declared wire dtype (the bf16
+        staging path would otherwise leak the compute dtype into outputs
+        of models that pass inputs through)."""
+        declared = {s.name: s.dtype for s in self.cfg.outputs}
+        conformed = {}
+        for name, t in outputs.items():
+            wire = declared.get(name)
+            if wire is None:
+                conformed[name] = (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+            elif canonical_dtype_name(wire) == "BF16":
+                conformed[name] = t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+            else:
+                conformed[name] = t.to(torch_dtype(wire)).numpy()
+        return conformed
+
+    # ------------------------------------------------------------------
+
+    def prime(self, bucket: int) -> bool:
+        """Run a zero batch of ``bucket`` rows once (kernel builds, cuDNN
+        algorithm choice). Returns True the first time for a bucket."""
+        with self._compile_lock:
+            if bucket in self._primed:
+                return False
+            self._primed.add(bucket)
+        zeros = {spec.name: torch.zeros((bucket, *spec.dims), dtype=torch_dtype(spec.dtype))
+                 for spec in self.staging_specs()}
+        self.fetch(self.run_padded(zeros))
+        return True
+
+    def prime_all(self) -> int:
+        """Prime every bucket; returns the number primed now."""
+        log = get_logger()
+        count = 0
+        for bucket in self.buckets:
+            if self.prime(bucket):
+                count += 1
+                log.debug("primed %s bucket=%d", self.device_name(), bucket)
+        return count

@@ -59,9 +59,11 @@ constexpr float kNeg = -1e30f;  // mask value of the TPU kernels
 
 // One query row per thread, online softmax over keys staged in shared
 // memory as float [nk_pad][D] (rows past the valid range zero-filled).
-// Key j (0-based in the stage, absolute index kbase + j) is attended
-// when j < nk and kbase + j <= kmax. Keys are taken SB at a time: the
-// running max and the accumulator rescale once per sub-block.
+// Key j (0-based in the stage) is attended when j < nk and, for
+// consume(), its absolute index kbase + j <= kmax (causal); consume_bias()
+// instead adds bias[j] to every logit (an additive key mask, as the
+// encoder kernel of the TPU package does). Keys are taken SB at a time:
+// the running max and the accumulator rescale once per sub-block.
 template <int D, int SB>
 struct FlashRow {
   float q[D];
@@ -78,6 +80,20 @@ struct FlashRow {
 
   __device__ __forceinline__ void consume(const float* ks, const float* vs, int nk,
                                           int kbase, int kmax, float scale) {
+    consume_with(ks, vs, nk, [&](int j, float dot) {
+      return (kbase + j <= kmax) ? dot * scale : kNeg;
+    });
+  }
+
+  __device__ __forceinline__ void consume_bias(const float* ks, const float* vs,
+                                               const float* bias, int nk, float scale) {
+    consume_with(ks, vs, nk, [&](int j, float dot) { return dot * scale + bias[j]; });
+  }
+
+  // logit(j, q.k_j) gives the logit of a key j < nk
+  template <typename Logit>
+  __device__ __forceinline__ void consume_with(const float* ks, const float* vs, int nk,
+                                               Logit logit) {
     for (int j0 = 0; j0 < nk; j0 += SB) {
       float s[SB];
       float cmax = kNeg;
@@ -94,8 +110,7 @@ struct FlashRow {
           dot = fmaf(q[d + 3], kv.w, dot);
         }
         const int j = j0 + jj;
-        const bool valid = (j < nk) && (kbase + j <= kmax);
-        s[jj] = valid ? dot * scale : kNeg;
+        s[jj] = (j < nk) ? logit(j, dot) : kNeg;
         cmax = fmaxf(cmax, s[jj]);
       }
       const float m_new = fmaxf(m, cmax);

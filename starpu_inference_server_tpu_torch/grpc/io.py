@@ -1,17 +1,129 @@
-"""ModelInfer I/O for decoder generation (subset of the JAX package's
-``grpc/io.py``): prompt extraction and the per-phase timing fields.
-The batch-pipeline validation and response fill wait for that slice."""
+"""ModelInfer I/O: request validation and conversion, the response
+fill, prompt extraction for decoder generation, and the per-phase
+timing fields.
+
+Counterpart of ``starpu_inference_server_tpu/grpc/io.py`` (reference:
+src/grpc/server/inference_service_io.cpp): the input count, names,
+dtypes, shapes (a leading batch dim up to ``max_batch_size``) and raw
+byte sizes are checked against the config; accepted inputs are
+zero-copy numpy views over the request's bytes (the one copy happens at
+batch assembly, into the staging slot); responses carry
+``raw_output_contents`` with ``outputN`` fallback names.
+"""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional
 
 import numpy as np
 
 from ..utils.clock import wall_ms
-from ..utils.dtypes import canonical_dtype_name, numpy_dtype
+from ..utils.config import RuntimeConfig
+from ..utils.dtypes import canonical_dtype_name, numpy_dtype, wire_name
 from ..utils.exceptions import InputValidationError
 from . import kserve_v2_pb2 as pb
+
+
+def validate_and_convert_inputs(cfg: RuntimeConfig,
+                                request: pb.ModelInferRequest) -> Dict[str, np.ndarray]:
+    """Validate a ModelInferRequest against the model config and return
+    zero-copy numpy views (one per input, batch-leading)."""
+    expected = {spec.name: spec for spec in cfg.inputs}
+    inputs = list(request.inputs)
+    if len(inputs) != len(cfg.inputs):
+        raise InputValidationError(f"expected {len(cfg.inputs)} inputs, got {len(inputs)}")
+    if len(request.raw_input_contents) != len(inputs):
+        raise InputValidationError(
+            f"raw_input_contents count {len(request.raw_input_contents)} "
+            f"does not match inputs count {len(inputs)}"
+        )
+    # named inputs are all-or-nothing
+    names = [t.name for t in inputs]
+    named = [n for n in names if n]
+    if named and len(named) != len(names):
+        raise InputValidationError("either name all inputs or none")
+    if named:
+        if set(named) != set(expected):
+            raise InputValidationError(
+                f"input names {sorted(named)} do not match expected {sorted(expected)}"
+            )
+        order = {t.name: i for i, t in enumerate(inputs)}
+        pairs = [(expected[spec.name], inputs[order[spec.name]],
+                  request.raw_input_contents[order[spec.name]]) for spec in cfg.inputs]
+    else:
+        pairs = list(zip(cfg.inputs, inputs, request.raw_input_contents))
+
+    batch: Optional[int] = None
+    out: Dict[str, np.ndarray] = {}
+    for spec, tensor, raw in pairs:
+        if canonical_dtype_name(tensor.datatype) != spec.dtype:
+            raise InputValidationError(
+                f"input {spec.name!r}: dtype {tensor.datatype} does not match "
+                f"configured {spec.dtype}"
+            )
+        shape = tuple(int(d) for d in tensor.shape)
+        this_batch = _validate_configured_shape(spec, shape, cfg.max_batch_size)
+        if batch is None:
+            batch = this_batch
+        elif this_batch != batch:
+            raise InputValidationError(
+                f"input {spec.name!r}: batch dim {this_batch} differs from {batch}"
+            )
+        dt = numpy_dtype(spec.dtype)
+        expected_bytes = this_batch * spec.elements_per_sample * dt.itemsize
+        if len(raw) != expected_bytes:
+            raise InputValidationError(
+                f"input {spec.name!r}: raw size {len(raw)} != expected {expected_bytes}"
+            )
+        out[spec.name] = np.frombuffer(raw, dtype=dt).reshape((this_batch, *spec.dims))
+    return out
+
+
+def _validate_configured_shape(spec, shape, max_batch: int) -> int:
+    """Returns the batch size. Accepts [dims...] (implicit batch 1) or
+    [B, dims...] with 1 <= B <= max_batch
+    (reference: validate_configured_shape, inference_service_io.cpp:31-114)."""
+    dims = spec.dims
+    if shape == dims:
+        return 1
+    if len(shape) == len(dims) + 1 and tuple(shape[1:]) == dims:
+        b = shape[0]
+        if b < 1 or b > max_batch:
+            raise InputValidationError(
+                f"input {spec.name!r}: batch dim {b} outside [1, {max_batch}]"
+            )
+        return b
+    raise InputValidationError(
+        f"input {spec.name!r}: shape {list(shape)} does not match configured "
+        f"dims {list(dims)} (with optional leading batch dim)"
+    )
+
+
+def populate_response(cfg: RuntimeConfig, request: pb.ModelInferRequest,
+                      outputs: Dict[str, np.ndarray],
+                      response: Optional[pb.ModelInferResponse] = None) -> pb.ModelInferResponse:
+    """Fill raw_output_contents and output metadata
+    (reference: populate_response, inference_service_io.cpp:377-560)."""
+    resp = response or pb.ModelInferResponse()
+    resp.model_name = request.model_name or cfg.name
+    resp.model_version = request.model_version or "1"
+    resp.id = request.id
+    requested: List[str] = [t.name for t in request.outputs if t.name]
+    order = requested if requested else [s.name for s in cfg.outputs]
+    declared = {s.name: s.dtype for s in cfg.outputs}
+    for i, name in enumerate(order):
+        arr = outputs.get(name)
+        if arr is None and not requested:
+            arr = outputs.get(f"output{i}")  # positional outputN fallback
+        if arr is None:
+            raise InputValidationError(f"no output named {name!r}")
+        tensor = resp.outputs.add()
+        tensor.name = name or f"output{i}"
+        # BF16 travels as its uint16 bit patterns: name it from the config
+        tensor.datatype = declared.get(name) or wire_name(arr.dtype)
+        tensor.shape.extend(int(d) for d in arr.shape)
+        resp.raw_output_contents.append(np.ascontiguousarray(arr).tobytes())
+    return resp
 
 
 def extract_prompt(request: pb.ModelInferRequest) -> np.ndarray:
@@ -65,7 +177,7 @@ def fill_timing_fields(
     postprocess_ms: float = 0.0,
 ) -> None:
     """Per-phase server timing surfaced to the client (same fields as the
-    JAX server)."""
+    JAX server; reference: grpc_service.proto:823-908)."""
     response.server_receive_ms = int(server_receive_ms)
     response.server_queue_ms = breakdown.get("queue_ms", 0.0)
     response.server_batch_ms = breakdown.get("batch_ms", 0.0)

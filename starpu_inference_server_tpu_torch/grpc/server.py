@@ -1,14 +1,17 @@
-"""Server bootstrap: config -> model -> generation engine -> warmup -> gRPC.
+"""Server bootstrap: config -> model -> engine -> warmup -> gRPC.
 
-Counterpart of ``starpu_inference_server_tpu/grpc/server.py`` for
-decoder families. Run it with
+Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 
-    python -m starpu_inference_server_tpu_torch.grpc.server --config configs/llama_decoder.yml
+    python -m starpu_inference_server_tpu_torch.grpc.server --config configs/resnet18_int8.yml
 
-It serves on the GPU (``cuda``); ``InferenceServer(cfg, device="cpu")``
-serves on the CPU, as the tests do. Non-decoder families raise "not yet
-ported". Metrics and congestion control wait for the batch-pipeline
-slice: the server runs with ``observability=None`` and says so once.
+Decoder families get the continuous-batching generation engine; every
+other family gets the batch pipeline: ``ModelEngine``, the bounded
+``InferenceQueue`` and the ``TaskRunner`` (collector, lanes,
+dispatcher), warmed up by ``TaskRunner.warmup()``. It serves on the GPU
+(``cuda``); ``InferenceServer(cfg, device="cpu")`` serves on the CPU, as
+the tests do. Metrics and congestion control are not ported yet: the
+server runs with ``observability=None`` and ``congestion=None`` and says
+so once.
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ from typing import Optional
 import grpc
 import numpy as np
 
+from ..core.engine import ModelEngine
+from ..models.registry import build_model, get_family
 from ..serving.generation import build_generation_engine
+from ..serving.queue import InferenceQueue
+from ..serving.runner import TaskRunner
 from ..utils.clock import StopWatch
 from ..utils.config import RuntimeConfig, load_config
 from ..utils.logger import get_logger, set_global_verbosity
@@ -29,26 +36,54 @@ from .service import InferenceServicer, add_inference_service
 
 
 class InferenceServer:
-    """Owns the serving stack for one decoder model."""
+    """Owns the serving stack for one model (exactly one model per
+    process, as in the reference)."""
 
     def __init__(self, cfg: RuntimeConfig, device=None):
         self.cfg = cfg
         log = get_logger()
         set_global_verbosity(cfg.verbosity)
         self.observability = None
+        self.congestion = None
         log.info("metrics and congestion control are not yet ported: "
-                 "serving with observability=None")
+                 "serving with observability=None, congestion=None")
         watch = StopWatch()
-        self.generation_engine = build_generation_engine(cfg, device=device)
-        log.info("model %s built on %s (quant=%s) in %.1f ms", cfg.model.family,
-                 self.generation_engine.device, cfg.model.quantization.value,
-                 watch.elapsed_ms())
-        self.servicer = InferenceServicer(cfg, self.generation_engine)
+        self.generation_engine = None
+        self.engine = None
+        self.queue = None
+        self.runner = None
+        definition = get_family(cfg.model.family, cfg.model.options)
+        if definition.supports_generation:
+            self.generation_engine = build_generation_engine(cfg, device=device)
+            where = self.generation_engine.device
+        else:
+            self.engine = ModelEngine(cfg, build_model(cfg.model, seed=cfg.seed, device=device))
+            self.queue = InferenceQueue(cfg.max_queue_size)
+            self.runner = TaskRunner(cfg, self.engine, self.queue)
+            where = self.engine.device
+        log.info("model %s built on %s (quant=%s) in %.1f ms", cfg.model.family, where,
+                 cfg.model.quantization.value, watch.elapsed_ms())
+        self.servicer = InferenceServicer(cfg, queue=self.queue,
+                                          generation_engine=self.generation_engine)
+        if self.runner is not None:
+            self.servicer.batch_stats_source = self.runner.dispatcher
         self._grpc_server: Optional["grpc.aio.Server"] = None
         self.bound_port = 0
 
     def start_pipeline(self, warmup: bool = True) -> None:
         log = get_logger()
+        if self.runner is not None:
+            for lane in self.runner.lanes:
+                log.info("lane %d: %s (buckets %s)", lane.lane_id, lane.name(),
+                         list(self.engine.buckets))
+            if warmup:
+                watch = StopWatch()
+                n = self.runner.warmup()
+                log.info("warmup: %d pinned jobs in %.1f ms", n, watch.elapsed_ms())
+            else:
+                self.runner.start()
+            self.servicer.ready.set()
+            return
         eng = self.generation_engine
         eng.start()
         if warmup:
@@ -93,9 +128,18 @@ class InferenceServer:
 
     async def shutdown(self) -> None:
         log = get_logger()
+        if self.queue is not None:
+            self.queue.close_for_push()
         self.servicer.ready.clear()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=5.0)
+        if self.runner is not None:
+            self.runner.stop(drain=True)
+            d = self.runner.dispatcher
+            log.info("shutdown complete: completed=%d failed=%d "
+                     "throughput_window=%.1f inf/s over %.1f s", d.completed_jobs,
+                     d.failed_jobs, d.perf.throughput(), d.perf.window_s())
+            return
         self.generation_engine.stop()
         log.info("shutdown complete: generated_tokens=%d steps=%d",
                  self.generation_engine.generated_tokens, self.generation_engine.steps)
@@ -107,7 +151,7 @@ class InferenceServer:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        description="PyTorch/CUDA inference server (KServe v2 gRPC, decoder generation)"
+        description="PyTorch/CUDA inference server (KServe v2 gRPC)"
     )
     parser.add_argument("--config", required=True, help="YAML config file")
     args = parser.parse_args(argv)

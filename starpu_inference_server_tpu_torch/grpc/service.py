@@ -1,38 +1,92 @@
-"""The gRPC inference service (asyncio), decoder-generation subset.
+"""The gRPC inference service (asyncio).
 
 Counterpart of ``starpu_inference_server_tpu/grpc/service.py``:
-ServerLive, ServerReady, ModelReady, ServerMetadata and ModelMetadata,
-``ModelInfer`` as full generation and ``ModelStreamInfer`` as one
-response per generated token, plus the standard health service. Every
-other RPC of the KServe-v2 table answers UNIMPLEMENTED until its slice
-is ported.
+ServerLive, ServerReady, ModelReady, ServerMetadata, ModelMetadata,
+ModelStatistics and ``ModelInfer`` on two routes: the batch pipeline
+(validate, queue, batch, execute on a lane, slice; the completion
+resolves an asyncio future from the dispatcher's thread) for every
+non-decoder model, and full generation for decoders, whose
+``ModelStreamInfer`` answers one response per generated token. The
+standard health service is registered too. Every other RPC of the
+KServe-v2 table answers UNIMPLEMENTED until its slice is ported.
 """
 
 from __future__ import annotations
 
 import asyncio
 import threading
+import time
+from typing import Dict
 
 import grpc
 import numpy as np
 
 from .. import __version__
+from ..core.job import InferenceJob
 from ..serving.generation import GenerationRequest
-from ..utils.clock import wall_ms
+from ..utils.clock import now_s, wall_ms
 from ..utils.config import RuntimeConfig
-from ..utils.exceptions import TensorError
+from ..utils.exceptions import CancelledError, QueueClosedError, QueueFullError, TensorError
 from . import kserve_v2_pb2 as pb
-from .io import extract_prompt, fill_timing_fields, generation_params
+from .io import (
+    extract_prompt,
+    fill_timing_fields,
+    generation_params,
+    populate_response,
+    validate_and_convert_inputs,
+)
 
 SERVER_NAME = "starpu-inference-server-tpu-torch"
 SERVICE_FULL_NAME = "inference.GRPCInferenceService"
 PLATFORM = "pytorch_cuda"
 
 
+class _ModelStats:
+    """Per-model statistics aggregates of the batch route (reference:
+    inference_service.hpp:482-521)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.inference_count = 0
+        self.execution_count = 0
+        self.last_inference_ms = 0
+        self.success_count = 0
+        self.success_ns = 0
+        self.fail_count = 0
+        self.fail_ns = 0
+        self.queue_ns = 0
+        self.infer_ns = 0
+        self.input_ns = 0
+        self.output_ns = 0
+
+    def record_success(self, breakdown: Dict[str, float], batch: int) -> None:
+        def ns(key):
+            return int(breakdown.get(key, 0.0) * 1e6)
+
+        with self.lock:
+            self.inference_count += batch
+            self.execution_count += 1
+            self.last_inference_ms = int(time.time() * 1000)
+            self.success_count += 1
+            self.success_ns += ns("total_ms")
+            self.queue_ns += ns("queue_ms")
+            self.infer_ns += ns("inference_ms")
+            self.input_ns += ns("batch_ms")
+            self.output_ns += ns("callback_ms")
+
+    def record_failure(self, total_ms: float) -> None:
+        with self.lock:
+            self.fail_count += 1
+            self.fail_ns += int(total_ms * 1e6)
+
+
 class InferenceServicer:
-    def __init__(self, cfg: RuntimeConfig, generation_engine):
+    def __init__(self, cfg: RuntimeConfig, queue=None, generation_engine=None):
         self.cfg = cfg
+        self.queue = queue
         self.generation_engine = generation_engine
+        self.stats = _ModelStats()
+        self.batch_stats_source = None  # the ResultDispatcher, when wired
         self.ready = threading.Event()
 
     # -- liveness / metadata ----------------------------------------------
@@ -66,6 +120,40 @@ class InferenceServicer:
             resp.outputs.add(name=spec.name, datatype=spec.dtype, shape=[-1, *spec.dims])
         return resp
 
+    async def ModelStatistics(self, request, context):
+        s = self.stats
+        with s.lock:
+            stat = pb.ModelStatistics(
+                name=self.cfg.name,
+                version="1",
+                last_inference=s.last_inference_ms,
+                inference_count=s.inference_count,
+                execution_count=s.execution_count,
+                inference_stats=pb.InferStatistics(
+                    success=pb.StatisticDuration(count=s.success_count, ns=s.success_ns),
+                    fail=pb.StatisticDuration(count=s.fail_count, ns=s.fail_ns),
+                    queue=pb.StatisticDuration(count=s.success_count, ns=s.queue_ns),
+                    compute_input=pb.StatisticDuration(count=s.success_count, ns=s.input_ns),
+                    compute_infer=pb.StatisticDuration(count=s.success_count, ns=s.infer_ns),
+                    compute_output=pb.StatisticDuration(count=s.success_count, ns=s.output_ns),
+                ),
+            )
+        source = self.batch_stats_source
+        if source is not None:
+            with source._lock:
+                snapshot = {size: dict(agg) for size, agg in source.batch_stats.items()}
+            for size in sorted(snapshot):
+                agg = snapshot[size]
+                count = int(agg["count"])
+                stat.batch_stats.add(
+                    batch_size=size,
+                    compute_input=pb.StatisticDuration(count=count, ns=int(agg["compute_input_ns"])),
+                    compute_infer=pb.StatisticDuration(count=count, ns=int(agg["compute_infer_ns"])),
+                    compute_output=pb.StatisticDuration(count=count,
+                                                        ns=int(agg["compute_output_ns"])),
+                )
+        return pb.ModelStatisticsResponse(model_stats=[stat])
+
     # -- decoder generation ------------------------------------------------
 
     def _request(self, request, on_token=None) -> GenerationRequest:
@@ -83,13 +171,64 @@ class InferenceServicer:
         )
 
     async def ModelInfer(self, request, context):
-        """ModelInfer on a decoder = full generation: input_ids ->
-        output_ids, driven by the continuous-batching engine."""
+        """reference: HandleModelInferAsyncImpl,
+        inference_service_async.cpp:385-520."""
         server_receive = wall_ms()
         if request.model_name and request.model_name != self.cfg.name:
             await context.abort(
                 grpc.StatusCode.NOT_FOUND, f"unknown model {request.model_name!r}"
             )
+        if self.generation_engine is not None:
+            return await self._model_generate(request, context, server_receive)
+        return await self._model_batch(request, context, server_receive)
+
+    async def _model_batch(self, request, context, server_receive):
+        """The batch route: validate + zero-copy convert, push to the
+        queue, await the completion the dispatcher resolves, serialize."""
+        t0 = now_s()
+        try:
+            inputs = validate_and_convert_inputs(self.cfg, request)
+        except TensorError as exc:
+            await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(exc))
+        preprocess_ms = (now_s() - t0) * 1000.0
+
+        loop = asyncio.get_running_loop()
+        future: asyncio.Future = loop.create_future()
+
+        def completion(job, outputs, error):
+            def resolve():
+                if not future.done():
+                    future.set_result((job, outputs, error))
+            loop.call_soon_threadsafe(resolve)
+
+        job = InferenceJob(inputs, request_id=request.id or "", completion=completion)
+        context.add_done_callback(lambda _ctx: job.cancel())
+        job.timing.stamp("enqueued_at")
+        try:
+            self.queue.push(job)
+        except QueueFullError as exc:
+            await context.abort(grpc.StatusCode.RESOURCE_EXHAUSTED, str(exc))
+        except QueueClosedError as exc:
+            await context.abort(grpc.StatusCode.UNAVAILABLE, str(exc))
+
+        _, outputs, error = await future
+        if error is not None:
+            self.stats.record_failure(job.latency_breakdown.get("total_ms", 0.0))
+            if isinstance(error, CancelledError):
+                await context.abort(grpc.StatusCode.CANCELLED, "request cancelled")
+            await context.abort(grpc.StatusCode.INTERNAL, str(error))
+
+        t1 = now_s()
+        response = populate_response(self.cfg, request, outputs)
+        postprocess_ms = (now_s() - t1) * 1000.0
+        fill_timing_fields(response, job.latency_breakdown, server_receive_ms=server_receive,
+                           preprocess_ms=preprocess_ms, postprocess_ms=postprocess_ms)
+        self.stats.record_success(job.latency_breakdown, job.batch_size())
+        return response
+
+    async def _model_generate(self, request, context, server_receive):
+        """ModelInfer on a decoder = full generation: input_ids ->
+        output_ids, driven by the continuous-batching engine."""
         try:
             gen = self._request(request)
             self.generation_engine.submit(gen)
@@ -128,6 +267,9 @@ class InferenceServicer:
 
     async def ModelStreamInfer(self, request_iterator, context):
         """Streaming generation: one response per generated token."""
+        if self.generation_engine is None:
+            await context.abort(grpc.StatusCode.UNIMPLEMENTED,
+                                "ModelStreamInfer is only available for decoder models")
         loop = asyncio.get_running_loop()
         async for request in request_iterator:
             token_queue: asyncio.Queue = asyncio.Queue()

@@ -1,11 +1,11 @@
-"""Model registry: family name -> ModelDefinition (decoder families).
+"""Model registry: family name -> ModelDefinition.
 
 Counterpart of ``starpu_inference_server_tpu/models/registry.py``.
 ``build_model`` makes the same parameter tree as the JAX package: random
 weights come from the same ``np.random.default_rng(seed)`` calls in the
 same order (or from an ``.npz`` archive), are quantized per the config
 and land on the target device as torch tensors. Orbax checkpoints and
-the encoder / CNN families wait for later slices.
+the ViT family wait for later slices.
 """
 
 from __future__ import annotations
@@ -24,11 +24,7 @@ from ..utils.exceptions import ModelLoadError, UnknownModelFamilyError
 InitFn = Callable[[np.random.Generator], Any]
 
 # families of the JAX package that this port does not serve yet
-NOT_YET_PORTED = (
-    "identity", "add_one", "matmul", "bert", "bert-base-uncased", "bert-large",
-    "bert-large-uncased", "vit_b_16", "vit_l_16", "resnet18", "resnet34",
-    "resnet50", "resnet101", "resnet152", "wide_resnet50_2",
-)
+NOT_YET_PORTED = ("vit_b_16", "vit_l_16")
 
 QUANT_BITS = {QuantMode.NONE: None, QuantMode.INT8: 8, QuantMode.INT4: 4,
               QuantMode.W8A8: 8, QuantMode.W4A8: 4}
@@ -43,6 +39,9 @@ class ModelDefinition:
     output_specs: Tuple[TensorSpec, ...]
     supports_generation: bool = False
     spec: Any = None              # family spec (decoder: DecoderSpec)
+    # params -> params with constants derived once at build time
+    # (ResNet: the folded stem weights); None keeps the tree as it is
+    prepare: Optional[Callable[[Any], Any]] = None
 
 
 _REGISTRY: Dict[str, Callable[[Mapping[str, Any]], ModelDefinition]] = {}
@@ -57,7 +56,7 @@ def register_family(name: str):
 
 
 def _ensure_loaded() -> None:
-    from . import decoder  # noqa: F401
+    from . import bert, decoder, identity, resnet  # noqa: F401
 
 
 def available_families() -> Tuple[str, ...]:
@@ -69,7 +68,7 @@ def get_family(name: str, options: Optional[Mapping[str, Any]] = None) -> ModelD
     _ensure_loaded()
     make_definition = _REGISTRY.get(name)
     if make_definition is None:
-        if name in NOT_YET_PORTED or name.startswith(("resnet", "bert", "vit")):
+        if name in NOT_YET_PORTED or name.startswith("vit"):
             raise UnknownModelFamilyError(
                 f"model family {name!r} is not yet ported to the PyTorch package "
                 f"(ROADMAP queue 1); ported: {', '.join(sorted(_REGISTRY))}"
@@ -119,6 +118,8 @@ def build_model(settings: ModelSettings, seed: int = 0, device=None) -> BuiltMod
         tree = load_params(settings.params)
     params = maybe_quantize_tree(params_from_numpy(tree, dev),
                                  QUANT_BITS[settings.quantization])
+    if definition.prepare is not None:
+        params = definition.prepare(params)
     return BuiltModel(
         definition=definition,
         params=params,

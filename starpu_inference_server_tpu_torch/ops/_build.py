@@ -31,7 +31,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
-           "chunk_prefill_attention")
+           "chunk_prefill_attention", "int8_matmul", "bidirectional_attention",
+           "fused_stem")
 
 # dtype codes shared with csrc/common.cuh
 F32 = 0
@@ -110,7 +111,7 @@ def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built on first use
     together with every other missing kernel library (in parallel, so a
-    server's warmup pays for one build, not four in a row)."""
+    server's warmup pays for one build, not one per kernel in a row)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:

@@ -10,13 +10,20 @@ tiled SIMT GEMM that unpacks the pairwise nibbles into shared memory
 once per tile, so device memory only ever holds the packed weight;
 tensor cores are the next step (ROADMAP).
 
-Beside it, :func:`int4_matmul_plain` is the same function in plain
-PyTorch: CPU tensors take it, and on the card it only serves as the
-reference the kernel is checked against.
+``int8_matmul`` replaces the TPU kernel
+``starpu_inference_server_tpu/ops/pallas_kernels.py:int8_matmul``
+(``_matmul_kernel``) with ``csrc/int8_matmul.cu``. Bound on the H100: on
+the path (the ResNet-18 fc at batch <= 32, K = 512, N = 1000) the int8
+weight bytes; design: 32 columns per block, K split over the block's
+threads, the ragged N edge masked in the kernel (see the source).
 
-``int8_matmul`` (K2) and ``int4_matmul_w4a8`` (K6) are not ported yet
-(ROADMAP, batch-pipeline slice): their plain versions serve CPU tensors,
-and CUDA tensors raise ``NotImplementedError``.
+Beside each kernel, a ``*_plain`` function computes the same function
+in plain PyTorch: CPU tensors take it, and on the card it only serves as
+the reference the kernel is checked against.
+
+``int4_matmul_w4a8`` (K6) is not ported yet (ROADMAP, the W4A8 decoder
+slice): its plain version serves CPU tensors, and CUDA tensors raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,9 +34,16 @@ from . import _build
 from .quant import unpack_int4
 
 # launches of the CUDA kernel (not of the plain version)
-launches = {"int4_matmul": 0}
+launches = {"int4_matmul": 0, "int8_matmul": 0}
 
-_fn = None
+_fns = {}
+
+
+def _bound(name: str, symbol: str):
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = _build.bind(name, symbol, 4, 4)
+    return fn
 
 
 def int4_matmul_plain(x: torch.Tensor, w_p4: torch.Tensor,
@@ -53,7 +67,6 @@ def int4_matmul(x: torch.Tensor, w_p4: torch.Tensor,
         raise ValueError(f"x {tuple(x.shape)} does not match packed w {tuple(w_p4.shape)}")
     if not x.is_cuda:
         return int4_matmul_plain(x, w_p4, scale)
-    global _fn
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"int4_matmul takes f32 or bf16 activations, got {x.dtype}")
     if w_p4.dtype != torch.uint8 or not w_p4.is_cuda:
@@ -66,9 +79,7 @@ def int4_matmul(x: torch.Tensor, w_p4: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    if _fn is None:
-        _fn = _build.bind("int4_matmul", "sis_int4_matmul", 4, 4)
-    rc = _fn(x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+    rc = _bound("int4_matmul", "sis_int4_matmul")(x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
              m, n, k, _build.BF16 if x.dtype == torch.bfloat16 else _build.F32,
              _build.stream_ptr(x))
     _build.check(rc, "int4_matmul")
@@ -84,12 +95,33 @@ def int8_matmul_plain(x: torch.Tensor, w_q: torch.Tensor,
 
 
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    if x.is_cuda:
-        raise NotImplementedError(
-            "int8_matmul (TPU kernel K2) has no CUDA kernel yet: ROADMAP "
-            "queue 2, batch ModelInfer pipeline slice"
-        )
-    return int8_matmul_plain(x, w_q, scale)
+    """y = (x[M,K] @ w_q[K,N]) * scale[1,N], f32 output.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    m, k = x.shape
+    k2, n = w_q.shape
+    if k != k2:
+        raise ValueError(f"x {tuple(x.shape)} does not match w_q {tuple(w_q.shape)}")
+    if not x.is_cuda:
+        return int8_matmul_plain(x, w_q, scale)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8_matmul takes f32 or bf16 activations, got {x.dtype}")
+    if w_q.dtype != torch.int8 or not w_q.is_cuda:
+        raise TypeError("int8_matmul needs an int8 weight on the same device")
+    x = x.contiguous()
+    w_q = w_q.contiguous()
+    scale = scale.reshape(-1).to(torch.float32).contiguous()
+    if scale.numel() != n:
+        raise ValueError(f"scale has {scale.numel()} entries for {n} columns")
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return y
+    rc = _bound("int8_matmul", "sis_int8_matmul")(
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n, k,
+        _build.BF16 if x.dtype == torch.bfloat16 else _build.F32, _build.stream_ptr(x))
+    _build.check(rc, "int8_matmul")
+    launches["int8_matmul"] += 1
+    return y
 
 
 def int4_matmul_w4a8_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
@@ -106,7 +138,7 @@ def int4_matmul_w4a8(x_q: torch.Tensor, x_scale: torch.Tensor,
     if x_q.is_cuda:
         raise NotImplementedError(
             "int4_matmul_w4a8 (TPU kernel K6) has no CUDA kernel yet: "
-            "ROADMAP queue 2, batch ModelInfer pipeline slice"
+            "ROADMAP queue 1, the W4A8 decoder slice (configs/llama_w4a8.yml)"
         )
     return int4_matmul_w4a8_plain(x_q, x_scale, w_p4, scale)
 

@@ -1,8 +1,10 @@
-"""Functional NN layers, quantization-aware (decoder subset).
+"""Functional NN layers, quantization-aware.
 
 Counterpart of ``starpu_inference_server_tpu/ops/nn.py``: ``dense``
 keeps the JAX package's five-way dispatch, ``resolve_weight`` and
-``embedding`` take dense or quantized leaves alike.
+``embedding`` take dense or quantized leaves alike. Image tensors are
+NHWC at every public function (the JAX package's layout); ``conv2d`` and
+``max_pool`` move to PyTorch's NCHW only inside.
 
 The kernel switch (``set_use_kernels``, the counterpart of
 ``set_use_pallas``) is AUTO by default: kernel routes are taken exactly
@@ -14,11 +16,14 @@ kernels); ``set_use_kernels(False)`` turns them off on the card too.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import matmul_kernels as mk
+from . import prefill_attention as pa
 from .quant import (
     dequantize,
     is_packed_int4_leaf,
@@ -65,8 +70,15 @@ def resolve_weight(w, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def _int_dot(x_q: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
-    """Exact s8 x s8 contraction (XLA's preferred_element_type=int32),
-    computed in float64 where every partial sum is exact."""
+    """Exact s8 x s8 contraction (XLA's preferred_element_type=int32) as
+    f32. On CUDA, where ``torch._int_mm`` takes the shape (more than 16
+    rows, K and N multiples of 8), it is the s8 x s8 -> s32 product;
+    elsewhere float64, where every partial sum is exact. Both give the
+    same integers, rounded once to f32 as XLA's int32 -> f32 cast does."""
+    m, k = x_q.shape
+    n = w_int.shape[1]
+    if x_q.is_cuda and m > 16 and k % 8 == 0 and n % 8 == 0:
+        return torch._int_mm(x_q.contiguous(), w_int.contiguous()).to(torch.float32)
     return (x_q.to(torch.float64) @ w_int.to(torch.float64)).to(torch.float32)
 
 
@@ -76,10 +88,13 @@ def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True) -> t
     Dispatch, in the JAX package's order (``ops/nn.py:85-160``):
     packed int4 + W8A8 + kernels -> W4A8 kernel (K6, not ported: raises
     on CUDA); packed int4 + kernels -> the CUDA int4 kernel; packed int4
-    + W8A8 -> exact s8 contraction; int8 at <= 64 rows + kernels -> int8
-    kernel (K2, not ported: raises on CUDA); int8 + W8A8 -> exact s8
-    contraction; anything else -> dequantize, then a matmul with f32
-    accumulation (plain ``torch.matmul``: XLA did this work on the TPU).
+    + W8A8 -> exact s8 contraction; int8 at <= 64 rows + kernels -> the
+    CUDA int8 kernel; int8 + W8A8 -> exact s8 contraction; anything else
+    -> dequantize, then a matmul with f32 accumulation (plain
+    ``torch.matmul``: XLA did this work on the TPU).
+
+    ``act_quant=False`` keeps this call weight-only under W8A8 (the JAX
+    package's attention projections).
     """
     w = p["w"]
     lead = x.shape[:-1]
@@ -135,3 +150,150 @@ def embedding(p, ids: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     if is_quantized_leaf(w):
         return dequantize(w["w_q"][ids.to(torch.int64)], w["scale"].reshape(-1), dtype=dtype)
     return w[ids.to(torch.int64)].to(dtype)
+
+
+def _same_pads(size: int, window: int, stride: int):
+    out = -(-size // stride)
+    total = max((out - 1) * stride + window - size, 0)
+    return total // 2, total - total // 2
+
+
+def _spatial_pads(padding, h: int, w: int, kh: int, kw: int, stride: int):
+    """JAX padding spec ('SAME', 'VALID', an int or [(lo, hi), (lo, hi)])
+    -> ((top, bottom), (left, right))."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return (0, 0), (0, 0)
+        return _same_pads(h, kh, stride), _same_pads(w, kw, stride)
+    if isinstance(padding, int):
+        return (padding, padding), (padding, padding)
+    (t, b), (l, r) = padding
+    return (int(t), int(b)), (int(l), int(r))
+
+
+def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
+           dtype=torch.bfloat16) -> torch.Tensor:
+    """NHWC conv, ``p = {'w': [kh, kw, in/groups, out] dense or int8, 'b'?}``.
+
+    Products of dtype-rounded operands accumulated in f32, as the JAX
+    path's ``preferred_element_type=float32``; an int8 weight dequantizes
+    first (weight-only). On CUDA at bf16 the conv runs in bf16 through
+    cuDNN, which accumulates in f32 and rounds the output once, as the
+    JAX path does before its bias; elsewhere it runs in f32 on the
+    rounded operands. W8A8 convolutions (s8 activations) are not ported
+    (ROADMAP)."""
+    wnode = p["w"]
+    if is_quantized_leaf(wnode) and _W8A8:
+        raise NotImplementedError(
+            "W8A8 convolutions are not yet ported to the PyTorch package "
+            "(ROADMAP queue 1); serve ResNet weight-only (quantization: int8)"
+        )
+    w = resolve_weight(wnode, dtype)
+    kh, kw = w.shape[0], w.shape[1]
+    (pt, pb), (pl, pr) = _spatial_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
+    xc = x.permute(0, 3, 1, 2)
+    wc = w.permute(3, 2, 0, 1)
+    if x.is_cuda and dtype == torch.bfloat16:
+        xc, wc = xc.to(dtype), wc.to(dtype)
+    else:
+        xc, wc = xc.to(dtype).to(torch.float32), wc.to(torch.float32)
+    if pt == pb and pl == pr:
+        y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), groups=groups)
+    else:
+        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, groups=groups)
+    y = y.permute(0, 2, 3, 1).to(torch.float32)
+    if "b" in p and p["b"] is not None:
+        y = y + p["b"].to(torch.float32)
+    return y.to(dtype)
+
+
+def batch_norm_inference(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference batch norm over the channel (last) axis, in f32, cast
+    back to ``x.dtype``."""
+    scale = p["gamma"].to(torch.float32) * torch.rsqrt(p["var"].to(torch.float32) + eps)
+    shift = p["beta"].to(torch.float32) - p["mean"].to(torch.float32) * scale
+    return (x.to(torch.float32) * scale + shift).to(x.dtype)
+
+
+def layer_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Layer norm over the last axis in f32 with the POPULATION variance
+    (``jnp.var``; ``torch.var`` would default to the unbiased one)."""
+    xf = x.to(torch.float32)
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mean).square().mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * p["gamma"].to(torch.float32) + p["beta"].to(torch.float32)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation (``jax.nn.gelu(approximate=True)``)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _attention(q, k, v, mask, num_heads: int, dtype) -> torch.Tensor:
+    """Multi-head attention over q/k/v [B, S, H*D] with an optional mask
+    ([B, S] with 1 = attend, or [B, 1, Sq, Sk]).
+
+    Kernel gate (the JAX package's, ``ops/nn.py:258-279``): kernels on,
+    head_dim % 64 == 0, S % 128 == 0, S >= 512 and a 2-D mask -> the
+    bidirectional attention kernel with an additive key bias. Otherwise
+    the plain path: f32 scores, -1e9 at masked keys, f32 softmax, the
+    probabilities rounded to the compute dtype before P.V (as
+    ``nn.py:297``; the kernel keeps them in f32). The JAX path's batch
+    chunking against an XLA fusion threshold changes no number; the
+    batch is computed whole here."""
+    b, s, d = q.shape
+    head_dim = d // num_heads
+    if (use_kernels(q) and head_dim % 64 == 0 and s % 128 == 0 and s >= 512
+            and (mask is None or mask.dim() == 2)):
+        if mask is None:
+            key_bias = torch.zeros((b, s), dtype=torch.float32, device=q.device)
+        else:
+            key_bias = torch.where(mask.to(torch.bool), 0.0, -1e9).to(torch.float32)
+        out = pa.bidirectional_attention(
+            q.reshape(b, s, num_heads, head_dim).to(dtype),
+            k.reshape(b, s, num_heads, head_dim).to(dtype),
+            v.reshape(b, s, num_heads, head_dim).to(dtype),
+            key_bias, rep=1, out_dtype=dtype,
+        )
+        return out.reshape(b, s, d)
+
+    def split(t):
+        return t.to(dtype).reshape(b, s, num_heads, head_dim).transpose(1, 2).to(torch.float32)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(head_dim)
+    if mask is not None:
+        mask4 = mask[:, None, None, :] if mask.dim() == 2 else mask
+        logits = torch.where(mask4.to(torch.bool), logits, torch.full_like(logits, -1e9))
+    probs = torch.softmax(logits, dim=-1).to(dtype).to(torch.float32)
+    out = torch.matmul(probs, vh)
+    return out.transpose(1, 2).reshape(b, s, d).to(dtype)
+
+
+def multi_head_attention(p, x: torch.Tensor, mask: Optional[torch.Tensor], num_heads: int,
+                         dtype=torch.bfloat16) -> torch.Tensor:
+    """Post-LN transformer MHA block body: q/k/v projections, attention,
+    output projection; ``p = {'q', 'k', 'v', 'o'}``, each a dense layer.
+    The projections run weight-only (``act_quant=False``) under W8A8, as
+    in the JAX package."""
+    q = dense(p["q"], x, dtype, act_quant=False)
+    k = dense(p["k"], x, dtype, act_quant=False)
+    v = dense(p["v"], x, dtype, act_quant=False)
+    out = _attention(q, k, v, mask, num_heads, dtype)
+    return dense(p["o"], out, dtype, act_quant=False)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: int, padding="SAME") -> torch.Tensor:
+    """NHWC max pool; padding positions hold -inf (``lax.reduce_window``
+    with the max identity)."""
+    (pt, pb), (pl, pr) = _spatial_pads(padding, x.shape[1], x.shape[2], window, window, stride)
+    xc = x.permute(0, 3, 1, 2)
+    if pt or pb or pl or pr:
+        xc = F.pad(xc, (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(xc, kernel_size=window, stride=stride).permute(0, 2, 3, 1)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """[B, H, W, C] -> [B, C], the mean in f32 cast back to ``x.dtype``."""
+    return x.to(torch.float32).mean(dim=(1, 2)).to(x.dtype)

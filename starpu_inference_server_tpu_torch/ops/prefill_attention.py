@@ -1,10 +1,14 @@
-"""Fused prefill attention: causal self-attention and chunked prefill.
+"""Fused prefill attention: causal, chunked-prefill and encoder attention.
 
 - ``causal_attention`` replaces the TPU kernel
   ``starpu_inference_server_tpu/ops/prefill_attention.py:causal_attention``
   (``_causal_kernel``) with ``csrc/causal_attention.cu``.
 - ``chunk_prefill_attention`` replaces ``chunk_prefill_attention``
   (``_chunk_kernel``) with ``csrc/chunk_prefill_attention.cu``.
+- ``bidirectional_attention`` replaces ``bidirectional_attention``
+  (``_bidir_kernel``) with ``csrc/bidirectional_attention.cu``: every
+  query attends every key, under an ADDITIVE key bias (0 / -1e9), so a
+  fully masked sample gives the mean of v and never NaN.
 
 Bound on the H100: at the main-path shapes (256- to 512-row blocks) the
 least time is set by the few MB of inputs and outputs, with the bf16
@@ -30,7 +34,8 @@ import torch
 
 from . import _build
 
-launches = {"causal_attention": 0, "chunk_prefill_attention": 0}
+launches = {"causal_attention": 0, "chunk_prefill_attention": 0,
+            "bidirectional_attention": 0}
 
 _fns = {}
 
@@ -143,4 +148,43 @@ def chunk_prefill_attention(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur,
             _build.stream_ptr(q))
     _build.check(rc, "chunk_prefill_attention")
     launches["chunk_prefill_attention"] += 1
+    return out if out_dtype == q.dtype else out.to(out_dtype)
+
+
+def bidirectional_attention_plain(q, k, v, key_bias, rep: int = 1,
+                                  out_dtype=None) -> torch.Tensor:
+    """softmax(q k^T / sqrt(D) + key_bias) v with f32 q/k/v and f32
+    probabilities (the TPU kernel's arithmetic)."""
+    d = q.shape[-1]
+    out_dtype = out_dtype or q.dtype
+    kf = k.to(torch.float32).repeat_interleave(rep, dim=2)
+    vf = v.to(torch.float32).repeat_interleave(rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kf) / math.sqrt(d)
+    logits = logits + key_bias.to(torch.float32)[:, None, None, :]
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(out_dtype)
+
+
+def bidirectional_attention(q, k, v, key_bias, rep: int = 1, out_dtype=None) -> torch.Tensor:
+    """Encoder self-attention, q [B, T, Hq, D] against k/v [B, T, Hkv, D]
+    with an additive key bias f32 [B, T] (0 = attend, -1e9 = masked)."""
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    if hq != hkv * rep:
+        raise ValueError(f"q {tuple(q.shape)} vs k {tuple(k.shape)}, rep {rep}")
+    if tuple(key_bias.shape) != (b, t):
+        raise ValueError(f"key_bias {tuple(key_bias.shape)} is not [B, T] = [{b}, {t}]")
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return bidirectional_attention_plain(q, k, v, key_bias, rep, out_dtype)
+    _check_kernel_args(q, rep, d, "bidirectional_attention")
+    q, k, v = (a.to(q.dtype).contiguous() for a in (q, k, v))
+    bias = key_bias.to(torch.float32).contiguous()
+    out = torch.empty_like(q)
+    fn = _bound("bidirectional_attention", "sis_bidirectional_attention", 5, 6)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, t, hkv, rep, d, _build.BF16 if q.dtype == torch.bfloat16 else _build.F32,
+            _build.stream_ptr(q))
+    _build.check(rc, "bidirectional_attention")
+    launches["bidirectional_attention"] += 1
     return out if out_dtype == q.dtype else out.to(out_dtype)

@@ -103,6 +103,17 @@ def torch_from_wire(raw: bytes, name: str) -> torch.Tensor:
     return t
 
 
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """Float array -> its bfloat16 bit patterns (uint16), rounded to
+    nearest even as ``tensor.to(torch.bfloat16)`` rounds; NaN stays NaN.
+    Lets a read-only numpy view (a request's bytes) be staged into a
+    bf16 buffer without a torch tensor over it."""
+    f = np.asarray(a, dtype=np.float32)
+    u = np.ascontiguousarray(f).view(np.uint32)
+    rounded = ((u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) >> 16).astype(np.uint16)
+    return np.where(np.isnan(f), np.uint16(0x7FC0), rounded)
+
+
 def wire_name(dtype: Union[np.dtype, torch.dtype, type, str]) -> str:
     """numpy or torch dtype -> wire name."""
     if isinstance(dtype, str):

@@ -1,6 +1,8 @@
 """The port's gRPC server on CPU over a real socket: ModelInfer and
 ModelStreamInfer return the tokens of the port's own engine (modelled on
-tests/e2e/test_decoder_grpc.py)."""
+tests/e2e/test_decoder_grpc.py), and the batch ModelInfer route returns
+the JAX model's outputs for ``add_one`` and a 1-layer BERT (modelled on
+tests/e2e/test_grpc_e2e.py)."""
 
 import asyncio
 import threading
@@ -165,4 +167,153 @@ def test_bad_requests_are_rejected(harness, case):
 
 def test_non_decoder_family_is_not_yet_ported():
     with pytest.raises(UnknownModelFamilyError, match="not yet ported"):
-        InferenceServer(decoder_cfg(family="resnet18"), device="cpu")
+        InferenceServer(decoder_cfg(family="vit_b_16"), device="cpu")
+
+
+# -- the batch ModelInfer route -------------------------------------------------
+
+def batch_cfg(family="add_one", **over):
+    if family == "add_one":
+        model = {"family": "add_one", "compute_dtype": "FP32", "options": {"dims": [4]}}
+        inputs = [{"name": "input", "dims": [4], "dtype": "FP32"}]
+        outputs = [{"name": "output", "dims": [4], "dtype": "FP32"}]
+    else:
+        model = {"family": "bert-base-uncased", "compute_dtype": "FP32",
+                 "options": {"num_layers": 1, "seq_len": 512, "vocab_size": 512}}
+        inputs = [{"name": "input_ids", "dims": [512], "dtype": "INT64"},
+                  {"name": "attention_mask", "dims": [512], "dtype": "INT64"}]
+        outputs = [{"name": "last_hidden_state", "dims": [512, 768], "dtype": "FP32"}]
+    raw = {
+        "name": "m", "model": model, "inputs": inputs, "outputs": outputs,
+        "pool_size": 2, "max_batch_size": 4, "batch_coalesce_timeout_ms": 5,
+        "batching_strategy": "fixed", "fixed_batching": {"batch_size": 4},
+        "max_queue_size": 16, "max_inflight_tasks": 4, "devices": {"lanes_per_device": 2},
+        "metrics_enabled": False, "server": {"address": "127.0.0.1:0"},
+    }
+    raw.update(over)
+    return parse_config(raw)
+
+
+def _infer_request(named_arrays, rid="b"):
+    req = pb.ModelInferRequest(model_name="m", id=rid)
+    for name, arr in named_arrays.items():
+        t = req.inputs.add()
+        t.name, t.datatype = name, {"float32": "FP32", "int64": "INT64"}[arr.dtype.name]
+        t.shape.extend(arr.shape)
+        req.raw_input_contents.append(arr.tobytes())
+    return req
+
+
+def _jax_apply(cfg, arrays):
+    import jax.numpy as jnp
+
+    from starpu_inference_server_tpu.models import build_model as jax_build
+    from starpu_inference_server_tpu.utils.config import ModelSettings as JSettings
+
+    jm = jax_build(JSettings(family=cfg.model.family, compute_dtype="FP32",
+                             options=cfg.model.options), seed=cfg.seed)
+    out = jm.apply({k: jnp.asarray(v) for k, v in arrays.items()})
+    return np.asarray(out[cfg.outputs[0].name])
+
+
+@pytest.fixture(scope="module")
+def add_one_server():
+    with Harness(batch_cfg()) as h:
+        yield h
+
+
+def test_batch_model_infer_coalesces_and_matches_jax(add_one_server):
+    cfg = add_one_server.server.cfg
+    rng = np.random.default_rng(0)
+    xs = [rng.standard_normal((rows, 4)).astype(np.float32) for rows in (1, 2, 1, 3, 1, 1)]
+
+    async def go():
+        async with grpc.aio.insecure_channel(add_one_server.target) as channel:
+            call = channel.unary_unary(
+                "/inference.GRPCInferenceService/ModelInfer",
+                request_serializer=pb.ModelInferRequest.SerializeToString,
+                response_deserializer=pb.ModelInferResponse.FromString)
+            return await asyncio.gather(*(call(_infer_request({"input": x}, rid=str(i)),
+                                               timeout=60) for i, x in enumerate(xs)))
+
+    for i, (x, resp) in enumerate(zip(xs, run(go()))):
+        assert resp.id == str(i) and resp.outputs[0].name == "output"
+        assert list(resp.outputs[0].shape) == [len(x), 4] and resp.outputs[0].datatype == "FP32"
+        got = np.frombuffer(resp.raw_output_contents[0], np.float32).reshape(x.shape)
+        np.testing.assert_array_equal(got, _jax_apply(cfg, {"input": x}))
+        assert resp.server_total_ms >= resp.server_inference_ms >= 0
+        assert resp.server_total_ms > 0 and resp.server_receive_ms > 0
+    stats = run(_unary(add_one_server.target, "ModelStatistics", pb.ModelStatisticsRequest(),
+                       pb.ModelStatisticsResponse)).model_stats[0]
+    assert stats.inference_stats.success.count >= len(xs)
+    assert sum(b.batch_size * b.compute_infer.count for b in stats.batch_stats) >= 9
+
+
+@pytest.mark.parametrize("case", ["wrong_shape", "wrong_dtype", "batch_too_large", "stream"])
+def test_batch_route_rejects_bad_requests(add_one_server, case):
+    x = np.zeros((1, 4), np.float32)
+    method, resp_cls, want = "ModelInfer", pb.ModelInferResponse, \
+        grpc.StatusCode.INVALID_ARGUMENT
+    if case == "wrong_shape":
+        req = _infer_request({"input": np.zeros((1, 5), np.float32)})
+    elif case == "wrong_dtype":
+        req = _infer_request({"input": x})
+        req.inputs[0].datatype = "INT32"
+    elif case == "batch_too_large":
+        req = _infer_request({"input": np.zeros((5, 4), np.float32)})
+
+    if case == "stream":
+        async def go():
+            async with grpc.aio.insecure_channel(add_one_server.target) as channel:
+                call = channel.stream_stream(
+                    "/inference.GRPCInferenceService/ModelStreamInfer",
+                    request_serializer=pb.ModelInferRequest.SerializeToString,
+                    response_deserializer=pb.ModelStreamInferResponse.FromString)
+                # read only: the server aborts before it reads a request, and
+                # a client write racing that abort fails as INTERNAL instead
+                return await call().read()
+
+        with pytest.raises(grpc.aio.AioRpcError) as err:
+            run(go())
+        assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+        return
+    with pytest.raises(grpc.aio.AioRpcError) as err:
+        run(_unary(add_one_server.target, method, req, resp_cls))
+    assert err.value.code() == want
+
+
+def test_full_queue_answers_resource_exhausted():
+    from starpu_inference_server_tpu_torch.core.job import InferenceJob
+
+    with Harness(batch_cfg(max_queue_size=1, max_batch_size=1, pool_size=1,
+                           max_inflight_tasks=1, batching_strategy="disabled")) as h:
+        runner, queue = h.server.runner, h.server.queue
+        runner.collector.stop()  # nothing drains the queue from here on
+        runner.collector.join(timeout=5)
+        parked = InferenceJob({"input": np.zeros((1, 4), np.float32)})
+        queue.push(parked)
+        with pytest.raises(grpc.aio.AioRpcError) as err:
+            run(_unary(h.target, "ModelInfer", _infer_request({"input": np.zeros((1, 4),
+                                                                         np.float32)}),
+                       pb.ModelInferResponse))
+        assert err.value.code() == grpc.StatusCode.RESOURCE_EXHAUSTED
+        assert queue.try_pop() is parked
+        runner.dispatcher.fail_unsubmitted_job(parked, RuntimeError("parked"))
+
+
+def test_batch_model_infer_serves_bert_like_the_jax_model():
+    cfg = batch_cfg("bert")
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, 512, (2, 512)).astype(np.int64)
+    mask = np.ones((2, 512), np.int64)
+    mask[1, 200:] = 0
+    with Harness(cfg) as h:
+        resp = run(_unary(h.target, "ModelInfer",
+                          _infer_request({"input_ids": ids, "attention_mask": mask}),
+                          pb.ModelInferResponse))
+    assert list(resp.outputs[0].shape) == [2, 512, 768]
+    got = np.frombuffer(resp.raw_output_contents[0], np.float32).reshape(2, 512, 768)
+    want = _jax_apply(cfg, {"input_ids": ids, "attention_mask": mask})
+    # the JAX package's own BERT tolerance (test_bidirectional_attention.py)
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert resp.server_inference_ms > 0

@@ -17,19 +17,21 @@ from starpu_inference_server_tpu.ops import nn as jnn
 from starpu_inference_server_tpu.ops import pallas_kernels as jpk
 from starpu_inference_server_tpu.ops import prefill_attention as jpa
 from starpu_inference_server_tpu.ops import quant as jq
+from starpu_inference_server_tpu.ops import stem_kernel as jsk
 from starpu_inference_server_tpu_torch.ops import decode_attention as tda
 from starpu_inference_server_tpu_torch.ops import matmul_kernels as tmk
 from starpu_inference_server_tpu_torch.ops import nn as tnn
 from starpu_inference_server_tpu_torch.ops import prefill_attention as tpa
+from starpu_inference_server_tpu_torch.ops import stem_kernel as tsk
 from starpu_inference_server_tpu_torch.weights import params_from_numpy
 
 
 @pytest.fixture(autouse=True)
 def interpret_mode():
-    for mod in (jpk, jda, jpa):
+    for mod in (jpk, jda, jpa, jsk):
         mod.set_interpret(True)
     yield
-    for mod in (jpk, jda, jpa):
+    for mod in (jpk, jda, jpa, jsk):
         mod.set_interpret(False)
 
 
@@ -64,8 +66,8 @@ def test_dense_int4_matches_jax_int4_matmul(kernels_on, m, k, n):
 @pytest.mark.parametrize("branch", ["w4a8_kernel", "w4a8", "int8_kernel_rows", "w8a8", "dense"])
 def test_dense_dispatch_branches_match_jax(branch):
     """The other four branches of dense's five-way dispatch, on CPU (K2
-    and K6 run their plain versions here; on CUDA they raise until
-    ported)."""
+    and K6 run their plain versions here; on CUDA K2 launches its kernel
+    and K6 raises until ported)."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 3, 128)).astype(np.float32)
     w = rng.standard_normal((128, 96)).astype(np.float32)
@@ -185,3 +187,71 @@ def test_chunk_prefill_attention_matches_jax(start):
                                       out_dtype=torch.float32)
     # the JAX package's own tolerance (test_prefill_attention.py:94)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=1e-4)
+
+
+# -- int8_matmul (K2) ---------------------------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(1, 512, 1000), (8, 512, 1000), (32, 512, 1000),
+                                   (9, 130, 200)])
+def test_int8_matmul_matches_jax(m, k, n):
+    rng = np.random.default_rng(m + n)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w_q, scale = jq.quantize_per_channel(jnp.asarray(rng.standard_normal((k, n)).astype(
+        np.float32)), bits=8)
+    want = np.asarray(jpk.int8_matmul(jnp.asarray(x), w_q, scale))
+    got = tmk.int8_matmul(_t(x), _t(w_q), _t(scale))
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    # the JAX package's own int8 kernel tolerance (test_pallas_kernels.py)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+    # x rounds to bf16 as in the TPU kernel; the rest is exact f32 products
+    xb = np.asarray(jnp.asarray(x, jnp.bfloat16)).astype(np.float32)
+    np.testing.assert_allclose(got.numpy(), (xb @ np.asarray(w_q, np.float32)) * np.asarray(scale),
+                               rtol=1e-5, atol=1e-5)
+    assert tmk.launches["int8_matmul"] == 0
+
+
+# -- bidirectional_attention (K7) ---------------------------------------------
+
+@pytest.mark.parametrize("rep", [1, 2])
+def test_bidirectional_attention_matches_jax(rep):
+    rng = np.random.default_rng(rep)
+    b, t, hkv, d = 3, 512, 2, 64
+    q = (3 * rng.standard_normal((b, t, hkv * rep, d))).astype(np.float32)
+    k = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, t, hkv, d)).astype(np.float32)
+    bias = np.zeros((b, t), np.float32)
+    bias[0, 400:] = -1e9  # padding
+    bias[2] = -1e9        # a fully masked sample (a padding row of a bucket)
+    want = np.asarray(jpa.bidirectional_attention(
+        *(jnp.asarray(a) for a in (q, k, v, bias)), rep=rep, out_dtype=jnp.float32))
+    got = tpa.bidirectional_attention(*(_t(a) for a in (q, k, v, bias)), rep=rep,
+                                      out_dtype=torch.float32)
+    assert np.isfinite(got.numpy()).all() and np.isfinite(want).all()
+    # the JAX package's own tolerance (test_bidirectional_attention.py)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+    # all keys masked: every logit is -1e9 + (a dot lost in its rounding),
+    # so the output is the plain mean of v, as XLA and the TPU kernel give
+    mean_v = np.repeat(v[2].mean(axis=0), rep, axis=0)
+    np.testing.assert_allclose(got.numpy()[2], np.broadcast_to(mean_v, (t, hkv * rep, d)),
+                               rtol=1e-4, atol=1e-4)
+
+
+# -- fused_stem (K8) ----------------------------------------------------------
+
+def test_fused_stem_matches_jax():
+    rng = np.random.default_rng(5)
+    zp = np.zeros((2, 118, 118, 12), np.float32)
+    zp[:, 3:115, 3:115] = rng.standard_normal((2, 112, 112, 12))
+    w = (rng.standard_normal((192, 64)) * 0.1).astype(np.float32)
+    scale = (rng.random(64) + 0.5).astype(np.float32)
+    shift = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    want = np.asarray(jsk.fused_stem(*(jnp.asarray(a) for a in (zp, w, scale, shift)),
+                                     out_dtype=jnp.float32))
+    got = tsk.fused_stem(*(_t(a) for a in (zp, w, scale, shift)), out_dtype=torch.float32)
+    assert got.shape == (2, 56, 56, 64)
+    # bf16 operands, f32 sums in another order: far inside a bf16 ulp
+    np.testing.assert_allclose(got.numpy(), want, rtol=2 ** -8, atol=1e-3)
+    bf = tsk.fused_stem(*(_t(a) for a in (zp, w, scale, shift)))
+    assert bf.dtype == torch.bfloat16
+    np.testing.assert_allclose(bf.float().numpy(), want, rtol=2 ** -7, atol=1e-3)
+    assert tsk.launches["fused_stem"] == 0

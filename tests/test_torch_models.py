@@ -1,0 +1,140 @@
+"""The port's BERT and ResNet against the JAX package's, on the CPU.
+
+Both packages build the model from the same seed (the same numpy
+weights, quantized by each package's own code), run the same numpy
+inputs, with the kernel routes forced on (the JAX package's Pallas
+kernels in interpret mode, the port's plain kernel versions) and off.
+BERT-base runs at full width, 2 layers, s = 512 (so the attention takes
+the bidirectional-attention gate) and a small vocabulary; ResNet-18 at
+full size, batch 2, with the unfused and the fused stem."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from starpu_inference_server_tpu.models import build_model as jax_build
+from starpu_inference_server_tpu.ops import nn as jnn
+from starpu_inference_server_tpu.ops import pallas_kernels as jpk
+from starpu_inference_server_tpu.ops import prefill_attention as jpa
+from starpu_inference_server_tpu.ops import stem_kernel as jsk
+from starpu_inference_server_tpu.utils.config import ModelSettings as JSettings
+from starpu_inference_server_tpu.utils.config import QuantMode as JQuant
+from starpu_inference_server_tpu_torch.models.registry import build_model
+from starpu_inference_server_tpu_torch.ops import matmul_kernels as tmk
+from starpu_inference_server_tpu_torch.ops import nn as tnn
+from starpu_inference_server_tpu_torch.ops import prefill_attention as tpa
+from starpu_inference_server_tpu_torch.ops import stem_kernel as tsk
+from starpu_inference_server_tpu_torch.utils.config import ModelSettings, QuantMode
+
+BERT_OPTS = {"num_layers": 2, "seq_len": 512, "vocab_size": 1024}
+
+
+@pytest.fixture(autouse=True)
+def reset_switches():
+    for mod in (jpk, jpa, jsk):
+        mod.set_interpret(True)
+    yield
+    for mod in (jpk, jpa, jsk):
+        mod.set_interpret(False)
+    jnn.set_use_pallas(False)
+    jnn.set_w8a8(False)
+    tnn.set_use_kernels(None)
+    tnn.set_w8a8(False)
+
+
+def _run_both(family, quant, options, inputs, kernels):
+    """(port output, JAX output) as numpy, FP32 compute."""
+    jm = jax_build(JSettings(family=family, compute_dtype="FP32", quantization=JQuant(quant),
+                             options=options), seed=0)
+    tm = build_model(ModelSettings(family=family, compute_dtype="FP32",
+                                   quantization=QuantMode(quant), options=options),
+                     seed=0, device="cpu")
+    w8a8 = quant == "w8a8"
+    jnn.set_use_pallas(kernels)
+    jnn.set_w8a8(w8a8)
+    tnn.set_use_kernels(kernels)
+    tnn.set_w8a8(w8a8)
+    name = jm.definition.output_specs[0].name
+    want = np.asarray(jm.apply({k: jnp.asarray(v) for k, v in inputs.items()})[name])
+    with torch.inference_mode():
+        got = tm.apply({k: torch.from_numpy(v) for k, v in inputs.items()})[name].numpy()
+    return got, want
+
+
+def _bert_inputs():
+    rng = np.random.default_rng(1)
+    ids = rng.integers(0, BERT_OPTS["vocab_size"], (2, 512)).astype(np.int64)
+    mask = np.ones((2, 512), np.int64)
+    mask[1, 300:] = 0  # a padded sample
+    return {"input_ids": ids, "attention_mask": mask}
+
+
+@pytest.mark.parametrize("kernels", [True, False], ids=["kernels", "plain"])
+@pytest.mark.parametrize("quant", ["none", "int8", "w8a8"])
+def test_bert_base_matches_jax(quant, kernels):
+    before = tpa.launches["bidirectional_attention"]
+    got, want = _run_both("bert-base-uncased", quant, BERT_OPTS, _bert_inputs(), kernels)
+    assert got.shape == (2, 512, 768) and np.isfinite(got).all()
+    if quant == "w8a8":
+        # the per-row int8 activation quantization is exact in both, but an
+        # activation whose f32 value differs in its last bit (sums in
+        # another order) may round to the neighbouring int8 level: one
+        # quantum (1/127 of the row max) moves at that element. A few
+        # percent of outputs move by such flips (max ~0.02 of values
+        # O(1)); the mean stays at the f32 noise level.
+        rel = np.abs(got - want).mean() / np.abs(want).mean()
+        assert rel < 5e-4, rel
+        assert np.abs(got - want).max() < 5e-2
+    else:
+        # the JAX package's own BERT tolerance (test_bidirectional_attention.py),
+        # on every row: padding rows attend the valid keys in both packages
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+    assert tpa.launches["bidirectional_attention"] == before  # CPU never launches
+
+
+def _image():
+    return np.random.default_rng(2).standard_normal((2, 3, 224, 224)).astype(np.float32)
+
+
+# the fused stem is a kernel route: with kernels off both packages take
+# the s2d stem, so that case would repeat the plain s2d one
+@pytest.mark.parametrize("kernels,stem", [(True, "s2d"), (True, "fused"), (False, "s2d")],
+                         ids=["kernels-s2d", "kernels-fused", "plain-s2d"])
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_resnet18_matches_jax(quant, kernels, stem):
+    opts = {"stem_fused": stem == "fused"}
+    got, want = _run_both("resnet18", quant, opts, {"input": _image()}, kernels)
+    assert got.shape == (2, 1000) and np.isfinite(got).all()
+    # f32 convs summed in another order through 20 layers; logits are
+    # O(1), so 1e-3 of their mean magnitude is far above that noise
+    scale = np.abs(want).mean()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * scale)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+    assert tmk.launches["int8_matmul"] == 0 and tsk.launches["fused_stem"] == 0
+
+
+def test_fused_stem_matches_the_unfused_stem():
+    """The JAX package's own check (test_stem_kernel.py) on the port:
+    the fused stem (bf16 stem weights) against the s2d stem in f32."""
+    x = torch.from_numpy(_image())
+    outs = {}
+    for fused in (False, True):
+        m = build_model(ModelSettings(family="resnet18", compute_dtype="FP32",
+                                      options={"stem_fused": fused}), seed=0, device="cpu")
+        tnn.set_use_kernels(True)
+        with torch.inference_mode():
+            outs[fused] = m.apply({"input": x})["output"].numpy()
+    ref, got = outs[False], outs[True]
+    rel = np.abs(got - ref) / (np.abs(ref).mean() + 1e-9)
+    assert rel.mean() < 2e-3, rel.mean()
+    assert (got.argmax(-1) == ref.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("family,options", [
+    ("add_one", {"dims": [3]}), ("identity", {"dims": [3]}), ("matmul", {"dim": 16}),
+])
+def test_small_models_match_jax(family, options):
+    x = np.random.default_rng(3).standard_normal((4, options.get("dim", 3))).astype(np.float32)
+    got, want = _run_both(family, "int8", options, {"input": x}, kernels=True)
+    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)

@@ -3,8 +3,8 @@
 - In a fresh interpreter, importing every module of
   ``starpu_inference_server_tpu_torch`` and ``chip_smoke`` leaves
   ``jax`` and the JAX package out of ``sys.modules``; the engine path
-  (config -> model -> engine, and chip_smoke) also stays clear of
-  ``grpc`` and ``yaml``.
+  (config -> model -> generation engine or batch engine and runner, and
+  chip_smoke) also stays clear of ``grpc`` and ``yaml``.
 - Every file in ``configs/`` parses to the same values in both packages.
 - ``chip_smoke.py`` fails, printing no result, without CUDA and outside
   a checkout.
@@ -39,8 +39,10 @@ import chip_smoke
 ENGINE_PATH = """
 import sys
 from {pkg}.serving.generation import build_generation_engine
+from {pkg}.core.engine import ModelEngine
+from {pkg}.serving.runner import TaskRunner
 from {pkg}.utils.config import parse_config
-from {pkg}.ops import decode_attention, prefill_attention, matmul_kernels, nn
+from {pkg}.ops import decode_attention, prefill_attention, matmul_kernels, nn, stem_kernel
 import chip_smoke
 """
 
