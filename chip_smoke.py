@@ -6,8 +6,8 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then drives two paths and fails
-(exit 1) if any phase fails.
+(one nvcc per source, all at once), then drives three groups of paths
+and fails (exit 1) if any phase fails.
 
 The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
 max_len 1024, int4 weights, int8 KV cache, bf16):
@@ -41,6 +41,28 @@ in code):
    requests at int8 weight-only (BF16) and unquantized at FP32, which
    show where the W8A8 model's gap to the batch-1 apply comes from.
 
+The decoder extras (configs/llama_w4a8.yml, llama_speculative.yml,
+llama_prompt_lookup.yml, llama_paged.yml; llama-1b at full width and
+depth):
+
+7. kernels: int4_matmul_w4a8 (K6), window_decode_attention (K9),
+   paged_decode_attention (K10) and paged_window_decode_attention (K11)
+   at the configs' shapes, checked and timed as in 1;
+8. model: W4A8 llama-1b kernels on vs off (on the int4 tree of phase 1,
+   built after the int4 path so each runs under its own W8A8 mode),
+   launches per decode step; on one int8 tree shared by the other three
+   configs, a verify window against sequential decode steps and the
+   paged steps against the dense ones, launches per step and per verify;
+9. serving: the W4A8 engine (prompts of 40, 200 and 600 tokens among
+   16); the speculative and prompt-lookup engines on the random weights
+   (acceptance and streams identical to a plain engine printed) and
+   rigged with ``copy_model_cycle`` set in code on target and draft
+   (every stream equal to the plain engine's, acceptance above a
+   floor); the paged engine with 64 concurrent requests, a third sharing
+   a 300-token prefix (prefix hits, no leaked page, streams against a
+   dense engine printed); the paged engine with prompt lookup set in
+   code, rigged (streams equal to the plain engine's).
+
 Every serving phase zeroes the launch counters just before its requests
 and reads them just after; each kernel of that path must show > 0.
 
@@ -67,9 +89,16 @@ CONFIG = ROOT / "configs" / "llama_decoder.yml"
 BERT_CONFIG = ROOT / "configs" / "bert_long.yml"
 RESNET_CONFIG = ROOT / "configs" / "resnet18_int8.yml"
 
-# H100 SXM published peaks (dense): HBM3 bytes/s and bf16 tensor FLOP/s
+W4A8_CONFIG = ROOT / "configs" / "llama_w4a8.yml"
+SPEC_CONFIG = ROOT / "configs" / "llama_speculative.yml"
+LOOKUP_CONFIG = ROOT / "configs" / "llama_prompt_lookup.yml"
+PAGED_CONFIG = ROOT / "configs" / "llama_paged.yml"
+
+# H100 SXM published peaks (dense): HBM3 bytes/s, bf16 tensor FLOP/s and
+# int8 tensor OP/s
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
 
 TPU_SITES = {
     "int4_matmul": "starpu_inference_server_tpu/ops/pallas_kernels.py:264",
@@ -79,6 +108,10 @@ TPU_SITES = {
     "int8_matmul": "starpu_inference_server_tpu/ops/pallas_kernels.py:193",
     "bidirectional_attention": "starpu_inference_server_tpu/ops/prefill_attention.py:301",
     "fused_stem": "starpu_inference_server_tpu/ops/stem_kernel.py:109",
+    "int4_matmul_w4a8": "starpu_inference_server_tpu/ops/pallas_kernels.py:319",
+    "window_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:1278",
+    "paged_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:924",
+    "paged_window_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:1010",
 }
 DECODER_KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
                    "chunk_prefill_attention")
@@ -139,9 +172,9 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16):
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16 * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -362,7 +395,7 @@ def read_counts(counters) -> dict:
     return {k: v for table in counters for k, v in table.items()}
 
 
-def model_phase(engine, dev, counters):
+def model_phase(engine, dev, counters, what="int4", tol=1e-1):
     """Returns each kernel's launches in one decode step of the model."""
     import torch
 
@@ -411,12 +444,12 @@ def model_phase(engine, dev, counters):
     require(on.shape == (5, spec.vocab), f"model logits shape {tuple(on.shape)}")
     rel = ((on - off).abs().mean() / off.abs().mean()).item()
     agree = (on.argmax(-1) == off.argmax(-1)).float().mean().item()
-    # the two routes round to bf16 at different places (f32 softmax and
-    # exact int4 weights in the kernels; bf16 probabilities and bf16
-    # dequantized weights off them) through 16 layers; the random-weight
-    # model amplifies those sub-percent differences layer by layer
-    tol = 1e-1
-    print(f"model llama-1b {spec.layers} layers: prefill 300 tokens (chunks of {chunk}) "
+    # int4: the two routes round to bf16 at different places (f32
+    # softmax and exact int4 weights in the kernels; bf16 probabilities
+    # and bf16 dequantized weights off them) through 16 layers; the
+    # random-weight model amplifies those sub-percent differences layer
+    # by layer. W4A8: see W4A8_TOL.
+    print(f"model llama-1b {what} {spec.layers} layers: prefill 300 tokens (chunks of {chunk}) "
           f"+ 4 decode steps, kernels on vs off: mean rel err {rel:.3e} (tol {tol}), "
           f"argmax agreement {agree:.2f}")
     print(f"launches in one decode step: {json.dumps(per_step)}")
@@ -896,9 +929,683 @@ def resnet_path(counters, card):
     return launches, per_forward
 
 
+# -- the decoder extras: W4A8, verify windows, the paged cache -------------------
+
+EXTRA_KERNELS = ("int4_matmul_w4a8", "window_decode_attention", "paged_decode_attention",
+                 "paged_window_decode_attention")
+# model-level limits (mean relative error of logits), set from a first
+# reading on the card with the headroom stated in PERF.md
+# (first readings on one H100 80GB HBM3, 700 W, in parentheses). At BF16
+# every route rounds to bf16 at its own places and the random-weight
+# model amplifies that layer by layer, as for the int4 model (2.3e-2 on
+# vs off): W4A8 kernels on vs off also requantizes activations (5.96e-2);
+# a verify window runs its 80 rows through the dequantize-and-matmul
+# route where a decode step of 16 rows takes int8_matmul (4.36e-2), and
+# with kernels off its attention rounds probabilities to bf16 (5.10e-2);
+# the paged steps differ from the dense ones only in the attention
+# kernel (9.3e-3, 1.04e-2). The FP32 witness shows what is left where
+# the routes agree: f32 sums in another order.
+W4A8_TOL = 1e-1       # W4A8 llama-1b, kernels on vs off (1.7x the reading)
+VERIFY_TOL = 1e-1     # verify_step vs W sequential decode_steps (2.3x)
+VERIFY_KERNEL_TOL = 1e-1  # verify_step, kernels on vs off (2.0x)
+PAGED_TOL = 3e-2      # paged_decode_step / paged_verify_step vs the dense steps (2.9x)
+FP32_TOL = 1e-4       # the FP32 witness (read 2.4e-5, 0 and 1.5e-6: 4.2x the largest)
+RIG_CYCLE = 8         # copy_model_cycle of the rigged runs
+# the rig's greedy output is a permutation cycle of RIG_CYCLE tokens, so
+# a rigged draft and an n-gram lookup both propose it exactly
+RIG_ACCEPT_FLOOR = {"speculative": 0.9, "lookup": 0.9, "paged_lookup": 0.9}
+
+
+def _copies(nbytes: float) -> int:
+    """Copies of a call's inputs that, cycled, make the calls read 120 MB
+    in turn, well past the H100's 50 MB L2: each call then reads its
+    bytes from device memory, as the bound assumes."""
+    return max(1, math.ceil(120e6 / nbytes))
+
+
+def _time_cycled(fn, copies, iters: int = 20):
+    """``time_ms`` of ``fn(i)`` with ``i`` cycling over the copies."""
+    it = iter(range(10 ** 9))
+    return time_ms(lambda: fn(next(it) % copies), iters=iters)
+
+
+def extras_kernel_phase(spec, dev):
+    """K6, K9, K10 and K11 at the shapes their configs give them, held
+    against their plain versions and timed beside the plain version, a
+    library yardstick the port never calls and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+    from starpu_inference_server_tpu_torch.ops.quant import pack_int4, unpack_int4
+
+    g = torch.Generator(device=dev).manual_seed(4242)
+    bf16 = torch.bfloat16
+    hq, hkv, d, rep = spec.q_heads, spec.kv_heads, spec.head_dim, spec.rep
+    rows = {}
+
+    # int4_matmul_w4a8 at M = 16 (the decode step of llama_w4a8.yml), 1
+    # (the lm_head of a prefill) and 256 (a prefill chunk) over every
+    # dense shape. The integer product is exact, so the kernel must equal
+    # the plain version up to the final f32 multiplies: held to the JAX
+    # package's rtol 1e-5, atol 1e-4 per element, and bit equality is
+    # reported. Library: torch._int_mm on the unpacked int8 weight where
+    # its shape rules allow it (M > 16), else torch.matmul bf16 on a
+    # pre-dequantized weight.
+    shapes = {
+        "qkv": (spec.hidden, (hq + 2 * hkv) * d),
+        "o": (hq * d, spec.hidden),
+        "gate_up": (spec.hidden, 2 * spec.intermediate),
+        "down": (spec.intermediate, spec.hidden),
+        "lm_head": (spec.hidden, spec.vocab),
+    }
+    per_shape = []
+    for m in (16, 1, 256):
+        for name, (k, n) in shapes.items():
+            x_q = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+            sx = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+            copies = max(1, math.ceil(120e6 / (k * n // 2)))
+            w4s, scs = [], []
+            for _ in range(copies):
+                w4s.append(pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g,
+                                                   dtype=torch.int8)))
+                scs.append(torch.rand(1, n, device=dev, generator=g) * 0.02 + 1e-3)
+            got = mk.int4_matmul_w4a8(x_q, sx, w4s[0], scs[0])
+            ref = mk.int4_matmul_w4a8_plain(x_q, sx, w4s[0], scs[0])
+            err = max_err(got, ref)
+            worst = ((got - ref).abs() / (1e-4 + 1e-5 * ref.abs())).max().item()
+            exact = bool(torch.equal(got, ref))
+            shape = f"M={m} K={k} N={n}"
+            print(f"kernel int4_matmul_w4a8 {shape} ({name}): max_abs_err={err:.3e}, worst "
+                  f"err/limit {worst:.3f} (limit 1e-4 + 1e-5 |ref|), bit-equal {exact}")
+            require(worst <= 1.0, f"int4_matmul_w4a8 {name} M={m} disagrees with its plain version")
+            ms = _time_cycled(lambda i: mk.int4_matmul_w4a8(x_q, sx, w4s[i], scs[0]), copies)
+            plain_ms = time_ms(lambda: mk.int4_matmul_w4a8_plain(x_q, sx, w4s[0], scs[0]), iters=3)
+            if m > 16:
+                w8 = unpack_int4(w4s[0]).contiguous()
+                lib_ms = time_ms(lambda: torch._int_mm(x_q, w8))
+                library = "torch._int_mm on the unpacked int8 weight (no scales)"
+            else:
+                w8 = (unpack_int4(w4s[0]).float() * scs[0]).to(bf16)
+                xb = (x_q.float() * sx).to(bf16)
+                lib_ms = time_ms(lambda: torch.matmul(xb, w8))
+                library = "torch.matmul bf16 on the pre-dequantized weight"
+            b_ms, b_by = bound_ms(m * k + m * 4 + k * n // 2 + n * 4 + m * n * 4, 2.0 * m * k * n,
+                                  PEAK_INT8)
+            print(f"time int4_matmul_w4a8 {shape} ({name}): kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                  f" ms, {library} {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib_ms, shape=shape, library=library)
+            per_shape.append(dict(layer=name, **row))
+            if name == "gate_up" and m == 16:
+                rows["int4_matmul_w4a8"] = dict(row, per_shape=per_shape)
+            del w4s, scs, w8
+
+    # window_decode_attention at the verify of llama_speculative.yml
+    # (W = 5) and llama_prompt_lookup.yml (W = 9): S = 16, T = 1024, mixed
+    # lengths including 0 and T - W, sharp logits as for decode_attention.
+    # The row reports W = 5. Library: SDPA with a float mask on the
+    # dequantized bf16 cache. The kernel, the plain version and SDPA are
+    # each timed on cycled copies of their cache (``_copies``), so that
+    # every call reads it from device memory.
+    s_, t_ = 16, 1024
+    per_shape = []
+    for w in (5, 9):
+        q = torch.randn(s_, w, hq, d, device=dev, generator=g).to(bf16)
+        lens = torch.randint(0, t_ - w + 1, (s_,), device=dev, generator=g, dtype=torch.int32)
+        lens[0], lens[1] = 0, t_ - w
+        live = (lens.to(torch.int64) + w).sum().item()
+        nbytes = 2 * s_ * w * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_
+        caches = []
+        for _ in range(_copies(nbytes)):
+            caches.append((
+                torch.randint(-127, 128, (s_, t_, hkv, d), device=dev, generator=g,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (s_, t_, hkv, d), device=dev, generator=g,
+                              dtype=torch.int8),
+                torch.rand(s_, t_, hkv, device=dev, generator=g) * 0.03 + 0.05,
+                torch.rand(s_, t_, hkv, device=dev, generator=g) / 127 + 1e-3))
+        got = da.window_decode_attention(q, *caches[0], lens, rep)
+        ref = da.window_decode_attention_plain(q, *caches[0], lens, rep)
+        err = attn_check(f"window_decode_attention S={s_} T={t_} W={w}", got, ref)
+        ms = _time_cycled(lambda i: da.window_decode_attention(q, *caches[i], lens, rep),
+                          len(caches))
+        plain_ms = _time_cycled(
+            lambda i: da.window_decode_attention_plain(q, *caches[i], lens, rep), len(caches),
+            iters=3)
+        last = lens.to(torch.int64)[:, None] + torch.arange(w, device=dev)[None, :]
+        allowed = torch.arange(t_, device=dev)[None, None, :] <= last[:, :, None]
+        mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, float("-inf"))
+        mask = mask[:, None].to(bf16)
+        qt = q.transpose(1, 2)
+        deq = [((kc.float() * ks[..., None]).to(bf16).transpose(1, 2),
+                (vc.float() * vs[..., None]).to(bf16).transpose(1, 2))
+               for kc, vc, ks, vs in caches[:_copies(2 * s_ * t_ * hkv * d * 2)]]
+        lib_ms = _time_cycled(lambda i: F.scaled_dot_product_attention(
+            qt, *deq[i], attn_mask=mask, enable_gqa=True), len(deq))
+        attended = (last + 1).sum().item()
+        b_ms, b_by = bound_ms(nbytes, 4.0 * attended * hq * d)
+        print(f"time window_decode_attention S={s_} W={w}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+              f" ms, sdpa (float mask) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{len(caches)} cache copies cycled")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, shape=f"S={s_} W={w} T={t_} live={live}",
+                   library="scaled_dot_product_attention with a float mask",
+                   copies=len(caches))
+        per_shape.append(row)
+        if w == 5:
+            rows["window_decode_attention"] = dict(row, per_shape=per_shape)
+        del caches, deq
+
+    # paged_decode_attention and paged_window_decode_attention at
+    # llama_paged.yml: S = 64 slots, pages of 256 rows, a pool of 129
+    # pages (page 0 the garbage page), max_pages 4, a shuffled table.
+    # Lengths are mixed (0, a window across a page, up to two pages per
+    # slot so all 64 fit the pool); table entries past a slot's pages
+    # point at page 0, whose scales are NaN here: a read past a length
+    # would show. W = 5 is the verify window of speculate_k 4. No one
+    # PyTorch call reads a page table: the library time is the sequence
+    # gather + dequantize + SDPA. Every call is timed on cycled copies of
+    # the pools, as for window_decode_attention.
+    s_, page, n_pages, mp = 64, 256, 129, 4
+
+    def pool():
+        kp = torch.randint(-127, 128, (n_pages, page, hkv, d), device=dev, generator=g,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, (n_pages, page, hkv, d), device=dev, generator=g,
+                           dtype=torch.int8)
+        ksp = torch.rand(n_pages, page, hkv, device=dev, generator=g) * 0.03 + 0.05
+        vsp = torch.rand(n_pages, page, hkv, device=dev, generator=g) / 127 + 1e-3
+        ksp[0], vsp[0] = float("nan"), float("nan")
+        return kp, vp, ksp, vsp
+
+    pools = [pool()]
+    for w, name in ((1, "paged_decode_attention"), (5, "paged_window_decode_attention")):
+        lens = torch.randint(0, 2 * page - w + 1, (s_,), device=dev, generator=g,
+                             dtype=torch.int32)
+        lens[0], lens[1], lens[2] = 0, page - 2, 2 * page - w
+        perm = (torch.randperm(n_pages - 1, device=dev, generator=g) + 1).tolist()
+        table = torch.zeros(s_, mp, dtype=torch.int32)
+        for i, length in enumerate(lens.tolist()):
+            live_pages = (length + w - 1) // page + 1
+            table[i, :live_pages] = torch.tensor([perm.pop() for _ in range(live_pages)])
+        table = table.to(dev)
+        crossing = int(((lens.to(torch.int64) + w - 1) // page != lens.to(torch.int64) // page).sum())
+        q = torch.randn(s_, w, hq, d, device=dev, generator=g).to(bf16)
+        if w == 1:
+            q = q[:, 0]
+            fn, plain = da.paged_decode_attention, da.paged_decode_attention_plain
+        else:
+            fn, plain = da.paged_window_decode_attention, da.paged_window_decode_attention_plain
+        live = (lens.to(torch.int64) + w).sum().item()
+        nbytes = 2 * s_ * w * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_ * (mp + 1)
+        while len(pools) < _copies(nbytes):
+            pools.append(pool())
+        kp, vp, ksp, vsp = pools[0]
+        got = fn(q, kp, vp, ksp, vsp, table, lens, rep)
+        require(bool(torch.isfinite(got.float()).all()),
+                f"{name} read the garbage page (non-finite output)")
+        # the plain version gathers page 0 and masks it: finite scales there
+        refs = []
+        for kp, vp, ksp, vsp in pools:
+            ks_ref, vs_ref = ksp.clone(), vsp.clone()
+            ks_ref[0], vs_ref[0] = 1.0, 1.0
+            refs.append((kp, vp, ks_ref, vs_ref))
+        ref = plain(q, *refs[0], table, lens, rep)
+        err = attn_check(f"{name} S={s_} page={page} W={w} ({crossing} windows cross a page)",
+                         got, ref)
+        ms = _time_cycled(lambda i: fn(q, *pools[i], table, lens, rep), len(pools))
+        plain_ms = _time_cycled(lambda i: plain(q, *refs[i], table, lens, rep), len(pools),
+                                iters=3)
+        last = lens.to(torch.int64)[:, None] + torch.arange(w, device=dev)[None, :]
+        allowed = torch.arange(mp * page, device=dev)[None, None, :] <= last[:, :, None]
+        mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, float("-inf"))
+        mask = mask[:, None].to(bf16)
+        q4 = q.reshape(s_, w, hq, d).transpose(1, 2)
+        tl = table.to(torch.int64)
+
+        def sequence(i):
+            kp, vp, ks_ref, vs_ref = refs[i]
+            kd = (kp[tl].float() * ks_ref[tl][..., None]).to(bf16).reshape(s_, mp * page, hkv, d)
+            vd = (vp[tl].float() * vs_ref[tl][..., None]).to(bf16).reshape(s_, mp * page, hkv, d)
+            return F.scaled_dot_product_attention(q4, kd.transpose(1, 2), vd.transpose(1, 2),
+                                                  attn_mask=mask, enable_gqa=True)
+
+        lib_ms = _time_cycled(sequence, len(refs))
+        attended = (last + 1).sum().item()
+        b_ms, b_by = bound_ms(nbytes, 4.0 * attended * hq * d)
+        print(f"time {name} S={s_} W={w}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"gather + dequantize + sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{len(pools)} pool copies cycled")
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=lib_ms,
+                          shape=f"S={s_} W={w} page={page} pool={n_pages} live={live}",
+                          library="no one call; sequence gather + dequantize + "
+                                  "scaled_dot_product_attention", copies=len(pools))
+        del refs
+    del pools
+    return rows
+
+
+def _cfg_with(cfg, **options):
+    """``cfg`` with model options replaced (None drops a key)."""
+    opts = dict(cfg.model.options)
+    for key, value in options.items():
+        if value is None:
+            opts.pop(key, None)
+        else:
+            opts[key] = value
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=opts))
+
+
+def _rigged(cfg):
+    """The copy_model_cycle rig set in code on target and draft."""
+    extra = {"copy_model_cycle": RIG_CYCLE}
+    if cfg.model.options.get("draft_variant"):
+        extra["draft_options"] = dict(cfg.model.options.get("draft_options", {}),
+                                      copy_model_cycle=RIG_CYCLE)
+    return _cfg_with(cfg, **extra)
+
+
+def _plain_cfg(cfg):
+    """The same config without speculation (the reference engine)."""
+    return _cfg_with(cfg, draft_variant=None, draft_options=None, draft_params=None,
+                     prompt_lookup_ngram=None)
+
+
+def generate_all(engine, prompts, new, counters, kernels, what, card, absent=()):
+    """Serve ``prompts`` concurrently through ``engine`` (counters zeroed
+    just before, read just after); every kernel of ``kernels`` must have
+    launched and none of ``absent``. Returns (token lists, launches)."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.serving.generation import GenerationRequest
+
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    engine.start()
+    try:
+        t0 = time.perf_counter()
+        reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
+        for r in reqs:
+            engine.submit(r)
+        outs = [r.result(timeout=900) for r in reqs]
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    vocab = engine.spec.vocab
+    for i, out in enumerate(outs):
+        require(len(out) == new, f"{what}: request {i} returned {len(out)} tokens")
+        require(all(0 <= t < vocab for t in out), f"{what}: request {i} out of vocab")
+    for name in kernels:
+        require(launches[name] > 0, f"kernel {name} was not launched on the {what} path")
+    for name in absent:
+        require(launches[name] == 0, f"kernel {name} was launched on the {what} path")
+    step_s = engine.loop_timers["step"]
+    extra = ""
+    if engine.draft_spec is not None or engine.headroom():
+        extra += (f", acceptance {engine.draft_acceptance_rate():.3f} "
+                  f"({engine.accepted_drafts}/{engine.drafted_tokens} drafts)")
+    if engine.prefix_cache:
+        extra += f", prefix hits {engine.prefix_hits} ({engine.prefix_tokens_reused} tokens reused)"
+    print(f"serving {what} on {card}: {len(prompts)} greedy requests, {new} new tokens each, "
+          f"{wall:.2f} s wall, {engine.steps} decode steps or verify windows, {step_s:.2f} s host "
+          f"clock in them = {len(prompts) * (new - 1) / max(step_s, 1e-9):.1f} tok/s (end to end "
+          f"{len(prompts) * new / wall:.1f} tok/s){extra}")
+    print(f"serving {what} launches: {json.dumps({k: v for k, v in launches.items() if v})}")
+    return outs, launches
+
+
+def w4a8_path(int4_params, counters, card, dev):
+    """llama_w4a8.yml on the int4 tree of llama_decoder.yml (same family,
+    weight bits and seed, checked): the model kernels on vs off, launches per decode step,
+    and 16 greedy requests (40, 200 and 600 tokens, the last chunked).
+    Built after the int4 decoder path, whose W8A8 flag was off; this
+    engine turns it on, and int4_matmul must not run."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.registry import QUANT_BITS
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(W4A8_CONFIG))
+    int4_cfg = load_config(str(CONFIG))
+    require(len({(c.model.family, QUANT_BITS[c.model.quantization], c.seed)
+                 for c in (cfg, int4_cfg)}) == 1,
+            "llama_w4a8.yml and llama_decoder.yml no longer share one int4 tree")
+    engine = build_generation_engine(cfg, device=dev, params=int4_params)
+    require(nn._W8A8, "the W4A8 engine did not turn the W8A8 flag on")
+    per_step = model_phase(engine, dev, counters, "w4a8", W4A8_TOL)
+    require(per_step["int4_matmul_w4a8"] == 65 and per_step["int4_matmul"] == 0,
+            f"a W4A8 decode step ran int4_matmul_w4a8 {per_step['int4_matmul_w4a8']} and "
+            f"int4_matmul {per_step['int4_matmul']} times (want 65 and 0)")
+    rng = np.random.default_rng(12)
+    lens = [40, 200, 600] + [64] * (engine.num_slots - 3)
+    prompts = [rng.integers(0, engine.spec.vocab, n).astype(np.int32) for n in lens]
+    _, launches = generate_all(engine, prompts, 24, counters,
+                               ("int4_matmul_w4a8", "decode_attention", "causal_attention",
+                                "chunk_prefill_attention"), "llama_w4a8", card,
+                               absent=("int4_matmul",))
+    del engine
+    torch.cuda.empty_cache()
+    return launches, per_step
+
+
+def _dequantized(tree):
+    """``tree`` with every quantized weight dequantized to f32."""
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.ops.quant import is_quantized_leaf
+
+    if is_quantized_leaf(tree):
+        import torch
+
+        return nn.resolve_weight(tree, torch.float32)
+    if isinstance(tree, dict):
+        return {k: _dequantized(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_dequantized(v) for v in tree]
+    return tree
+
+
+def window_model_phase(params, spec, counters, dev):
+    """llama-1b int8 at full depth on the card: a verify window against W
+    sequential decode steps on the same dense cache, and the paged decode
+    and verify steps against the dense steps on the same contents (a
+    shuffled table of 256-row pages); launches per step and per verify."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models import paged_decoder as pd
+    from starpu_inference_server_tpu_torch.models.decoder import (
+        decode_step, init_cache, prefill, verify_step,
+    )
+    from starpu_inference_server_tpu_torch.ops import nn
+
+    dtype = torch.bfloat16
+    s_, t_, w, page = 16, 1024, 5, 256
+    rng = np.random.default_rng(14)
+    lens = [300, 255, 100, 45]  # slot 1's window crosses into its second page
+    dense = init_cache(spec, s_, t_, device=dev)
+    for slot, n in enumerate(lens):
+        prompt = np.zeros((512,), np.int32)
+        prompt[:n] = rng.integers(0, spec.vocab, n)
+        prefill(spec, params, dense, torch.as_tensor(prompt, device=dev), n, slot, dtype)
+
+    def dense_copy():
+        copy = init_cache(spec, s_, t_, device=dev)
+        for a, b in zip((dense.k, dense.v, dense.k_scale, dense.v_scale),
+                        (copy.k, copy.v, copy.k_scale, copy.v_scale)):
+            for x, y in zip(a, b):
+                y.copy_(x)
+        copy.lengths.copy_(dense.lengths)
+        return copy
+
+    # the same contents in a paged cache: each live slot's rows scattered
+    # into two pool pages of a shuffled table
+    perm = list(rng.permutation(np.arange(1, 129)))
+    rows = [[int(perm.pop()), int(perm.pop()), 0, 0] for _ in lens]
+
+    def paged_copy():
+        paged = pd.init_paged_cache(spec, s_, t_, num_pages=129, page_size=page, device=dev)
+        for slot, row in enumerate(rows):
+            pd.set_table_row(paged, slot, row)
+            for j, pid in enumerate(row[:2]):
+                for a, b in zip((dense.k, dense.v, dense.k_scale, dense.v_scale),
+                                (paged.k, paged.v, paged.k_scale, paged.v_scale)):
+                    for x, y in zip(a, b):
+                        y[pid] = x[slot, j * page:(j + 1) * page]
+        paged.lengths.copy_(dense.lengths)
+        return paged
+
+    paged = paged_copy()
+    verify_cache, verify_plain = dense_copy(), dense_copy()
+    window = torch.as_tensor(rng.integers(0, spec.vocab, (s_, w)).astype(np.int32), device=dev)
+    active = torch.zeros(s_, dtype=torch.bool, device=dev)
+    active[:len(lens)] = True
+    live = slice(0, len(lens))
+
+    def counted(fn, *args, dtype=dtype):
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        out = fn(spec, params, *args, dtype)[1]
+        torch.cuda.synchronize()
+        return out.float(), read_counts(counters)
+
+    ver, per_verify = counted(verify_step, verify_cache, window, active)
+    nn.set_use_kernels(False)
+    try:
+        ver_plain, _ = counted(verify_step, verify_plain, window, active)
+    finally:
+        nn.set_use_kernels(None)
+    seq = []
+    for j in range(w):
+        out, per_step = counted(decode_step, dense, window[:, j], active)
+        seq.append(out)
+    seq = torch.stack(seq, dim=1)
+    pdec, per_paged_step = counted(pd.paged_decode_step, paged, window[:, 0], active)
+    pver, per_paged_verify = counted(pd.paged_verify_step, paged, window[:, 1:], active)
+    for what, got in (("verify", ver), ("paged decode", pdec), ("paged verify", pver)):
+        require(bool(torch.isfinite(got).all()), f"{what} logits are not finite")
+    # FP32 witness: the same steps at FP32 compute on the weights
+    # dequantized to f32 (int8_matmul would round activations to bf16,
+    # and a sub-ulp attention difference would then flip roundings), so
+    # the kernel and plain attention and the dense and paged caches
+    # differ only in the order of f32 sums
+    f32 = torch.float32
+    dense_params = _dequantized(params)
+
+    def counted32(fn, *args):
+        return fn(spec, dense_params, *args, f32)[1].float()
+
+    nn.set_use_kernels(False)
+    try:
+        ver32_plain = counted32(verify_step, dense_copy(), window, active)
+    finally:
+        nn.set_use_kernels(None)
+    ver32 = counted32(verify_step, dense_copy(), window, active)
+    pver32 = counted32(pd.paged_verify_step, paged_copy(), window, active)
+    dec32 = counted32(decode_step, dense_copy(), window[:, 0], active)
+    pdec32 = counted32(pd.paged_decode_step, paged_copy(), window[:, 0], active)
+    del dense_params
+    fp32 = {"verify kernels on vs off": rel_err(ver32[live], ver32_plain[live]),
+            "paged verify vs verify": rel_err(pver32[live], ver32[live]),
+            "paged decode vs decode": rel_err(pdec32[live], dec32[live])}
+    print(f"model llama-1b int8 at FP32 compute (witness): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in fp32.items()) + f" (tol {FP32_TOL})")
+    require(max(fp32.values()) <= FP32_TOL, "the FP32 witness of the verify and paged steps")
+    rel_v = rel_err(ver[live], seq[live])
+    rel_k = rel_err(ver[live], ver_plain[live])
+    rel_pd = rel_err(pdec[live], seq[live, 0])
+    rel_pv = rel_err(pver[live], seq[live, 1:])
+    agree_v = (ver[live].argmax(-1) == seq[live].argmax(-1)).float().mean().item()
+    print(f"model llama-1b int8 {spec.layers} layers, 16 slots ({len(lens)} live, lengths {lens}):"
+          f" verify_step W={w} vs {w} sequential decode_steps: mean rel err {rel_v:.3e} (tol "
+          f"{VERIFY_TOL}), argmax agreement {agree_v:.2f}; verify_step kernels on vs off "
+          f"{rel_k:.3e} (tol {VERIFY_KERNEL_TOL}); on the same contents, paged_decode_step vs "
+          f"decode_step {rel_pd:.3e}, paged_verify_step vs decode_steps {rel_pv:.3e} (tol "
+          f"{PAGED_TOL})")
+    print(f"launches in one verify: {json.dumps({k: v for k, v in per_verify.items() if v})}; "
+          f"one decode step: {json.dumps({k: v for k, v in per_step.items() if v})}; one paged "
+          f"decode step: {json.dumps({k: v for k, v in per_paged_step.items() if v})}; one paged "
+          f"verify: {json.dumps({k: v for k, v in per_paged_verify.items() if v})}")
+    require(rel_v <= VERIFY_TOL, "verify_step disagrees with sequential decode_steps")
+    require(rel_k <= VERIFY_KERNEL_TOL, "verify_step with kernels on and off disagree")
+    require(max(rel_pd, rel_pv) <= PAGED_TOL, "the paged steps disagree with the dense steps")
+    layers = spec.layers
+    require(per_verify["window_decode_attention"] == layers,
+            f"window_decode_attention ran {per_verify['window_decode_attention']} times per verify")
+    require(per_step["decode_attention"] == layers, "decode_attention count per step")
+    require(per_paged_step["paged_decode_attention"] == layers,
+            f"paged_decode_attention ran {per_paged_step['paged_decode_attention']} times per step")
+    require(per_paged_verify["paged_window_decode_attention"] == layers,
+            "paged_window_decode_attention count per verify")
+    return {"window_decode_attention": per_verify["window_decode_attention"],
+            "paged_decode_attention": per_paged_step["paged_decode_attention"],
+            "paged_window_decode_attention": per_paged_verify["paged_window_decode_attention"]}
+
+
+def speculation_path(spec, params, rigged_params, counters, card, dev):
+    """llama_speculative.yml and llama_prompt_lookup.yml, each twice: on
+    the config's random weights (acceptance near 0; streams vs a plain
+    engine of the same weights counted and printed), and rigged with
+    copy_model_cycle (acceptance above a floor; every stream equal to
+    the plain engine's). Returns the random-weight speculative run's
+    launches and the rigged plain streams with their prompts."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    rng = np.random.default_rng(15)
+    vocab = spec.vocab
+    lens = [40, 200] + [64] * 14
+    prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    rig_prompts = [rng.integers(0, vocab, n).astype(np.int32) for n in lens]
+    spec_cfg = load_config(str(SPEC_CONFIG))
+    lookup_cfg = load_config(str(LOOKUP_CONFIG))
+    results = {}
+    plain_runs = {}  # greedy streams do not depend on steps_per_sync: one per tree
+    for what, cfg, tree, prm, new in (
+        ("speculative", spec_cfg, params, prompts, 32),
+        ("lookup", lookup_cfg, params, prompts, 32),
+        ("speculative_rigged", _rigged(spec_cfg), rigged_params, rig_prompts, 48),
+        ("lookup_rigged", _rigged(lookup_cfg), rigged_params, rig_prompts, 48),
+    ):
+        if id(tree) not in plain_runs:
+            plain = build_generation_engine(_plain_cfg(cfg), device=dev, params=tree)
+            plain_runs[id(tree)], _ = generate_all(
+                plain, prm, new, counters, ("int8_matmul", "decode_attention"),
+                f"{what} (plain reference)", card)
+            del plain
+        want = plain_runs[id(tree)]
+        engine = build_generation_engine(cfg, device=dev, params=tree)
+        kernels = ("window_decode_attention", "int8_matmul", "causal_attention")
+        if engine.draft_spec is not None:
+            kernels += ("decode_attention",)
+        got, launches = generate_all(engine, prm, new, counters, kernels, what, card)
+        same = sum(a == b for a, b in zip(got, want))
+        rate = engine.draft_acceptance_rate()
+        print(f"{what}: {same} of {len(prm)} streams identical to the plain engine; "
+              f"acceptance {rate:.3f}")
+        if what.endswith("rigged"):
+            floor = RIG_ACCEPT_FLOOR[what.split("_")[0]]
+            require(same == len(prm), f"{what}: a stream differs from the plain engine's")
+            require(rate >= floor, f"{what}: acceptance {rate:.3f} under the floor {floor}")
+        results[what] = dict(launches=launches, identical=same, acceptance=rate,
+                             blocks=engine.steps, want=want)
+        del engine
+        torch.cuda.empty_cache()
+    return results, rig_prompts
+
+
+def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, card, dev):
+    """llama_paged.yml: 64 concurrent requests, a third sharing a
+    300-token prefix, against a dense engine of the same weights (the
+    dense prefix cache); then the same config with prompt_lookup_ngram
+    set in code, rigged, against the plain rigged streams."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(PAGED_CONFIG))
+    rng = np.random.default_rng(16)
+    vocab = spec.vocab
+    prefix = rng.integers(0, vocab, 300).astype(np.int32)
+    prompts = []
+    for i in range(64):
+        if i % 3 == 0:
+            prompts.append(np.concatenate([prefix, rng.integers(0, vocab, 20).astype(np.int32)]))
+        else:
+            prompts.append(rng.integers(0, vocab, int(rng.integers(40, 200))).astype(np.int32))
+    engine = build_generation_engine(cfg, device=dev, params=params)
+    got, launches = generate_all(engine, prompts, 16, counters,
+                                 ("paged_decode_attention", "int8_matmul"), "llama_paged", card)
+    acct = engine.page_accounting()
+    refs = int((engine._page_refs > 0).sum())
+    print(f"llama_paged pages after the burst: {json.dumps(acct)}; pages with a reference "
+          f"{refs}; prefix hits {engine.prefix_hits}, {engine.prefix_tokens_reused} tokens reused")
+    require(engine.prefix_hits > 0, "llama_paged: no prefix hit")
+    require(acct["live"] == 0 and acct["free"] + acct["retained"] + acct["garbage"] == acct["pool"]
+            and refs == acct["retained"], "llama_paged: pages leaked")
+    paged_stats = dict(prefix_hits=engine.prefix_hits, reused=engine.prefix_tokens_reused,
+                       pages=acct)
+    del engine
+    dense = build_generation_engine(_cfg_with(cfg, kv_page_size=None, kv_pool_pages=None),
+                                    device=dev, params=params)
+    want, _ = generate_all(dense, prompts, 16, counters, ("decode_attention",),
+                           "llama_paged as a dense engine (reference)", card)
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"llama_paged: {same} of {len(prompts)} streams identical to the dense engine "
+          f"(dense prefix hits {dense.prefix_hits})")
+    paged_stats["identical_to_dense"] = same
+    del dense
+    torch.cuda.empty_cache()
+    rig_cfg = _rigged(_cfg_with(cfg, prompt_lookup_ngram=2))
+    engine = build_generation_engine(rig_cfg, device=dev, params=rigged_params)
+    got, lookup_launches = generate_all(engine, rig_prompts, 48, counters,
+                                        ("paged_window_decode_attention", "int8_matmul"),
+                                        "llama_paged + prompt lookup (rigged)", card)
+    rate = engine.draft_acceptance_rate()
+    same = sum(a == b for a, b in zip(got, rig_want))
+    floor = RIG_ACCEPT_FLOOR["paged_lookup"]
+    print(f"llama_paged + prompt lookup (rigged): {same} of {len(got)} streams identical to "
+          f"the plain rigged engine; acceptance {rate:.3f} (floor {floor})")
+    require(same == len(got), "paged + lookup (rigged): a stream differs from the plain engine's")
+    require(rate >= floor, f"paged + lookup (rigged): acceptance {rate:.3f} under {floor}")
+    paged_stats["lookup_rigged_acceptance"] = rate
+    del engine
+    torch.cuda.empty_cache()
+    return launches, lookup_launches, paged_stats
+
+
+def extras_path(spec, int4_params, counters, card, dev):
+    """The model and serving phases of the third group: the W4A8 path;
+    one int8 tree (and its rigged twin) for the speculative, lookup and
+    paged configs, which share family, bits and seed."""
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    w4a8_launches, w4a8_step = w4a8_path(int4_params, counters, card, dev)
+    cfgs = [load_config(str(p)) for p in (SPEC_CONFIG, LOOKUP_CONFIG, PAGED_CONFIG)]
+    require(len({(c.model.family, c.model.quantization, c.seed) for c in cfgs}) == 1,
+            "the int8 configs no longer share one tree")
+    t0 = time.perf_counter()
+    params = build_model(cfgs[0].model, seed=cfgs[0].seed, device=dev).params
+    rigged = build_model(_rigged(cfgs[0]).model, seed=cfgs[0].seed, device=dev).params
+    print(f"int8 llama-1b trees (random and rigged) built in {time.perf_counter() - t0:.1f} s")
+    per_step = window_model_phase(params, spec, counters, dev)
+    spec_results, rig_prompts = speculation_path(spec, params, rigged, counters, card, dev)
+    paged_launches, lookup_launches, paged_stats = paged_path(
+        spec, params, rigged, rig_prompts, spec_results["lookup_rigged"]["want"], counters, card,
+        dev)
+    launches = {
+        "int4_matmul_w4a8": w4a8_launches["int4_matmul_w4a8"],
+        "window_decode_attention": spec_results["speculative"]["launches"][
+            "window_decode_attention"],
+        "paged_decode_attention": paged_launches["paged_decode_attention"],
+        "paged_window_decode_attention": lookup_launches["paged_window_decode_attention"],
+    }
+    per_step["int4_matmul_w4a8"] = w4a8_step["int4_matmul_w4a8"]
+    summary = {k: {kk: vv for kk, vv in v.items() if kk not in ("want", "launches")}
+               for k, v in spec_results.items()}
+    summary["paged"] = paged_stats
+    print(f"extras summary: {json.dumps(summary)}")
+    return launches, per_step
+
+
 def main() -> int:
     pkg = ROOT / "starpu_inference_server_tpu_torch"
-    if not pkg.is_dir() or not all(c.is_file() for c in (CONFIG, BERT_CONFIG, RESNET_CONFIG)):
+    configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
+               PAGED_CONFIG)
+    if not pkg.is_dir() or not all(c.is_file() for c in configs):
         print("chip_smoke: FAIL: run from a checkout of the repository "
               "(starpu_inference_server_tpu_torch/ and configs/ not found)", file=sys.stderr)
         return 1
@@ -937,6 +1644,7 @@ def main() -> int:
     rows = kernel_phase(engine.spec, cfg.model.options, dev)
     per_step = model_phase(engine, dev, counters)
     launches = serving_phase(engine, counters, card)
+    spec, int4_params = engine.spec, engine.params  # the W4A8 path reuses the int4 tree
     del engine
     torch.cuda.empty_cache()
 
@@ -948,11 +1656,18 @@ def main() -> int:
     for name in RESNET_KERNELS:
         launches[name] = resnet_launches[name]
 
+    rows.update(extras_kernel_phase(spec, dev))
+    extra_launches, extra_step = extras_path(spec, int4_params, counters, card, dev)
+    launches.update(extra_launches)
+
     kernels = []
     for name in _build.KERNELS:
         r = rows[name]
         if name in DECODER_KERNELS:
             extra = {"launches_per_decode_step": per_step[name]}
+        elif name in EXTRA_KERNELS:
+            per = "verify" if "window" in name else "decode_step"
+            extra = {f"launches_per_{per}": extra_step[name], "library": r["library"]}
         else:
             forward = bert_forward if name in BERT_KERNELS else resnet_forward
             extra = {"launches_per_forward": forward[name], "library": r["library"]}

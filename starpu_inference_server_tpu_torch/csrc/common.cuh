@@ -144,4 +144,213 @@ struct FlashRow {
   }
 };
 
+// ---------------------------------------------------------------------------
+// Window attention over the int8 KV cache: the body shared by
+// window_decode_attention (dense cache, W query rows per slot),
+// paged_decode_attention (page table, W = 1) and
+// paged_window_decode_attention (page table, W rows).
+//
+//   q / out [S, W, Hq, D] (bf16 or f32); k / v int8 rows [.., Hkv, D] and
+//   k / v scales f32 [.., Hkv], addressed per (slot, position) by `Rows`;
+//   lengths int32 [S]. Row w of slot s sits at position lengths[s] + w and
+//   attends positions <= lengths[s] + w (the verify mask; W = 1 is the
+//   decode mask). GQA: query head h*rep + r reads KV head h.
+//
+// One block per (KV head, slot) serves all W * rep query rows of the head,
+// so each K/V byte is read from device memory once per call, not once per
+// window row. The chunk loop stops at the window's last live position,
+// lengths[s] + W - 1. Per 64-position chunk: K and V are dequantized into
+// shared memory as f32 (the scale applied once per element), every (row,
+// position) logit is one thread's dot product, one warp per row runs the
+// online-softmax update, and each thread accumulates fixed (row, d)
+// outputs in registers.
+// ---------------------------------------------------------------------------
+
+constexpr int kWinCH = 64;       // positions per staged chunk
+constexpr int kWinThreads = 256;
+constexpr int kWinMaxOut = 16;   // W * rep * D <= kWinMaxOut * kWinThreads
+
+inline size_t window_smem_bytes(int R, int D) {
+  return sizeof(float) * ((size_t)kWinCH * (D + 1) + (size_t)kWinCH * D + (size_t)R * D +
+                          (size_t)R * kWinCH + 3 * (size_t)R);
+}
+
+inline bool window_shape_ok(int R, int D) {
+  return D % 16 == 0 && R >= 1 && R * D <= kWinMaxOut * kWinThreads &&
+         window_smem_bytes(R, D) <= 227 * 1024;
+}
+
+// row index (into [.., Hkv, D] rows) of position `pos` of slot `s`
+struct DenseRows {
+  int T;
+  __device__ __forceinline__ size_t operator()(int s, int pos) const {
+    return (size_t)s * T + pos;
+  }
+};
+
+// through the page table: logical position pos lives in pool page
+// table[s, pos / page] at row pos % page
+struct PagedRows {
+  const int* table;
+  int max_pages;
+  int page;
+  __device__ __forceinline__ size_t operator()(int s, int pos) const {
+    return (size_t)table[(size_t)s * max_pages + pos / page] * page + pos % page;
+  }
+};
+
+template <typename TQ, typename Rows>
+__device__ __forceinline__ void window_attention(
+    const TQ* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ lengths, TQ* __restrict__ out, Rows rows, int T, int W, int Hkv,
+    int rep, int D, float inv_sqrt_d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int R = W * rep;
+  const int KP = D + 1;  // padded K rows: a warp's 32 positions hit 32 banks
+  float* k_s = reinterpret_cast<float*>(smem);  // [CH][D+1]
+  float* v_s = k_s + kWinCH * KP;               // [CH][D]
+  float* q_s = v_s + kWinCH * D;                // [R][D]
+  float* p_s = q_s + R * D;                     // [R][CH]
+  float* m_s = p_s + R * kWinCH;                // [R]
+  float* l_s = m_s + R;                         // [R]
+  float* a_s = l_s + R;                         // [R]
+
+  const int h = blockIdx.x;
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int hq = Hkv * rep;
+  const int len = lengths[s];
+  int n = len + W;  // positions 0 .. len + W - 1 are live for some row
+  n = n < 1 ? 1 : (n > T ? T : n);
+
+  // row r = w * rep + rr holds q[s, w, h * rep + rr, :]
+  for (int i = tid; i < R * D; i += kWinThreads) {
+    const int r = i / D;
+    const int w = r / rep;
+    q_s[i] = to_f(q[(((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + i % D]);
+  }
+  if (tid < R) {
+    m_s[tid] = kNeg;
+    l_s[tid] = 0.f;
+  }
+  float acc[kWinMaxOut];
+#pragma unroll
+  for (int j = 0; j < kWinMaxOut; ++j) acc[j] = 0.f;
+  __syncthreads();
+
+  const int segs = D / 16;
+  for (int c0 = 0; c0 < n; c0 += kWinCH) {
+    const int nc = min(kWinCH, n - c0);
+    // stage the chunk's K and V, dequantized, 16 int8 values per load
+    for (int i = tid; i < kWinCH * segs; i += kWinThreads) {
+      const int j = i / segs;
+      const int sg = i % segs;
+      float* kd = k_s + j * KP + sg * 16;
+      float* vd = v_s + j * D + sg * 16;
+      if (j < nc) {
+        const size_t row = rows(s, c0 + j) * Hkv + h;
+        const int4 kraw = *reinterpret_cast<const int4*>(k + row * D + sg * 16);
+        const int4 vraw = *reinterpret_cast<const int4*>(v + row * D + sg * 16);
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&kraw);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&vraw);
+        const float ksc = ks[row];
+        const float vsc = vs[row];
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          kd[e] = static_cast<float>(kb[e]) * ksc;
+          vd[e] = static_cast<float>(vb[e]) * vsc;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          kd[e] = 0.f;
+          vd[e] = 0.f;
+        }
+      }
+    }
+    __syncthreads();
+    // logits: row r attends positions <= len + r / rep
+    for (int i = tid; i < R * kWinCH; i += kWinThreads) {
+      const int r = i / kWinCH;
+      const int j = i % kWinCH;
+      float logit = kNeg;
+      if (j < nc && c0 + j <= len + r / rep) {
+        const float* qr = q_s + r * D;
+        const float* kr = k_s + j * KP;
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        logit = dot * inv_sqrt_d;
+      }
+      p_s[i] = logit;
+    }
+    __syncthreads();
+    // online-softmax update, one warp per row
+    for (int r = warp; r < R; r += kWinThreads / 32) {
+      float* pr = p_s + r * kWinCH;
+      const float v0 = pr[lane];
+      const float v1 = pr[lane + 32];
+      const float cmax = warp_max(fmaxf(v0, v1));
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, cmax);
+      const float p0 = expf(v0 - m_new);
+      const float p1 = expf(v1 - m_new);
+      pr[lane] = p0;
+      pr[lane + 32] = p1;
+      const float psum = warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[r] = alpha;
+        l_s[r] = alpha * l_s[r] + psum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // acc[(r, d)] = acc * alpha[r] + sum_j p[r, j] * v[j, d]
+#pragma unroll
+    for (int jo = 0; jo < kWinMaxOut; ++jo) {
+      const int o = tid + jo * kWinThreads;
+      if (o < R * D) {
+        const int r = o / D;
+        const int d = o % D;
+        const float* pr = p_s + r * kWinCH;
+        float a = acc[jo] * a_s[r];
+        for (int j = 0; j < nc; ++j) a = fmaf(pr[j], v_s[j * D + d], a);
+        acc[jo] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int jo = 0; jo < kWinMaxOut; ++jo) {
+    const int o = tid + jo * kWinThreads;
+    if (o < R * D) {
+      const int r = o / D;
+      const int w = r / rep;
+      const size_t dst = (((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + o % D;
+      out[dst] = from_f<TQ>(acc[jo] / fmaxf(l_s[r], 1e-30f));
+    }
+  }
+}
+
+// Launch `kernel` (a __global__ wrapper of window_attention) on a
+// (Hkv, S) grid; raises the dynamic shared-memory limit when the window
+// needs more than the default 48 KB.
+template <typename Kernel, typename... Args>
+inline int launch_window(Kernel kernel, int S, int Hkv, int R, int D, cudaStream_t stream,
+                         Args... args) {
+  if (!window_shape_ok(R, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = window_smem_bytes(R, D);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<dim3(Hkv, S), kWinThreads, smem, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace sis

@@ -4,8 +4,10 @@ Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 
     python -m starpu_inference_server_tpu_torch.grpc.server --config configs/resnet18_int8.yml
 
-Decoder families get the continuous-batching generation engine; every
-other family gets the batch pipeline: ``ModelEngine``, the bounded
+Decoder families get the continuous-batching generation engine (with
+its draft model, prompt lookup, paged cache and prefix cache as the
+config's options ask, see ``serving/generation.py:build_generation_engine``);
+every other family gets the batch pipeline: ``ModelEngine``, the bounded
 ``InferenceQueue`` and the ``TaskRunner`` (collector, lanes,
 dispatcher), warmed up by ``TaskRunner.warmup()``. It serves on the GPU
 (``cuda``); ``InferenceServer(cfg, device="cpu")`` serves on the CPU, as
@@ -90,11 +92,12 @@ class InferenceServer:
             watch = StopWatch()
             # one prompt per prefill bucket, and one a token past the
             # chunk size, so every path has run once before traffic
+            room = eng.headroom()
             for bucket in eng.prefill_buckets:
-                if bucket + 2 <= eng.max_len:
+                if bucket + 2 + room <= eng.max_len:
                     eng.generate(np.ones((bucket,), np.int32), max_new_tokens=2, timeout=1800.0)
             chunk = eng.prefill_chunk
-            if chunk and chunk + 3 <= eng.max_len:
+            if chunk and chunk + 3 + room <= eng.max_len:
                 eng.generate(np.ones((chunk + 1,), np.int32), max_new_tokens=2, timeout=1800.0)
             log.info("decoder warmup in %.1f ms", watch.elapsed_ms())
         self.servicer.ready.set()

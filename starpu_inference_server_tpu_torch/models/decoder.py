@@ -4,10 +4,10 @@ Counterpart of ``starpu_inference_server_tpu/models/decoder.py``: the
 same variants, parameter tree (fused qkv and gate_up projections), RNG
 order, RMSNorm, half-split rotary embedding, per-(token, head) int8 KV
 quantization and the same ``forward_logits`` / ``prefill`` /
-``prefill_chunk`` / ``decode_step`` contracts, with the same kernel
-gates. Where a gate is closed the attention runs the JAX package's jnp
-path, written in torch (-1e9 masks, probabilities cast to the compute
-dtype).
+``prefill_chunk`` / ``decode_step`` / ``verify_step`` contracts, with the
+same kernel gates, and the ``copy_model_cycle`` benchmark rig. Where a
+gate is closed the attention runs the JAX package's jnp path, written in
+torch (-1e9 masks, probabilities cast to the compute dtype).
 
 PyTorch runs eagerly and its tensors are mutable, so the cache is
 updated IN PLACE: where the JAX functions returned a new cache whose
@@ -198,12 +198,13 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 # -- kernel gates (decoder.py:622-652) ---------------------------------------
 
 def _use_fused_decode_attention(spec: DecoderSpec, t_max: int, ref: torch.Tensor) -> bool:
-    return (
-        nn.use_kernels(ref)
-        and spec.head_dim >= 64
-        and t_max % 128 == 0
-        and spec.q_heads % spec.kv_heads == 0
-    )
+    """Decode and verify attention. On the card the kernels take any
+    ``t_max`` (shapes outside their own limits raise in the wrapper);
+    where the kernel routes are forced on CPU tensors, the JAX package's
+    TPU tiling gate applies, so parity tests route as JAX does."""
+    if not nn.use_kernels(ref) or spec.q_heads % spec.kv_heads:
+        return False
+    return ref.is_cuda or (spec.head_dim >= 64 and t_max % 128 == 0)
 
 
 def _use_fused_prefill_attention(spec: DecoderSpec, seq: int, ref: torch.Tensor,
@@ -324,6 +325,7 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     cur_mask = torch.ones((c, c), dtype=torch.bool, device=dev).tril()[None, None]
     inv = 1.0 / math.sqrt(spec.head_dim)
     rep = spec.rep
+    fit = min(c, t_max - start)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
         qf, kf, vf = _project_qkv(spec, layer, h, dtype)
@@ -332,10 +334,12 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
         v = vf.reshape(1, c, spec.kv_heads, spec.head_dim)
         kq, kscale = _quantize_kv(k[0])
         vq, vscale = _quantize_kv(v[0])
-        cache.k[li][slot, start:start + c] = kq
-        cache.v[li][slot, start:start + c] = vq
-        cache.k_scale[li][slot, start:start + c] = kscale
-        cache.v_scale[li][slot, start:start + c] = vscale
+        # a chunk that starts at a prefix-cache hit may run past t_max:
+        # only padding rows lie there, so only the rows that fit are written
+        cache.k[li][slot, start:start + fit] = kq[:fit]
+        cache.v[li][slot, start:start + fit] = vq[:fit]
+        cache.k_scale[li][slot, start:start + fit] = kscale[:fit]
+        cache.v_scale[li][slot, start:start + fit] = vscale[:fit]
         row_ck, row_cv = cache.k[li][slot], cache.v[li][slot]
         row_cks, row_cvs = cache.k_scale[li][slot], cache.v_scale[li][slot]
         if _use_fused_prefill_attention(spec, t_max, ids, min_seq=512):
@@ -426,6 +430,95 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     return cache, logits
 
 
+# -- verify: score a window of draft tokens against the model --------------
+
+def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
+                active: torch.Tensor, dtype):
+    """Speculative-decoding verification: advance every active slot ``W``
+    tokens in one call. ``ids`` int [S, W] (row i's token sits at
+    ``lengths + i``), ``active`` bool [S]. Returns (cache, logits f32
+    [S, W, vocab]).
+
+    The KV of all ``W`` positions is written first (rows ``lengths ..
+    lengths+W-1``), then attended: every key, the in-window ones too,
+    round-trips the int8 cache, so the numbers are those of ``W``
+    sequential ``decode_step``s. ``lengths`` is NOT advanced: the caller
+    commits the accepted prefix. Inactive slots park their writes at
+    ``t_max-1``, as in ``decode_step``."""
+    s, w = ids.shape
+    dev = ids.device
+    start = cache.lengths.clone()
+    positions = start[:, None] + torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    x = nn.embedding(params["embed"], ids, dtype)  # [S, W, D]
+    t_max = cache.max_len
+    key_pos = torch.arange(t_max, device=dev)
+    # query row i attends positions <= lengths + i
+    mask = key_pos[None, None, None, :] <= positions.to(torch.int64)[:, None, :, None]
+    slot_idx = torch.arange(s, device=dev)[:, None]
+    # past t_max only inside a window that ran out of admission headroom
+    # (never under the engine's contract): clamp instead of raising
+    write_pos = torch.where(active[:, None], positions,
+                            torch.full_like(positions, t_max - 1)).clamp(max=t_max - 1)
+    write_pos = write_pos.to(torch.int64)
+    inv = 1.0 / math.sqrt(spec.head_dim)
+    rep = spec.rep
+    fused = _use_fused_decode_attention(spec, t_max, ids)
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(layer["attn_norm"], x)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
+        q = rope(qf.reshape(s, w, spec.q_heads, spec.head_dim), positions)
+        k = rope(kf.reshape(s, w, spec.kv_heads, spec.head_dim), positions)
+        v = vf.reshape(s, w, spec.kv_heads, spec.head_dim)
+        kq, kscale = _quantize_kv(k)  # [S, W, H, D], [S, W, H]
+        vq, vscale = _quantize_kv(v)
+        cache.k[li][slot_idx, write_pos] = kq
+        cache.v[li][slot_idx, write_pos] = vq
+        cache.k_scale[li][slot_idx, write_pos] = kscale
+        cache.v_scale[li][slot_idx, write_pos] = vscale
+        if fused:
+            from ..ops.decode_attention import window_decode_attention
+
+            attn = window_decode_attention(
+                q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li], start,
+                rep=rep,
+            ).reshape(s, w, spec.q_heads * spec.head_dim).to(dtype)
+        else:
+            k_all = _dequantize_kv(cache.k[li], cache.k_scale[li], dtype).repeat_interleave(rep, dim=2)
+            v_all = _dequantize_kv(cache.v[li], cache.v_scale[li], dtype).repeat_interleave(rep, dim=2)
+            logits = torch.einsum("swhd,skhd->shwk", _f32(q), _f32(k_all)) * inv
+            logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
+            probs = _softmax_cast(logits, dtype)
+            attn = torch.einsum("shwk,skhd->swhd", probs, _f32(v_all)).reshape(
+                s, w, spec.q_heads * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+        h = rms_norm(layer["mlp_norm"], x)
+        x = x + _fused_mlp(layer, h, dtype)
+    x = rms_norm(params["final_norm"], x)
+    logits = nn.dense(params["lm_head"], x.reshape(s * w, -1), dtype)
+    return cache, logits.reshape(s, w, spec.vocab).to(torch.float32)
+
+
+def rig_copy_model(spec: DecoderSpec, params, cycle_len: int):
+    """Benchmark rig on a numpy tree (the JAX package's
+    ``rig_copy_model``): zero every layer's ``o`` and ``down`` weights, so
+    the residual stream stays the token embedding, and make the lm head
+    the permuted embedding, so GREEDY output follows permutation cycles
+    of ``cycle_len`` tokens while every matmul keeps its full shape.
+    Drives the accept-and-commit machinery of speculation with long
+    accepted windows; never enable for accuracy work."""
+    cycle = int(cycle_len)
+    v = spec.vocab - spec.vocab % cycle
+    perm = np.arange(spec.vocab)
+    blocks = perm[:v].reshape(-1, cycle)
+    perm[:v] = np.roll(blocks, -1, axis=1).reshape(-1)
+    inv = np.argsort(perm)
+    for layer in params["layers"]:
+        layer["attn"]["o"]["w"][:] = 0
+        layer["mlp"]["down"]["w"][:] = 0
+    params["lm_head"]["w"] = np.ascontiguousarray(params["embed"]["w"][inv].T)
+    return params
+
+
 # -- registry glue ---------------------------------------------------------
 
 def get_spec(variant: str, options) -> DecoderSpec:
@@ -448,10 +541,15 @@ def get_spec(variant: str, options) -> DecoderSpec:
 
 
 def _build_decoder(variant: str, options) -> ModelDefinition:
-    if int(options.get("copy_model_cycle", 0)):
-        raise NotImplementedError("copy_model_cycle (benchmark rig) is not yet ported")
     spec = get_spec(variant, options)
     seq_len = int(options.get("seq_len", 128))
+    copy_cycle = int(options.get("copy_model_cycle", 0))
+
+    def init(rng):
+        params = init_params(spec, rng)
+        if copy_cycle:
+            params = rig_copy_model(spec, params, copy_cycle)
+        return params
 
     def apply(params, inputs, dtype):
         ids = inputs["input_ids"].to(torch.int64)
@@ -459,7 +557,7 @@ def _build_decoder(variant: str, options) -> ModelDefinition:
 
     return ModelDefinition(
         family=variant,
-        init_params=lambda rng: init_params(spec, rng),
+        init_params=init,
         apply=apply,
         input_specs=(TensorSpec("input_ids", (seq_len,), "INT64"),),
         output_specs=(TensorSpec("logits", (seq_len, spec.vocab), "FP32"),),

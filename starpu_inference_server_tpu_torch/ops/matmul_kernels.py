@@ -21,9 +21,13 @@ Beside each kernel, a ``*_plain`` function computes the same function
 in plain PyTorch: CPU tensors take it, and on the card it only serves as
 the reference the kernel is checked against.
 
-``int4_matmul_w4a8`` (K6) is not ported yet (ROADMAP, the W4A8 decoder
-slice): its plain version serves CPU tensors, and CUDA tensors raise
-``NotImplementedError``.
+``int4_matmul_w4a8`` replaces the TPU kernel
+``starpu_inference_server_tpu/ops/pallas_kernels.py:int4_matmul_w4a8``
+(``_int4_w4a8_kernel``) with ``csrc/int4_matmul_w4a8.cu``. Bound on the
+H100: at decode (M = 16) the packed weight bytes; design: int8
+activations and unpacked int4 weights in shared memory as words of four
+k values, contracted with ``__dp4a`` into exact int32 sums, scaled once
+by ``x_scale[m] * scale[n]`` (see the source).
 """
 
 from __future__ import annotations
@@ -34,15 +38,15 @@ from . import _build
 from .quant import unpack_int4
 
 # launches of the CUDA kernel (not of the plain version)
-launches = {"int4_matmul": 0, "int8_matmul": 0}
+launches = {"int4_matmul": 0, "int8_matmul": 0, "int4_matmul_w4a8": 0}
 
 _fns = {}
 
 
-def _bound(name: str, symbol: str):
+def _bound(name: str, symbol: str, n_ptrs: int = 4, n_ints: int = 4):
     fn = _fns.get(name)
     if fn is None:
-        fn = _fns[name] = _build.bind(name, symbol, 4, 4)
+        fn = _fns[name] = _build.bind(name, symbol, n_ptrs, n_ints)
     return fn
 
 
@@ -135,12 +139,36 @@ def int4_matmul_w4a8_plain(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 def int4_matmul_w4a8(x_q: torch.Tensor, x_scale: torch.Tensor,
                      w_p4: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    if x_q.is_cuda:
-        raise NotImplementedError(
-            "int4_matmul_w4a8 (TPU kernel K6) has no CUDA kernel yet: "
-            "ROADMAP queue 1, the W4A8 decoder slice (configs/llama_w4a8.yml)"
-        )
-    return int4_matmul_w4a8_plain(x_q, x_scale, w_p4, scale)
+    """y = (x_q[M,K] @ unpack(w_p4[K//2,N])) * x_scale[M,1] * scale[1,N],
+    f32 output, the integer contraction exact.
+
+    CUDA tensors launch the kernel; CPU tensors take the plain version."""
+    m, k = x_q.shape
+    khalf, n = w_p4.shape
+    if k != 2 * khalf:
+        raise ValueError(f"x_q {tuple(x_q.shape)} does not match packed w {tuple(w_p4.shape)}")
+    if not x_q.is_cuda:
+        return int4_matmul_w4a8_plain(x_q, x_scale, w_p4, scale)
+    if x_q.dtype != torch.int8:
+        raise TypeError(f"int4_matmul_w4a8 takes int8 activations, got {x_q.dtype}")
+    if w_p4.dtype != torch.uint8 or not w_p4.is_cuda:
+        raise TypeError("int4_matmul_w4a8 needs a uint8 packed weight on the same device")
+    x_q = x_q.contiguous()
+    w_p4 = w_p4.contiguous()
+    x_scale = x_scale.reshape(-1).to(torch.float32).contiguous()
+    scale = scale.reshape(-1).to(torch.float32).contiguous()
+    if x_scale.numel() != m or scale.numel() != n:
+        raise ValueError(f"scales of {x_scale.numel()} rows and {scale.numel()} columns "
+                         f"for a [{m}, {n}] product")
+    y = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
+    if m == 0:
+        return y
+    rc = _bound("int4_matmul_w4a8", "sis_int4_matmul_w4a8", 5, 3)(
+        x_q.data_ptr(), x_scale.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        m, n, k, _build.stream_ptr(x_q))
+    _build.check(rc, "int4_matmul_w4a8")
+    launches["int4_matmul_w4a8"] += 1
+    return y
 
 
 __all__ = [

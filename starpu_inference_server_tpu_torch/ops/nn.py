@@ -86,8 +86,8 @@ def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True) -> t
     """y = x @ w + b with ``p = {'w': [in, out] dense or quantized, 'b'?}``.
 
     Dispatch, in the JAX package's order (``ops/nn.py:85-160``):
-    packed int4 + W8A8 + kernels -> W4A8 kernel (K6, not ported: raises
-    on CUDA); packed int4 + kernels -> the CUDA int4 kernel; packed int4
+    packed int4 + W8A8 + kernels -> the CUDA W4A8 kernel (K6); packed
+    int4 + kernels -> the CUDA int4 kernel; packed int4
     + W8A8 -> exact s8 contraction; int8 at <= 64 rows + kernels -> the
     CUDA int8 kernel; int8 + W8A8 -> exact s8 contraction; anything else
     -> dequantize, then a matmul with f32 accumulation (plain

@@ -1,25 +1,39 @@
-"""Continuous-batching generation engine for decoder models (core engine).
+"""Continuous-batching generation engine for decoder models.
 
 Counterpart of ``starpu_inference_server_tpu/serving/generation.py``:
 the same request object, slot pool, admission with same-bucket batched
 prefill, chunked prefill interleaved with decode blocks, decode blocks of
 ``steps_per_sync`` steps with DEVICE-SIDE completion (a slot that hits
-its EOS or budget freezes inside the block), cancellation and release.
+its EOS or budget freezes inside the block), cancellation and release,
+and the same serving options:
+
+- speculative decoding with a draft model (``draft_spec``) or with
+  prompt lookup (``prompt_lookup_ngram``): drafts of ``speculate_k``
+  tokens per block, one verify forward of the target over the window,
+  the accepted prefix plus the target's own token committed, clamped on
+  the device to the slot's budget and first EOS. Greedy output is the
+  target's own greedy sequence;
+- the paged KV cache (``kv_page_size``): a page pool with a host-side
+  allocator; with ``prefix_cache`` the pages of a shared prefix are
+  refcounted and shared, and released slots retain their grant until
+  the pool needs the pages;
+- the dense prefix cache (``prefix_cache`` without paging): a hit copies
+  the source slot's rows and prefills only the tail.
 
 Differences from the JAX engine:
 
-- PyTorch runs eagerly; there is no jit, no donation (the cache is
+- PyTorch runs eagerly; there is no jit, no donation (the caches are
   updated in place, see models/decoder.py) and no executable per bucket.
-- Dispatch runs at depth 1: each decode block is consumed before the
-  next is dispatched, and a prefill's logits are fetched when it is
-  dispatched. ``decode_overlap`` / ``pipeline_depth`` are accepted and
-  logged; overlapped dispatch is a ROADMAP item.
+- Dispatch runs at depth 1: each block is consumed before the next is
+  dispatched, and a prefill's logits are fetched when it is dispatched.
+  ``decode_overlap`` / ``pipeline_depth`` are accepted and logged;
+  overlapped dispatch is a ROADMAP item.
 - Sampled tokens use a ``torch.Generator`` seeded from (seed, absolute
   progress), so a request samples the same tokens however it is
-  interleaved; they differ from ``jax.random``'s. Greedy decoding takes
-  the first maximum, as ``jnp.argmax`` does.
-- Speculation, prompt lookup, prefix cache, paged / flat caches and
-  meshes are not ported yet (ROADMAP).
+  interleaved, with or without speculation; they differ from
+  ``jax.random``'s. Greedy decoding takes the first maximum, as
+  ``jnp.argmax`` does.
+- Flat cache layouts and meshes are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -32,8 +46,16 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from ..models.decoder import DecoderSpec, decode_step, init_cache, prefill
+from ..models.decoder import DecoderSpec, decode_step, init_cache, prefill, verify_step
 from ..models.decoder import prefill_chunk as prefill_chunk_step
+from ..models.paged_decoder import (
+    init_paged_cache,
+    paged_decode_step,
+    paged_prefill,
+    paged_prefill_chunk,
+    paged_verify_step,
+    set_table_row,
+)
 from ..models.registry import resolve_device
 from ..ops import nn
 from ..ops.quant import pack_int4_tree
@@ -97,6 +119,45 @@ def _sample_seed(seed: int, progress: int) -> int:
     return ((int(seed) & 0xFFFFFFFF) << 32) | (int(progress) & 0xFFFFFFFF)
 
 
+def _ngram_drafts(history: torch.Tensor, len_h: torch.Tensor, k: int, n: int):
+    """Prompt-lookup draft proposal on the device (the JAX package's
+    ``_ngram_drafts``). ``history`` int32 [S, T] holds each slot's prompt
+    and emitted tokens, ``len_h`` int32 [S] the valid count (the last one
+    is the current input token). The trailing ``n``-gram is matched
+    against every earlier window and the MOST RECENT match wins; the
+    ``k`` tokens after it are the drafts, with positions at or past
+    ``len_h`` masked to 0 so a reused slot never drafts a previous
+    request's tokens. Every gather index is clipped into [0, T), as the
+    JAX package's ``take_along_axis`` calls are. Returns (drafts int32
+    [S, k], found bool [S])."""
+    s, t = history.shape
+    dev = history.device
+    len_h = len_h.to(torch.int64)
+    qidx = (len_h[:, None] - n + torch.arange(n, device=dev)[None, :]).clamp(0, t - 1)
+    q = history.gather(1, qidx)
+    windows = history.unfold(1, n, 1)                      # [S, T-n+1, n]
+    p_idx = torch.arange(t - n + 1, device=dev)[None, :]
+    valid = p_idx < (len_h - n)[:, None]                   # strictly before the query
+    eq = (windows == q[:, None, :]).all(dim=-1) & valid
+    found = eq.any(dim=1)
+    # the most recent match: the first maximum of the reversed mask
+    p_star = (t - n) - torch.argmax(eq.flip(1).to(torch.int32), dim=1)
+    didx = (p_star + n)[:, None] + torch.arange(k, device=dev)[None, :]
+    drafts = history.gather(1, didx.clamp(0, t - 1))
+    drafts = torch.where(didx < len_h[:, None], drafts, torch.zeros_like(drafts))
+    return drafts, found
+
+
+def _copy_slot_rows(cache, src: int, dst: int) -> None:
+    """Copy slot ``src``'s whole KV rows (every layer, full context) over
+    slot ``dst``, in place: the device side of a dense prefix-cache hit.
+    Rows past the shared prefix are stale and never attended before the
+    tail prefill overwrites them; ``lengths`` is set by that prefill."""
+    for leaves in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        for a in leaves:
+            a[dst] = a[src]
+
+
 class GenerationEngine:
     def __init__(
         self,
@@ -108,13 +169,22 @@ class GenerationEngine:
         prefill_buckets: Optional[List[int]] = None,
         steps_per_sync: int = 1,
         prefill_chunk: int = 0,
+        draft_spec: Optional[DecoderSpec] = None,
+        draft_params=None,
+        speculate_k: int = 4,
+        prompt_lookup_ngram: int = 0,
+        prefix_cache: bool = False,
+        prefix_cache_min: int = 16,
         decode_overlap: bool = False,
         pipeline_depth: int = 2,
+        kv_page_size: int = 0,
+        kv_pool_pages: int = 0,
         device=None,
     ):
-        """``params``: the port's parameter tree (torch tensors; see
-        ``weights.params_from_numpy``). ``device`` defaults to ``cuda``
-        and raises when CUDA is missing unless ``device='cpu'``."""
+        """``params`` / ``draft_params``: the port's parameter trees (torch
+        tensors; see ``weights.params_from_numpy``). ``device`` defaults
+        to ``cuda`` and raises when CUDA is missing unless
+        ``device='cpu'``."""
         self.device = resolve_device(device)
         self.spec = spec
         self.dtype = dtype
@@ -122,8 +192,8 @@ class GenerationEngine:
         self.max_len = max_len
         self.params = self._place_params(params)
         # tokens decoded per host sync: a block of ``steps_per_sync``
-        # decode steps runs before its [steps, S] tokens are fetched;
-        # tokens past a request's EOS / limit are computed and discarded
+        # decode steps (or verify windows) runs before its tokens are
+        # fetched; tokens past a request's EOS / limit are discarded
         self.steps_per_sync = max(1, int(steps_per_sync))
         self.decode_overlap = bool(decode_overlap)
         self.pipeline_depth = 1
@@ -140,7 +210,73 @@ class GenerationEngine:
                 f"prefill_chunk ({self.prefill_chunk}) must divide "
                 f"max_len ({max_len}) so every chunk fits the cache row"
             )
-        self.cache = init_cache(spec, num_slots, max_len, device=self.device)
+        # paged KV cache: a page pool + per-slot table; requests reserve
+        # ceil((prompt + max_new + headroom) / page) pages
+        self.kv_page_size = max(0, int(kv_page_size))
+        if self.kv_page_size:
+            page = self.kv_page_size
+            if max_len % page:
+                raise ValueError(f"kv_page_size ({page}) must divide max_len ({max_len})")
+            if self.prefill_chunk and self.prefill_chunk % page:
+                raise ValueError(
+                    f"prefill_chunk ({self.prefill_chunk}) must be a multiple of "
+                    f"kv_page_size ({page}) so chunks cover whole pages"
+                )
+            # default pool: half the dense footprint, plus the garbage page
+            self.kv_pool_pages = int(kv_pool_pages) or (1 + num_slots * (max_len // page) // 2)
+            self.cache = init_paged_cache(spec, num_slots, max_len, self.kv_pool_pages, page,
+                                          device=self.device)
+            # host-side allocator: free pool page ids (page 0 is the
+            # garbage page), each slot's grant, and refcounts so a prefix
+            # hit shares whole pages; released slots RETAIN their grant
+            # under prefix_cache until the pool needs it
+            self._free_pages: List[int] = list(range(1, self.kv_pool_pages))
+            self._slot_pages: List[List[int]] = [[] for _ in range(num_slots)]
+            self._page_refs = np.zeros((self.kv_pool_pages,), np.int32)
+            self._retained: set = set()
+            self._prefill_fn, self._chunk_fn = paged_prefill, paged_prefill_chunk
+            self._step_fn, self._verify_fn = paged_decode_step, paged_verify_step
+        else:
+            self.kv_pool_pages = 0
+            self.cache = init_cache(spec, num_slots, max_len, device=self.device)
+            self._prefill_fn, self._chunk_fn = prefill, prefill_chunk_step
+            self._step_fn, self._verify_fn = decode_step, verify_step
+        # prefix caching: a slot's prompt stays indexed after release, so
+        # a new prompt sharing a prefix reuses its rows (dense: a device
+        # row copy; paged: the shared whole pages) and prefills the tail
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_cache_min = max(1, int(prefix_cache_min))
+        if self.prefix_cache and not self.prefill_chunk:
+            raise ValueError("prefix_cache requires chunked prefill (set prefill_chunk)")
+        self._slot_prompts: List[Optional[np.ndarray]] = [None] * num_slots
+        self.prefix_hits = 0
+        self.prefix_tokens_reused = 0
+        # speculative decoding with a draft model: its own dense cache,
+        # prefilled with every prompt, drafts K greedy tokens per block
+        self.draft_spec = draft_spec
+        self.speculate_k = max(1, int(speculate_k))
+        self._draft_params = None
+        self.drafted_tokens = 0
+        self.accepted_drafts = 0
+        if draft_spec is not None:
+            if draft_params is None:
+                raise ValueError("draft_spec requires draft_params")
+            if draft_spec.vocab != spec.vocab:
+                raise ValueError(
+                    f"draft vocab ({draft_spec.vocab}) must match target vocab ({spec.vocab})"
+                )
+            self._draft_params = self._place_params(draft_params)
+            self._draft_cache = init_cache(draft_spec, num_slots, max_len, device=self.device)
+        # prompt-lookup speculation: drafts from each slot's own token
+        # history, kept on the device
+        self._lookup_ngram = max(0, int(prompt_lookup_ngram))
+        if self._lookup_ngram:
+            if draft_spec is not None:
+                raise ValueError(
+                    "prompt_lookup_ngram and draft_variant are mutually exclusive draft sources"
+                )
+            self._history = torch.zeros((num_slots, max_len), dtype=torch.int32,
+                                        device=self.device)
         self._prefilling: Optional[_PrefillProgress] = None
         self._reserved: set = set()
         self._slots: List[Optional[_SlotState]] = [None] * num_slots
@@ -166,6 +302,10 @@ class GenerationEngine:
         if nn.use_kernels(self.device):
             params = pack_int4_tree(params)
         return params
+
+    @property
+    def _speculating(self) -> bool:
+        return self._draft_params is not None or bool(self._lookup_ngram)
 
     # -- device fns --------------------------------------------------------
 
@@ -193,25 +333,136 @@ class GenerationEngine:
         COMPLETION: a slot whose token hits its eos or exhausts its
         budget drops out of ``alive`` on the device, so later steps of the
         block stop advancing its cache; frozen slots repeat their last id
-        in the token block."""
+        in the token block. Returns int32 [steps, S, 1]."""
         steps = self.steps_per_sync
         dev = self.device
         eos = torch.as_tensor(snap["eos"], device=dev)
         limit = torch.as_tensor(snap["limit"], device=dev)
         prog = torch.as_tensor(snap["progress"], device=dev)
         alive = active.clone()
-        tokens = torch.zeros((steps, self.num_slots), dtype=torch.int32, device=dev)
+        tokens = torch.zeros((steps, self.num_slots, 1), dtype=torch.int32, device=dev)
         for i in range(steps):
-            _, logits = decode_step(self.spec, self.params, self.cache, ids, alive, self.dtype)
+            _, logits = self._step_fn(self.spec, self.params, self.cache, ids, alive, self.dtype)
             nxt = self._sample(logits, snap["temps"], snap["top_k"], snap["seeds"],
                                snap["progress"], i)
             nxt = torch.where(alive, nxt, ids)
             prog = prog + alive.to(torch.int32)
             done = alive & ((nxt == eos) | (prog >= limit))
             alive = alive & ~done
-            tokens[i] = nxt
+            tokens[i, :, 0] = nxt
             ids = nxt
         return tokens
+
+    def _verify_accept(self, cur, drafts, alive, prog, snap, block: int):
+        """Shared verify-and-commit of both draft sources: score the
+        [cur, drafts] window with ONE target forward, accept the longest
+        draft prefix equal to the target's greedy tokens plus the target's
+        own next token, then clamp the commit count ON THE DEVICE to the
+        slot's remaining budget and to the first EOS inside the window.
+        Sampled slots accept no drafts: they commit one token per block,
+        sampled with the plain engine's seed of its absolute progress
+        (``progress + block`` while the slot is alive), so a sampled
+        request gets the plain engine's tokens.
+
+        Returns (out [S, K+1], counts [S], accepted [S], nxt [S],
+        alive_next [S], progress [S])."""
+        k = self.speculate_k
+        dev = self.device
+        start = self.cache.lengths.clone()
+        window = torch.cat([cur[:, None], drafts], dim=1)          # [S, K+1]
+        _, logits = self._verify_fn(self.spec, self.params, self.cache, window, alive,
+                                    self.dtype)
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)      # [S, K+1]
+        matches = drafts == greedy[:, :k]
+        accepted = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        first = self._sample(logits[:, 0], snap["temps"], snap["top_k"], snap["seeds"],
+                             snap["progress"], block)
+        sampled = torch.as_tensor(snap["temps"] > 0, device=dev)
+        accepted = torch.where(sampled, torch.zeros_like(accepted), accepted)
+        out = greedy.clone()
+        out[:, 0] = first
+        eos = torch.as_tensor(snap["eos"], device=dev)
+        limit = torch.as_tensor(snap["limit"], device=dev)
+        # budget clamp first (the host emits at most ``remaining``
+        # tokens), then stop at the first EOS among the survivors
+        counts = torch.minimum(accepted + 1, (limit - prog).clamp(min=0))
+        emit = torch.arange(k + 1, device=dev)[None, :] < counts[:, None]
+        hits = emit & (out == eos[:, None]) & (eos[:, None] >= 0)
+        any_eos = hits.any(dim=1)
+        first_eos = torch.argmax(hits.to(torch.int32), dim=1).to(torch.int32)
+        counts = torch.where(any_eos, first_eos + 1, counts)
+        counts = torch.where(alive, counts, torch.zeros_like(counts))
+        prog = prog + counts
+        done = alive & (any_eos | (prog >= limit))
+        self.cache.lengths.copy_(start + counts)
+        nxt = out.gather(1, (counts - 1).clamp(min=0).to(torch.int64)[:, None])[:, 0]
+        nxt = torch.where(counts > 0, nxt, cur)
+        return out, counts, accepted, nxt, alive & ~done, prog
+
+    def _speculative_block(self, ids, active, snap):
+        """``steps_per_sync`` blocks of draft-K-then-verify. The draft runs
+        K+1 greedy steps: the extra step's output is discarded, but it
+        writes d_K's KV into the draft cache, which a fully accepted
+        window needs. Both caches then commit to the same length. Returns
+        int32 [blocks, S, K+3]: the window, the commit count and the
+        accepted-draft count before the budget / EOS clamp."""
+        k = self.speculate_k
+        prog = torch.as_tensor(snap["progress"], device=self.device)
+        cur, alive = ids, active.clone()
+        packed = []
+        for b in range(self.steps_per_sync):
+            tok = cur
+            toks = []
+            for _ in range(k + 1):
+                _, dl = decode_step(self.draft_spec, self._draft_params, self._draft_cache, tok,
+                                    alive, self.dtype)
+                tok = torch.argmax(dl, dim=-1).to(torch.int32)
+                toks.append(tok)
+            drafts = torch.stack(toks[:k], dim=1)                  # [S, K]
+            out, counts, accepted, nxt, alive_next, prog = self._verify_accept(
+                cur, drafts, alive, prog, snap, b)
+            dl = self._draft_cache.lengths
+            dl.copy_(torch.where(alive, self.cache.lengths, dl))
+            packed.append(torch.cat([out, counts[:, None],
+                                     torch.where(alive, accepted, 0)[:, None]], dim=1))
+            cur, alive = nxt, alive_next
+        return torch.stack(packed)
+
+    def _prompt_lookup_block(self, ids, active, snap):
+        """``steps_per_sync`` blocks of PROMPT-LOOKUP speculation: drafts
+        are the K tokens after the most recent earlier occurrence of the
+        trailing n-gram in (prompt + tokens so far), verified by the
+        shared ``_verify_accept``. The on-device history gets the current
+        token at position ``lengths`` and the committed tokens behind it.
+        Returns int32 [blocks, S, K+4]: the model-draft columns plus the
+        found flag, so the host counts drafted tokens only for blocks
+        where a match proposed some."""
+        k = self.speculate_k
+        n = self._lookup_ngram
+        s, t = self._history.shape
+        dev = self.device
+        hist = self._history
+        rows = torch.arange(s, device=dev)
+        prog = torch.as_tensor(snap["progress"], device=dev)
+        cur, alive = ids, active.clone()
+        packed = []
+        for b in range(self.steps_per_sync):
+            start = self.cache.lengths.clone().to(torch.int64)
+            pos_cur = start.clamp(0, t - 1)
+            hist[rows, pos_cur] = torch.where(alive, cur, hist[rows, pos_cur])
+            drafts, found = _ngram_drafts(hist, start + 1, k, n)
+            drafts = torch.where((found & alive)[:, None], drafts, torch.zeros_like(drafts))
+            out, counts, accepted, nxt, alive_next, prog = self._verify_accept(
+                cur, drafts, alive, prog, snap, b)
+            # out[j] is the token at position start + 1 + j for j < counts
+            pos = (start[:, None] + 1 + torch.arange(k + 1, device=dev)[None, :]).clamp(0, t - 1)
+            emit = (torch.arange(k + 1, device=dev)[None, :] < counts[:, None]) & alive[:, None]
+            hist[rows[:, None], pos] = torch.where(emit, out, hist[rows[:, None], pos])
+            packed.append(torch.cat([out, counts[:, None],
+                                     torch.where(alive, accepted, 0)[:, None],
+                                     (found & alive).to(torch.int32)[:, None]], dim=1))
+            cur, alive = nxt, alive_next
+        return torch.stack(packed)
 
     def _bucket_for(self, length: int) -> int:
         for b in self.prefill_buckets:
@@ -224,20 +475,35 @@ class GenerationEngine:
 
     # -- public API --------------------------------------------------------
 
+    def headroom(self) -> int:
+        """Cache rows a request needs past prompt + max_new: completion is
+        enforced on the device, so only a verify window's K uncommitted
+        rows can pass the final length."""
+        return self.speculate_k if self._speculating else 0
+
     def submit(self, request: GenerationRequest) -> GenerationRequest:
         request.submitted_at = now_s()
         if len(request.prompt_ids) == 0:
             raise ValueError("prompt must hold at least one token")
-        if len(request.prompt_ids) + request.max_new_tokens > self.max_len:
+        headroom = self.headroom()
+        if len(request.prompt_ids) + request.max_new_tokens + headroom > self.max_len:
             raise ValueError(
                 f"prompt({len(request.prompt_ids)}) + max_new_tokens"
-                f"({request.max_new_tokens}) exceeds max context {self.max_len}"
+                f"({request.max_new_tokens}) + sync headroom({headroom}) "
+                f"exceeds max context {self.max_len}"
             )
         if not self.prefill_chunk and len(request.prompt_ids) > self.prefill_buckets[-1]:
             raise ValueError(
                 f"prompt length {len(request.prompt_ids)} exceeds largest "
                 f"prefill bucket {self.prefill_buckets[-1]} and chunked "
                 f"prefill is disabled (set prefill_chunk)"
+            )
+        if self.kv_page_size and self._pages_needed(request) > self.kv_pool_pages - 1:
+            # it could never be granted, and admission is FIFO: refuse it
+            # here rather than hold every later request behind it
+            raise ValueError(
+                f"request needs {self._pages_needed(request)} pages of "
+                f"{self.kv_page_size} rows; the pool holds {self.kv_pool_pages - 1}"
             )
         with self._work:
             self._pending.append(request)
@@ -271,6 +537,11 @@ class GenerationEngine:
     def active_count(self) -> int:
         with self._lock:
             return sum(s is not None for s in self._slots)
+
+    def draft_acceptance_rate(self) -> float:
+        """Fraction of drafted tokens the target accepted (0 when not
+        speculating)."""
+        return self.accepted_drafts / max(1, self.drafted_tokens)
 
     # -- engine loop -------------------------------------------------------
 
@@ -333,9 +604,52 @@ class GenerationEngine:
                 request.done.set()
                 continue
             prompt = np.asarray(request.prompt_ids, np.int32)
+            # the slot's retained rows are about to be overwritten; its
+            # prompt index entry is valid again only at prefill completion
+            stale_prompt = self._slot_prompts[free]
+            self._slot_prompts[free] = None
+            hit = self._find_prefix(prompt, free, stale_prompt)
+            if self.kv_page_size:
+                # paged prefix reuse is PAGE-GRANULAR and zero-copy: the
+                # new slot's table points at the hit's whole pages
+                shared: List[int] = []
+                src_slot = -1
+                if hit is not None:
+                    src_slot, l_star = hit
+                    n_shared = l_star // self.kv_page_size
+                    if n_shared == 0:
+                        hit = None
+                    else:
+                        hit = (src_slot, n_shared * self.kv_page_size)
+                        shared = self._slot_pages[src_slot][:n_shared]
+                if not self._grant_pages(free, request, shared, src_slot):
+                    # pool exhausted: requeue at the FRONT and stop
+                    # admitting until a release frees pages
+                    self._slot_prompts[free] = stale_prompt
+                    with self._lock:
+                        self._pending.appendleft(request)
+                    return admitted
             admitted = True
             self._reserved.add(free)  # until the prefill lands (or aborts)
+            if self._lookup_ngram:
+                # seed the slot's history with the prompt; stale tokens
+                # past it are masked by the lookup's valid length
+                row = torch.zeros((self.max_len,), dtype=torch.int32)
+                row[:len(prompt)] = torch.from_numpy(prompt)
+                self._history[free] = row.to(self.device)
             try:
+                if hit is not None:
+                    src, l_star = hit
+                    if src != free and not self.kv_page_size:
+                        _copy_slot_rows(self.cache, src, free)
+                    if src != free and self._draft_params is not None:
+                        _copy_slot_rows(self._draft_cache, src, free)  # dense in every mode
+                    self.prefix_hits += 1
+                    self.prefix_tokens_reused += l_star
+                    self._prefilling = _PrefillProgress(request=request, slot=free,
+                                                        prompt=prompt, offset=l_star)
+                    self._advance_chunk(self._prefilling)
+                    return True
                 if self.prefill_chunk and (
                     len(prompt) > self.prefill_chunk
                     or len(prompt) > self.prefill_buckets[-1]
@@ -348,10 +662,121 @@ class GenerationEngine:
             except BaseException as exc:  # noqa: BLE001
                 self._prefilling = None
                 self._reserved.discard(free)
+                self._free_slot_pages(free)
                 request.error = exc
                 request.done.set()
                 if not isinstance(exc, ValueError):
                     raise
+
+    # -- paged allocator ---------------------------------------------------
+
+    def _grant_pages(self, slot: int, request: GenerationRequest, shared=(),
+                     src_slot: int = -1) -> bool:
+        """Reserve pool pages sized to THIS request (prompt + max_new +
+        headroom) and install the slot's table row. ``shared`` page ids (a
+        prefix hit's whole pages, owned by ``src_slot``) head the table
+        with their refcount bumped. Returns False when the pool is
+        exhausted even after reclaiming retained grants."""
+        page = self.kv_page_size
+        need = self._pages_needed(request)
+        shared = list(shared)
+        own_needed = need - len(shared)
+        if len(self._free_pages) < own_needed:
+            # reclaim RETAINED grants before refusing admission; never
+            # the hit's source slot or this slot mid-grant
+            for victim in [v for v in list(self._retained) if v not in (slot, src_slot)]:
+                self._evict_retained(victim)
+                if len(self._free_pages) >= own_needed:
+                    break
+        if len(self._free_pages) < own_needed and slot in self._retained:
+            self._evict_retained(slot)
+        if len(self._free_pages) < own_needed:
+            return False
+        old = self._slot_pages[slot]  # retained leftovers being replaced
+        for p in shared:
+            self._page_refs[p] += 1
+        own = [self._free_pages.pop() for _ in range(own_needed)]
+        for p in own:
+            self._page_refs[p] = 1
+        self._retained.discard(slot)
+        if old:
+            self._decref_pages(old)
+        pages = shared + own
+        self._slot_pages[slot] = pages
+        row = np.zeros((self.max_len // page,), np.int32)
+        row[:len(pages)] = pages
+        set_table_row(self.cache, slot, torch.from_numpy(row))
+        return True
+
+    def _pages_needed(self, request: GenerationRequest) -> int:
+        need_tokens = len(request.prompt_ids) + request.max_new_tokens + self.headroom()
+        return -(-need_tokens // self.kv_page_size)
+
+    def _decref_pages(self, pages) -> None:
+        for p in pages:
+            self._page_refs[p] -= 1
+            if self._page_refs[p] == 0:
+                self._free_pages.append(p)
+
+    def _evict_retained(self, slot: int) -> None:
+        """Drop a released slot's retained grant: its prompt leaves the
+        prefix index and its pages decref (shared pages stay alive under
+        other slots' refs)."""
+        self._retained.discard(slot)
+        self._slot_prompts[slot] = None
+        self._decref_pages(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+
+    def _free_slot_pages(self, slot: int, retain: bool = False) -> None:
+        if not self.kv_page_size or not self._slot_pages[slot]:
+            return
+        if retain and self.prefix_cache:
+            # keep the grant so the slot's rows stay valid for prefix hits
+            self._retained.add(slot)
+            return
+        self._retained.discard(slot)
+        self._decref_pages(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+
+    def page_accounting(self) -> dict:
+        """Pool pages by state: free, granted to live or reserved slots,
+        retained by released slots only, and the garbage page. With no
+        leak, free + live + retained + garbage == pool."""
+        live = {p for i, pages in enumerate(self._slot_pages) if i not in self._retained
+                for p in pages}
+        retained = {p for i in self._retained for p in self._slot_pages[i]} - live
+        return {"pool": self.kv_pool_pages, "free": len(self._free_pages), "live": len(live),
+                "retained": len(retained), "garbage": 1}
+
+    def _find_prefix(self, prompt, free, stale_prompt):
+        """Longest usable cached prefix of ``prompt`` over the per-slot
+        prompt index (completed prefills only). Returns (src_slot,
+        prefix_len) or None. Capped at len(prompt)-1 so the tail prefill
+        always scores at least one row (the first-token logits)."""
+        if not self.prefix_cache:
+            return None
+        best = None
+        candidates = list(enumerate(self._slot_prompts))
+        if stale_prompt is not None:
+            candidates.append((free, stale_prompt))  # in-place reuse
+        for i, stored in candidates:
+            if stored is None:
+                continue
+            n = min(len(stored), len(prompt) - 1)
+            if n <= 0:
+                continue
+            neq = stored[:n] != prompt[:n]
+            length = int(neq.argmax()) if neq.any() else n
+            if length >= self.prefix_cache_min and (best is None or length > best[1]):
+                best = (i, length)
+        return best
+
+    # -- prefill -----------------------------------------------------------
+
+    def _zero_lengths(self, slot: int) -> None:
+        self.cache.lengths[slot] = 0
+        if self._draft_params is not None:
+            self._draft_cache.lengths[slot] = 0
 
     def _advance_chunk(self, pf: _PrefillProgress) -> None:
         if pf.request.cancel_flag.is_set():
@@ -359,7 +784,8 @@ class GenerationEngine:
             # attended) and free it — the slot was never activated
             self._prefilling = None
             self._reserved.discard(pf.slot)
-            self.cache.lengths[pf.slot] = 0
+            self._free_slot_pages(pf.slot)
+            self._zero_lengths(pf.slot)
             pf.request.finished_at = now_s()
             pf.request.done.set()
             return
@@ -368,11 +794,14 @@ class GenerationEngine:
         valid = len(chunk)
         padded = np.zeros((c,), np.int32)
         padded[:valid] = chunk
-        _, logits = prefill_chunk_step(
-            self.spec, self.params, self.cache,
-            torch.as_tensor(padded, device=self.device), pf.offset, valid, pf.slot,
-            self.dtype,
-        )
+        ids = torch.as_tensor(padded, device=self.device)
+        _, logits = self._chunk_fn(self.spec, self.params, self.cache, ids, pf.offset, valid,
+                                   pf.slot, self.dtype)
+        if self._draft_params is not None:
+            # each chunk advances both caches: the draft must hold the
+            # prompt before it can draft
+            prefill_chunk_step(self.draft_spec, self._draft_params, self._draft_cache, ids,
+                               pf.offset, valid, pf.slot, self.dtype)
         pf.offset += valid
         if pf.offset >= len(pf.prompt):
             self._prefilling = None
@@ -391,6 +820,7 @@ class GenerationEngine:
             except BaseException as exc:  # noqa: BLE001
                 for slot, request, _ in items:
                     self._reserved.discard(slot)
+                    self._free_slot_pages(slot)
                     request.error = exc
                     request.done.set()
                 if not isinstance(exc, ValueError):
@@ -401,16 +831,19 @@ class GenerationEngine:
 
     def _prefill_many(self, bucket: int, items) -> np.ndarray:
         """N same-bucket prefills (counterpart of ``_prefill_many_fn``);
-        each iteration is exactly the single-prefill body. Returns the
-        host logits [N, V]."""
+        each iteration is exactly the single-prefill body, the draft's
+        prefill included. Returns the host logits [N, V]."""
         out = torch.empty((len(items), self.spec.vocab), dtype=torch.float32,
                           device=self.device)
         for j, (slot, _, prompt) in enumerate(items):
             padded = np.zeros((bucket,), np.int32)
             padded[:len(prompt)] = prompt
-            _, logits = prefill(self.spec, self.params, self.cache,
-                                torch.as_tensor(padded, device=self.device),
-                                len(prompt), slot, self.dtype)
+            ids = torch.as_tensor(padded, device=self.device)
+            _, logits = self._prefill_fn(self.spec, self.params, self.cache, ids, len(prompt),
+                                         slot, self.dtype)
+            if self._draft_params is not None:
+                prefill(self.draft_spec, self._draft_params, self._draft_cache, ids,
+                        len(prompt), slot, self.dtype)
             out[j] = logits
         return out.cpu().numpy()
 
@@ -419,10 +852,15 @@ class GenerationEngine:
         (or free it if the request was cancelled meanwhile)."""
         self._reserved.discard(slot)
         if request.cancel_flag.is_set():
-            self.cache.lengths[slot] = 0
+            self._free_slot_pages(slot)
+            self._zero_lengths(slot)
             request.finished_at = now_s()
             request.done.set()
             return
+        if self.prefix_cache:
+            # the slot now holds this prompt's rows [0, len): index it for
+            # prefix reuse (valid until the slot is next admitted)
+            self._slot_prompts[slot] = np.asarray(request.prompt_ids, np.int32)
         first = self._sample_first(logits, request)
         request.first_token_at = now_s()
         self._emit(request, first)
@@ -445,6 +883,8 @@ class GenerationEngine:
         p = np.exp(scaled - scaled.max())
         p /= p.sum()
         return int(rng.choice(len(p), p=p))
+
+    # -- decode ------------------------------------------------------------
 
     def _snapshot_active(self):
         """Host snapshot of the active slots: per-slot input ids, sampling
@@ -481,19 +921,45 @@ class GenerationEngine:
         snap = self._snapshot_active()
         if snap is None:
             return False
-        tokens = self._decode_and_sample(
-            torch.as_tensor(snap["ids"], device=self.device),
-            torch.as_tensor(snap["active"], device=self.device),
-            snap,
-        )
-        self._consume_block(tokens.cpu().numpy(), snap)
+        ids = torch.as_tensor(snap["ids"], device=self.device)
+        active = torch.as_tensor(snap["active"], device=self.device)
+        if self._lookup_ngram:
+            block = self._prompt_lookup_block(ids, active, snap)
+        elif self._draft_params is not None:
+            block = self._speculative_block(ids, active, snap)
+        else:
+            block = self._decode_and_sample(ids, active, snap)
+        self._consume_block(block.cpu().numpy(), snap)
         return True
 
-    def _consume_block(self, tokens: np.ndarray, snap) -> None:
-        """Commit a fetched [steps, S] token block to the slots it was
-        dispatched for. EOS and budget were enforced on the device; the
-        host stops each slot's column at the same point."""
+    def _count_drafts(self, packed: np.ndarray, snap) -> None:
+        """Acceptance counters of a speculative block: a (block, slot) pair
+        drafted when the slot was alive and greedy (an alive greedy slot
+        commits at least one token, so counts > 0 marks it) and, for
+        prompt lookup, an n-gram matched; the pre-clamp accepted count
+        measures draft quality, not budget / EOS truncation."""
+        k1 = self.speculate_k + 1
+        greedy = snap["active"] & (snap["temps"] == 0)
+        drafted = packed[:, greedy, k1] > 0
+        if packed.shape[2] > k1 + 2:
+            drafted &= packed[:, greedy, k1 + 2] > 0
+        self.drafted_tokens += self.speculate_k * int(drafted.sum())
+        self.accepted_drafts += int(packed[:, greedy, k1 + 1][drafted].sum())
+
+    def _consume_block(self, block: np.ndarray, snap) -> None:
+        """Commit a fetched block to the slots it was dispatched for.
+        ``block`` is [steps, S, 1] (plain decode; EOS and budget were
+        enforced on the device and the host stops each column at the same
+        point) or [blocks, S, K+3 (+1)] (speculation: the window, then the
+        commit counts, walked token by token)."""
         active = snap["active"]
+        spec_mode = self._speculating
+        if spec_mode:
+            self._count_drafts(block, snap)
+            tokens = block[:, :, :self.speculate_k + 1]
+            counts = block[:, :, self.speculate_k + 1]
+        else:
+            tokens = block
         steps_n = tokens.shape[0]
         self.steps += steps_n
         finished = set()
@@ -508,7 +974,20 @@ class GenerationEngine:
             if req.cancel_flag.is_set():
                 finished.add(i)
                 continue
-            col = tokens[:, i]
+            if spec_mode:
+                for b in range(steps_n):
+                    for j in range(int(counts[b, i])):
+                        token = int(tokens[b, i, j])
+                        state.last_token = token
+                        state.emitted += 1
+                        self._emit(req, token)
+                        if self._finished(state):
+                            finished.add(i)
+                            break
+                    if i in finished:
+                        break
+                continue
+            col = tokens[:, i, 0]
             n = int(min(steps_n, max(req.max_new_tokens - state.emitted, 0)))
             eos = req.eos_id
             if eos is not None and n > 0:
@@ -552,24 +1031,56 @@ class GenerationEngine:
         if state is not None:
             state.request.finished_at = now_s()
             state.request.done.set()
+        # paged: return the slot's pages (under prefix_cache the grant is
+        # RETAINED so its rows stay valid for hits)
+        self._free_slot_pages(slot, retain=True)
         # zero the slot length so the next prefill starts clean
-        self.cache.lengths[slot] = 0
+        self._zero_lengths(slot)
 
 
 # options of the JAX engine that this port does not serve yet
-_UNPORTED_OPTIONS = {
-    "draft_variant": "", "prompt_lookup_ngram": 0, "prefix_cache": False,
-    "kv_page_size": 0, "kv_cache_layout": "standard", "pipe_microgroups": 0,
-    "serve_logits": False, "copy_model_cycle": 0,
-}
+_UNPORTED_OPTIONS = {"kv_cache_layout": "standard", "pipe_microgroups": 0, "serve_logits": False}
 
 
-def build_generation_engine(cfg, device=None) -> GenerationEngine:
+def build_draft(cfg, spec: DecoderSpec, device):
+    """The draft model of ``options.draft_variant`` as the JAX server
+    builds it (``grpc/server.py:136-162``): ``draft_options`` with the
+    vocab defaulting to the target's, weights from ``seed + 1`` (or
+    ``draft_params``, an ``.npz`` path), quantized to the target's bits.
+    Returns (draft spec, params on ``device``) or (None, None)."""
+    from ..models.registry import QUANT_BITS, get_family, load_params
+    from ..ops.quant import maybe_quantize_tree
+    from ..weights import params_from_numpy
+
+    opts = cfg.model.options
+    variant = opts.get("draft_variant", "")
+    if not variant:
+        return None, None
+    draft_opts = dict(opts.get("draft_options", {}))
+    draft_opts.setdefault("vocab", spec.vocab)
+    definition = get_family(variant, draft_opts)
+    src = opts.get("draft_params", "random")
+    if src == "random":
+        tree = definition.init_params(np.random.default_rng(cfg.seed + 1))
+    else:
+        tree = load_params(src)
+    params = maybe_quantize_tree(params_from_numpy(tree, device),
+                                 QUANT_BITS[cfg.model.quantization])
+    return definition.spec, params
+
+
+def build_generation_engine(cfg, device=None, params=None) -> GenerationEngine:
     """Config -> model -> engine, the part of the server that needs
     neither ``grpc`` nor ``yaml`` (``chip_smoke.py`` drives it directly).
-    Raises ``NotImplementedError`` for non-decoder families and for engine
-    options that are not ported yet; ``pin_cache_layouts`` is accepted as
-    a no-op (a TPU layout workaround)."""
+    ``params``: the config's parameter tree already built on ``device``
+    (one tree may serve several engines of a process); built from the
+    config's seed when None.
+
+    Sets the process-wide W8A8 flag from the config, on or off, every
+    time (W8A8 and W4A8 quantize the dense layers' activations). Raises
+    ``NotImplementedError`` for non-decoder families and for engine
+    options that are not ported yet; ``pin_cache_layouts`` is accepted
+    as a no-op (a TPU layout workaround)."""
     from ..models.registry import build_model, get_family
     from ..utils.config import QuantMode
 
@@ -581,19 +1092,18 @@ def build_generation_engine(cfg, device=None) -> GenerationEngine:
         if opts.get(key, default) != default:
             raise NotImplementedError(
                 f"model option {key}={opts[key]!r} is not yet ported to the "
-                "PyTorch engine (ROADMAP)"
+                "PyTorch engine (ROADMAP queue 1)"
             )
-    if cfg.model.quantization in (QuantMode.W8A8, QuantMode.W4A8):
-        raise NotImplementedError(
-            f"quantization {cfg.model.quantization.value} needs kernels K2/K6, "
-            "not yet ported (ROADMAP)"
-        )
     if cfg.devices.mesh.size > 1:
         raise NotImplementedError("device meshes are not yet ported (ROADMAP)")
-    model = build_model(cfg.model, seed=cfg.seed, device=device)
+    nn.set_w8a8(cfg.model.quantization in (QuantMode.W8A8, QuantMode.W4A8))
+    dev = resolve_device(device)
+    if params is None:
+        params = build_model(cfg.model, seed=cfg.seed, device=dev).params
+    draft_spec, draft_params = build_draft(cfg, definition.spec, dev)
     return GenerationEngine(
         definition.spec,
-        model.params,
+        params,
         # as the JAX server: bf16 compute for BF16, f32 otherwise
         dtype=torch.bfloat16 if cfg.model.compute_dtype == "BF16" else torch.float32,
         num_slots=int(opts.get("num_slots", 8)),
@@ -601,7 +1111,15 @@ def build_generation_engine(cfg, device=None) -> GenerationEngine:
         prefill_buckets=list(opts.get("prefill_buckets", [32, 64, 128, 256])),
         steps_per_sync=int(opts.get("steps_per_sync", 1)),
         prefill_chunk=int(opts.get("prefill_chunk", 0)),
+        draft_spec=draft_spec,
+        draft_params=draft_params,
+        speculate_k=int(opts.get("speculate_k", 4)),
+        prompt_lookup_ngram=int(opts.get("prompt_lookup_ngram", 0)),
+        prefix_cache=bool(opts.get("prefix_cache", False)),
+        prefix_cache_min=int(opts.get("prefix_cache_min", 16)),
         decode_overlap=bool(opts.get("decode_overlap", True)),
         pipeline_depth=int(opts.get("decode_pipeline_depth", 2)),
-        device=model.device,
+        kv_page_size=int(opts.get("kv_page_size", 0)),
+        kv_pool_pages=int(opts.get("kv_pool_pages", 0)),
+        device=dev,
     )

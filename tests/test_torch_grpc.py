@@ -17,7 +17,7 @@ from starpu_inference_server_tpu_torch.utils.config import parse_config
 from starpu_inference_server_tpu_torch.utils.exceptions import UnknownModelFamilyError
 
 
-def decoder_cfg(family="llama-tiny"):
+def decoder_cfg(family="llama-tiny", **options):
     return parse_config({
         "name": "llama",
         "model": {
@@ -28,7 +28,7 @@ def decoder_cfg(family="llama-tiny"):
                 "layers": 2, "hidden": 128, "q_heads": 2, "kv_heads": 1,
                 "intermediate": 256, "vocab": 128, "seq_len": 16,
                 "num_slots": 2, "max_len": 64, "prefill_buckets": [8, 16],
-                "prefill_chunk": 16, "steps_per_sync": 2,
+                "prefill_chunk": 16, "steps_per_sync": 2, **options,
             },
         },
         "inputs": [{"name": "input_ids", "dims": [16], "dtype": "INT64"}],
@@ -110,6 +110,39 @@ def test_model_infer_returns_the_engine_tokens(harness, prompt):
     assert resp.outputs[0].name == "output_ids" and list(resp.outputs[0].shape) == [1, 5]
     assert tokens == harness.server.generation_engine.generate(np.asarray(prompt), 5)
     assert resp.server_total_ms > 0
+
+
+SERVING_OPTIONS = {
+    "speculative": {"draft_variant": "llama-tiny", "speculate_k": 3,
+                    "draft_options": {"layers": 1, "hidden": 64, "q_heads": 2,
+                                      "kv_heads": 1, "intermediate": 128}},
+    "prompt_lookup": {"prompt_lookup_ngram": 2, "speculate_k": 3},
+    "paged_prefix": {"kv_page_size": 8, "kv_pool_pages": 20, "prefix_cache": True,
+                     "prefix_cache_min": 8},
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERVING_OPTIONS))
+def test_serving_options_over_grpc_give_the_plain_engine_tokens(harness, name):
+    """A server built from a config with a draft model, prompt lookup or
+    the paged cache with prefix reuse answers ModelInfer with the greedy
+    tokens of the plain engine on the same weights."""
+    options = SERVING_OPTIONS[name]
+    shared = list(range(20, 36))  # a 16-token prefix for the prefix cache
+    prompts = [[3, 7, 11], shared + [1, 2], shared + [5, 6, 7]]
+    with Harness(decoder_cfg(**options)) as h:
+        got = [np.frombuffer(run(_unary(h.target, "ModelInfer", _request(p, 8, f"r{i}"),
+                                        pb.ModelInferResponse)).raw_output_contents[0],
+                             np.int32).tolist() for i, p in enumerate(prompts)]
+        eng = h.server.generation_engine
+        if "draft_variant" in options or "prompt_lookup_ngram" in options:
+            assert eng.headroom() == 3
+        if "draft_variant" in options:
+            assert eng.draft_spec.vocab == 128 and eng.drafted_tokens > 0
+        if "prefix_cache" in options:
+            assert eng.kv_page_size == 8 and eng.prefix_hits >= 1
+    want = [harness.server.generation_engine.generate(np.asarray(p), 8) for p in prompts]
+    assert got == want
 
 
 def test_stream_infer_matches_model_infer(harness):

@@ -66,8 +66,8 @@ def test_dense_int4_matches_jax_int4_matmul(kernels_on, m, k, n):
 @pytest.mark.parametrize("branch", ["w4a8_kernel", "w4a8", "int8_kernel_rows", "w8a8", "dense"])
 def test_dense_dispatch_branches_match_jax(branch):
     """The other four branches of dense's five-way dispatch, on CPU (K2
-    and K6 run their plain versions here; on CUDA K2 launches its kernel
-    and K6 raises until ported)."""
+    and K6 run their plain versions here; on CUDA they launch their
+    kernels)."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal((2, 3, 128)).astype(np.float32)
     w = rng.standard_normal((128, 96)).astype(np.float32)

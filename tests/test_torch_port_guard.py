@@ -5,7 +5,9 @@
   ``jax`` and the JAX package out of ``sys.modules``; the engine path
   (config -> model -> generation engine or batch engine and runner, and
   chip_smoke) also stays clear of ``grpc`` and ``yaml``.
-- Every file in ``configs/`` parses to the same values in both packages.
+- Every file in ``configs/`` parses to the same values in both packages,
+  and each llama config the generation engine serves builds from its
+  yml on the CPU (one layer, the yml's widths) and generates.
 - ``chip_smoke.py`` fails, printing no result, without CUDA and outside
   a checkout.
 """
@@ -43,6 +45,10 @@ from {pkg}.core.engine import ModelEngine
 from {pkg}.serving.runner import TaskRunner
 from {pkg}.utils.config import parse_config
 from {pkg}.ops import decode_attention, prefill_attention, matmul_kernels, nn, stem_kernel
+from {pkg}.ops.decode_attention import (window_decode_attention, paged_decode_attention,
+                                        paged_window_decode_attention)
+from {pkg}.ops.matmul_kernels import int4_matmul_w4a8
+from {pkg}.models.paged_decoder import paged_decode_step, paged_verify_step
 import chip_smoke
 """
 
@@ -82,6 +88,38 @@ def _plain(obj):
 @pytest.mark.parametrize("path", sorted((ROOT / "configs").glob("*.yml")), ids=lambda p: p.stem)
 def test_every_config_parses_to_equal_values(path):
     assert _plain(tcfg.load_config(str(path))) == _plain(jcfg.load_config(str(path)))
+
+
+SERVED = ("llama_decoder", "llama_w4a8", "llama_speculative", "llama_prompt_lookup",
+          "llama_paged")
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_served_llama_config_builds_and_generates_on_cpu(name):
+    """Each generation config of the port, from its yml, cut to one layer
+    at the yml's widths (llama-1b: hidden 2048, vocab 32000; the draft
+    keeps its own four layers): the engine builds on the CPU with every
+    option the yml sets and answers a greedy request."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+
+    path = ROOT / "configs" / f"{name}.yml"
+    cfg = tcfg.load_config(str(path))
+    assert _plain(cfg) == _plain(jcfg.load_config(str(path)))
+    opts = dict(cfg.model.options, layers=1)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=opts))
+    eng = build_generation_engine(cfg, device="cpu")
+    assert eng.spec.hidden == 2048 and eng.spec.vocab == 32000 and eng.spec.layers == 1
+    assert bool(eng.draft_spec) == ("draft_variant" in opts)
+    assert eng.kv_page_size == int(opts.get("kv_page_size", 0))
+    assert eng.prefix_cache == bool(opts.get("prefix_cache", False))
+    eng.start()
+    try:
+        out = eng.generate(np.arange(1, 41, dtype=np.int32), max_new_tokens=3, timeout=300)
+    finally:
+        eng.stop()
+    assert len(out) == 3 and all(0 <= t < 32000 for t in out)
 
 
 def test_config_keeps_strict_keys_and_suggestions():
