@@ -6,7 +6,7 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then drives three groups of paths
+(one nvcc per source, all at once), then drives four groups of paths
 and fails (exit 1) if any phase fails.
 
 The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
@@ -63,8 +63,29 @@ depth):
    dense engine printed); the paged engine with prompt lookup set in
    code, rigged (streams equal to the plain engine's).
 
-Every serving phase zeroes the launch counters just before its requests
-and reads them just after; each kernel of that path must show > 0.
+The flat cache layout and overlapped dispatch (``kv_cache_layout: flat``
+set in code on llama_decoder.yml, llama_prompt_lookup.yml and
+llama_paged.yml; full width and depth):
+
+10. kernels: the four FLAT-layout kernels (K12a-d) at the configs'
+    shapes, held against their plain versions, bit for bit against their
+    standard twins (K3, K9, K10, K11) on the same logical cache, and
+    timed beside the twins;
+11. model: decode and verify steps, dense and paged, flat against
+    standard on the same contents (equal logits), launches per step;
+12. serving: llama_decoder.yml flat on the int4 tree (its 128 requests,
+    every stream equal to the standard engine's, K3 never launched) and
+    the same requests at ``decode_overlap: false`` (depth 1: streams
+    equal to the config's depth 4, tok/s and loop timers for both); the
+    rigged prompt-lookup engine flat; the paged burst flat (prefix hits,
+    streams and pages as the standard paged run's) and flat with prompt
+    lookup, rigged.
+
+Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
+decoder configs) unless stated. Requests are queued before the engine
+starts, so runs of one config admit in the same order. Every serving
+phase zeroes the launch counters just before its requests and reads them
+just after; each kernel of that path must show > 0.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -112,6 +133,11 @@ TPU_SITES = {
     "window_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:1278",
     "paged_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:924",
     "paged_window_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:1010",
+    "flat_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:608",
+    "flat_window_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:676",
+    "flat_paged_decode_attention": "starpu_inference_server_tpu/ops/decode_attention.py:746",
+    "flat_paged_window_decode_attention":
+        "starpu_inference_server_tpu/ops/decode_attention.py:807",
 }
 DECODER_KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
                    "chunk_prefill_attention")
@@ -321,7 +347,8 @@ def kernel_phase(spec, cfg_opts, dev):
               f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         rows["decode_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                        shape=f"S={s} T={T} live={live}")
+                                        shape=f"S={s} T={T} live={live}",
+                                        lengths=lens.tolist())  # K12a reuses them
         del kc, vc, ks, vs, kd, vd
 
     # causal_attention at prefill bucket 256 (the row) and 512; q is
@@ -459,6 +486,10 @@ def model_phase(engine, dev, counters, what="int4", tol=1e-1):
 
 # -- phase 3: serving ---------------------------------------------------------
 
+def _timers(engine) -> str:
+    return json.dumps({k: round(v, 3) for k, v in engine.loop_timers.items()})
+
+
 def serving_phase(engine, counters, card):
     import numpy as np
 
@@ -473,12 +504,12 @@ def serving_phase(engine, counters, card):
     prompts += [rng.integers(0, vocab, 64).astype(np.int32) for _ in range(fill)]
     new = 32
     zero_counts(counters)
+    t0 = time.perf_counter()
+    reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
+    for r in reqs:  # all queued before the loop starts: one admission order
+        engine.submit(r)
     engine.start()
     try:
-        t0 = time.perf_counter()
-        reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
-        for r in reqs:
-            engine.submit(r)
         outs = [r.result(timeout=600) for r in reqs]
         wall = time.perf_counter() - t0
     finally:
@@ -494,11 +525,12 @@ def serving_phase(engine, counters, card):
     decode_tokens = len(reqs) * (new - 1)
     print(f"serving on {card}: {len(reqs)} greedy requests (prompts {check_lens} + "
           f"{fill} x 64 tokens), {new} new tokens each, {wall:.2f} s wall; decode "
-          f"{decode_tokens} tokens in {engine.steps} steps, {step_s:.2f} s host clock in "
-          f"decode blocks = {decode_tokens / step_s:.1f} tok/s (end to end "
-          f"{len(reqs) * new / wall:.1f} tok/s)")
+          f"{decode_tokens} tokens in {engine.steps} steps at pipeline depth "
+          f"{engine.pipeline_depth}, {step_s:.2f} s host clock in decode blocks = "
+          f"{decode_tokens / step_s:.1f} tok/s (end to end {len(reqs) * new / wall:.1f} tok/s); "
+          f"loop_timers {_timers(engine)}")
     print(f"serving launches: {json.dumps(launches)}")
-    return launches
+    return launches, prompts, outs
 
 
 # -- phase 4: kernels of the batch ModelInfer path ------------------------------
@@ -1224,12 +1256,12 @@ def generate_all(engine, prompts, new, counters, kernels, what, card, absent=())
 
     torch.cuda.synchronize()
     zero_counts(counters)
+    t0 = time.perf_counter()
+    reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
+    for r in reqs:  # all queued before the loop starts: one admission order
+        engine.submit(r)
     engine.start()
     try:
-        t0 = time.perf_counter()
-        reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
-        for r in reqs:
-            engine.submit(r)
         outs = [r.result(timeout=900) for r in reqs]
         wall = time.perf_counter() - t0
     finally:
@@ -1252,9 +1284,10 @@ def generate_all(engine, prompts, new, counters, kernels, what, card, absent=())
     if engine.prefix_cache:
         extra += f", prefix hits {engine.prefix_hits} ({engine.prefix_tokens_reused} tokens reused)"
     print(f"serving {what} on {card}: {len(prompts)} greedy requests, {new} new tokens each, "
-          f"{wall:.2f} s wall, {engine.steps} decode steps or verify windows, {step_s:.2f} s host "
-          f"clock in them = {len(prompts) * (new - 1) / max(step_s, 1e-9):.1f} tok/s (end to end "
-          f"{len(prompts) * new / wall:.1f} tok/s){extra}")
+          f"{wall:.2f} s wall, {engine.steps} decode steps or verify windows at pipeline depth "
+          f"{engine.pipeline_depth}, {step_s:.2f} s host clock in them = "
+          f"{len(prompts) * (new - 1) / max(step_s, 1e-9):.1f} tok/s (end to end "
+          f"{len(prompts) * new / wall:.1f} tok/s){extra}; loop_timers {_timers(engine)}")
     print(f"serving {what} launches: {json.dumps({k: v for k, v in launches.items() if v})}")
     return outs, launches
 
@@ -1528,6 +1561,7 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
     engine = build_generation_engine(cfg, device=dev, params=params)
     got, launches = generate_all(engine, prompts, 16, counters,
                                  ("paged_decode_attention", "int8_matmul"), "llama_paged", card)
+    paged_got = got
     acct = engine.page_accounting()
     refs = int((engine._page_refs > 0).sum())
     print(f"llama_paged pages after the burst: {json.dumps(acct)}; pages with a reference "
@@ -1563,7 +1597,7 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
     paged_stats["lookup_rigged_acceptance"] = rate
     del engine
     torch.cuda.empty_cache()
-    return launches, lookup_launches, paged_stats
+    return launches, lookup_launches, paged_stats, (prompts, paged_got)
 
 
 def extras_path(spec, int4_params, counters, card, dev):
@@ -1583,7 +1617,7 @@ def extras_path(spec, int4_params, counters, card, dev):
     print(f"int8 llama-1b trees (random and rigged) built in {time.perf_counter() - t0:.1f} s")
     per_step = window_model_phase(params, spec, counters, dev)
     spec_results, rig_prompts = speculation_path(spec, params, rigged, counters, card, dev)
-    paged_launches, lookup_launches, paged_stats = paged_path(
+    paged_launches, lookup_launches, paged_stats, paged_streams = paged_path(
         spec, params, rigged, rig_prompts, spec_results["lookup_rigged"]["want"], counters, card,
         dev)
     launches = {
@@ -1598,7 +1632,350 @@ def extras_path(spec, int4_params, counters, card, dev):
                for k, v in spec_results.items()}
     summary["paged"] = paged_stats
     print(f"extras summary: {json.dumps(summary)}")
-    return launches, per_step
+    # what the flat group is held against
+    ctx = dict(params=params, rigged=rigged, rig_prompts=rig_prompts,
+               lookup_rigged_want=spec_results["lookup_rigged"]["want"],
+               paged_streams=paged_streams, paged_stats=paged_stats)
+    return launches, per_step, ctx
+
+# -- the flat layout and overlapped dispatch -------------------------------------
+
+FLAT_KERNELS = ("flat_decode_attention", "flat_window_decode_attention",
+                "flat_paged_decode_attention", "flat_paged_window_decode_attention")
+
+
+def _flat_of(k, v, ks, vs):
+    """The same logical cache or pool in the FLAT layout: the K/V bytes as
+    they are (a view), the scales transposed (a copy)."""
+    return (k.flatten(-2), v.flatten(-2), ks.transpose(-1, -2).contiguous(),
+            vs.transpose(-1, -2).contiguous())
+
+
+def _flat_row(name, q, std, tail, nbytes, flops, library, lib_fn, shape, garbage_page=False):
+    """One K12 kernel on the flat form of the standard caches ``std``
+    (cycled copies): bit-equal to its standard twin on the same logical
+    cache, held against its plain version, then timed beside the twin (in
+    this call), its plain version and the twin's library yardstick."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
+
+    twin_name = name[len("flat_"):]
+    fn, twin, plain = getattr(da, name), getattr(da, twin_name), getattr(da, name + "_plain")
+    flat = [_flat_of(*c) for c in std]
+    got = fn(q, *flat[0], *tail)
+    want = twin(q, *std[0], *tail)
+    torch.cuda.synchronize()
+    require(torch.equal(got, want), f"{name} is not bit-equal to {twin_name} on the same cache")
+    refs = flat
+    if garbage_page:
+        require(bool(torch.isfinite(got.float()).all()),
+                f"{name} read the garbage page (non-finite output)")
+        refs = []
+        for k, v, ks, vs in flat:  # the plain version gathers page 0 and masks it
+            ks, vs = ks.clone(), vs.clone()
+            ks[0], vs[0] = 1.0, 1.0
+            refs.append((k, v, ks, vs))
+    err = attn_check(f"{name} {shape}", got, plain(q, *refs[0], *tail))
+    n = len(std)
+    ms = _time_cycled(lambda i: fn(q, *flat[i], *tail), n)
+    twin_ms = _time_cycled(lambda i: twin(q, *std[i], *tail), n)
+    plain_ms = _time_cycled(lambda i: plain(q, *refs[i], *tail), n, iters=3)
+    lib_ms = lib_fn()
+    b_ms, b_by = bound_ms(nbytes, flops)
+    print(f"time {name} {shape}: kernel {ms:.4f} ms, its standard twin {twin_name} {twin_ms:.4f} "
+          f"ms in this call, plain {plain_ms:.4f} ms, {library} {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); bit-equal to the twin; {n} copies cycled")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape, library=library, twin=twin_name,
+                twin_ms=twin_ms, bit_equal_to_twin=True, copies=n)
+
+
+def flat_kernel_phase(spec, k3_lengths, dev):
+    """K12a-d at the shapes their configs give them: K12a at
+    llama_decoder.yml's S = 128, T = 1024 with the K3 row's live lengths,
+    K12b at S = 16 with W = 5 and 9, K12c and K12d at llama_paged.yml's S =
+    64, pages of 256, a pool of 129 (page 0 NaN). The bytes and the
+    library yardsticks are their standard twins'."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(4343)
+    bf16 = torch.bfloat16
+    hq, hkv, d, rep = spec.q_heads, spec.kv_heads, spec.head_dim, spec.rep
+    rows = {}
+
+    def dense_cache(s_, t_):
+        return (torch.randint(-127, 128, (s_, t_, hkv, d), device=dev, generator=g,
+                              dtype=torch.int8),
+                torch.randint(-127, 128, (s_, t_, hkv, d), device=dev, generator=g,
+                              dtype=torch.int8),
+                torch.rand(s_, t_, hkv, device=dev, generator=g) * 0.03 + 0.05,
+                torch.rand(s_, t_, hkv, device=dev, generator=g) / 127 + 1e-3)
+
+    def deq(kc, vc, ks, vs):
+        return ((kc.float() * ks[..., None]).to(bf16).transpose(1, 2),
+                (vc.float() * vs[..., None]).to(bf16).transpose(1, 2))
+
+    # K12a
+    s_, t_ = len(k3_lengths), 1024
+    lens = torch.tensor(k3_lengths, dtype=torch.int32, device=dev)
+    live = int((lens.to(torch.int64) + 1).sum())
+    nbytes = 2 * s_ * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_
+    caches = [dense_cache(s_, t_) for _ in range(_copies(nbytes))]
+    q = torch.randn(s_, hq, d, device=dev, generator=g).to(bf16)
+    kd, vd = deq(*caches[0])
+    mask = (torch.arange(t_, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+    rows["flat_decode_attention"] = _flat_row(
+        "flat_decode_attention", q, caches, (lens, rep), nbytes, 4.0 * live * hq * d,
+        "sdpa on the dequantized cache", lambda: time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)),
+        f"S={s_} T={t_} live={live}")
+    del caches, kd, vd
+
+    # K12b
+    s_, t_ = 16, 1024
+    per_shape = []
+    for w in (5, 9):
+        q = torch.randn(s_, w, hq, d, device=dev, generator=g).to(bf16)
+        lens = torch.randint(0, t_ - w + 1, (s_,), device=dev, generator=g, dtype=torch.int32)
+        lens[0], lens[1] = 0, t_ - w
+        live = int((lens.to(torch.int64) + w).sum())
+        nbytes = 2 * s_ * w * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_
+        caches = [dense_cache(s_, t_) for _ in range(_copies(nbytes))]
+        last = lens.to(torch.int64)[:, None] + torch.arange(w, device=dev)[None, :]
+        allowed = torch.arange(t_, device=dev)[None, None, :] <= last[:, :, None]
+        mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, float("-inf"))
+        mask = mask[:, None].to(bf16)
+        qt = q.transpose(1, 2)
+        dq = [deq(*c) for c in caches[:_copies(2 * s_ * t_ * hkv * d * 2)]]
+        row = _flat_row(
+            "flat_window_decode_attention", q, caches, (lens, rep), nbytes,
+            4.0 * int((last + 1).sum()) * hq * d, "sdpa (float mask) on the dequantized cache",
+            lambda: _time_cycled(lambda i: F.scaled_dot_product_attention(
+                qt, *dq[i], attn_mask=mask, enable_gqa=True), len(dq)),
+            f"S={s_} W={w} T={t_} live={live}")
+        per_shape.append(row)
+        if w == 5:
+            rows["flat_window_decode_attention"] = dict(row, per_shape=per_shape)
+        del caches, dq
+
+    # K12c, K12d
+    s_, page, n_pages, mp = 64, 256, 129, 4
+
+    def pool():
+        c = dense_cache(n_pages, page)
+        c[2][0], c[3][0] = float("nan"), float("nan")
+        return c
+
+    for w, name in ((1, "flat_paged_decode_attention"), (5, "flat_paged_window_decode_attention")):
+        lens = torch.randint(0, 2 * page - w + 1, (s_,), device=dev, generator=g,
+                             dtype=torch.int32)
+        lens[0], lens[1], lens[2] = 0, page - 2, 2 * page - w
+        perm = (torch.randperm(n_pages - 1, device=dev, generator=g) + 1).tolist()
+        table = torch.zeros(s_, mp, dtype=torch.int32)
+        for i, length in enumerate(lens.tolist()):
+            live_pages = (length + w - 1) // page + 1
+            table[i, :live_pages] = torch.tensor([perm.pop() for _ in range(live_pages)])
+        table = table.to(dev)
+        q = torch.randn(s_, w, hq, d, device=dev, generator=g).to(bf16)
+        if w == 1:
+            q = q[:, 0]
+        live = int((lens.to(torch.int64) + w).sum())
+        nbytes = 2 * s_ * w * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_ * (mp + 1)
+        pools = [pool() for _ in range(_copies(nbytes))]
+        last = lens.to(torch.int64)[:, None] + torch.arange(w, device=dev)[None, :]
+        allowed = torch.arange(mp * page, device=dev)[None, None, :] <= last[:, :, None]
+        mask = torch.zeros(allowed.shape, device=dev).masked_fill(~allowed, float("-inf"))
+        mask = mask[:, None].to(bf16)
+        q4 = q.reshape(s_, w, hq, d).transpose(1, 2)
+        tl = table.to(torch.int64)
+        finite = []
+        for kp, vp, ksp, vsp in pools:
+            ksp, vsp = ksp.clone(), vsp.clone()
+            ksp[0], vsp[0] = 1.0, 1.0
+            finite.append((kp, vp, ksp, vsp))
+
+        def sequence(i):
+            kp, vp, ksp, vsp = finite[i]
+            kd = (kp[tl].float() * ksp[tl][..., None]).to(bf16).reshape(s_, mp * page, hkv, d)
+            vd = (vp[tl].float() * vsp[tl][..., None]).to(bf16).reshape(s_, mp * page, hkv, d)
+            return F.scaled_dot_product_attention(q4, kd.transpose(1, 2), vd.transpose(1, 2),
+                                                  attn_mask=mask, enable_gqa=True)
+
+        rows[name] = _flat_row(
+            name, q, pools, (table, lens, rep), nbytes, 4.0 * int((last + 1).sum()) * hq * d,
+            "no one call; sequence gather + dequantize + sdpa",
+            lambda: _time_cycled(sequence, len(finite)),
+            f"S={s_} W={w} page={page} pool={n_pages} live={live}", garbage_page=True)
+        del pools, finite
+    torch.cuda.empty_cache()
+    return rows
+
+
+def flat_step_phase(spec, params, counters, dev):
+    """llama-1b int8 at full depth: a decode step and a verify window on a
+    dense cache, and one of each on a paged cache (a shuffled table of
+    256-row pages), in the standard and the flat layout on the same
+    prefilled contents. Each flat step must give the standard step's
+    logits exactly on the live slots (idle ones read the row their parked
+    writes race for) and launch its K12 kernel once per layer (its
+    standard twin never); returns those launches per step or verify."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models import paged_decoder as pd
+    from starpu_inference_server_tpu_torch.models.decoder import (
+        decode_step, init_cache, prefill, verify_step,
+    )
+
+    dtype = torch.bfloat16
+    s_, t_, w, page = 16, 1024, 5, 256
+    rng = np.random.default_rng(17)
+    lens = [300, 255, 100, 45]  # slot 1's window crosses into its second page
+    prompts = []
+    for n in lens:
+        p = np.zeros((512,), np.int32)
+        p[:n] = rng.integers(0, spec.vocab, n)
+        prompts.append(torch.as_tensor(p, device=dev))
+    window = torch.as_tensor(rng.integers(0, spec.vocab, (s_, w)).astype(np.int32), device=dev)
+    active = torch.zeros(s_, dtype=torch.bool, device=dev)
+    active[:len(lens)] = True
+    perm = [int(x) for x in rng.permutation(np.arange(1, 129))]
+    table_rows = [[perm.pop(), perm.pop(), 0, 0] for _ in lens]
+    logits, counts = {}, {}
+    for flat in (False, True):
+        dense = init_cache(spec, s_, t_, device=dev, flat=flat)
+        paged = pd.init_paged_cache(spec, s_, t_, num_pages=129, page_size=page, device=dev,
+                                    flat=flat)
+        for slot, (ids, n) in enumerate(zip(prompts, lens)):
+            pd.set_table_row(paged, slot, table_rows[slot])
+            prefill(spec, params, dense, ids, n, slot, dtype)
+            pd.paged_prefill(spec, params, paged, ids, n, slot, dtype)
+        for what, fn, cache, ids in (("decode", decode_step, dense, window[:, 0]),
+                                     ("verify", verify_step, dense, window),
+                                     ("paged decode", pd.paged_decode_step, paged, window[:, 0]),
+                                     ("paged verify", pd.paged_verify_step, paged, window)):
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            logits[flat, what] = fn(spec, params, cache, ids, active, dtype)[1]
+            torch.cuda.synchronize()
+            counts[flat, what] = read_counts(counters)
+        del dense, paged
+    per = {}
+    live = slice(0, len(lens))  # idle slots park their writes on one shared row
+    for what, name in (("decode", "flat_decode_attention"),
+                       ("verify", "flat_window_decode_attention"),
+                       ("paged decode", "flat_paged_decode_attention"),
+                       ("paged verify", "flat_paged_window_decode_attention")):
+        twin = name[len("flat_"):]
+        require(bool(torch.isfinite(logits[True, what][live]).all()),
+                f"flat {what} logits not finite")
+        require(torch.equal(logits[True, what][live], logits[False, what][live]),
+                f"flat {what} logits differ from the standard layout's")
+        require(counts[True, what][name] == spec.layers and counts[True, what][twin] == 0,
+                f"a flat {what} launched {name} {counts[True, what][name]} and {twin} "
+                f"{counts[True, what][twin]} times (want {spec.layers} and 0)")
+        require(counts[False, what][twin] == spec.layers and counts[False, what][name] == 0,
+                f"a standard {what} launched {twin} {counts[False, what][twin]} times")
+        per[name] = counts[True, what][name]
+    print(f"model llama-1b int8 {spec.layers} layers, flat vs standard layout on the same "
+          f"contents (lengths {lens}): decode, verify W={w}, paged decode and paged verify "
+          f"logits bit-equal; launches per step or verify: {json.dumps(per)}")
+    return per
+
+
+def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
+    """The serving phases of the fourth group, each against a run the
+    earlier groups made: llama_decoder.yml flat on the int4 tree (every
+    stream equal to the standard engine's, K3 never launched) and at
+    depth 1 (``decode_overlap: false``; streams equal to the config's
+    depth 4); llama_prompt_lookup.yml flat, rigged (streams equal to the
+    plain engine's); llama_paged.yml flat (prefix hits, tokens reused and
+    streams equal to the standard paged run's, no leaked page), then with
+    prompt lookup, rigged. Returns each K12 kernel's launches."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    launches = {}
+    cfg = load_config(str(CONFIG))
+    prompts, want = decoder_serving
+    flat_cfg = _cfg_with(cfg, kv_cache_layout="flat")
+    engine = build_generation_engine(flat_cfg, device=dev, params=int4_params)
+    got, ran = generate_all(engine, prompts, 32, counters,
+                            ("flat_decode_attention", "int4_matmul", "causal_attention",
+                             "chunk_prefill_attention"), "llama_decoder flat", card,
+                            absent=("decode_attention",))
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"llama_decoder flat: {same} of {len(want)} streams identical to the standard layout's")
+    require(same == len(want), "llama_decoder flat: a stream differs from the standard engine's")
+    launches["flat_decode_attention"] = ran["flat_decode_attention"]
+    del engine
+    engine = build_generation_engine(_cfg_with(cfg, decode_overlap=False), device=dev,
+                                     params=int4_params)
+    require(engine.pipeline_depth == 1, "decode_overlap: false did not give depth 1")
+    got, _ = generate_all(engine, prompts, 32, counters, DECODER_KERNELS,
+                          "llama_decoder at depth 1 (decode_overlap: false)", card)
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"overlap: {same} of {len(want)} streams at depth 1 identical to depth "
+          f"{int(cfg.model.options['decode_pipeline_depth'])}")
+    require(same == len(want), "a stream at depth 1 differs from the config's depth")
+    del engine
+    torch.cuda.empty_cache()
+
+    lookup_cfg = _rigged(_cfg_with(load_config(str(LOOKUP_CONFIG)), kv_cache_layout="flat"))
+    engine = build_generation_engine(lookup_cfg, device=dev, params=ctx["rigged"])
+    got, ran = generate_all(engine, ctx["rig_prompts"], 48, counters,
+                            ("flat_window_decode_attention", "int8_matmul"),
+                            "llama_prompt_lookup flat (rigged)", card,
+                            absent=("window_decode_attention",))
+    rate, floor = engine.draft_acceptance_rate(), RIG_ACCEPT_FLOOR["lookup"]
+    same = sum(a == b for a, b in zip(got, ctx["lookup_rigged_want"]))
+    print(f"llama_prompt_lookup flat (rigged): {same} of {len(got)} streams identical to the "
+          f"plain engine's; acceptance {rate:.3f} (floor {floor})")
+    require(same == len(got), "lookup flat (rigged): a stream differs from the plain engine's")
+    require(rate >= floor, f"lookup flat (rigged): acceptance {rate:.3f} under {floor}")
+    launches["flat_window_decode_attention"] = ran["flat_window_decode_attention"]
+    del engine
+
+    paged_cfg = _cfg_with(load_config(str(PAGED_CONFIG)), kv_cache_layout="flat")
+    prompts, want = ctx["paged_streams"]
+    engine = build_generation_engine(paged_cfg, device=dev, params=ctx["params"])
+    got, ran = generate_all(engine, prompts, 16, counters,
+                            ("flat_paged_decode_attention", "int8_matmul"), "llama_paged flat",
+                            card, absent=("paged_decode_attention",))
+    acct = engine.page_accounting()
+    refs = int((engine._page_refs > 0).sum())
+    std = ctx["paged_stats"]
+    same = sum(a == b for a, b in zip(got, want))
+    print(f"llama_paged flat: {same} of {len(want)} streams identical to the standard paged "
+          f"run's; prefix hits {engine.prefix_hits} ({engine.prefix_tokens_reused} tokens) "
+          f"against {std['prefix_hits']} ({std['reused']}); pages after the burst "
+          f"{json.dumps(acct)}, with a reference {refs}")
+    require((engine.prefix_hits, engine.prefix_tokens_reused) == (std["prefix_hits"],
+                                                                  std["reused"]),
+            "llama_paged flat: prefix reuse differs from the standard paged run's")
+    require(acct["live"] == 0 and acct["free"] + acct["retained"] + acct["garbage"] == acct["pool"]
+            and refs == acct["retained"], "llama_paged flat: pages leaked")
+    require(same == len(want), "llama_paged flat: a stream differs from the standard paged run's")
+    launches["flat_paged_decode_attention"] = ran["flat_paged_decode_attention"]
+    del engine
+    engine = build_generation_engine(_rigged(_cfg_with(paged_cfg, prompt_lookup_ngram=2)),
+                                     device=dev, params=ctx["rigged"])
+    got, ran = generate_all(engine, ctx["rig_prompts"], 48, counters,
+                            ("flat_paged_window_decode_attention", "int8_matmul"),
+                            "llama_paged flat + prompt lookup (rigged)", card,
+                            absent=("paged_window_decode_attention",))
+    same = sum(a == b for a, b in zip(got, ctx["lookup_rigged_want"]))
+    print(f"llama_paged flat + prompt lookup (rigged): {same} of {len(got)} streams identical "
+          f"to the plain rigged engine's; acceptance {engine.draft_acceptance_rate():.3f}")
+    require(same == len(got), "paged flat + lookup (rigged): a stream differs")
+    launches["flat_paged_window_decode_attention"] = ran["flat_paged_window_decode_attention"]
+    del engine
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -1627,6 +2004,7 @@ def main() -> int:
     from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
     from starpu_inference_server_tpu_torch.utils.config import load_config
 
+    t_run = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
     dev = torch.device("cuda")
@@ -1643,7 +2021,7 @@ def main() -> int:
     counters = [mk.launches, da.launches, pa.launches, sk.launches]
     rows = kernel_phase(engine.spec, cfg.model.options, dev)
     per_step = model_phase(engine, dev, counters)
-    launches = serving_phase(engine, counters, card)
+    launches, dec_prompts, dec_outs = serving_phase(engine, counters, card)
     spec, int4_params = engine.spec, engine.params  # the W4A8 path reuses the int4 tree
     del engine
     torch.cuda.empty_cache()
@@ -1657,17 +2035,24 @@ def main() -> int:
         launches[name] = resnet_launches[name]
 
     rows.update(extras_kernel_phase(spec, dev))
-    extra_launches, extra_step = extras_path(spec, int4_params, counters, card, dev)
+    extra_launches, extra_step, ctx = extras_path(spec, int4_params, counters, card, dev)
     launches.update(extra_launches)
+
+    rows.update(flat_kernel_phase(spec, rows["decode_attention"]["lengths"], dev))
+    extra_step.update(flat_step_phase(spec, ctx["params"], counters, dev))
+    launches.update(flat_path(int4_params, (dec_prompts, dec_outs), ctx, counters, card, dev))
 
     kernels = []
     for name in _build.KERNELS:
         r = rows[name]
         if name in DECODER_KERNELS:
             extra = {"launches_per_decode_step": per_step[name]}
-        elif name in EXTRA_KERNELS:
+        elif name in EXTRA_KERNELS + FLAT_KERNELS:
             per = "verify" if "window" in name else "decode_step"
             extra = {f"launches_per_{per}": extra_step[name], "library": r["library"]}
+            if name in FLAT_KERNELS:
+                extra.update(twin=r["twin"], twin_ms=r["twin_ms"],
+                             bit_equal_to_twin=r["bit_equal_to_twin"])
         else:
             forward = bert_forward if name in BERT_KERNELS else resnet_forward
             extra = {"launches_per_forward": forward[name], "library": r["library"]}
@@ -1680,6 +2065,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], **extra,
             **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
+    print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

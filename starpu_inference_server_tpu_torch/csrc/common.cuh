@@ -145,13 +145,238 @@ struct FlashRow {
 };
 
 // ---------------------------------------------------------------------------
+// Cache addressing, shared by every attention body over the int8 KV cache.
+//
+// The int8 K/V bytes of both cache layouts are the same: position `pos`
+// of slot `s`, KV head `h` is the D-byte row `kv` of k / v viewed as
+// [.., Hkv, D] rows (the FLAT layout's [.., T, Hkv*D] rows hold the same
+// bytes). Only the f32 scales move: the standard layout keeps them
+// [.., T, Hkv] (index kv, one per row), the FLAT layout [.., Hkv, T]
+// (index sc, contiguous along positions for one head).
+// ---------------------------------------------------------------------------
+
+struct KVAddr {
+  size_t kv;  // D-byte row of k / v
+  size_t sc;  // element of the scales
+};
+
+// dense cache: k / v [S, T, Hkv, D] (or [S, T, Hkv*D]); scales [S, T, Hkv]
+// or, FLAT, [S, Hkv, T]
+template <bool Flat>
+struct DenseRows {
+  int T;
+  int Hkv;
+  __device__ __forceinline__ KVAddr operator()(int s, int pos, int h) const {
+    const size_t kv = ((size_t)s * T + pos) * Hkv + h;
+    return {kv, Flat ? ((size_t)s * Hkv + h) * T + pos : kv};
+  }
+};
+
+// through the page table: logical position pos of slot s lives in pool
+// page table[s, pos / page] at row pos % page; pools [N, page, Hkv, D]
+// (or [N, page, Hkv*D]), scale pools [N, page, Hkv] or, FLAT,
+// [N, Hkv, page]
+template <bool Flat>
+struct PagedRows {
+  const int* table;
+  int max_pages;
+  int page;
+  int Hkv;
+  __device__ __forceinline__ KVAddr operator()(int s, int pos, int h) const {
+    const size_t pid = table[(size_t)s * max_pages + pos / page];
+    const int off = pos % page;
+    const size_t kv = (pid * page + off) * Hkv + h;
+    return {kv, Flat ? (pid * Hkv + h) * page + off : kv};
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Decode attention over the dense int8 KV cache: the body shared by
+// decode_attention (standard layout) and flat_decode_attention (FLAT).
+//
+//   q / out [S, Hq, D] (bf16 or f32); k / v and their scales addressed by
+//   `rows` (DenseRows); lengths int32 [S]: slot s attends positions
+//   0..lengths[s] (the new token sits at lengths[s]). GQA: query head
+//   h*rep + r reads KV head h; nothing is repeated.
+//
+// One block per (KV head, slot) serves the head's `rep` query heads, so
+// each K/V byte is read from device memory once. The loop over
+// 128-position chunks runs inside the block (the TPU carried m/l/acc
+// across sequential grid steps instead) and stops at the slot's length,
+// so the cost tracks the live context, not max_len. Per chunk: each
+// thread scores one position for all rep heads (k scale applied to the
+// logit, 1/sqrt(D) folded in), one warp per head runs the online-softmax
+// update, the V chunk is staged in shared memory as int8, and each
+// thread accumulates its (head, d) outputs with the v scale folded into
+// the probability. Under the FLAT layout a chunk's scales are one
+// contiguous run per head; the arithmetic is the same, so both layouts
+// give the same bits on the same logical cache.
+// ---------------------------------------------------------------------------
+
+constexpr int kDecCH = 128;    // positions per chunk == threads per block
+constexpr int kDecMaxRep = 8;
+constexpr int kDecMaxOut = 8;  // rep * D <= kDecMaxOut * kDecCH
+
+inline bool decode_shape_ok(int rep, int D) {
+  return D % 16 == 0 && rep >= 1 && rep <= kDecMaxRep && rep * D <= kDecMaxOut * kDecCH;
+}
+
+inline size_t decode_smem_bytes(int rep, int D) {
+  return (size_t)kDecCH * D +
+         sizeof(float) * ((size_t)rep * D + (size_t)rep * kDecCH + kDecCH + 3 * (size_t)rep);
+}
+
+template <typename TQ, typename Rows>
+__device__ __forceinline__ void decode_attention_body(
+    const TQ* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+    const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ lengths, TQ* __restrict__ out, Rows rows, int T, int Hkv, int rep,
+    int D, float inv_sqrt_d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* v_s = reinterpret_cast<int8_t*>(smem);          // [CH][D]
+  float* q_s = reinterpret_cast<float*>(smem + kDecCH * D);  // [rep][D]
+  float* p_s = q_s + rep * D;                              // [rep][CH]
+  float* vsc_s = p_s + rep * kDecCH;                       // [CH]
+  float* m_s = vsc_s + kDecCH;                             // [rep]
+  float* l_s = m_s + rep;                                  // [rep]
+  float* a_s = l_s + rep;                                  // [rep]
+
+  const int h = blockIdx.x;
+  const int s = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int hq = Hkv * rep;
+  const int rd = rep * D;
+  int n = lengths[s] + 1;
+  n = n < 1 ? 1 : (n > T ? T : n);
+
+  const size_t q_base = ((size_t)s * hq + (size_t)h * rep) * D;
+  for (int i = tid; i < rd; i += kDecCH) q_s[i] = to_f(q[q_base + i]);
+  if (tid < rep) {
+    m_s[tid] = kNeg;
+    l_s[tid] = 0.f;
+  }
+  float acc[kDecMaxOut];
+#pragma unroll
+  for (int j = 0; j < kDecMaxOut; ++j) acc[j] = 0.f;
+  __syncthreads();
+
+  const int segs = D / 16;
+  for (int c0 = 0; c0 < n; c0 += kDecCH) {
+    const int nc = min(kDecCH, n - c0);
+    // phase 1: logits of position c0 + tid for every head of the group
+    if (tid < nc) {
+      const KVAddr a = rows(s, c0 + tid, h);
+      float dots[kDecMaxRep];
+#pragma unroll
+      for (int r = 0; r < kDecMaxRep; ++r) dots[r] = 0.f;
+      const int8_t* kr = k + a.kv * D;
+      for (int sg = 0; sg < segs; ++sg) {
+        const int4 raw = *reinterpret_cast<const int4*>(kr + sg * 16);
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const float kv = static_cast<float>(kb[e]);
+#pragma unroll
+          for (int r = 0; r < kDecMaxRep; ++r)
+            if (r < rep) dots[r] = fmaf(q_s[r * D + sg * 16 + e], kv, dots[r]);
+        }
+      }
+      const float sc = ks[a.sc] * inv_sqrt_d;
+#pragma unroll
+      for (int r = 0; r < kDecMaxRep; ++r)
+        if (r < rep) p_s[r * kDecCH + tid] = dots[r] * sc;
+      vsc_s[tid] = vs[a.sc];
+    } else {
+      for (int r = 0; r < rep; ++r) p_s[r * kDecCH + tid] = kNeg;
+      vsc_s[tid] = 0.f;
+    }
+    // stage the V chunk (int8) in shared memory, 16 bytes per load
+    for (int i = tid; i < kDecCH * segs; i += kDecCH) {
+      const int row = i / segs;
+      const int sg = i % segs;
+      int4 raw = make_int4(0, 0, 0, 0);
+      if (row < nc)
+        raw = *reinterpret_cast<const int4*>(v + rows(s, c0 + row, h).kv * D + sg * 16);
+      *reinterpret_cast<int4*>(v_s + row * D + sg * 16) = raw;
+    }
+    __syncthreads();
+    // phase 2: online-softmax update, one warp per head
+    for (int r = warp; r < rep; r += kDecCH / 32) {
+      float* pr = p_s + r * kDecCH;
+      float vals[kDecCH / 32];
+      float cmax = kNeg;
+#pragma unroll
+      for (int i = 0; i < kDecCH / 32; ++i) {
+        vals[i] = pr[lane + 32 * i];
+        cmax = fmaxf(cmax, vals[i]);
+      }
+      cmax = warp_max(cmax);
+      const float m_old = m_s[r];
+      const float m_new = fmaxf(m_old, cmax);
+      float psum = 0.f;
+#pragma unroll
+      for (int i = 0; i < kDecCH / 32; ++i) {
+        const float p = expf(vals[i] - m_new);
+        pr[lane + 32 * i] = p;
+        psum += p;
+      }
+      psum = warp_sum(psum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[r] = alpha;
+        l_s[r] = alpha * l_s[r] + psum;
+        m_s[r] = m_new;
+      }
+    }
+    __syncthreads();
+    // phase 3: acc[(r, d)] = acc * alpha + sum_t p[r, t] * vs[t] * v[t, d]
+#pragma unroll
+    for (int j = 0; j < kDecMaxOut; ++j) {
+      const int o = tid + j * kDecCH;
+      if (o < rd) {
+        const int r = o / D;
+        const int d = o % D;
+        const float* pr = p_s + r * kDecCH;
+        float a = acc[j] * a_s[r];
+        for (int tt = 0; tt < nc; ++tt)
+          a = fmaf(pr[tt] * vsc_s[tt], static_cast<float>(v_s[tt * D + d]), a);
+        acc[j] = a;
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < kDecMaxOut; ++j) {
+    const int o = tid + j * kDecCH;
+    if (o < rd) {
+      const int r = o / D;
+      out[q_base + o] = from_f<TQ>(acc[j] / fmaxf(l_s[r], 1e-30f));
+    }
+  }
+}
+
+// Launch `kernel` (a __global__ wrapper of decode_attention_body) on a
+// (Hkv, S) grid of kDecCH threads.
+template <typename Kernel, typename... Args>
+inline int launch_decode(Kernel kernel, int S, int Hkv, int rep, int D, cudaStream_t stream,
+                         Args... args) {
+  if (!decode_shape_ok(rep, D)) return static_cast<int>(cudaErrorInvalidValue);
+  kernel<<<dim3(Hkv, S), kDecCH, decode_smem_bytes(rep, D), stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // Window attention over the int8 KV cache: the body shared by
 // window_decode_attention (dense cache, W query rows per slot),
-// paged_decode_attention (page table, W = 1) and
-// paged_window_decode_attention (page table, W rows).
+// paged_decode_attention (page table, W = 1),
+// paged_window_decode_attention (page table, W rows) and their FLAT
+// twins.
 //
-//   q / out [S, W, Hq, D] (bf16 or f32); k / v int8 rows [.., Hkv, D] and
-//   k / v scales f32 [.., Hkv], addressed per (slot, position) by `Rows`;
+//   q / out [S, W, Hq, D] (bf16 or f32); k / v and their scales addressed
+//   per (slot, position, KV head) by `rows` (DenseRows or PagedRows);
 //   lengths int32 [S]. Row w of slot s sits at position lengths[s] + w and
 //   attends positions <= lengths[s] + w (the verify mask; W = 1 is the
 //   decode mask). GQA: query head h*rep + r reads KV head h.
@@ -179,25 +404,6 @@ inline bool window_shape_ok(int R, int D) {
   return D % 16 == 0 && R >= 1 && R * D <= kWinMaxOut * kWinThreads &&
          window_smem_bytes(R, D) <= 227 * 1024;
 }
-
-// row index (into [.., Hkv, D] rows) of position `pos` of slot `s`
-struct DenseRows {
-  int T;
-  __device__ __forceinline__ size_t operator()(int s, int pos) const {
-    return (size_t)s * T + pos;
-  }
-};
-
-// through the page table: logical position pos lives in pool page
-// table[s, pos / page] at row pos % page
-struct PagedRows {
-  const int* table;
-  int max_pages;
-  int page;
-  __device__ __forceinline__ size_t operator()(int s, int pos) const {
-    return (size_t)table[(size_t)s * max_pages + pos / page] * page + pos % page;
-  }
-};
 
 template <typename TQ, typename Rows>
 __device__ __forceinline__ void window_attention(
@@ -251,13 +457,13 @@ __device__ __forceinline__ void window_attention(
       float* kd = k_s + j * KP + sg * 16;
       float* vd = v_s + j * D + sg * 16;
       if (j < nc) {
-        const size_t row = rows(s, c0 + j) * Hkv + h;
-        const int4 kraw = *reinterpret_cast<const int4*>(k + row * D + sg * 16);
-        const int4 vraw = *reinterpret_cast<const int4*>(v + row * D + sg * 16);
+        const KVAddr a = rows(s, c0 + j, h);
+        const int4 kraw = *reinterpret_cast<const int4*>(k + a.kv * D + sg * 16);
+        const int4 vraw = *reinterpret_cast<const int4*>(v + a.kv * D + sg * 16);
         const int8_t* kb = reinterpret_cast<const int8_t*>(&kraw);
         const int8_t* vb = reinterpret_cast<const int8_t*>(&vraw);
-        const float ksc = ks[row];
-        const float vsc = vs[row];
+        const float ksc = ks[a.sc];
+        const float vsc = vs[a.sc];
 #pragma unroll
         for (int e = 0; e < 16; ++e) {
           kd[e] = static_cast<float>(kb[e]) * ksc;

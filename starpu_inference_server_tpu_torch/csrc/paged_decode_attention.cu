@@ -34,8 +34,8 @@ paged_decode_attention_kernel(const TQ* __restrict__ q, const int8_t* __restrict
                               int max_pages, int page, int Hkv, int rep, int D,
                               float inv_sqrt_d) {
   sis::window_attention<TQ>(q, k, v, ks, vs, lengths, out,
-                            sis::PagedRows{table, max_pages, page}, max_pages * page, 1, Hkv,
-                            rep, D, inv_sqrt_d);
+                            sis::PagedRows<false>{table, max_pages, page, Hkv}, max_pages * page,
+                            1, Hkv, rep, D, inv_sqrt_d);
 }
 
 }  // namespace

@@ -35,8 +35,8 @@ paged_window_decode_attention_kernel(const TQ* __restrict__ q, const int8_t* __r
                                      int max_pages, int page, int W, int Hkv, int rep, int D,
                                      float inv_sqrt_d) {
   sis::window_attention<TQ>(q, k, v, ks, vs, lengths, out,
-                            sis::PagedRows{table, max_pages, page}, max_pages * page, W, Hkv,
-                            rep, D, inv_sqrt_d);
+                            sis::PagedRows<false>{table, max_pages, page, Hkv}, max_pages * page,
+                            W, Hkv, rep, D, inv_sqrt_d);
 }
 
 }  // namespace

@@ -31,8 +31,8 @@ window_decode_attention_kernel(const TQ* __restrict__ q, const int8_t* __restric
                                const float* __restrict__ vs, const int* __restrict__ lengths,
                                TQ* __restrict__ out, int T, int W, int Hkv, int rep, int D,
                                float inv_sqrt_d) {
-  sis::window_attention<TQ>(q, k, v, ks, vs, lengths, out, sis::DenseRows{T}, T, W, Hkv, rep,
-                            D, inv_sqrt_d);
+  sis::window_attention<TQ>(q, k, v, ks, vs, lengths, out, sis::DenseRows<false>{T, Hkv}, T, W,
+                            Hkv, rep, D, inv_sqrt_d);
 }
 
 }  // namespace

@@ -1,4 +1,5 @@
-"""Llama-class decoder with an INT8 KV cache (standard layered layout).
+"""Llama-class decoder with an INT8 KV cache (layered: one tensor per
+layer, in the standard or the FLAT layout).
 
 Counterpart of ``starpu_inference_server_tpu/models/decoder.py``: the
 same variants, parameter tree (fused qkv and gate_up projections), RNG
@@ -13,6 +14,14 @@ PyTorch runs eagerly and its tensors are mutable, so the cache is
 updated IN PLACE: where the JAX functions returned a new cache whose
 buffers XLA aliased through donation, these write into ``cache.k[li]``
 etc. and return the same ``KVCache`` object.
+
+The FLAT layout (``init_cache(..., flat=True)``) keeps each layer's K/V
+as int8 ``[S, T, Hkv*D]`` and its scales as f32 ``[S, Hkv, T]``. The K/V
+bytes are the standard layout's; the scales of one (slot, head) are
+contiguous along positions. Decode and verify attention read it in place
+through the flat kernels (``ops/decode_attention.py``); the plain routes
+and prefill attention read it through standard-shaped views
+(``_std_kv_view``, ``_std_scale_view``), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -26,6 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import nn
+from ..ops.decode_attention import std_kv_view
+from ..ops.decode_attention import std_scale_view as _std_scale_view
 from ..utils.config import TensorSpec
 from .registry import ModelDefinition, register_family
 
@@ -70,14 +81,19 @@ class DecoderSpec:
 @dataclasses.dataclass
 class KVCache:
     """INT8 KV cache, LAYERED: ``k``/``v`` are per-layer lists of int8
-    [S, T, H_kv, D], scales per-layer f32 [S, T, H_kv], ``lengths`` int32
-    [S]. Updated in place (the JAX package's donated buffers)."""
+    [S, T, H_kv, D] (FLAT: [S, T, H_kv*D]), scales per-layer f32
+    [S, T, H_kv] (FLAT: [S, H_kv, T]), ``lengths`` int32 [S]. Updated in
+    place (the JAX package's donated buffers)."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
     k_scale: List[torch.Tensor]
     v_scale: List[torch.Tensor]
     lengths: torch.Tensor
+
+    @property
+    def flat(self) -> bool:
+        return self.k[0].dim() == 3
 
     @property
     def num_slots(self) -> int:
@@ -88,8 +104,38 @@ class KVCache:
         return self.k[0].shape[1]
 
 
-def init_cache(spec: DecoderSpec, num_slots: int, max_len: int, device="cpu") -> KVCache:
-    shape = (num_slots, max_len, spec.kv_heads, spec.head_dim)
+def _flat_rows(t: torch.Tensor) -> torch.Tensor:
+    """[..., H, D] new-token K/V -> [..., H*D] flat rows."""
+    return t.flatten(-2)
+
+
+def _std_kv_view(spec: DecoderSpec, a: torch.Tensor) -> torch.Tensor:
+    """FLAT [..., T, H*D] K/V -> standard [..., T, H, D] (a view)."""
+    return std_kv_view(a, spec.kv_heads)
+
+
+def init_cache(spec: DecoderSpec, num_slots: int, max_len: int, device="cpu",
+               stacked: bool = False, flat: bool = False) -> KVCache:
+    """Zeroed per-layer cache tensors, standard or ``flat``. ``stacked``
+    (one [L, ...] tensor per field, the JAX package's pipe-mode layout)
+    waits for the multi-device slice; with ``flat`` it raises
+    ``ValueError``, as in the JAX package."""
+    if stacked:
+        if flat:
+            raise ValueError(
+                "flat cache layout does not compose with the stacked "
+                "(pipe-mode) layout: the pipe stages' cache specs shard "
+                "the head axis over 'model', which the flat [T, H*D] "
+                "rows fold away"
+            )
+        raise NotImplementedError("the stacked (pipe-mode) cache layout is not yet ported "
+                                  "(ROADMAP queue 1, multi-device)")
+    if flat:
+        shape = (num_slots, max_len, spec.kv_heads * spec.head_dim)
+        sshape = (num_slots, spec.kv_heads, max_len)
+    else:
+        shape = (num_slots, max_len, spec.kv_heads, spec.head_dim)
+        sshape = shape[:-1]
 
     def zeros(shp, dt):
         return [torch.zeros(shp, dtype=dt, device=device) for _ in range(spec.layers)]
@@ -97,10 +143,43 @@ def init_cache(spec: DecoderSpec, num_slots: int, max_len: int, device="cpu") ->
     return KVCache(
         k=zeros(shape, torch.int8),
         v=zeros(shape, torch.int8),
-        k_scale=zeros(shape[:-1], torch.float32),
-        v_scale=zeros(shape[:-1], torch.float32),
+        k_scale=zeros(sshape, torch.float32),
+        v_scale=zeros(sshape, torch.float32),
         lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
     )
+
+
+def _dequantized_layer(spec: DecoderSpec, cache: KVCache, li: int, dtype):
+    """Layer ``li``'s whole cache dequantized to [S, T, H_kv, D], in
+    either layout (the plain decode and verify routes)."""
+    k, v, ks, vs = cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li]
+    if cache.flat:
+        k, v = _std_kv_view(spec, k), _std_kv_view(spec, v)
+        ks, vs = _std_scale_view(ks), _std_scale_view(vs)
+    return _dequantize_kv(k, ks, dtype), _dequantize_kv(v, vs, dtype)
+
+
+def _write_kv(cache: KVCache, li: int, slots, positions, kq, vq, kscale, vscale) -> None:
+    """Write new rows of layer ``li`` in place at (``slots``,
+    ``positions``), int indices, slices or index tensors broadcast
+    together; ``kq``/``vq`` [..., H_kv, D], scales [..., H_kv]."""
+    if cache.flat:
+        cache.k[li][slots, positions] = _flat_rows(kq)
+        cache.v[li][slots, positions] = _flat_rows(vq)
+        sk, sv = cache.k_scale[li], cache.v_scale[li]
+        if isinstance(positions, slice):
+            # basic indexing keeps the head axis in place: [H_kv, rows]
+            sk[slots, :, positions] = kscale.transpose(-1, -2)
+            sv[slots, :, positions] = vscale.transpose(-1, -2)
+        else:
+            # advanced indices around a slice put their dims first
+            sk[slots, :, positions] = kscale
+            sv[slots, :, positions] = vscale
+        return
+    cache.k[li][slots, positions] = kq
+    cache.v[li][slots, positions] = vq
+    cache.k_scale[li][slots, positions] = kscale
+    cache.v_scale[li][slots, positions] = vscale
 
 
 # -- params ----------------------------------------------------------------
@@ -163,7 +242,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(ROPE_THETA, dtype=torch.float32, device=x.device), exps)
+    # a Python base: no tensor is made on the host and copied over (that
+    # copy would sync the host with the card on every call)
+    freqs = torch.pow(ROPE_THETA, exps)
     angles = positions.unsqueeze(-1).to(torch.float32) * freqs  # [..., T, half]
     cos = torch.cos(angles).unsqueeze(-2)  # [..., T, 1, half]
     sin = torch.sin(angles).unsqueeze(-2)
@@ -277,10 +358,7 @@ def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
         vq, vscale = _quantize_kv(v[0])
         # in-place write of slot rows [0, P); rows past ``length`` hold
         # stale values that are overwritten before they can be attended
-        cache.k[li][slot, :p] = kq
-        cache.v[li][slot, :p] = vq
-        cache.k_scale[li][slot, :p] = kscale
-        cache.v_scale[li][slot, :p] = vscale
+        _write_kv(cache, li, slot, slice(0, p), kq, vq, kscale, vscale)
         if _use_fused_prefill_attention(spec, p, ids):
             from ..ops.prefill_attention import causal_attention
 
@@ -336,12 +414,15 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
         vq, vscale = _quantize_kv(v[0])
         # a chunk that starts at a prefix-cache hit may run past t_max:
         # only padding rows lie there, so only the rows that fit are written
-        cache.k[li][slot, start:start + fit] = kq[:fit]
-        cache.v[li][slot, start:start + fit] = vq[:fit]
-        cache.k_scale[li][slot, start:start + fit] = kscale[:fit]
-        cache.v_scale[li][slot, start:start + fit] = vscale[:fit]
+        _write_kv(cache, li, slot, slice(start, start + fit), kq[:fit], vq[:fit],
+                  kscale[:fit], vscale[:fit])
         row_ck, row_cv = cache.k[li][slot], cache.v[li][slot]
         row_cks, row_cvs = cache.k_scale[li][slot], cache.v_scale[li][slot]
+        if cache.flat:
+            # standard-shaped views of the slot's row (the read-back of a
+            # chunk; decode and verify read the flat cache in place)
+            row_ck, row_cv = _std_kv_view(spec, row_ck), _std_kv_view(spec, row_cv)
+            row_cks, row_cvs = _std_scale_view(row_cks), _std_scale_view(row_cvs)
         if _use_fused_prefill_attention(spec, t_max, ids, min_seq=512):
             from ..ops.prefill_attention import chunk_prefill_attention
 
@@ -402,10 +483,7 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
         v = vf.reshape(s, 1, spec.kv_heads, spec.head_dim)
         kq, kscale = _quantize_kv(k[:, 0])
         vq, vscale = _quantize_kv(v[:, 0])
-        cache.k[li][slot_idx, write_pos] = kq
-        cache.v[li][slot_idx, write_pos] = vq
-        cache.k_scale[li][slot_idx, write_pos] = kscale
-        cache.v_scale[li][slot_idx, write_pos] = vscale
+        _write_kv(cache, li, slot_idx, write_pos, kq, vq, kscale, vscale)
         if fused:
             from ..ops.decode_attention import decode_attention
 
@@ -414,8 +492,9 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
                 cache.v_scale[li], positions, rep=rep,
             ).reshape(s, 1, spec.q_heads * spec.head_dim).to(dtype)
         else:
-            k_all = _dequantize_kv(cache.k[li], cache.k_scale[li], dtype).repeat_interleave(rep, dim=2)
-            v_all = _dequantize_kv(cache.v[li], cache.v_scale[li], dtype).repeat_interleave(rep, dim=2)
+            k_all, v_all = _dequantized_layer(spec, cache, li, dtype)
+            k_all = k_all.repeat_interleave(rep, dim=2)
+            v_all = v_all.repeat_interleave(rep, dim=2)
             logits = torch.einsum("sqhd,skhd->shqk", _f32(q), _f32(k_all)) / math.sqrt(spec.head_dim)
             logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
             probs = _softmax_cast(logits, dtype)
@@ -471,10 +550,7 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
         v = vf.reshape(s, w, spec.kv_heads, spec.head_dim)
         kq, kscale = _quantize_kv(k)  # [S, W, H, D], [S, W, H]
         vq, vscale = _quantize_kv(v)
-        cache.k[li][slot_idx, write_pos] = kq
-        cache.v[li][slot_idx, write_pos] = vq
-        cache.k_scale[li][slot_idx, write_pos] = kscale
-        cache.v_scale[li][slot_idx, write_pos] = vscale
+        _write_kv(cache, li, slot_idx, write_pos, kq, vq, kscale, vscale)
         if fused:
             from ..ops.decode_attention import window_decode_attention
 
@@ -483,8 +559,9 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
                 rep=rep,
             ).reshape(s, w, spec.q_heads * spec.head_dim).to(dtype)
         else:
-            k_all = _dequantize_kv(cache.k[li], cache.k_scale[li], dtype).repeat_interleave(rep, dim=2)
-            v_all = _dequantize_kv(cache.v[li], cache.v_scale[li], dtype).repeat_interleave(rep, dim=2)
+            k_all, v_all = _dequantized_layer(spec, cache, li, dtype)
+            k_all = k_all.repeat_interleave(rep, dim=2)
+            v_all = v_all.repeat_interleave(rep, dim=2)
             logits = torch.einsum("swhd,skhd->shwk", _f32(q), _f32(k_all)) * inv
             logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
             probs = _softmax_cast(logits, dtype)

@@ -6,7 +6,9 @@ replaces the dense ``[S, max_len]`` rows, so device memory is sized by
 the pool and a request holds only the pages it needs.
 
 - ``k``/``v`` pools are per-layer int8 ``[N, page, H_kv, D]`` (scales f32
-  ``[N, page, H_kv]``);
+  ``[N, page, H_kv]``), or in the FLAT layout int8 ``[N, page, H_kv*D]``
+  (scales f32 ``[N, H_kv, page]``: one head's scales of a page are
+  contiguous);
 - ``table`` int32 ``[S, max_pages]`` maps a slot's logical page to a pool
   page; the engine's host-side allocator fills it;
 - pool page 0 is the GARBAGE page: unallocated table entries point at
@@ -34,6 +36,7 @@ import torch
 
 from ..ops import nn
 from ..ops.decode_attention import (
+    gather_flat_scale_pages,
     gather_pages,
     paged_decode_attention,
     paged_window_decode_attention,
@@ -42,10 +45,12 @@ from .decoder import (
     DecoderSpec,
     _dequantize_kv,
     _f32,
+    _flat_rows,
     _fused_mlp,
     _project_qkv,
     _quantize_kv,
     _softmax_cast,
+    _std_kv_view,
     rms_norm,
     rope,
 )
@@ -54,8 +59,9 @@ from .decoder import (
 @dataclasses.dataclass
 class PagedKVCache:
     """Per-layer page pools (``k``/``v`` int8 [N, page, H_kv, D],
-    ``k_scale``/``v_scale`` f32 [N, page, H_kv]), the page table int32
-    [S, max_pages] and ``lengths`` int32 [S]. Updated in place."""
+    ``k_scale``/``v_scale`` f32 [N, page, H_kv]; FLAT: [N, page, H_kv*D]
+    and [N, H_kv, page]), the page table int32 [S, max_pages] and
+    ``lengths`` int32 [S]. Updated in place."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
@@ -63,6 +69,10 @@ class PagedKVCache:
     v_scale: List[torch.Tensor]
     table: torch.Tensor
     lengths: torch.Tensor
+
+    @property
+    def flat(self) -> bool:
+        return self.k[0].dim() == 3
 
     @property
     def num_slots(self) -> int:
@@ -82,14 +92,19 @@ class PagedKVCache:
 
 
 def init_paged_cache(spec: DecoderSpec, num_slots: int, max_len: int, num_pages: int,
-                     page_size: int = 128, device="cpu") -> PagedKVCache:
+                     page_size: int = 128, device="cpu", flat: bool = False) -> PagedKVCache:
     """``num_pages`` INCLUDES the reserved garbage page 0 (the allocator
-    hands out 1..num_pages-1)."""
+    hands out 1..num_pages-1). ``flat`` selects the FLAT pool layout."""
     if max_len % page_size != 0:
         raise ValueError(f"max_len ({max_len}) % page_size ({page_size}) != 0")
     if num_pages < 2:
         raise ValueError("num_pages must be >= 2 (page 0 is reserved)")
-    shape = (num_pages, page_size, spec.kv_heads, spec.head_dim)
+    if flat:
+        shape = (num_pages, page_size, spec.kv_heads * spec.head_dim)
+        sshape = (num_pages, spec.kv_heads, page_size)
+    else:
+        shape = (num_pages, page_size, spec.kv_heads, spec.head_dim)
+        sshape = shape[:-1]
 
     def zeros(shp, dt):
         return [torch.zeros(shp, dtype=dt, device=device) for _ in range(spec.layers)]
@@ -97,8 +112,8 @@ def init_paged_cache(spec: DecoderSpec, num_slots: int, max_len: int, num_pages:
     return PagedKVCache(
         k=zeros(shape, torch.int8),
         v=zeros(shape, torch.int8),
-        k_scale=zeros(shape[:-1], torch.float32),
-        v_scale=zeros(shape[:-1], torch.float32),
+        k_scale=zeros(sshape, torch.float32),
+        v_scale=zeros(sshape, torch.float32),
         table=torch.zeros((num_slots, max_len // page_size), dtype=torch.int32, device=device),
         lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
     )
@@ -111,12 +126,20 @@ def set_table_row(cache: PagedKVCache, slot: int, row) -> PagedKVCache:
     return cache
 
 
-def _gather_std(cache: PagedKVCache, li: int, dtype):
-    """Logical [S, T, H_kv, D] dequantized K/V of layer ``li``."""
-    k = _dequantize_kv(gather_pages(cache.k[li], cache.table),
-                       gather_pages(cache.k_scale[li], cache.table), dtype)
-    v = _dequantize_kv(gather_pages(cache.v[li], cache.table),
-                       gather_pages(cache.v_scale[li], cache.table), dtype)
+def _gather_std(spec: DecoderSpec, cache: PagedKVCache, li: int, dtype, table=None):
+    """Logical [S, T, H_kv, D] dequantized K/V of layer ``li`` through
+    ``table`` (default the cache's: every slot), in either pool layout."""
+    table = cache.table if table is None else table
+    if cache.flat:
+        k = _dequantize_kv(_std_kv_view(spec, gather_pages(cache.k[li], table)),
+                           gather_flat_scale_pages(cache.k_scale[li], table), dtype)
+        v = _dequantize_kv(_std_kv_view(spec, gather_pages(cache.v[li], table)),
+                           gather_flat_scale_pages(cache.v_scale[li], table), dtype)
+        return k, v
+    k = _dequantize_kv(gather_pages(cache.k[li], table),
+                       gather_pages(cache.k_scale[li], table), dtype)
+    v = _dequantize_kv(gather_pages(cache.v[li], table),
+                       gather_pages(cache.v_scale[li], table), dtype)
     return k, v
 
 
@@ -133,6 +156,15 @@ def _row_targets(cache: PagedKVCache, slots: torch.Tensor, positions: torch.Tens
 
 
 def _write_rows(cache: PagedKVCache, li: int, pid, off, kq, vq, kscale, vscale) -> None:
+    """Rows ``kq``/``vq`` [..., H_kv, D] and scales [..., H_kv] to pool
+    rows (``pid``, ``off``), index tensors of the rows' leading shape."""
+    if cache.flat:
+        cache.k[li][pid, off] = _flat_rows(kq)
+        cache.v[li][pid, off] = _flat_rows(vq)
+        # advanced indices around a slice put their dims first: [..., H_kv]
+        cache.k_scale[li][pid, :, off] = kscale
+        cache.v_scale[li][pid, :, off] = vscale
+        return
     cache.k[li][pid, off] = kq
     cache.v[li][pid, off] = vq
     cache.k_scale[li][pid, off] = kscale
@@ -164,7 +196,7 @@ def paged_prefill(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch.Ten
     valid = positions < length
     causal = (torch.ones((p, p), dtype=torch.bool, device=dev).tril() & valid[None, :])[None, None]
     rep = spec.rep
-    pid, off = _row_targets(cache, torch.tensor(slot, device=dev), positions)
+    pid, off = _row_targets(cache, torch.full_like(positions, slot), positions)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
         qf, kf, vf = _project_qkv(spec, layer, h, dtype)
@@ -214,8 +246,7 @@ def paged_prefill_chunk(spec: DecoderSpec, params, cache: PagedKVCache, ids: tor
     cur_mask = torch.ones((c, c), dtype=torch.bool, device=dev).tril()[None, None]
     inv = 1.0 / math.sqrt(spec.head_dim)
     rep = spec.rep
-    slot_t = torch.tensor(slot, device=dev)
-    pid, off = _row_targets(cache, slot_t, positions)
+    pid, off = _row_targets(cache, torch.full_like(positions, slot), positions)
     row = cache.table[slot:slot + 1]
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
@@ -226,10 +257,7 @@ def paged_prefill_chunk(spec: DecoderSpec, params, cache: PagedKVCache, ids: tor
         kq, kscale = _quantize_kv(k[0])
         vq, vscale = _quantize_kv(v[0])
         _write_rows(cache, li, pid, off, kq, vq, kscale, vscale)
-        row_k = _dequantize_kv(gather_pages(cache.k[li], row),
-                               gather_pages(cache.k_scale[li], row), dtype)
-        row_v = _dequantize_kv(gather_pages(cache.v[li], row),
-                               gather_pages(cache.v_scale[li], row), dtype)
+        row_k, row_v = _gather_std(spec, cache, li, dtype, row)
         row_k = row_k.repeat_interleave(rep, dim=2)
         row_v = row_v.repeat_interleave(rep, dim=2)
         s_past = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(row_k)) * inv
@@ -287,7 +315,7 @@ def paged_decode_step(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch
                 cache.table, positions, rep=rep,
             ).reshape(s, 1, spec.q_heads * spec.head_dim).to(dtype)
         else:
-            k_all, v_all = _gather_std(cache, li, dtype)
+            k_all, v_all = _gather_std(spec, cache, li, dtype)
             k_all = k_all.repeat_interleave(rep, dim=2)
             v_all = v_all.repeat_interleave(rep, dim=2)
             logits = torch.einsum("sqhd,skhd->shqk", _f32(q), _f32(k_all)) / math.sqrt(spec.head_dim)
@@ -342,7 +370,7 @@ def paged_verify_step(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch
                 cache.table, start, rep=rep,
             ).reshape(s, w, spec.q_heads * spec.head_dim).to(dtype)
         else:
-            k_all, v_all = _gather_std(cache, li, dtype)
+            k_all, v_all = _gather_std(spec, cache, li, dtype)
             k_all = k_all.repeat_interleave(rep, dim=2)
             v_all = v_all.repeat_interleave(rep, dim=2)
             logits = torch.einsum("swhd,skhd->shwk", _f32(q), _f32(k_all)) * inv

@@ -33,7 +33,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
            "chunk_prefill_attention", "int8_matmul", "bidirectional_attention",
            "fused_stem", "int4_matmul_w4a8", "window_decode_attention",
-           "paged_decode_attention", "paged_window_decode_attention")
+           "paged_decode_attention", "paged_window_decode_attention",
+           "flat_decode_attention", "flat_window_decode_attention",
+           "flat_paged_decode_attention", "flat_paged_window_decode_attention")
 
 # dtype codes shared with csrc/common.cuh
 F32 = 0

@@ -1,4 +1,5 @@
-"""Fused INT8-KV decode attention: plain decode, verify windows, paged.
+"""Fused INT8-KV decode attention: plain decode, verify windows, paged,
+in the standard and the FLAT cache layouts.
 
 Each function replaces TPU kernels of
 ``starpu_inference_server_tpu/ops/decode_attention.py`` with a CUDA
@@ -17,21 +18,36 @@ kernel written by hand in ``csrc/``:
 - ``paged_window_decode_attention`` (``_paged_window_kernel``):
   ``csrc/paged_window_decode_attention.cu``. The window function through
   the table; a window may cross a page.
+- ``flat_decode_attention``, ``flat_window_decode_attention``,
+  ``flat_paged_decode_attention`` and
+  ``flat_paged_window_decode_attention`` (``_flat_kernel``,
+  ``_flat_window_kernel``, ``_flat_paged_kernel``,
+  ``_flat_paged_window_kernel``): ``csrc/flat_*.cu``, the four functions
+  above over the FLAT layout.
+
+Layouts. Standard: ``k``/``v`` int8 ``[S, T, Hkv, D]`` (pools
+``[N, page, Hkv, D]``), scales f32 ``[S, T, Hkv]`` (``[N, page, Hkv]``).
+FLAT: ``k``/``v`` int8 ``[S, T, Hkv*D]`` (``[N, page, Hkv*D]``), scales
+f32 ``[S, Hkv, T]`` (``[N, Hkv, page]``). The K/V bytes of the two are
+identical; only the scales move. As in the JAX package, the four public
+standard functions take a 3-D cache or pool as FLAT and hand it to the
+flat function; each flat function reads the flat cache in place (no
+transpose, no copy), with its own entry in ``launches``.
 
 Bound on the H100: device-memory bytes (the live int8 K/V rows and
 scales, read once per call). Design: one block per (KV head, slot)
 serves every query row of the head (``rep`` heads, times W for a
 window), so each K/V byte is read once, and the chunk loop stops at the
-last live position (see the sources; the last three share
-``csrc/common.cuh:window_attention``).
+last live position. Decode and its flat twin share
+``csrc/common.cuh:decode_attention_body``; the other six share
+``window_attention``; the layout is the address functor of the body
+(``DenseRows`` / ``PagedRows``, standard or flat), so a flat kernel has
+its twin's bits on the same logical cache.
 
 Beside each, a ``*_plain`` function computes the same thing in plain
 PyTorch: CPU tensors take it, and on the card it is only the reference
-the kernel is checked against.
-
-Standard cache layout only (the flat layout waits for a later slice):
-``k``/``v`` int8 ``[S, T, Hkv, D]`` or pools ``[N, page, Hkv, D]``,
-scales f32 ``[S, T, Hkv]`` or ``[N, page, Hkv]``.
+the kernel is checked against. A flat plain function views the flat
+cache as standard and calls the standard plain function.
 """
 
 from __future__ import annotations
@@ -43,7 +59,9 @@ import torch
 from . import _build
 
 launches = {"decode_attention": 0, "window_decode_attention": 0,
-            "paged_decode_attention": 0, "paged_window_decode_attention": 0}
+            "paged_decode_attention": 0, "paged_window_decode_attention": 0,
+            "flat_decode_attention": 0, "flat_window_decode_attention": 0,
+            "flat_paged_decode_attention": 0, "flat_paged_window_decode_attention": 0}
 
 _fns = {}
 
@@ -59,6 +77,66 @@ def _bound(name: str, n_ptrs: int, n_ints: int):
         fn = _fns[name] = _build.bind(name, f"sis_{name}", n_ptrs, n_ints)
     return fn
 
+
+def _dtype_code(name, q) -> int:
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} takes f32 or bf16 queries, got {q.dtype}")
+    return _build.BF16 if q.dtype == torch.bfloat16 else _build.F32
+
+
+def _int8_caches(name, caches):
+    """Contiguous int8 K/V (16-byte aligned) and f32 scales."""
+    if caches[0].dtype != torch.int8 or caches[1].dtype != torch.int8:
+        raise TypeError(f"{name} needs an int8 cache")
+    out = [caches[0].contiguous(), caches[1].contiguous(),
+           caches[2].to(torch.float32).contiguous(), caches[3].to(torch.float32).contiguous()]
+    for a in out[:2]:
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} needs 16-byte aligned K/V")
+    return out
+
+
+def _check_window(name, w, rep, d) -> None:
+    if d % 16 or w * rep * d > _WINDOW_MAX_OUT:
+        raise ValueError(f"{name} kernel needs D % 16 == 0 and W * rep * D <= "
+                         f"{_WINDOW_MAX_OUT} (W={w}, rep={rep}, D={d})")
+
+
+def _finish(name, rc, out, out_dtype):
+    _build.check(rc, name)
+    launches[name] += 1
+    return out if out_dtype == out.dtype else out.to(out_dtype)
+
+
+# -- the flat layout as standard views (plain versions only) -----------------
+
+def std_kv_view(a: torch.Tensor, hkv: int) -> torch.Tensor:
+    """FLAT K/V ``[..., Hkv*D]`` as standard ``[..., Hkv, D]`` (a view)."""
+    return a.unflatten(-1, (hkv, a.shape[-1] // hkv))
+
+
+def std_scale_view(a: torch.Tensor) -> torch.Tensor:
+    """FLAT scales ``[..., Hkv, T]`` as standard ``[..., T, Hkv]`` (a
+    view)."""
+    return a.transpose(-1, -2)
+
+
+def _std_caches(k, v, ks, vs):
+    hkv = ks.shape[-2]
+    return std_kv_view(k, hkv), std_kv_view(v, hkv), std_scale_view(ks), std_scale_view(vs)
+
+
+def _check_flat(q_heads, d, rep, k, ks, rows_per_scale_row, what):
+    """A flat cache's widths: K/V ``[.., Hkv*D]``, scales ``[.., Hkv, T]``
+    (``T`` = ``rows_per_scale_row``)."""
+    hkv = q_heads // rep
+    if q_heads != hkv * rep or k.shape[-1] != hkv * d or ks.shape[-2:] != (hkv, rows_per_scale_row):
+        raise ValueError(f"q heads {q_heads}, D {d}, rep {rep} vs flat {what} "
+                         f"{tuple(k.shape)} with scales {tuple(ks.shape)}")
+    return hkv
+
+
+# -- dense decode ------------------------------------------------------------
 
 def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
                            rep: int, out_dtype=None) -> torch.Tensor:
@@ -79,11 +157,32 @@ def decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
     return torch.einsum("sht,sthd->shd", probs, v).to(out_dtype)
 
 
+def _decode_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
+    """decode_attention and its flat twin: one C signature."""
+    s, hq, d = q.shape
+    code = _dtype_code(name, q)
+    if d % 16 or rep > 8 or rep * d > 1024:
+        raise ValueError(f"{name} kernel needs D % 16 == 0, rep <= 8 and "
+                         f"rep * D <= 1024 (D={d}, rep={rep})")
+    caches = _int8_caches(name, caches)
+    q = q.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
+    rc = _bound(name, 7, 6)(
+        q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
+        s, t, hkv, rep, d, code, _build.stream_ptr(q))
+    return _finish(name, rc, out, out_dtype)
+
+
 def decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
                      rep: int, out_dtype=None) -> torch.Tensor:
     """q [S, Hq, D] against the int8 cache; returns [S, Hq, D] in
-    ``out_dtype`` (default q's). CUDA tensors launch the kernel, CPU
+    ``out_dtype`` (default q's). A 3-D cache is FLAT and goes to
+    :func:`flat_decode_attention`. CUDA tensors launch the kernel, CPU
     tensors take the plain version."""
+    if k_cache.dim() == 3:
+        return flat_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths, rep,
+                                     out_dtype)
     s, hq, d = q.shape
     _, t, hkv, dk = k_cache.shape
     if hq != hkv * rep or dk != d:
@@ -92,30 +191,35 @@ def decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
                                       lengths, rep, out_dtype)
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"decode_attention takes f32 or bf16 queries, got {q.dtype}")
-    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
-        raise TypeError("decode_attention needs an int8 cache")
-    if d % 16 or rep > 8 or rep * d > 1024:
-        raise ValueError(f"decode_attention kernel needs D % 16 == 0, rep <= 8 and "
-                         f"rep * D <= 1024 (D={d}, rep={rep})")
-    tensors = [q.contiguous(), k_cache.contiguous(), v_cache.contiguous(),
-               k_scale.to(torch.float32).contiguous(),
-               v_scale.to(torch.float32).contiguous(),
-               lengths.to(torch.int32).contiguous()]
-    for a in tensors[1:3]:
-        if a.data_ptr() % 16:
-            raise ValueError("decode_attention needs 16-byte aligned K/V")
-    out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
-    rc = _bound("decode_attention", 7, 6)(
-        *(a.data_ptr() for a in tensors), out.data_ptr(), s, t, hkv, rep, d,
-        _build.BF16 if q.dtype == torch.bfloat16 else _build.F32, _build.stream_ptr(q))
-    _build.check(rc, "decode_attention")
-    launches["decode_attention"] += 1
-    return out if out_dtype == q.dtype else out.to(out_dtype)
+    return _decode_launch("decode_attention", q, (k_cache, v_cache, k_scale, v_scale), lengths,
+                          t, hkv, rep, out_dtype)
 
 
-# -- verify windows and paged caches ----------------------------------------
+def flat_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                rep: int, out_dtype=None) -> torch.Tensor:
+    """:func:`decode_attention_plain` on the flat cache viewed as
+    standard."""
+    return decode_attention_plain(q, *_std_caches(k_cache, v_cache, k_scale, v_scale), lengths,
+                                  rep, out_dtype)
+
+
+def flat_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                          rep: int, out_dtype=None) -> torch.Tensor:
+    """q [S, Hq, D] against the FLAT int8 cache (K/V [S, T, Hkv*D],
+    scales [S, Hkv, T]); returns [S, Hq, D]. CUDA tensors launch the
+    kernel, CPU tensors take the plain version."""
+    s, hq, d = q.shape
+    t = k_cache.shape[1]
+    hkv = _check_flat(hq, d, rep, k_cache, k_scale, t, "cache")
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return flat_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                           rep, out_dtype)
+    return _decode_launch("flat_decode_attention", q, (k_cache, v_cache, k_scale, v_scale),
+                          lengths, t, hkv, rep, out_dtype)
+
+
+# -- verify windows ------------------------------------------------------------
 
 def window_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
                                   rep: int, out_dtype=None) -> torch.Tensor:
@@ -136,55 +240,31 @@ def window_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths
     return torch.einsum("swht,sthd->swhd", probs, v).to(out_dtype)
 
 
-def gather_pages(pool, table):
-    """[N, page, ...] pool + [S, MP] table -> [S, MP * page, ...] logical
-    rows (the paged decoder's plain route reads its cache through it)."""
-    g = pool[table.to(torch.int64)]
-    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
-
-
-def paged_window_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                                        rep: int, out_dtype=None) -> torch.Tensor:
-    """The window function on the slots' logical rows, gathered through
-    the table."""
-    return window_decode_attention_plain(
-        q, gather_pages(k_pool, table), gather_pages(v_pool, table),
-        gather_pages(k_scale, table), gather_pages(v_scale, table), lengths, rep, out_dtype)
-
-
-def paged_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
-                                 rep: int, out_dtype=None) -> torch.Tensor:
-    """q [S, Hq, D]: :func:`decode_attention_plain` on the slots' logical
-    rows, gathered through the table."""
-    return decode_attention_plain(
-        q, gather_pages(k_pool, table), gather_pages(v_pool, table),
-        gather_pages(k_scale, table), gather_pages(v_scale, table), lengths, rep, out_dtype)
-
-
-def _window_args(name, q, w, rep, hkv, d, caches):
-    """Checks shared by the three window kernels; returns the contiguous
-    cache tensors and the dtype code."""
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} takes f32 or bf16 queries, got {q.dtype}")
-    if caches[0].dtype != torch.int8 or caches[1].dtype != torch.int8:
-        raise TypeError(f"{name} needs an int8 cache")
-    if d % 16 or w * rep * d > _WINDOW_MAX_OUT:
-        raise ValueError(f"{name} kernel needs D % 16 == 0 and W * rep * D <= "
-                         f"{_WINDOW_MAX_OUT} (W={w}, rep={rep}, D={d})")
-    out = [caches[0].contiguous(), caches[1].contiguous(),
-           caches[2].to(torch.float32).contiguous(), caches[3].to(torch.float32).contiguous()]
-    for a in out[:2]:
-        if a.data_ptr() % 16:
-            raise ValueError(f"{name} needs 16-byte aligned K/V")
-    return out, _build.BF16 if q.dtype == torch.bfloat16 else _build.F32
+def _window_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
+    """window_decode_attention and its flat twin: one C signature."""
+    s, w, hq, d = q.shape
+    code = _dtype_code(name, q)
+    _check_window(name, w, rep, d)
+    caches = _int8_caches(name, caches)
+    q = q.contiguous()
+    lengths = lengths.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    rc = _bound(name, 7, 7)(
+        q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
+        s, t, w, hkv, rep, d, code, _build.stream_ptr(q))
+    return _finish(name, rc, out, out_dtype)
 
 
 def window_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
                             rep: int, out_dtype=None) -> torch.Tensor:
     """q [S, W, Hq, D] (row w at position lengths[s] + w, its KV already
     written) against the int8 cache; returns [S, W, Hq, D] in
-    ``out_dtype`` (default q's). CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+    ``out_dtype`` (default q's). A 3-D cache is FLAT and goes to
+    :func:`flat_window_decode_attention`. CUDA tensors launch the kernel,
+    CPU tensors take the plain version."""
+    if k_cache.dim() == 3:
+        return flat_window_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                            rep, out_dtype)
     s, w, hq, d = q.shape
     _, t, hkv, dk = k_cache.shape
     if hq != hkv * rep or dk != d:
@@ -193,25 +273,113 @@ def window_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
     if not q.is_cuda:
         return window_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
                                              rep, out_dtype)
-    caches, code = _window_args("window_decode_attention", q, w, rep, hkv, d,
-                                (k_cache, v_cache, k_scale, v_scale))
+    return _window_launch("window_decode_attention", q, (k_cache, v_cache, k_scale, v_scale),
+                          lengths, t, hkv, rep, out_dtype)
+
+
+def flat_window_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                       rep: int, out_dtype=None) -> torch.Tensor:
+    """:func:`window_decode_attention_plain` on the flat cache viewed as
+    standard."""
+    return window_decode_attention_plain(q, *_std_caches(k_cache, v_cache, k_scale, v_scale),
+                                         lengths, rep, out_dtype)
+
+
+def flat_window_decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                                 rep: int, out_dtype=None) -> torch.Tensor:
+    """q [S, W, Hq, D] against the FLAT int8 cache (K/V [S, T, Hkv*D],
+    scales [S, Hkv, T]); returns [S, W, Hq, D]. CUDA tensors launch the
+    kernel, CPU tensors take the plain version."""
+    s, w, hq, d = q.shape
+    t = k_cache.shape[1]
+    hkv = _check_flat(hq, d, rep, k_cache, k_scale, t, "cache")
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return flat_window_decode_attention_plain(q, k_cache, v_cache, k_scale, v_scale,
+                                                  lengths, rep, out_dtype)
+    return _window_launch("flat_window_decode_attention", q,
+                          (k_cache, v_cache, k_scale, v_scale), lengths, t, hkv, rep, out_dtype)
+
+
+# -- paged caches ----------------------------------------------------------------
+
+def gather_pages(pool, table):
+    """[N, page, ...] pool + [S, MP] table -> [S, MP * page, ...] logical
+    rows (the paged decoder's plain route reads its cache through it)."""
+    g = pool[table.to(torch.int64)]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
+def gather_flat_scale_pages(pool, table):
+    """FLAT scale pool [N, Hkv, page] + [S, MP] table -> standard
+    [S, MP * page, Hkv] logical rows (the JAX package's
+    ``_gather_slot_scales_flat``)."""
+    g = pool[table.to(torch.int64)].transpose(2, 3)  # [S, MP, page, Hkv]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], g.shape[3])
+
+
+def _gather_all(k_pool, v_pool, k_scale, v_scale, table):
+    """Standard pools, or FLAT pools (3-D), gathered to the slots'
+    standard logical rows."""
+    if k_pool.dim() == 3:
+        hkv = k_scale.shape[1]
+        return (std_kv_view(gather_pages(k_pool, table), hkv),
+                std_kv_view(gather_pages(v_pool, table), hkv),
+                gather_flat_scale_pages(k_scale, table), gather_flat_scale_pages(v_scale, table))
+    return (gather_pages(k_pool, table), gather_pages(v_pool, table),
+            gather_pages(k_scale, table), gather_pages(v_scale, table))
+
+
+def paged_window_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                        rep: int, out_dtype=None) -> torch.Tensor:
+    """The window function on the slots' logical rows, gathered through
+    the table."""
+    return window_decode_attention_plain(
+        q, *_gather_all(k_pool, v_pool, k_scale, v_scale, table), lengths, rep, out_dtype)
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                 rep: int, out_dtype=None) -> torch.Tensor:
+    """q [S, Hq, D]: :func:`decode_attention_plain` on the slots' logical
+    rows, gathered through the table."""
+    return decode_attention_plain(
+        q, *_gather_all(k_pool, v_pool, k_scale, v_scale, table), lengths, rep, out_dtype)
+
+
+# the flat pools gather to the same logical rows
+flat_paged_decode_attention_plain = paged_decode_attention_plain
+flat_paged_window_decode_attention_plain = paged_window_decode_attention_plain
+
+
+def _paged_launch(name, q, caches, table, lengths, page, hkv, rep, out_dtype):
+    """The four paged kernels: q [S, Hq, D] (decode, W = 1) or
+    [S, W, Hq, D] (window); the window kernels take W after the page."""
+    window = q.dim() == 4
+    w, d = (q.shape[1] if window else 1), q.shape[-1]
+    code = _dtype_code(name, q)
+    _check_window(name, w, rep, d)
+    caches = _int8_caches(name, caches)
     q = q.contiguous()
+    table = table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    rc = _bound("window_decode_attention", 7, 7)(
-        q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
-        s, t, w, hkv, rep, d, code, _build.stream_ptr(q))
-    _build.check(rc, "window_decode_attention")
-    launches["window_decode_attention"] += 1
-    return out if out_dtype == q.dtype else out.to(out_dtype)
+    ints = (q.shape[0], table.shape[1], page) + ((w,) if window else ()) + (hkv, rep, d, code)
+    rc = _bound(name, 8, len(ints))(
+        q.data_ptr(), *(a.data_ptr() for a in caches), table.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), *ints, _build.stream_ptr(q))
+    return _finish(name, rc, out, out_dtype)
 
 
 def paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
                            rep: int, out_dtype=None) -> torch.Tensor:
     """q [S, Hq, D] against the paged int8 cache (pools [N, page, Hkv, D],
     table [S, max_pages]); slot s attends logical positions <=
-    lengths[s]. Returns [S, Hq, D]. CUDA tensors launch the kernel, CPU
-    tensors take the plain version."""
+    lengths[s]. Returns [S, Hq, D]. 3-D pools are FLAT and go to
+    :func:`flat_paged_decode_attention`. CUDA tensors launch the kernel,
+    CPU tensors take the plain version."""
+    if k_pool.dim() == 3:
+        return flat_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                           rep, out_dtype)
     s, hq, d = q.shape
     _, page, hkv, dk = k_pool.shape
     if hq != hkv * rep or dk != d:
@@ -220,25 +388,19 @@ def paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
     if not q.is_cuda:
         return paged_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table,
                                             lengths, rep, out_dtype)
-    caches, code = _window_args("paged_decode_attention", q, 1, rep, hkv, d,
-                                (k_pool, v_pool, k_scale, v_scale))
-    q = q.contiguous()
-    table = table.to(torch.int32).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    rc = _bound("paged_decode_attention", 8, 7)(
-        q.data_ptr(), *(a.data_ptr() for a in caches), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), s, table.shape[1], page, hkv, rep, d, code, _build.stream_ptr(q))
-    _build.check(rc, "paged_decode_attention")
-    launches["paged_decode_attention"] += 1
-    return out if out_dtype == q.dtype else out.to(out_dtype)
+    return _paged_launch("paged_decode_attention", q, (k_pool, v_pool, k_scale, v_scale), table,
+                         lengths, page, hkv, rep, out_dtype)
 
 
 def paged_window_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
                                   rep: int, out_dtype=None) -> torch.Tensor:
     """q [S, W, Hq, D] against the paged int8 cache: the window function
-    through the table. Returns [S, W, Hq, D]. CUDA tensors launch the
+    through the table. Returns [S, W, Hq, D]. 3-D pools are FLAT and go to
+    :func:`flat_paged_window_decode_attention`. CUDA tensors launch the
     kernel, CPU tensors take the plain version."""
+    if k_pool.dim() == 3:
+        return flat_paged_window_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table,
+                                                  lengths, rep, out_dtype)
     s, w, hq, d = q.shape
     _, page, hkv, dk = k_pool.shape
     if hq != hkv * rep or dk != d:
@@ -247,15 +409,39 @@ def paged_window_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, le
     if not q.is_cuda:
         return paged_window_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table,
                                                    lengths, rep, out_dtype)
-    caches, code = _window_args("paged_window_decode_attention", q, w, rep, hkv, d,
-                                (k_pool, v_pool, k_scale, v_scale))
-    q = q.contiguous()
-    table = table.to(torch.int32).contiguous()
-    lengths = lengths.to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    rc = _bound("paged_window_decode_attention", 8, 8)(
-        q.data_ptr(), *(a.data_ptr() for a in caches), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), s, table.shape[1], page, w, hkv, rep, d, code, _build.stream_ptr(q))
-    _build.check(rc, "paged_window_decode_attention")
-    launches["paged_window_decode_attention"] += 1
-    return out if out_dtype == q.dtype else out.to(out_dtype)
+    return _paged_launch("paged_window_decode_attention", q,
+                         (k_pool, v_pool, k_scale, v_scale), table, lengths, page, hkv, rep,
+                         out_dtype)
+
+
+def flat_paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                rep: int, out_dtype=None) -> torch.Tensor:
+    """q [S, Hq, D] against FLAT page pools (K/V [N, page, Hkv*D], scales
+    [N, Hkv, page]) through the table. Returns [S, Hq, D]. CUDA tensors
+    launch the kernel, CPU tensors take the plain version."""
+    s, hq, d = q.shape
+    page = k_pool.shape[1]
+    hkv = _check_flat(hq, d, rep, k_pool, k_scale, page, "pool")
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return flat_paged_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale, table,
+                                                 lengths, rep, out_dtype)
+    return _paged_launch("flat_paged_decode_attention", q, (k_pool, v_pool, k_scale, v_scale),
+                         table, lengths, page, hkv, rep, out_dtype)
+
+
+def flat_paged_window_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
+                                       rep: int, out_dtype=None) -> torch.Tensor:
+    """q [S, W, Hq, D] against FLAT page pools through the table. Returns
+    [S, W, Hq, D]. CUDA tensors launch the kernel, CPU tensors take the
+    plain version."""
+    s, w, hq, d = q.shape
+    page = k_pool.shape[1]
+    hkv = _check_flat(hq, d, rep, k_pool, k_scale, page, "pool")
+    out_dtype = out_dtype or q.dtype
+    if not q.is_cuda:
+        return flat_paged_window_decode_attention_plain(q, k_pool, v_pool, k_scale, v_scale,
+                                                        table, lengths, rep, out_dtype)
+    return _paged_launch("flat_paged_window_decode_attention", q,
+                         (k_pool, v_pool, k_scale, v_scale), table, lengths, page, hkv, rep,
+                         out_dtype)

@@ -18,28 +18,45 @@ and the same serving options:
   refcounted and shared, and released slots retain their grant until
   the pool needs the pages;
 - the dense prefix cache (``prefix_cache`` without paging): a hit copies
-  the source slot's rows and prefills only the tail.
+  the source slot's rows and prefills only the tail;
+- the FLAT cache layout (``kv_cache_layout: flat``, models/decoder.py),
+  for the target cache, its pages and the draft's cache;
+- overlapped dispatch (``decode_overlap``, ``pipeline_depth``): up to
+  ``pipeline_depth`` blocks in flight, each chained off the previous
+  block's device-resident carry (next ids, progress, the alive mask)
+  while the host commits the oldest; the pump stops when membership
+  changes (an admission lands, a request is cancelled, nothing is left
+  alive). Each block's tokens and each prefill's logits are copied to
+  pinned host memory as soon as they are dispatched, and a prefill lands
+  (its first token sampled, its slot activated) only once a decode block
+  dispatched after it has been consumed, or when the engine is idle.
+  Every fetch is bounded by ``fetch_timeout_s``: past it the engine
+  fails the open requests with ``RuntimeError`` and goes on serving.
+  Greedy and seeded-sampling streams are the same at any depth.
 
 Differences from the JAX engine:
 
 - PyTorch runs eagerly; there is no jit, no donation (the caches are
   updated in place, see models/decoder.py) and no executable per bucket.
-- Dispatch runs at depth 1: each block is consumed before the next is
-  dispatched, and a prefill's logits are fetched when it is dispatched.
-  ``decode_overlap`` / ``pipeline_depth`` are accepted and logged;
-  overlapped dispatch is a ROADMAP item.
+  Work is ordered by the CUDA stream: a block chained off the carry,
+  a prefill, a release's length reset run in the order they were
+  dispatched, as the JAX programs did.
 - Sampled tokens use a ``torch.Generator`` seeded from (seed, absolute
   progress), so a request samples the same tokens however it is
   interleaved, with or without speculation; they differ from
   ``jax.random``'s. Greedy decoding takes the first maximum, as
   ``jnp.argmax`` does.
-- Flat cache layouts and meshes are not ported yet (ROADMAP).
+- After a failure (a fetch past its deadline, an error in a step) the
+  loop fails every open request and keeps running, where the JAX
+  engine's loop thread ends.
+- Meshes are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from collections import deque
 from typing import Callable, List, Optional
 
@@ -114,6 +131,22 @@ class _PrefillProgress:
     offset: int = 0
 
 
+@dataclasses.dataclass
+class _PrefillLanding:
+    """A dispatched prefill whose logits are not fetched yet. They are
+    copied to pinned host memory at dispatch; the landing completes once
+    a decode block dispatched after it has been consumed (the stream runs
+    work in dispatch order, so its copy is done by then) or when forced
+    because the engine is idle."""
+
+    request: GenerationRequest
+    slot: int
+    logits: torch.Tensor       # host [N, V]: a batched prefill's logits
+    event: object              # the copy's torch.cuda.Event, None on the CPU
+    seq: int                   # dispatch sequence number of the prefill
+    row: int = 0               # this landing's row of ``logits``
+
+
 def _sample_seed(seed: int, progress: int) -> int:
     """Generator seed of a request's token at absolute ``progress``."""
     return ((int(seed) & 0xFFFFFFFF) << 32) | (int(progress) & 0xFFFFFFFF)
@@ -179,12 +212,28 @@ class GenerationEngine:
         pipeline_depth: int = 2,
         kv_page_size: int = 0,
         kv_pool_pages: int = 0,
+        kv_cache_layout: str = "standard",
+        pin_cache_layouts: bool = False,
+        fetch_timeout_s: float = 120.0,
         device=None,
     ):
         """``params`` / ``draft_params``: the port's parameter trees (torch
         tensors; see ``weights.params_from_numpy``). ``device`` defaults
         to ``cuda`` and raises when CUDA is missing unless
-        ``device='cpu'``."""
+        ``device='cpu'``. ``pin_cache_layouts`` (a TPU layout workaround)
+        has no effect here but is refused with the flat layout, as in the
+        JAX engine."""
+        if kv_cache_layout not in ("standard", "flat"):
+            raise ValueError(
+                f"kv_cache_layout must be 'standard' or 'flat', got {kv_cache_layout!r}"
+            )
+        self.flat_cache = kv_cache_layout == "flat"
+        if self.flat_cache and pin_cache_layouts:
+            raise ValueError(
+                "pin_cache_layouts is redundant with kv_cache_layout="
+                "'flat' (the flat layout's standard layout already is "
+                "the compact layout) — enable one or the other"
+            )
         self.device = resolve_device(device)
         self.spec = spec
         self.dtype = dtype
@@ -195,14 +244,13 @@ class GenerationEngine:
         # decode steps (or verify windows) runs before its tokens are
         # fetched; tokens past a request's EOS / limit are discarded
         self.steps_per_sync = max(1, int(steps_per_sync))
+        # overlapped dispatch: up to ``pipeline_depth`` blocks in flight,
+        # each chained off the previous block's device carry, while
+        # membership is unchanged (``_membership_dirty`` stops the pump)
         self.decode_overlap = bool(decode_overlap)
-        self.pipeline_depth = 1
-        if self.decode_overlap:
-            get_logger().info(
-                "decode_overlap (depth %d) requested: the PyTorch engine "
-                "dispatches at depth 1 (overlapped dispatch is on the ROADMAP)",
-                int(pipeline_depth),
-            )
+        self.pipeline_depth = max(2, int(pipeline_depth)) if self.decode_overlap else 1
+        self._inflight: deque = deque()  # dispatched, not yet consumed
+        self._membership_dirty = False
         self.prefill_buckets = sorted(prefill_buckets or [32, 64, 128, 256])
         self.prefill_chunk = max(0, int(prefill_chunk))
         if self.prefill_chunk and max_len % self.prefill_chunk != 0:
@@ -225,7 +273,7 @@ class GenerationEngine:
             # default pool: half the dense footprint, plus the garbage page
             self.kv_pool_pages = int(kv_pool_pages) or (1 + num_slots * (max_len // page) // 2)
             self.cache = init_paged_cache(spec, num_slots, max_len, self.kv_pool_pages, page,
-                                          device=self.device)
+                                          device=self.device, flat=self.flat_cache)
             # host-side allocator: free pool page ids (page 0 is the
             # garbage page), each slot's grant, and refcounts so a prefix
             # hit shares whole pages; released slots RETAIN their grant
@@ -238,7 +286,8 @@ class GenerationEngine:
             self._step_fn, self._verify_fn = paged_decode_step, paged_verify_step
         else:
             self.kv_pool_pages = 0
-            self.cache = init_cache(spec, num_slots, max_len, device=self.device)
+            self.cache = init_cache(spec, num_slots, max_len, device=self.device,
+                                    flat=self.flat_cache)
             self._prefill_fn, self._chunk_fn = prefill, prefill_chunk_step
             self._step_fn, self._verify_fn = decode_step, verify_step
         # prefix caching: a slot's prompt stays indexed after release, so
@@ -266,7 +315,8 @@ class GenerationEngine:
                     f"draft vocab ({draft_spec.vocab}) must match target vocab ({spec.vocab})"
                 )
             self._draft_params = self._place_params(draft_params)
-            self._draft_cache = init_cache(draft_spec, num_slots, max_len, device=self.device)
+            self._draft_cache = init_cache(draft_spec, num_slots, max_len, device=self.device,
+                                           flat=self.flat_cache)
         # prompt-lookup speculation: drafts from each slot's own token
         # history, kept on the device
         self._lookup_ngram = max(0, int(prompt_lookup_ngram))
@@ -278,7 +328,14 @@ class GenerationEngine:
             self._history = torch.zeros((num_slots, max_len), dtype=torch.int32,
                                         device=self.device)
         self._prefilling: Optional[_PrefillProgress] = None
+        # slots whose prefill is dispatched but not landed, the landings
+        # in dispatch order, and the sequence numbers that prove a
+        # landing's logits are on the host
         self._reserved: set = set()
+        self._landings: deque = deque()
+        self._dispatch_seq = 0
+        self._consumed_seq = 0
+        self.fetch_timeout_s = float(fetch_timeout_s)
         self._slots: List[Optional[_SlotState]] = [None] * num_slots
         self._pending: deque = deque()
         self._lock = threading.Lock()
@@ -287,8 +344,10 @@ class GenerationEngine:
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
         self.generated_tokens = 0
-        # cumulative engine-loop phase timers (seconds, host clock)
-        self.loop_timers = {"admit": 0.0, "step": 0.0}
+        # cumulative engine-loop phase timers (seconds, host clock);
+        # "step" splits into "dispatch" and "consume"
+        self.loop_timers = {"admit": 0.0, "step": 0.0, "land": 0.0,
+                            "dispatch": 0.0, "consume": 0.0}
 
     # -- placement ---------------------------------------------------------
 
@@ -303,18 +362,64 @@ class GenerationEngine:
             params = pack_int4_tree(params)
         return params
 
+    def _upload(self, arr: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device; on the card through pinned
+        memory, so the copy does not sync the host. The array must not
+        change afterwards (on the CPU the tensor shares its memory)."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _start_fetch(t: torch.Tensor):
+        """Start copying a device result to the host, behind the work that
+        produces it. Returns (host tensor, event that marks the copy done;
+        None on the CPU, where it is a plain copy)."""
+        if not t.is_cuda:
+            return t.clone(), None
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    @staticmethod
+    def _fetch_ready(event) -> bool:
+        return event is None or event.query()
+
+    def _fetch(self, host: torch.Tensor, event) -> np.ndarray:
+        """Wait for a fetch started by :meth:`_start_fetch`, polling its
+        event, for at most ``fetch_timeout_s``: past that the engine
+        raises, and the loop fails the open requests instead of hanging
+        on a card that stopped answering."""
+        if not self._fetch_ready(event):
+            deadline = time.monotonic() + self.fetch_timeout_s
+            pause = 2e-5
+            while not self._fetch_ready(event):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(
+                        f"device fetch did not complete within {self.fetch_timeout_s:g} s; "
+                        "failing open requests"
+                    )
+                time.sleep(pause)
+                pause = min(2 * pause, 1e-3)
+        return host.numpy()
+
     @property
     def _speculating(self) -> bool:
         return self._draft_params is not None or bool(self._lookup_ngram)
 
     # -- device fns --------------------------------------------------------
 
-    def _sample(self, logits, temps, top_k, seeds, progress, step: int):
+    def _sample(self, logits, snap, step: int):
         """Greedy argmax (first maximum) where temperature is 0; elsewhere
         temperature / top-k sampling from a Generator seeded by (seed,
-        progress + step). ``temps``/``top_k``/``seeds``/``progress`` are
-        host arrays of the block's snapshot: the progress of a slot that
-        is alive at ``step`` is exactly ``progress + step``."""
+        progress + step). ``step`` counts the decode steps (verify windows)
+        since the snapshot over every block chained from it, so the
+        progress of a slot alive at that step is exactly ``progress +
+        step`` and a request samples the same tokens at any depth."""
+        temps, top_k = snap["temps"], snap["top_k"]
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
         for i in np.nonzero(temps > 0)[0]:
             scaled = logits[i] / max(float(temps[i]), 1e-6)
@@ -323,45 +428,42 @@ class GenerationEngine:
                 kth = torch.topk(scaled, min(k, scaled.shape[-1])).values[-1]
                 scaled = torch.where(scaled < kth, torch.full_like(scaled, -float("inf")), scaled)
             gen = torch.Generator(device=logits.device)
-            gen.manual_seed(_sample_seed(seeds[i], progress[i] + step))
+            gen.manual_seed(_sample_seed(snap["seeds"][i], snap["progress"][i] + step))
             probs = torch.softmax(scaled, dim=-1)
             nxt[i] = torch.multinomial(probs, 1, generator=gen)[0].to(torch.int32)
         return nxt
 
-    def _decode_and_sample(self, ids, active, snap):
-        """One block of ``steps_per_sync`` decode steps. DEVICE-SIDE
-        COMPLETION: a slot whose token hits its eos or exhausts its
-        budget drops out of ``alive`` on the device, so later steps of the
-        block stop advancing its cache; frozen slots repeat their last id
-        in the token block. Returns int32 [steps, S, 1]."""
+    def _decode_and_sample(self, ids, alive, prog, snap, chain: int):
+        """One block of ``steps_per_sync`` decode steps, block ``chain`` of
+        the snapshot's chain. DEVICE-SIDE COMPLETION: a slot whose token
+        hits its eos or exhausts its budget drops out of ``alive`` on the
+        device, so later steps (and later blocks chained off this carry)
+        stop advancing its cache; frozen slots repeat their last id in the
+        token block. Returns (tokens int32 [steps, S, 1], next ids,
+        progress, alive): the block and its device carry."""
         steps = self.steps_per_sync
-        dev = self.device
-        eos = torch.as_tensor(snap["eos"], device=dev)
-        limit = torch.as_tensor(snap["limit"], device=dev)
-        prog = torch.as_tensor(snap["progress"], device=dev)
-        alive = active.clone()
-        tokens = torch.zeros((steps, self.num_slots, 1), dtype=torch.int32, device=dev)
+        eos, limit = snap["eos_dev"], snap["limit_dev"]
+        tokens = torch.empty((steps, self.num_slots, 1), dtype=torch.int32, device=self.device)
         for i in range(steps):
             _, logits = self._step_fn(self.spec, self.params, self.cache, ids, alive, self.dtype)
-            nxt = self._sample(logits, snap["temps"], snap["top_k"], snap["seeds"],
-                               snap["progress"], i)
+            nxt = self._sample(logits, snap, chain * steps + i)
             nxt = torch.where(alive, nxt, ids)
             prog = prog + alive.to(torch.int32)
             done = alive & ((nxt == eos) | (prog >= limit))
             alive = alive & ~done
             tokens[i, :, 0] = nxt
             ids = nxt
-        return tokens
+        return tokens, ids, prog, alive
 
-    def _verify_accept(self, cur, drafts, alive, prog, snap, block: int):
+    def _verify_accept(self, cur, drafts, alive, prog, snap, step: int):
         """Shared verify-and-commit of both draft sources: score the
         [cur, drafts] window with ONE target forward, accept the longest
         draft prefix equal to the target's greedy tokens plus the target's
         own next token, then clamp the commit count ON THE DEVICE to the
         slot's remaining budget and to the first EOS inside the window.
-        Sampled slots accept no drafts: they commit one token per block,
+        Sampled slots accept no drafts: they commit one token per window,
         sampled with the plain engine's seed of its absolute progress
-        (``progress + block`` while the slot is alive), so a sampled
+        (``progress + step`` while the slot is alive), so a sampled
         request gets the plain engine's tokens.
 
         Returns (out [S, K+1], counts [S], accepted [S], nxt [S],
@@ -375,14 +477,11 @@ class GenerationEngine:
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)      # [S, K+1]
         matches = drafts == greedy[:, :k]
         accepted = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
-        first = self._sample(logits[:, 0], snap["temps"], snap["top_k"], snap["seeds"],
-                             snap["progress"], block)
-        sampled = torch.as_tensor(snap["temps"] > 0, device=dev)
-        accepted = torch.where(sampled, torch.zeros_like(accepted), accepted)
+        first = self._sample(logits[:, 0], snap, step)
+        accepted = torch.where(snap["sampled_dev"], torch.zeros_like(accepted), accepted)
         out = greedy.clone()
         out[:, 0] = first
-        eos = torch.as_tensor(snap["eos"], device=dev)
-        limit = torch.as_tensor(snap["limit"], device=dev)
+        eos, limit = snap["eos_dev"], snap["limit_dev"]
         # budget clamp first (the host emits at most ``remaining``
         # tokens), then stop at the first EOS among the survivors
         counts = torch.minimum(accepted + 1, (limit - prog).clamp(min=0))
@@ -399,16 +498,15 @@ class GenerationEngine:
         nxt = torch.where(counts > 0, nxt, cur)
         return out, counts, accepted, nxt, alive & ~done, prog
 
-    def _speculative_block(self, ids, active, snap):
-        """``steps_per_sync`` blocks of draft-K-then-verify. The draft runs
+    def _speculative_block(self, cur, alive, prog, snap, chain: int):
+        """``steps_per_sync`` windows of draft-K-then-verify. The draft runs
         K+1 greedy steps: the extra step's output is discarded, but it
         writes d_K's KV into the draft cache, which a fully accepted
         window needs. Both caches then commit to the same length. Returns
-        int32 [blocks, S, K+3]: the window, the commit count and the
-        accepted-draft count before the budget / EOS clamp."""
+        (int32 [blocks, S, K+3]: the window, the commit count and the
+        accepted-draft count before the budget / EOS clamp; then the
+        device carry: next ids, progress, alive)."""
         k = self.speculate_k
-        prog = torch.as_tensor(snap["progress"], device=self.device)
-        cur, alive = ids, active.clone()
         packed = []
         for b in range(self.steps_per_sync):
             tok = cur
@@ -420,31 +518,29 @@ class GenerationEngine:
                 toks.append(tok)
             drafts = torch.stack(toks[:k], dim=1)                  # [S, K]
             out, counts, accepted, nxt, alive_next, prog = self._verify_accept(
-                cur, drafts, alive, prog, snap, b)
+                cur, drafts, alive, prog, snap, chain * self.steps_per_sync + b)
             dl = self._draft_cache.lengths
             dl.copy_(torch.where(alive, self.cache.lengths, dl))
             packed.append(torch.cat([out, counts[:, None],
                                      torch.where(alive, accepted, 0)[:, None]], dim=1))
             cur, alive = nxt, alive_next
-        return torch.stack(packed)
+        return torch.stack(packed), cur, prog, alive
 
-    def _prompt_lookup_block(self, ids, active, snap):
-        """``steps_per_sync`` blocks of PROMPT-LOOKUP speculation: drafts
+    def _prompt_lookup_block(self, cur, alive, prog, snap, chain: int):
+        """``steps_per_sync`` windows of PROMPT-LOOKUP speculation: drafts
         are the K tokens after the most recent earlier occurrence of the
         trailing n-gram in (prompt + tokens so far), verified by the
         shared ``_verify_accept``. The on-device history gets the current
         token at position ``lengths`` and the committed tokens behind it.
-        Returns int32 [blocks, S, K+4]: the model-draft columns plus the
-        found flag, so the host counts drafted tokens only for blocks
-        where a match proposed some."""
+        Returns (int32 [blocks, S, K+4]: the model-draft columns plus the
+        found flag, so the host counts drafted tokens only for windows
+        where a match proposed some; then the device carry)."""
         k = self.speculate_k
         n = self._lookup_ngram
         s, t = self._history.shape
         dev = self.device
         hist = self._history
         rows = torch.arange(s, device=dev)
-        prog = torch.as_tensor(snap["progress"], device=dev)
-        cur, alive = ids, active.clone()
         packed = []
         for b in range(self.steps_per_sync):
             start = self.cache.lengths.clone().to(torch.int64)
@@ -453,7 +549,7 @@ class GenerationEngine:
             drafts, found = _ngram_drafts(hist, start + 1, k, n)
             drafts = torch.where((found & alive)[:, None], drafts, torch.zeros_like(drafts))
             out, counts, accepted, nxt, alive_next, prog = self._verify_accept(
-                cur, drafts, alive, prog, snap, b)
+                cur, drafts, alive, prog, snap, chain * self.steps_per_sync + b)
             # out[j] is the token at position start + 1 + j for j < counts
             pos = (start[:, None] + 1 + torch.arange(k + 1, device=dev)[None, :]).clamp(0, t - 1)
             emit = (torch.arange(k + 1, device=dev)[None, :] < counts[:, None]) & alive[:, None]
@@ -462,7 +558,7 @@ class GenerationEngine:
                                      torch.where(alive, accepted, 0)[:, None],
                                      (found & alive).to(torch.int32)[:, None]], dim=1))
             cur, alive = nxt, alive_next
-        return torch.stack(packed)
+        return torch.stack(packed), cur, prog, alive
 
     def _bucket_for(self, length: int) -> int:
         for b in self.prefill_buckets:
@@ -546,34 +642,72 @@ class GenerationEngine:
     # -- engine loop -------------------------------------------------------
 
     def _loop(self) -> None:
-        log = get_logger()
-        try:
-            t = self.loop_timers
-            while not self._stop.is_set():
-                t0 = now_s()
-                admitted = self._admit_pending()
-                t1 = now_s()
-                stepped = self._step_active()
-                t["admit"] += t1 - t0
-                t["step"] += now_s() - t1
-                if not admitted and not stepped:
-                    with self._work:
-                        if not self._pending and not self._stop.is_set():
-                            self._work.wait(timeout=0.05)
-        except Exception as exc:  # noqa: BLE001 - the loop's boundary: fail all open requests
-            log.error("generation engine failed: %s: %s", type(exc).__name__, exc)
-            with self._lock:
-                failures = [s.request for s in self._slots if s is not None]
-                failures.extend(self._pending)
-                if self._prefilling is not None:
-                    failures.append(self._prefilling.request)
-                    self._prefilling = None
-                self._pending.clear()
-                self._reserved.clear()
-                self._slots = [None] * self.num_slots
-            for req in failures:
-                req.error = exc
-                req.done.set()
+        while True:
+            try:
+                self._serve()
+                return
+            except Exception as exc:  # noqa: BLE001 - the loop's boundary: fail all open requests
+                self._fail_open(exc)
+                if self._stop.is_set():
+                    return
+
+    def _serve(self) -> None:
+        t = self.loop_timers
+        while not self._stop.is_set():
+            t0 = now_s()
+            admitted = self._admit_pending()
+            t1 = now_s()
+            stepped = self._step_active()
+            t2 = now_s()
+            # land the prefills a consumed block has proven done; with no
+            # block in flight there is nothing to overlap, so force them
+            landed = self._land_prefills(force=not stepped)
+            t3 = now_s()
+            t["admit"] += t1 - t0
+            t["step"] += t2 - t1
+            t["land"] += t3 - t2
+            if not admitted and not stepped and not landed:
+                with self._work:
+                    if not self._pending and not self._stop.is_set():
+                        self._work.wait(timeout=0.05)
+        # deliver every in-flight block's tokens and every landing before
+        # the loop exits, so a drain-then-stop shutdown loses nothing
+        while self._inflight:
+            self._consume_block(self._inflight.popleft())
+        self._land_prefills(force=True)
+
+    def _fail_open(self, exc: Exception) -> None:
+        """Fail every open request (active, pending, landing, chunking)
+        with ``exc`` and reset the slots, so the engine can serve the
+        next ones: lengths are zeroed, pages freed, the prefix index
+        emptied."""
+        get_logger().error("generation engine failed: %s: %s", type(exc).__name__, exc)
+        self._inflight.clear()
+        self._membership_dirty = True
+        with self._lock:
+            failures = [s.request for s in self._slots if s is not None]
+            failures.extend(self._pending)
+            failures.extend(landing.request for landing in self._landings)
+            if self._prefilling is not None:
+                failures.append(self._prefilling.request)
+                self._prefilling = None
+            self._pending.clear()
+            self._landings.clear()
+            self._reserved.clear()
+            self._slots = [None] * self.num_slots
+        self._slot_prompts = [None] * self.num_slots
+        self.cache.lengths.zero_()
+        if self._draft_params is not None:
+            self._draft_cache.lengths.zero_()
+        if self.kv_page_size:
+            self._free_pages = list(range(1, self.kv_pool_pages))
+            self._slot_pages = [[] for _ in range(self.num_slots)]
+            self._page_refs[:] = 0
+            self._retained.clear()
+            self.cache.table.zero_()
+        for req in failures:
+            req.error = exc
+            req.done.set()
 
     def _admit_pending(self) -> bool:
         # an in-flight chunked prefill advances exactly one chunk per loop
@@ -634,9 +768,9 @@ class GenerationEngine:
             if self._lookup_ngram:
                 # seed the slot's history with the prompt; stale tokens
                 # past it are masked by the lookup's valid length
-                row = torch.zeros((self.max_len,), dtype=torch.int32)
-                row[:len(prompt)] = torch.from_numpy(prompt)
-                self._history[free] = row.to(self.device)
+                row = np.zeros((self.max_len,), np.int32)
+                row[:len(prompt)] = prompt
+                self._history[free] = self._upload(row)
             try:
                 if hit is not None:
                     src, l_star = hit
@@ -705,7 +839,7 @@ class GenerationEngine:
         self._slot_pages[slot] = pages
         row = np.zeros((self.max_len // page,), np.int32)
         row[:len(pages)] = pages
-        set_table_row(self.cache, slot, torch.from_numpy(row))
+        set_table_row(self.cache, slot, self._upload(row))
         return True
 
     def _pages_needed(self, request: GenerationRequest) -> int:
@@ -794,7 +928,7 @@ class GenerationEngine:
         valid = len(chunk)
         padded = np.zeros((c,), np.int32)
         padded[:valid] = chunk
-        ids = torch.as_tensor(padded, device=self.device)
+        ids = self._upload(padded)
         _, logits = self._chunk_fn(self.spec, self.params, self.cache, ids, pf.offset, valid,
                                    pf.slot, self.dtype)
         if self._draft_params is not None:
@@ -805,7 +939,17 @@ class GenerationEngine:
         pf.offset += valid
         if pf.offset >= len(pf.prompt):
             self._prefilling = None
-            self._land(pf.slot, pf.request, logits.cpu().numpy())
+            self._add_landings([(pf.slot, pf.request)], logits[None])
+
+    def _add_landings(self, items, logits: torch.Tensor) -> None:
+        """Queue the landings of prefills just dispatched (``items``:
+        (slot, request) per row of ``logits`` [N, V]) and start the copy
+        of their logits to the host."""
+        self._dispatch_seq += 1
+        host, event = self._start_fetch(logits)
+        for j, (slot, request) in enumerate(items):
+            self._landings.append(_PrefillLanding(request=request, slot=slot, logits=host,
+                                                  event=event, seq=self._dispatch_seq, row=j))
 
     def _flush_prefill_batch(self, batch) -> None:
         """Dispatch the admissions collected in one loop, grouped by
@@ -826,41 +970,61 @@ class GenerationEngine:
                 if not isinstance(exc, ValueError):
                     raise
                 continue
-            for j, (slot, request, _) in enumerate(items):
-                self._land(slot, request, logits_all[j])
+            self._add_landings([(slot, request) for slot, request, _ in items], logits_all)
 
-    def _prefill_many(self, bucket: int, items) -> np.ndarray:
+    def _prefill_many(self, bucket: int, items) -> torch.Tensor:
         """N same-bucket prefills (counterpart of ``_prefill_many_fn``);
         each iteration is exactly the single-prefill body, the draft's
-        prefill included. Returns the host logits [N, V]."""
+        prefill included. Returns the logits [N, V] on the device."""
         out = torch.empty((len(items), self.spec.vocab), dtype=torch.float32,
                           device=self.device)
         for j, (slot, _, prompt) in enumerate(items):
             padded = np.zeros((bucket,), np.int32)
             padded[:len(prompt)] = prompt
-            ids = torch.as_tensor(padded, device=self.device)
+            ids = self._upload(padded)
             _, logits = self._prefill_fn(self.spec, self.params, self.cache, ids, len(prompt),
                                          slot, self.dtype)
             if self._draft_params is not None:
                 prefill(self.draft_spec, self._draft_params, self._draft_cache, ids,
                         len(prompt), slot, self.dtype)
             out[j] = logits
-        return out.cpu().numpy()
+        return out
 
-    def _land(self, slot: int, request: GenerationRequest, logits: np.ndarray) -> None:
-        """Finish a prefill: sample the first token and activate the slot
-        (or free it if the request was cancelled meanwhile)."""
-        self._reserved.discard(slot)
-        if request.cancel_flag.is_set():
-            self._free_slot_pages(slot)
-            self._zero_lengths(slot)
-            request.finished_at = now_s()
-            request.done.set()
-            return
+    def _land_prefills(self, force: bool = False) -> bool:
+        """Finish dispatched prefills whose logits a consumed decode block
+        has proven to be on the host (the stream runs work in dispatch
+        order); ``force`` lands them all (idle engine, drain). Returns
+        True if any landed."""
+        landed = False
+        while self._landings:
+            landing = self._landings[0]
+            if not force and self._consumed_seq <= landing.seq:
+                break
+            # peek, then fetch: if the fetch raises (the watchdog), the
+            # landing is still queued and the failure path fails it too
+            if not landing.request.cancel_flag.is_set():
+                logits = self._fetch(landing.logits, landing.event)[landing.row]
+            self._landings.popleft()
+            self._reserved.discard(landing.slot)
+            if landing.request.cancel_flag.is_set():
+                # cancelled between dispatch and landing: the slot was
+                # reserved but never activated — zero its length and free
+                self._free_slot_pages(landing.slot)
+                self._zero_lengths(landing.slot)
+                landing.request.finished_at = now_s()
+                landing.request.done.set()
+            else:
+                self._finish_prefill(landing.slot, landing.request, logits)
+            landed = True
+        return landed
+
+    def _finish_prefill(self, slot: int, request: GenerationRequest, logits: np.ndarray) -> None:
+        """Sample the first token and activate the slot."""
         if self.prefix_cache:
             # the slot now holds this prompt's rows [0, len): index it for
             # prefix reuse (valid until the slot is next admitted)
             self._slot_prompts[slot] = np.asarray(request.prompt_ids, np.int32)
+        self._membership_dirty = True  # the in-flight carry lacks this slot
         first = self._sample_first(logits, request)
         request.first_token_at = now_s()
         self._emit(request, first)
@@ -888,7 +1052,11 @@ class GenerationEngine:
 
     def _snapshot_active(self):
         """Host snapshot of the active slots: per-slot input ids, sampling
-        parameters and the exact _SlotState each block is dispatched for."""
+        parameters and the exact _SlotState each block is dispatched for
+        (a consumed block commits only to a slot whose state is STILL the
+        dispatched one: chained blocks may outlive a release). The arrays
+        the blocks read on the device are uploaded once per snapshot, in
+        one copy, and serve every block chained from it."""
         with self._lock:
             if not any(s is not None for s in self._slots):
                 return None
@@ -915,21 +1083,59 @@ class GenerationEngine:
                     if s.request.eos_id is not None:
                         snap["eos"][i] = s.request.eos_id
                     snap["limit"][i] = s.request.max_new_tokens
+        # blocks that can hold live work: a live slot commits at least one
+        # token per step (or window), so none is alive past its budget
+        budget = int((snap["limit"] - snap["progress"])[snap["active"]].max())
+        snap["blocks"] = -(-budget // self.steps_per_sync)
+        dev = self._upload(np.stack([
+            snap["ids"], snap["active"], snap["progress"], snap["eos"], snap["limit"],
+            snap["temps"] > 0]).astype(np.int32))
+        snap["ids_dev"], snap["progress_dev"] = dev[0], dev[2]
+        snap["eos_dev"], snap["limit_dev"] = dev[3], dev[4]
+        snap["active_dev"], snap["sampled_dev"] = dev[1] > 0, dev[5] > 0
         return snap
 
-    def _step_active(self) -> bool:
-        snap = self._snapshot_active()
-        if snap is None:
-            return False
-        ids = torch.as_tensor(snap["ids"], device=self.device)
-        active = torch.as_tensor(snap["active"], device=self.device)
+    def _dispatch_block(self, ids, progress, snap, alive=None, chain: int = 0) -> dict:
+        """Dispatch one block (no sync): from the snapshot's uploaded
+        arrays (``chain`` 0) or from the previous block's device carry
+        (``ids``, ``progress``, ``alive``; block ``chain`` of the
+        snapshot). Starts the copy of its tokens to the host and returns
+        the record that ``_consume_block`` commits."""
+        self._dispatch_seq += 1
         if self._lookup_ngram:
-            block = self._prompt_lookup_block(ids, active, snap)
+            fn = self._prompt_lookup_block
         elif self._draft_params is not None:
-            block = self._speculative_block(ids, active, snap)
+            fn = self._speculative_block
         else:
-            block = self._decode_and_sample(ids, active, snap)
-        self._consume_block(block.cpu().numpy(), snap)
+            fn = self._decode_and_sample
+        alive = snap["active_dev"] if alive is None else alive
+        tokens, nxt, prog, alive = fn(ids, alive, progress, snap, chain)
+        host, event = self._start_fetch(tokens)
+        return {"host": host, "event": event, "nxt": nxt, "prog": prog, "alive": alive,
+                "snap": snap, "seq": self._dispatch_seq, "chain": chain}
+
+    def _step_active(self) -> bool:
+        t0 = now_s()
+        if not self._inflight:
+            snap = self._snapshot_active()
+            if snap is None:
+                return False
+            self._membership_dirty = False
+            self._inflight.append(self._dispatch_block(snap["ids_dev"], snap["progress_dev"],
+                                                       snap))
+        # pump: chain blocks off the newest carry until the pipeline is
+        # full (or every slot's budget ends before the next block); the
+        # card runs them back to back while the host commits the oldest
+        while (self.decode_overlap and not self._membership_dirty
+               and len(self._inflight) < self.pipeline_depth
+               and self._inflight[-1]["chain"] + 1 < self._inflight[-1]["snap"]["blocks"]):
+            last = self._inflight[-1]
+            self._inflight.append(self._dispatch_block(last["nxt"], last["prog"], last["snap"],
+                                                       last["alive"], last["chain"] + 1))
+        t1 = now_s()
+        self.loop_timers["dispatch"] += t1 - t0
+        self._consume_block(self._inflight.popleft())  # may set the dirty flag
+        self.loop_timers["consume"] += now_s() - t1
         return True
 
     def _count_drafts(self, packed: np.ndarray, snap) -> None:
@@ -946,12 +1152,18 @@ class GenerationEngine:
         self.drafted_tokens += self.speculate_k * int(drafted.sum())
         self.accepted_drafts += int(packed[:, greedy, k1 + 1][drafted].sum())
 
-    def _consume_block(self, block: np.ndarray, snap) -> None:
-        """Commit a fetched block to the slots it was dispatched for.
-        ``block`` is [steps, S, 1] (plain decode; EOS and budget were
-        enforced on the device and the host stops each column at the same
-        point) or [blocks, S, K+3 (+1)] (speculation: the window, then the
-        commit counts, walked token by token)."""
+    def _consume_block(self, rec: dict) -> None:
+        """Fetch a dispatched block's tokens (the sync point) and commit
+        them to the slots it was dispatched for. The tokens are [steps,
+        S, 1] (plain decode; EOS and budget were enforced on the device
+        and the host stops each column at the same point) or [blocks, S,
+        K+3 (+1)] (speculation: the window, then the commit counts, walked
+        token by token)."""
+        snap = rec["snap"]
+        # this block's tokens are on the host, so every prefill dispatched
+        # before it is done too
+        self._consumed_seq = max(self._consumed_seq, rec["seq"])
+        block = self._fetch(rec["host"], rec["event"])
         active = snap["active"]
         spec_mode = self._speculating
         if spec_mode:
@@ -1008,7 +1220,17 @@ class GenerationEngine:
             if state.emitted >= req.max_new_tokens or (eos is not None and take[-1] == eos):
                 finished.add(i)
         for i in finished:
-            self._release(i)
+            # a slot that hit its EOS or budget froze on the device (the
+            # alive carry), so the blocks in flight stay valid; only a
+            # cancellation, which the device does not see, stops the pump
+            state = snap["states"][i]
+            self._release(i, invalidate_carry=state is not None
+                          and state.request.cancel_flag.is_set())
+        if finished:
+            with self._lock:
+                live = any(s is not None for s in self._slots)
+            if not live:
+                self._membership_dirty = True  # stop pumping dead blocks
 
     def _emit(self, request: GenerationRequest, token: int) -> None:
         request.tokens.append(token)
@@ -1024,7 +1246,9 @@ class GenerationEngine:
             return True
         return req.eos_id is not None and req.tokens[-1] == req.eos_id
 
-    def _release(self, slot: int) -> None:
+    def _release(self, slot: int, invalidate_carry: bool = True) -> None:
+        if invalidate_carry:
+            self._membership_dirty = True  # the in-flight carry is stale
         with self._lock:
             state = self._slots[slot]
             self._slots[slot] = None
@@ -1039,7 +1263,7 @@ class GenerationEngine:
 
 
 # options of the JAX engine that this port does not serve yet
-_UNPORTED_OPTIONS = {"kv_cache_layout": "standard", "pipe_microgroups": 0, "serve_logits": False}
+_UNPORTED_OPTIONS = {"pipe_microgroups": 0, "serve_logits": False}
 
 
 def build_draft(cfg, spec: DecoderSpec, device):
@@ -1080,7 +1304,8 @@ def build_generation_engine(cfg, device=None, params=None) -> GenerationEngine:
     time (W8A8 and W4A8 quantize the dense layers' activations). Raises
     ``NotImplementedError`` for non-decoder families and for engine
     options that are not ported yet; ``pin_cache_layouts`` is accepted
-    as a no-op (a TPU layout workaround)."""
+    as a no-op (a TPU layout workaround) but refused with
+    ``kv_cache_layout: flat``, as the JAX engine refuses it."""
     from ..models.registry import build_model, get_family
     from ..utils.config import QuantMode
 
@@ -1094,7 +1319,13 @@ def build_generation_engine(cfg, device=None, params=None) -> GenerationEngine:
                 f"model option {key}={opts[key]!r} is not yet ported to the "
                 "PyTorch engine (ROADMAP queue 1)"
             )
+    layout = str(opts.get("kv_cache_layout", "standard"))
     if cfg.devices.mesh.size > 1:
+        if layout == "flat":
+            raise ValueError(
+                "kv_cache_layout='flat' is single-device only (mesh "
+                "decode paths keep the standard layout)"
+            )
         raise NotImplementedError("device meshes are not yet ported (ROADMAP)")
     nn.set_w8a8(cfg.model.quantization in (QuantMode.W8A8, QuantMode.W4A8))
     dev = resolve_device(device)
@@ -1121,5 +1352,8 @@ def build_generation_engine(cfg, device=None, params=None) -> GenerationEngine:
         pipeline_depth=int(opts.get("decode_pipeline_depth", 2)),
         kv_page_size=int(opts.get("kv_page_size", 0)),
         kv_pool_pages=int(opts.get("kv_pool_pages", 0)),
+        kv_cache_layout=layout,
+        pin_cache_layouts=bool(opts.get("pin_cache_layouts", False)),
+        fetch_timeout_s=float(opts.get("fetch_timeout_s", 120.0)),
         device=dev,
     )

@@ -11,8 +11,12 @@ one 32-row band), f32 and bf16 inputs, rep 1 and 8, head_dim 128,
 lengths 0 and T-1, prompts that are not a multiple of the query tile, a
 fully masked encoder sample, the fused stem at f32 and bf16 output, the
 W4A8 kernel exact against its float64 plain version (ragged M, N, K),
-and verify windows and paged caches with shuffled tables, windows that
-cross a page and unallocated table entries past a slot's length."""
+verify windows and paged caches with shuffled tables, windows that
+cross a page and unallocated table entries past a slot's length, the
+four FLAT-layout kernels against their plain versions and bit for bit
+against their standard twins on the same logical cache, engines that
+serve through each of them, and a chained decode block that never syncs
+the host."""
 
 import pytest
 import torch
@@ -252,6 +256,80 @@ def test_paged_attention_kernels(dev, dtype, s, page, pps, w):
            1e-2 if dtype == torch.bfloat16 else 2e-5)
 
 
+# -- the FLAT layout ---------------------------------------------------------------
+#
+# The flat cache holds the standard cache's K/V bytes as [.., Hkv*D] rows
+# and its scales transposed, [.., Hkv, T]. Each flat kernel runs its
+# standard twin's arithmetic with another scale address, so on the same
+# logical cache the two agree bit for bit.
+
+def _flat_of(k, v, ks, vs):
+    """The same logical cache (or pool) in the flat layout: K/V bytes as
+    they are, scales transposed."""
+    return (k.flatten(-2), v.flatten(-2), ks.transpose(-1, -2).contiguous(),
+            vs.transpose(-1, -2).contiguous())
+
+
+FLAT_CASES = {
+    "decode_s3": ("flat_decode_attention", (3, 128, 2, 1, 64)),
+    "decode_s5_rep8_d128": ("flat_decode_attention", (5, 384, 1, 8, 128)),
+    "decode_s2_t1024": ("flat_decode_attention", (2, 1024, 8, 4, 64)),
+    "window_w5": ("flat_window_decode_attention", (16, 1024, 5, 8, 4, 64)),
+    "window_w9_t200": ("flat_window_decode_attention", (3, 200, 9, 8, 4, 64)),
+    "paged_page256": ("flat_paged_decode_attention", (64, 256, 4, 1)),
+    "paged_page16": ("flat_paged_decode_attention", (5, 16, 8, 1)),
+    "paged_window_w5": ("flat_paged_window_decode_attention", (64, 256, 4, 5)),
+    "paged_window_page16_w9": ("flat_paged_window_decode_attention", (5, 16, 8, 9)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(FLAT_CASES))
+def test_flat_kernels_match_plain_and_standard_twin(dev, dtype, case):
+    name, shape = FLAT_CASES[case]
+    tol = 1e-2 if dtype == torch.bfloat16 else 2e-5
+    if "paged" in name:
+        s, page, pps, w = shape
+        hkv, rep, d = 8, 4, 64
+        q, k, v, ks, vs, table, lengths = _paged_case(dev, s, page, pps, s * pps + 1, w, hkv,
+                                                      rep, d, dtype, s * page + w + 7)
+        if w == 1:
+            q = q[:, 0]
+        twin = getattr(da, name[len("flat_"):])
+        tail = (table, lengths, rep)
+    elif "window" in name:
+        s, t, w, hkv, rep, d = shape
+        q, k, v, ks, vs, lengths = _window_case(dev, s, t, w, hkv, rep, d, dtype, s * t + w + 7)
+        twin, tail = da.window_decode_attention, (lengths, rep)
+    else:
+        s, t, hkv, rep, d = shape
+        g = _gen(dev, s * t + 7)
+        q = torch.randn(s, hkv * rep, d, device=dev, generator=g).to(dtype)
+        k = torch.randint(-127, 128, (s, t, hkv, d), device=dev, generator=g, dtype=torch.int8)
+        v = torch.randint(-127, 128, (s, t, hkv, d), device=dev, generator=g, dtype=torch.int8)
+        ks = torch.rand(s, t, hkv, device=dev, generator=g) / 127 * 8
+        vs = torch.rand(s, t, hkv, device=dev, generator=g) / 127
+        lengths = torch.randint(0, t, (s,), device=dev, generator=g, dtype=torch.int32)
+        lengths[0], lengths[-1] = 0, t - 1
+        twin, tail = da.decode_attention, (lengths, rep)
+    flat = _flat_of(k, v, ks, vs)
+    before = dict(da.launches)
+    got = getattr(da, name)(q, *flat, *tail)
+    want = twin(q, k, v, ks, vs, *tail)
+    torch.cuda.synchronize()
+    assert da.launches[name] == before[name] + 1
+    assert da.launches[twin.__name__] == before[twin.__name__] + 1
+    assert torch.equal(got, want)  # the same arithmetic, bit for bit
+    # the standard entry point takes a 3-D cache as flat
+    assert torch.equal(twin(q, *flat, *tail), got)
+    assert da.launches[name] == before[name] + 2
+    assert bool(torch.isfinite(got.float()).all())  # page 0 (NaN scales) never read
+    if "paged" in name:
+        ks[0], vs[0] = 1.0, 1.0  # the plain version gathers page 0 and masks it
+        flat = _flat_of(k, v, ks, vs)
+    _close(got, getattr(da, name + "_plain")(q, *flat, *tail), tol)
+
+
 # -- the engine off the TPU tiling gate --------------------------------------------
 #
 # The JAX package routes decode, verify and paged attention to its TPU
@@ -265,6 +343,12 @@ ENGINE_CASES = {
     "paged": (dict(kv_page_size=16), "paged_decode_attention"),
     "paged_lookup": (dict(kv_page_size=16, speculate_k=3, prompt_lookup_ngram=2),
                      "paged_window_decode_attention"),
+    "flat": (dict(kv_cache_layout="flat"), "flat_decode_attention"),
+    "flat_lookup": (dict(kv_cache_layout="flat", speculate_k=3, prompt_lookup_ngram=2),
+                    "flat_window_decode_attention"),
+    "flat_paged": (dict(kv_cache_layout="flat", kv_page_size=16), "flat_paged_decode_attention"),
+    "flat_paged_lookup": (dict(kv_cache_layout="flat", kv_page_size=16, speculate_k=3,
+                               prompt_lookup_ngram=2), "flat_paged_window_decode_attention"),
 }
 
 
@@ -286,7 +370,8 @@ def test_engine_with_small_pages_runs_the_attention_kernels(dev, case):
     def serve():
         eng = tgen.GenerationEngine(spec, params, dtype=torch.float32, device="cuda",
                                     num_slots=2, max_len=96, prefill_buckets=[16, 32],
-                                    steps_per_sync=2, **kw)
+                                    steps_per_sync=2, decode_overlap=True, pipeline_depth=3,
+                                    **kw)
         eng.start()
         try:
             reqs = [tgen.GenerationRequest(prompt_ids=np.asarray(p, np.int32), max_new_tokens=12)
@@ -309,3 +394,44 @@ def test_engine_with_small_pages_runs_the_attention_kernels(dev, case):
     # f32 compute: the kernel and the plain route differ only in the
     # order of f32 sums, far from any greedy tie of these weights
     assert got == want
+
+
+# -- overlapped dispatch ------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["dense", "paged_lookup"])
+def test_chained_block_does_not_sync_the_host(dev, case):
+    """A block chained off the previous block's device carry makes no
+    host sync: it is dispatched under sync debug mode "error", which
+    raises on any synchronizing call. Both blocks' tokens then arrive on
+    the host, the second continuing the first."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.models import decoder as td
+    from starpu_inference_server_tpu_torch.serving import generation as tgen
+    from starpu_inference_server_tpu_torch.weights import params_from_numpy
+
+    kw = {"dense": dict(kv_cache_layout="flat"),
+          "paged_lookup": dict(kv_page_size=16, speculate_k=3, prompt_lookup_ngram=2)}[case]
+    spec = td.get_spec("llama-tiny", {"layers": 2, "hidden": 256, "q_heads": 4, "kv_heads": 2,
+                                      "intermediate": 256, "vocab": 128})
+    params = params_from_numpy(td.init_params(spec, np.random.default_rng(0)))
+    eng = tgen.GenerationEngine(spec, params, dtype=torch.float32, device="cuda", num_slots=2,
+                                max_len=96, prefill_buckets=[16], steps_per_sync=2,
+                                decode_overlap=True, pipeline_depth=2, **kw)
+    for prompt in ([3, 7, 11, 3, 7], [5, 2, 9]):
+        eng.submit(tgen.GenerationRequest(prompt_ids=np.asarray(prompt, np.int32),
+                                          max_new_tokens=20))
+    eng._admit_pending()
+    eng._land_prefills(force=True)
+    snap = eng._snapshot_active()
+    first = eng._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            first["prog"].sum().item()  # the mode is on: a sync raises
+        chained = eng._dispatch_block(first["nxt"], first["prog"], snap, first["alive"], 1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    got = [eng._fetch(r["host"], r["event"]).copy() for r in (first, chained)]
+    assert got[0].shape == got[1].shape and not np.array_equal(got[0], got[1])

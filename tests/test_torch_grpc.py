@@ -120,13 +120,18 @@ SERVING_OPTIONS = {
     "paged_prefix": {"kv_page_size": 8, "kv_pool_pages": 20, "prefix_cache": True,
                      "prefix_cache_min": 8},
 }
+# the same options on the FLAT cache layout, and the flat layout alone
+SERVING_OPTIONS.update({f"flat_{k}": dict(v, kv_cache_layout="flat")
+                        for k, v in list(SERVING_OPTIONS.items())})
+SERVING_OPTIONS["flat"] = {"kv_cache_layout": "flat"}
 
 
 @pytest.mark.parametrize("name", sorted(SERVING_OPTIONS))
 def test_serving_options_over_grpc_give_the_plain_engine_tokens(harness, name):
     """A server built from a config with a draft model, prompt lookup or
-    the paged cache with prefix reuse answers ModelInfer with the greedy
-    tokens of the plain engine on the same weights."""
+    the paged cache with prefix reuse, in the standard or the flat cache
+    layout, answers ModelInfer with the greedy tokens of the plain engine
+    on the same weights."""
     options = SERVING_OPTIONS[name]
     shared = list(range(20, 36))  # a 16-token prefix for the prefix cache
     prompts = [[3, 7, 11], shared + [1, 2], shared + [5, 6, 7]]
@@ -135,6 +140,7 @@ def test_serving_options_over_grpc_give_the_plain_engine_tokens(harness, name):
                                         pb.ModelInferResponse)).raw_output_contents[0],
                              np.int32).tolist() for i, p in enumerate(prompts)]
         eng = h.server.generation_engine
+        assert eng.flat_cache == (options.get("kv_cache_layout") == "flat") == eng.cache.flat
         if "draft_variant" in options or "prompt_lookup_ngram" in options:
             assert eng.headroom() == 3
         if "draft_variant" in options:

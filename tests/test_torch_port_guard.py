@@ -7,7 +7,8 @@
   chip_smoke) also stays clear of ``grpc`` and ``yaml``.
 - Every file in ``configs/`` parses to the same values in both packages,
   and each llama config the generation engine serves builds from its
-  yml on the CPU (one layer, the yml's widths) and generates.
+  yml on the CPU (one layer, the yml's widths) and generates, in the
+  standard cache layout and with ``kv_cache_layout: flat`` set in code.
 - ``chip_smoke.py`` fails, printing no result, without CUDA and outside
   a checkout.
 """
@@ -46,7 +47,10 @@ from {pkg}.serving.runner import TaskRunner
 from {pkg}.utils.config import parse_config
 from {pkg}.ops import decode_attention, prefill_attention, matmul_kernels, nn, stem_kernel
 from {pkg}.ops.decode_attention import (window_decode_attention, paged_decode_attention,
-                                        paged_window_decode_attention)
+                                        paged_window_decode_attention, flat_decode_attention,
+                                        flat_window_decode_attention,
+                                        flat_paged_decode_attention,
+                                        flat_paged_window_decode_attention)
 from {pkg}.ops.matmul_kernels import int4_matmul_w4a8
 from {pkg}.models.paged_decoder import paged_decode_step, paged_verify_step
 import chip_smoke
@@ -114,6 +118,31 @@ def test_served_llama_config_builds_and_generates_on_cpu(name):
     assert bool(eng.draft_spec) == ("draft_variant" in opts)
     assert eng.kv_page_size == int(opts.get("kv_page_size", 0))
     assert eng.prefix_cache == bool(opts.get("prefix_cache", False))
+    eng.start()
+    try:
+        out = eng.generate(np.arange(1, 41, dtype=np.int32), max_new_tokens=3, timeout=300)
+    finally:
+        eng.stop()
+    assert len(out) == 3 and all(0 <= t < 32000 for t in out)
+
+
+@pytest.mark.parametrize("name", SERVED)
+def test_served_llama_config_builds_flat_and_generates_on_cpu(name):
+    """The same configs with ``kv_cache_layout: flat`` set in code (no yml
+    sets it): the target cache, its pages and the draft's cache are flat,
+    the engine runs at the yml's pipeline depth, and a greedy request is
+    answered."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+
+    cfg = tcfg.load_config(str(ROOT / "configs" / f"{name}.yml"))
+    opts = dict(cfg.model.options, layers=1, kv_cache_layout="flat")
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=opts))
+    eng = build_generation_engine(cfg, device="cpu")
+    assert eng.flat_cache and eng.cache.flat
+    assert eng.draft_spec is None or eng._draft_cache.flat
+    assert eng.pipeline_depth == int(opts.get("decode_pipeline_depth", 2))
     eng.start()
     try:
         out = eng.generate(np.arange(1, 41, dtype=np.int32), max_new_tokens=3, timeout=300)
