@@ -16,19 +16,23 @@ max_len 1024, int4 weights, int8 KV cache, bf16):
    held against its plain PyTorch version on the same inputs, and timed
    with CUDA events beside the plain version, a library yardstick the
    port never calls, and the least time the card could take (bytes or
-   operations);
+   operations); int4_matmul's device time in one decode step, summed
+   over its shapes, and its two-call bit-equality;
 2. model: llama-1b at full width and depth, one 300-token prompt through
    the chunked-prefill path plus 4 decode steps, kernels on and off,
    with each kernel's launches in one decode step;
 3. serving: the generation engine answers concurrent greedy requests
-   (bucket 64, bucket 256, chunked).
+   (bucket 64, bucket 256, chunked); then one decode block with every
+   slot busy, driven by hand: its host clock beside its device span
+   (CUDA events) and device busy time (torch.profiler).
 
 The batch ModelInfer path (configs/bert_long.yml: BERT-base s=512 W8A8;
 configs/resnet18_int8.yml: ResNet-18 int8 with ``stem_fused`` set on
 in code):
 
-4. kernels: int8_matmul, bidirectional_attention and fused_stem at the
-   path's shapes, checked and timed as in 1;
+4. kernels: int8_matmul, bidirectional_attention (and its two-call
+   bit-equality) and fused_stem at the path's shapes, checked and timed
+   as in 1;
 5. model: BERT-base at full depth, B=16, kernels on against off;
    ResNet-18 at B=32, fused stem against the s2d stem; launches per
    forward, and the host-clock time of one forward at two batch sizes;
@@ -99,6 +103,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import threading
@@ -204,7 +209,32 @@ def bound_ms(nbytes: float, flops: float, peak: float = PEAK_BF16):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _hold_device(ms: float) -> None:
+    """Keep the card busy for about ``ms`` (torch.cuda._sleep spins a
+    kernel for a number of clock cycles, calibrated once)."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of one ``fn()``: CUDA events around ``iters`` calls,
+    queued behind a spin kernel that outlasts their enqueue, so the card
+    runs them back to back and the host's launch overhead (the Python
+    wrapper, ctypes) is not timed. A ``fn`` that syncs the host is timed
+    with its host gaps, as before."""
     import torch
 
     for _ in range(warmup):
@@ -212,11 +242,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    hold = 2.0
+    for _ in range(2):
+        _hold_device(hold)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        if enqueue < hold:
+            break
+        hold = 2 * enqueue + 1.0
     return start.elapsed_time(end) / iters
 
 
@@ -266,11 +304,14 @@ def kernel_phase(spec, cfg_opts, dev):
 
     # int4_matmul at decode M = S over every dense shape of the model,
     # then at the other M the main path gives it: M = 1 (the lm_head of
-    # every prefill and chunk, the kernel's one-row template) and the
-    # prefill buckets 64 and 256 on gate_up. The row reports gate_up at
-    # M = S (the largest per-layer weight); every shape's numbers go in
-    # its per_shape list. Several weight copies, cycled, keep each call's
-    # weight out of the 50 MB L2 as in a real decode step.
+    # every prefill and chunk, the kernel's 16-row tile) and the prefill
+    # buckets 64 and 256 on gate_up. The row reports gate_up at M = S
+    # (the largest per-layer weight); every shape's numbers go in its
+    # per_shape list. Several weight copies, cycled, keep each call's
+    # weight out of the 50 MB L2 as in a real decode step; the library
+    # yardstick (torch.matmul on the dequantized bf16 weight) cycles its
+    # own copies the same way, so both read their weights from device
+    # memory (its time on one warm weight is printed beside it).
     shapes = {
         "qkv": (spec.hidden, (hq + 2 * hkv) * d),
         "o": (hq * d, spec.hidden),
@@ -295,22 +336,42 @@ def kernel_phase(spec, cfg_opts, dev):
         err = max_err(got, ref)
         tol = tol_mm * ref.abs().max().item()
         shape = f"M={m} K={k} N={n}"
-        print(f"kernel int4_matmul {shape} ({name}): max_abs_err={err:.3e} tol={tol:.3e}")
+        plan = mk.int4_matmul_plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        print(f"kernel int4_matmul {shape} ({name}): max_abs_err={err:.3e} tol={tol:.3e}; tile "
+              f"{mk.INT4_TILES[plan.variant]}, {plan.splits} splits, {plan.grid} blocks")
         require(err <= tol, f"int4_matmul {name} M={m} disagrees with its plain version")
-        it = iter(range(10 ** 9))
-        ms = time_ms(lambda: mk.int4_matmul(x, w4s[next(it) % copies], scs[0]))
+        if name == "gate_up" and m == S:
+            again = mk.int4_matmul(x, w4s[0], scs[0])
+            print(f"kernel int4_matmul {shape} ({name}): two calls bit-equal "
+                  f"{bool(torch.equal(got, again))}")
+            require(torch.equal(got, again), "int4_matmul gave other bits on a second call")
+        ms = _time_cycled(lambda i: mk.int4_matmul(x, w4s[i], scs[0]), copies)
         plain_ms = time_ms(lambda: mk.int4_matmul_plain(x, w4s[0], scs[0]), iters=5)
-        w_deq = (unpack_int4(w4s[0]).float() * scs[0]).to(bf16)
-        lib_ms = time_ms(lambda: torch.matmul(x, w_deq))
+        w_deqs = [(unpack_int4(w4s[i % copies]).float() * scs[0]).to(bf16)
+                  for i in range(_copies(k * n * 2))]
+        lib_ms = _time_cycled(lambda i: torch.matmul(x, w_deqs[i]), len(w_deqs))
+        warm_ms = time_ms(lambda: torch.matmul(x, w_deqs[0]))
         b_ms, b_by = bound_ms(m * k * 2 + k * n // 2 + n * 4 + m * n * 4, 2.0 * m * k * n)
         print(f"time int4_matmul {shape} ({name}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.matmul bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"torch.matmul bf16 {lib_ms:.4f} ms ({len(w_deqs)} weights cycled; one warm "
+              f"weight {warm_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms, shape=shape)
-        per_shape.append(dict(layer=name, **row))
+                   bound_by=b_by, library_ms=lib_ms, library_warm_ms=warm_ms, shape=shape,
+                   splits=plan.splits, grid=plan.grid)
+        per_shape.append(dict(layer=name, m=m, **row))
         if name == "gate_up" and m == S:
             rows["int4_matmul"] = dict(row, per_shape=per_shape)
-        del w4s, scs, w_deq
+        del w4s, scs, w_deqs
+    # K1's device time in one decode step: every layer's four dense
+    # shapes at M = S, then the lm_head
+    at_s = {r["layer"]: r["ms"] for r in per_shape if r["m"] == S}
+    step_ms = spec.layers * sum(at_s[n] for n in ("qkv", "o", "gate_up", "down")) + at_s["lm_head"]
+    lib_step = {r["layer"]: r["library_ms"] for r in per_shape if r["m"] == S}
+    lib_step_ms = (spec.layers * sum(lib_step[n] for n in ("qkv", "o", "gate_up", "down"))
+                   + lib_step["lm_head"])
+    print(f"int4_matmul per decode step ({spec.layers} layers x qkv, o, gate_up, down + lm_head "
+          f"at M={S}): kernel {step_ms:.4f} ms, torch.matmul bf16 (cycled) {lib_step_ms:.4f} ms")
+    rows["int4_matmul"]["decode_step_ms"] = step_ms
 
     # decode_attention at S slots (and S = 1). Logits are far from flat
     # (k up to ~10 after its scale, q ~ N(0, 1): logit std ~4), so a wrong
@@ -533,6 +594,95 @@ def serving_phase(engine, counters, card):
     return launches, prompts, outs
 
 
+def decode_block_phase(engine, card, k1_step_ms):
+    """Where one decode block's time goes: every slot busy (16-token
+    prompts), blocks driven by hand at depth 1 after the serving phase.
+    For one block, the host clock of its dispatch (the launches of
+    ``steps_per_sync`` steps) and of its consume (the wait for its tokens
+    and their commit) and the device span between CUDA events recorded
+    before and after the dispatch (the device idles inside it wherever
+    the host enqueues slower than the card runs); for the next block, the
+    device busy time, the sum of its kernels' times in a torch.profiler
+    trace. The engine then serves the requests to their end."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from starpu_inference_server_tpu_torch.serving.generation import GenerationRequest
+
+    steps = engine.steps_per_sync
+    rng = np.random.default_rng(13)
+    reqs = [GenerationRequest(prompt_ids=rng.integers(0, engine.spec.vocab, 16).astype(np.int32),
+                              max_new_tokens=4 * steps) for _ in range(engine.num_slots)]
+    for r in reqs:
+        engine.submit(r)
+    for _ in range(len(reqs)):  # admission may take the queue in pieces
+        if engine.active_count() == engine.num_slots:
+            break
+        engine._admit_pending()
+        engine._land_prefills(force=True)
+    require(engine.active_count() == engine.num_slots,
+            f"decode block: {engine.active_count()} of {engine.num_slots} slots active")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def block():
+        snap = engine._snapshot_active()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        rec = engine._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap)
+        end.record()
+        t1 = time.perf_counter()
+        engine._consume_block(rec)
+        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+
+    block()  # warm-up
+    dispatch_ms, consume_ms = block()
+    span_ms = start.elapsed_time(end)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            block()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        busy_ms = sum(by_name.values()) if by_name else None
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()),
+                      key=lambda t: -t[1])
+    except Exception as exc:  # noqa: BLE001 - profiling may be unavailable on a machine
+        print(f"decode block: torch.profiler failed ({exc!r}); device busy time not measured")
+        busy_ms, top, host = None, [], []
+    engine.start()
+    try:
+        outs = [r.result(timeout=600) for r in reqs]
+    finally:
+        engine.stop()
+    require(all(len(o) == 4 * steps for o in outs), "decode block: a request came back short")
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms ({busy_ms / steps:.3f} a step)"
+    host_ms = dispatch_ms + consume_ms
+    bound = ("" if busy_ms is None else
+             f"; the step is {'host' if dispatch_ms > busy_ms else 'device'}-bound "
+             f"(dispatch {dispatch_ms / busy_ms:.2f}x the device busy time)")
+    print(f"decode block on {card}: {steps} steps x {engine.num_slots} slots at depth 1, host "
+          f"clock {host_ms:.3f} ms ({host_ms / steps:.3f} a step) = dispatch {dispatch_ms:.3f} + "
+          f"consume {consume_ms:.3f}; device span (CUDA events around the dispatch) "
+          f"{span_ms:.3f} ms; device busy (torch.profiler kernel sum) {busy}; int4_matmul per "
+          f"step from the kernel phase {k1_step_ms:.3f} ms{bound}")
+    if top:
+        print("decode block, device ms by kernel (top 5): "
+              + json.dumps({k[:80]: round(v, 4) for k, v in top}))
+    if host:  # host clock under the profiler, which slows the host: shares, not times
+        launches = sum(n for key, _, n in host if key == "cudaLaunchKernel")
+        print(f"decode block, host: {launches / steps:.0f} kernel launches a step; self CPU ms by "
+              f"op under the profiler (top 6): "
+              + json.dumps({k[:40]: [round(ms, 3), n] for k, ms, n in host[:6]}))
+    return dict(host_ms=host_ms, dispatch_ms=dispatch_ms, consume_ms=consume_ms,
+                span_ms=span_ms, busy_ms=busy_ms)
+
+
 # -- phase 4: kernels of the batch ModelInfer path ------------------------------
 
 def rel_err(a, b) -> float:
@@ -603,6 +753,9 @@ def batch_kernel_phase(dev):
     ref = pa.bidirectional_attention_plain(q, kk, v, bias)
     require(bool(torch.isfinite(got.float()).all()), "bidirectional_attention gave non-finite values")
     err = attn_check(f"bidirectional_attention B={b} T={t} H={h} D={d}", got, ref)
+    same = bool(torch.equal(got, pa.bidirectional_attention(q, kk, v, bias)))
+    print(f"kernel bidirectional_attention B={b} T={t}: two calls bit-equal {same}")
+    require(same, "bidirectional_attention gave other bits on a second call")
     ms = time_ms(lambda: pa.bidirectional_attention(q, kk, v, bias))
     plain_ms = time_ms(lambda: pa.bidirectional_attention_plain(q, kk, v, bias), iters=3)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, kk, v))
@@ -2009,8 +2162,13 @@ def main() -> int:
     print(f"card: {card}")
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    _build.build_all()
+    reports = _build.build_all()
     print(f"build: {len(_build.KERNELS)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
+    for name, report in reports.items():  # ptxas -v: registers and spills of each library
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", report))
+        print(f"ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
+              f"{spills} bytes of spill stores")
 
     cfg = load_config(str(CONFIG))
     t0 = time.perf_counter()
@@ -2022,6 +2180,7 @@ def main() -> int:
     rows = kernel_phase(engine.spec, cfg.model.options, dev)
     per_step = model_phase(engine, dev, counters)
     launches, dec_prompts, dec_outs = serving_phase(engine, counters, card)
+    decode_block_phase(engine, card, rows["int4_matmul"]["decode_step_ms"])
     spec, int4_params = engine.spec, engine.params  # the W4A8 path reuses the int4 tree
     del engine
     torch.cuda.empty_cache()
@@ -2047,6 +2206,9 @@ def main() -> int:
         r = rows[name]
         if name in DECODER_KERNELS:
             extra = {"launches_per_decode_step": per_step[name]}
+            if name == "int4_matmul":
+                extra.update(decode_step_ms=r["decode_step_ms"],
+                             library="torch.matmul bf16 on dequantized weights, cycled")
         elif name in EXTRA_KERNELS + FLAT_KERNELS:
             per = "verify" if "window" in name else "decode_step"
             extra = {f"launches_per_{per}": extra_step[name], "library": r["library"]}

@@ -57,6 +57,75 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 constexpr float kNeg = -1e30f;  // mask value of the TPU kernels
 
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks (sm_80+ PTX, run on Hopper): asynchronous
+// 16-byte copies into shared memory, ldmatrix, and the warp-wide bf16
+// mma.sync m16n8k16 with f32 accumulators.
+//
+// Fragment layouts of m16n8k16 (g = lane / 4, c = lane % 4):
+//   A (16 x 16, 4 regs of bf16x2): a0 (row g, k 2c..2c+1), a1 (row g+8, same k),
+//     a2 (row g, k 2c+8..2c+9), a3 (row g+8, k 2c+8..2c+9)
+//   B (16 x 8, 2 regs): b0 (k 2c..2c+1, col g), b1 (k 2c+8..2c+9, col g)
+//   C/D (16 x 8, 4 f32): d0, d1 (row g, cols 2c, 2c+1), d2, d3 (row g+8)
+// In every bf16x2 register the lower k (or column) sits in the low 16 bits.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without passing through registers; with
+// `pred` false nothing is read and the 16 bytes are zero-filled
+// (`src` must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed: a [k][n] tile in shared memory gives
+// B fragments
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16 bf16) * b (16 x 8 bf16), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+
 // One query row per thread, online softmax over keys staged in shared
 // memory as float [nk_pad][D] (rows past the valid range zero-filled).
 // Key j (0-based in the stage) is attended when j < nk and, for

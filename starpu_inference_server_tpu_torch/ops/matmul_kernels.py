@@ -4,11 +4,12 @@
 ``starpu_inference_server_tpu/ops/pallas_kernels.py:int4_matmul``
 (``_int4_matmul_kernel``) with the hand-written CUDA kernel in
 ``csrc/int4_matmul.cu``. Bound on the H100: at the decode batch of 128
-rows the bf16 tensor-core time and the packed-weight bytes are about
-even (2*M FLOPs per weight); below that, bytes. Design: a shared-memory
-tiled SIMT GEMM that unpacks the pairwise nibbles into shared memory
-once per tile, so device memory only ever holds the packed weight;
-tensor cores are the next step (ROADMAP).
+rows the bf16 tensor-core rate (512 FLOPs per packed weight byte); at
+one row, the packed-weight bytes. Design: mma.sync bf16 tensor-core
+tiles whose B fragments are unpacked from the pairwise nibbles in
+registers (device memory only ever holds the packed weight), with a
+split of K that :func:`int4_matmul_plan` chooses so every shape fills
+the card, and a fixed-order reduction of the splits (see the source).
 
 ``int8_matmul`` replaces the TPU kernel
 ``starpu_inference_server_tpu/ops/pallas_kernels.py:int8_matmul``
@@ -32,6 +33,10 @@ by ``x_scale[m] * scale[n]`` (see the source).
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -48,6 +53,61 @@ def _bound(name: str, symbol: str, n_ptrs: int = 4, n_ints: int = 4):
     if fn is None:
         fn = _fns[name] = _build.bind(name, symbol, n_ptrs, n_ints)
     return fn
+
+
+# (rows, columns) of each int4_matmul tile variant, by the index the C
+# entry point takes (csrc/int4_matmul.cu:launch_variant), and the k-tile
+INT4_TILES = ((16, 128), (64, 128), (128, 128))
+INT4_BK = 64
+
+
+class Int4Plan(NamedTuple):
+    variant: int     # index into INT4_TILES
+    splits: int      # K is cut into this many ranges of whole k-tiles
+    grid: int        # blocks of the GEMM launch: output tiles x splits
+    workspace: int   # f32 elements of partial sums (0 when not split)
+
+
+@functools.lru_cache(maxsize=None)
+def int4_matmul_plan(m: int, n: int, k: int, sms: int) -> Int4Plan:
+    """Tile variant and split of K for ``int4_matmul`` on a card of
+    ``sms`` SMs. The tile is the smallest that holds the rows. Where the
+    output tiles alone fall short of one block per SM, K is split into
+    S ranges of whole k-tiles (split ``s`` of KT k-tiles takes
+    [s KT / S, (s + 1) KT / S)), S chosen among the splits that give
+    every SM a block: the
+    least time on the busiest SM, counted in k-tiles of one block (blocks
+    are dealt out one per SM a round, so it runs ceil(tiles S / sms)
+    blocks of ceil(KT / S) k-tiles and about two k-tiles' worth of
+    start-up each), plus what each further split's partial sums cost to
+    write and read back (8 bytes an output; a k-tile of a block takes
+    about as long as 5 MB of device memory). The constants are fitted to
+    split sweeps of llama-1b's shapes on an H100 (PERF.md)."""
+    variant = next(i for i, (bm, _) in enumerate(INT4_TILES)
+                   if m <= bm or i == len(INT4_TILES) - 1)
+    bm, bn = INT4_TILES[variant]
+    tiles = math.ceil(m / bm) * math.ceil(n / bn)
+    ktiles = math.ceil(k / INT4_BK)
+    splits = 1
+    if tiles < sms:
+        reduce = m * n * 8 / 5e6
+
+        def cost(s):
+            return math.ceil(tiles * s / sms) * (math.ceil(ktiles / s) + 2) + (s - 1) * reduce
+
+        fill = [s for s in range(2, ktiles + 1) if tiles * s >= sms] or [ktiles]
+        splits = min(fill, key=lambda s: (cost(s), s))
+    return Int4Plan(variant, splits, tiles * splits, splits * m * n if splits > 1 else 0)
+
+
+_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def int4_matmul_plain(x: torch.Tensor, w_p4: torch.Tensor,
@@ -83,9 +143,14 @@ def int4_matmul(x: torch.Tensor, w_p4: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    rc = _bound("int4_matmul", "sis_int4_matmul")(x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-             m, n, k, _build.BF16 if x.dtype == torch.bfloat16 else _build.F32,
-             _build.stream_ptr(x))
+    plan = int4_matmul_plan(m, n, k, _sm_count(x.device))
+    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
+          if plan.workspace else None)
+    rc = _bound("int4_matmul", "sis_int4_matmul", 5, 6)(
+        x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
+        ws.data_ptr() if ws is not None else None, m, n, k,
+        _build.BF16 if x.dtype == torch.bfloat16 else _build.F32, plan.variant, plan.splits,
+        _build.stream_ptr(x))
     _build.check(rc, "int4_matmul")
     launches["int4_matmul"] += 1
     return y
@@ -172,6 +237,7 @@ def int4_matmul_w4a8(x_q: torch.Tensor, x_scale: torch.Tensor,
 
 
 __all__ = [
-    "int4_matmul", "int4_matmul_plain", "int8_matmul", "int8_matmul_plain",
+    "INT4_BK", "INT4_TILES", "Int4Plan", "int4_matmul", "int4_matmul_plain",
+    "int4_matmul_plan", "int8_matmul", "int8_matmul_plain",
     "int4_matmul_w4a8", "int4_matmul_w4a8_plain", "launches",
 ]

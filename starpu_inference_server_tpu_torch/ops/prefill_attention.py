@@ -12,12 +12,16 @@
 
 Bound on the H100: at the main-path shapes (256- to 512-row blocks) the
 least time is set by the few MB of inputs and outputs, with the bf16
-tensor-core rate close behind; these first kernels run on CUDA cores in
-f32, so their own limit is the FMA rate. Design: one block per (query
-tile, KV head), one query row per thread for all ``rep`` heads, K/V
-chunks staged once per block in shared memory (dequantized there for
-the int8 past), online softmax in registers; the [Hq, T, T] scores
-never reach device memory.
+tensor-core rate close behind. The causal and chunked kernels run on
+CUDA cores in f32, so their own limit is the FMA rate: one block per
+(query tile, KV head), one query row per thread for all ``rep`` heads,
+K/V chunks staged once per block in shared memory (dequantized there for
+the int8 past), online softmax in registers. The encoder kernel's bf16
+route is tensor-core flash attention (mma.sync for Q K^T and P V, 64
+query rows a block, a cp.async double buffer of K/V tiles, P carried as
+two bf16 terms so its weights stay f32-exact); its f32 route keeps the
+one-row-per-thread body, whose f32 probabilities the FP32 witnesses
+hold to 1e-5. The [Hq, T, T] scores never reach device memory.
 
 The ``*_plain`` functions beside them compute the same function in plain
 PyTorch: CPU tensors take them, and on the card they are only the

@@ -7,9 +7,11 @@ On the card machine run them with
 
 They cover the edges chip_smoke.py does not: ragged M, N and K for the
 int4 and int8 kernels (odd N that forbids 4-byte weight loads, M over
-one 32-row band), f32 and bf16 inputs, rep 1 and 8, head_dim 128,
+one 32-row band), the int4 kernel with and without a split of K and
+bit-equal over two calls, f32 and bf16 inputs, rep 1 and 8, head_dim 128,
 lengths 0 and T-1, prompts that are not a multiple of the query tile, a
-fully masked encoder sample, the fused stem at f32 and bf16 output, the
+fully masked encoder sample, the bf16 encoder attention with 300 padded
+keys bit-equal over two calls, the fused stem at f32 and bf16 output, the
 W4A8 kernel exact against its float64 plain version (ragged M, N, K),
 verify windows and paged caches with shuffled tables, windows that
 cross a page and unallocated table entries past a slot's length, the
@@ -48,8 +50,12 @@ def _close(got, ref, rel):
     assert (got.float() - ref.float()).abs().max().item() <= rel * scale
 
 
+# the ragged shapes, then llama-1b's down at the decode batch (K split),
+# its lm_head at M = 1 (one row, not split) and gate_up at the largest
+# prefill bucket (the 128-row tile, not split)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(1, 64, 130), (17, 98, 257), (200, 2048, 384)])
+@pytest.mark.parametrize("m,k,n", [(1, 64, 130), (17, 98, 257), (200, 2048, 384),
+                                   (128, 5504, 2048), (1, 2048, 32000), (512, 2048, 11008)])
 def test_int4_matmul_kernel(dev, dtype, m, k, n):
     g = _gen(dev, m + n)
     x = torch.randn(m, k, device=dev, generator=g).to(dtype)
@@ -60,6 +66,24 @@ def test_int4_matmul_kernel(dev, dtype, m, k, n):
     torch.cuda.synchronize()
     assert mk.launches["int4_matmul"] == before + 1
     _close(got, mk.int4_matmul_plain(x, w4, sc), 1e-5)
+
+
+@pytest.mark.parametrize("m,k,n,split", [(128, 5504, 2048, True), (1, 2048, 32000, False),
+                                         (17, 98, 257, True)])
+def test_int4_matmul_kernel_gives_the_same_bits_twice(dev, m, k, n, split):
+    """Split partial sums are added in a fixed order, never by atomics:
+    two calls on the same inputs agree bit for bit, split or not."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (mk.int4_matmul_plan(m, n, k, sms).splits > 1) == split
+    g = _gen(dev, m * k)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    w4 = pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g, dtype=torch.int8))
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.1
+    first = mk.int4_matmul(x, w4, sc)
+    second = mk.int4_matmul(x, w4, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    _close(first, mk.int4_matmul_plain(x, w4, sc), 1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -142,6 +166,29 @@ def test_bidirectional_attention_kernel(dev, dtype, b, t, hkv, rep, d):
     assert bool(torch.isfinite(got.float()).all())
     _close(got, pa.bidirectional_attention_plain(q, k, v, bias, rep),
            1e-2 if dtype == torch.bfloat16 else 2e-5)
+
+
+def test_bidirectional_attention_bf16_padded_gives_the_same_bits_twice(dev):
+    """The tensor-core route at BERT's T = 512 and H = 12: sample 0 with
+    300 padded keys, sample 1 unpadded. Within chip_smoke.py's attention
+    limit (2^-7 |ref| + 1e-3 per element: P is rounded to bf16), and two
+    calls agree bit for bit (each block owns every key of its rows)."""
+    g = _gen(dev, 300)
+    b, t, h, d = 2, 512, 12, 64
+    q = (3 * torch.randn(b, t, h, d, device=dev, generator=g)).to(torch.bfloat16)
+    k = torch.randn(b, t, h, d, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(b, t, h, d, device=dev, generator=g).to(torch.bfloat16)
+    bias = torch.zeros(b, t, device=dev)
+    bias[0, t - 300:] = -1e9
+    before = pa.launches["bidirectional_attention"]
+    first = pa.bidirectional_attention(q, k, v, bias)
+    second = pa.bidirectional_attention(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert pa.launches["bidirectional_attention"] == before + 2
+    assert torch.equal(first, second)
+    ref = pa.bidirectional_attention_plain(q, k, v, bias).float()
+    assert bool(((first.float() - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-3).all())
+    _close(first, ref, 1e-2)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
