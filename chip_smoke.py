@@ -17,14 +17,22 @@ max_len 1024, int4 weights, int8 KV cache, bf16):
    with CUDA events beside the plain version, a library yardstick the
    port never calls, and the least time the card could take (bytes or
    operations); int4_matmul's device time in one decode step, summed
-   over its shapes, and its two-call bit-equality;
+   over its shapes, and its two-call bit-equality; causal_attention at
+   every prefill bucket (64 to 512) and chunk_prefill_attention at
+   starts 0, 256 and 512, in both row layouts of their tensor-core
+   route, each bit-equal over two calls;
 2. model: llama-1b at full width and depth, one 300-token prompt through
    the chunked-prefill path plus 4 decode steps, kernels on and off,
    with each kernel's launches in one decode step;
 3. serving: the generation engine answers concurrent greedy requests
-   (bucket 64, bucket 256, chunked); then one decode block with every
-   slot busy, driven by hand: its host clock beside its device span
-   (CUDA events) and device busy time (torch.profiler).
+   (bucket 64, bucket 256, chunked), every prefill through
+   causal_attention and every chunk through chunk_prefill_attention
+   (launches counted exactly); then one decode block with every slot
+   busy, driven by hand: its host clock beside its device span (CUDA
+   events) and device busy time (torch.profiler); then sampling on the
+   device: ``sample_tokens`` on the card against the same call on the
+   CPU (equal bits, equal tokens), and 16 sampled requests whose streams
+   at depth 4 equal depth 1's.
 
 The batch ModelInfer path (configs/bert_long.yml: BERT-base s=512 W8A8;
 configs/resnet18_int8.yml: ResNet-18 int8 with ``stem_fused`` set on
@@ -412,15 +420,18 @@ def kernel_phase(spec, cfg_opts, dev):
                                         lengths=lens.tolist())  # K12a reuses them
         del kc, vc, ks, vs, kd, vd
 
-    # causal_attention at prefill bucket 256 (the row) and 512; q is
-    # 3 x N(0, 1), so logits have std ~3 as above
-    for t in (256, 512):
+    # causal_attention at every prefill bucket (the row: 256); q is
+    # 3 x N(0, 1), so logits have std ~3 as above; each bit-equal over
+    # two calls
+    per_shape = []
+    for t in (64, 128, 256, 512):
         q = (3 * torch.randn(1, t, hq, d, device=dev, generator=g)).to(bf16)
         k = torch.randn(1, t, hkv, d, device=dev, generator=g).to(bf16)
         v = torch.randn(1, t, hkv, d, device=dev, generator=g).to(bf16)
         got = pa.causal_attention(q, k, v, rep)
-        ref = pa.causal_attention_plain(q, k, v, rep)
-        err = attn_check(f"causal_attention T={t}", got, ref)
+        err = attn_check(f"causal_attention T={t}", got, pa.causal_attention_plain(q, k, v, rep))
+        require(torch.equal(got, pa.causal_attention(q, k, v, rep)),
+                f"causal_attention T={t} gave other bits on a second call")
         ms = time_ms(lambda: pa.causal_attention(q, k, v, rep))
         plain_ms = time_ms(lambda: pa.causal_attention_plain(q, k, v, rep), iters=5)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -429,28 +440,33 @@ def kernel_phase(spec, cfg_opts, dev):
         nbytes = 2 * t * hq * d * 2 + 2 * t * hkv * d * 2
         b_ms, b_by = bound_ms(nbytes, 4.0 * hq * d * t * (t + 1) / 2)
         print(f"time causal_attention T={t}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); two calls bit-equal")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, shape=f"B=1 T={t}")
+        per_shape.append(row)
         if t == 256:
-            rows["causal_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                            shape=f"B=1 T={t}")
+            rows["causal_attention"] = dict(row, per_shape=per_shape)
 
-    # chunk_prefill_attention: chunk C at start 0, C (the row), 2C. The
-    # cached rows dequantize to std ~1 like the in-chunk keys, and q is
-    # 3 x N(0, 1): logits of std ~3 over both sources
+    # chunk_prefill_attention: chunk C at start 0, C (the row), 2C, each
+    # bit-equal over two calls. The cached rows
+    # dequantize to std ~1 like the in-chunk keys, and q is 3 x N(0, 1):
+    # logits of std ~3 over both sources
     k_row = torch.randint(-127, 128, (T, hkv, d), device=dev, generator=g, dtype=torch.int8)
     v_row = torch.randint(-127, 128, (T, hkv, d), device=dev, generator=g, dtype=torch.int8)
     ks = torch.rand(T, hkv, device=dev, generator=g) * 0.01 + 0.01
     vs = torch.rand(T, hkv, device=dev, generator=g) / 127 + 1e-3
+    per_shape = []
     for start in (0, C, 2 * C):
         q = (3 * torch.randn(C, hq, d, device=dev, generator=g)).to(bf16)
         kc = torch.randn(C, hkv, d, device=dev, generator=g).to(bf16)
         vc = torch.randn(C, hkv, d, device=dev, generator=g).to(bf16)
         args = (q, k_row, v_row, ks, vs, kc, vc, start, rep)
         got = pa.chunk_prefill_attention(*args)
-        ref = pa.chunk_prefill_attention_plain(*args)
-        err = attn_check(f"chunk_prefill_attention C={C} start={start}", got, ref)
-        if start != C:
+        err = attn_check(f"chunk_prefill_attention C={C} start={start}", got,
+                         pa.chunk_prefill_attention_plain(*args))
+        require(torch.equal(got, pa.chunk_prefill_attention(*args)),
+                f"chunk_prefill_attention start={start} gave other bits on a second call")
+        if not start:
             continue
         ms = time_ms(lambda: pa.chunk_prefill_attention(*args))
         plain_ms = time_ms(lambda: pa.chunk_prefill_attention_plain(*args), iters=5)
@@ -464,10 +480,13 @@ def kernel_phase(spec, cfg_opts, dev):
         nbytes = 2 * C * hq * d * 2 + start * hkv * (2 * d + 8) + 2 * C * hkv * d * 2
         b_ms, b_by = bound_ms(nbytes, 4.0 * hq * d * (C * start + C * (C + 1) / 2))
         print(f"time chunk_prefill_attention start={start}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        rows["chunk_prefill_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                               bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                               shape=f"C={C} start={start} T={T}")
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); two calls "
+              f"bit-equal")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, shape=f"C={C} start={start} T={T}")
+        per_shape.append(row)
+        if start == C:
+            rows["chunk_prefill_attention"] = dict(row, per_shape=per_shape)
     return rows
 
 
@@ -551,6 +570,25 @@ def _timers(engine) -> str:
     return json.dumps({k: round(v, 3) for k, v in engine.loop_timers.items()})
 
 
+def require_prefill_launches(engine, prompts, launches, what) -> None:
+    """Serving ``prompts`` on a dense engine without prefix reuse or a
+    draft must launch causal_attention once a layer for every bucketed
+    prefill, whatever its bucket, and chunk_prefill_attention once a layer
+    for every chunk."""
+    causal = chunks = 0
+    c = engine.prefill_chunk
+    for prompt in prompts:
+        if c and (len(prompt) > c or len(prompt) > engine.prefill_buckets[-1]):
+            chunks += -(-len(prompt) // c)
+        else:
+            causal += 1
+    layers = engine.spec.layers
+    for name, want in (("causal_attention", layers * causal),
+                       ("chunk_prefill_attention", layers * chunks)):
+        require(launches[name] == want, f"{what}: {name} launched {launches[name]} times, want "
+                                        f"{want} (one a layer for every dense prefill or chunk)")
+
+
 def serving_phase(engine, counters, card):
     import numpy as np
 
@@ -582,6 +620,7 @@ def serving_phase(engine, counters, card):
     require(outs[0] == outs[3], "the same prompt twice gave different tokens")
     for name in DECODER_KERNELS:
         require(launches[name] > 0, f"kernel {name} was not launched on the decoder path")
+    require_prefill_launches(engine, prompts, launches, "llama_decoder")
     step_s = engine.loop_timers["step"]
     decode_tokens = len(reqs) * (new - 1)
     print(f"serving on {card}: {len(reqs)} greedy requests (prompts {check_lens} + "
@@ -681,6 +720,117 @@ def decode_block_phase(engine, card, k1_step_ms):
               + json.dumps({k[:40]: [round(ms, 3), n] for k, ms, n in host[:6]}))
     return dict(host_ms=host_ms, dispatch_ms=dispatch_ms, consume_ms=consume_ms,
                 span_ms=span_ms, busy_ms=busy_ms)
+
+
+def sampling_phase(spec, int4_params, counters, card, dev):
+    """Device-side sampling (serving/sampling.py). ``sample_tokens`` at
+    the decoder's slots and vocab on the card against the same call on a
+    CPU copy of its inputs: equal random bits, equal Gumbel noise, equal
+    tokens (a near-tie flip is printed before the check fails), and the
+    time of the engine's own draw, ``sample_rows`` on 16 rows. Then 16
+    sampled requests (temperature 0.8, top-k 40, 16 seeds; prompts in
+    buckets 64, 128 and 256) through llama_decoder.yml at its depth and
+    at depth 1 (``decode_overlap: false``): equal streams, every prefill
+    through causal_attention; and the same prompts greedy at its depth,
+    whose host clock a step is printed beside the sampled run's."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.serving import sampling
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationRequest, build_generation_engine,
+    )
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(CONFIG))
+    s, vocab = int(cfg.model.options["num_slots"]), spec.vocab
+    rng = np.random.default_rng(17)
+    host = {
+        "logits": torch.from_numpy((3 * rng.standard_normal((s, vocab))).astype(np.float32)),
+        "temps": torch.from_numpy(rng.choice([0.0, 0.5, 0.8, 1.2], s).astype(np.float32)),
+        "top_k": torch.from_numpy(rng.choice([0, 1, 40, vocab], s).astype(np.int32)),
+        "seeds": torch.from_numpy(rng.integers(0, 2 ** 32, s, dtype=np.uint64).astype(np.int64)),
+        "progress": torch.from_numpy(rng.integers(0, 1000, s).astype(np.int32)),
+    }
+    card_in = {k: v.to(dev) for k, v in host.items()}
+    keys = {where: sampling.fold_in(sampling.prng_key(a["seeds"]), a["progress"])
+            for where, a in (("cpu", host), ("card", card_in))}
+    bits_equal = torch.equal(sampling.random_bits(keys["card"], vocab).cpu(),
+                             sampling.random_bits(keys["cpu"], vocab))
+    noise_equal = torch.equal(sampling.gumbel(keys["card"], vocab).cpu(),
+                              sampling.gumbel(keys["cpu"], vocab))
+    want = sampling.sample_tokens(**host)
+    got = sampling.sample_tokens(**card_in).cpu()
+    flips = torch.nonzero(got != want).flatten().tolist()
+    for i in flips:
+        row = host["logits"][i]
+        print(f"sampling: slot {i} drew {int(got[i])} on the card, {int(want[i])} on the CPU "
+              f"(logits {row[int(got[i])]:.6f} / {row[int(want[i])]:.6f})")
+    ms = time_ms(lambda: sampling.sample_tokens(**card_in), iters=5)
+    print(f"sampling sample_tokens S={s} V={vocab} on {card}: random bits card == CPU "
+          f"{bits_equal}, Gumbel noise card == CPU {noise_equal}, {s - len(flips)} of {s} tokens "
+          f"equal ({int((host['temps'] > 0).sum())} sampled slots); {ms:.4f} ms a call (every "
+          f"row drawn)")
+    require(bits_equal and noise_equal, "sampling: the card's random bits or noise differ")
+    require(not flips, "sampling: a token drawn on the card differs from the CPU's")
+
+    # prompts in every dense bucket the config reaches (64, 128, 256;
+    # longer prompts are chunked at its prefill_chunk of 256)
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, vocab, (40, 100, 200)[i % 3]).astype(np.int32) for i in range(16)]
+    new = 16
+
+    # the engine's draw for these rows: sample_rows on the 16 sampled
+    # slots' logits at top-k 40, as GenerationEngine._sample calls it
+    idx = torch.arange(len(prompts), device=dev)
+    rows_in = (card_in["logits"].index_select(0, idx), torch.full((len(idx),), 0.8, device=dev),
+               torch.full((len(idx),), 40, dtype=torch.int32, device=dev),
+               keys["card"].index_select(0, idx), 40)
+    rows_ms = time_ms(lambda: sampling.sample_rows(*rows_in), iters=5)
+    print(f"sampling sample_rows N={len(idx)} V={vocab} top-k 40 on {card}: {rows_ms:.4f} ms a "
+          f"call (the engine's draw for {len(idx)} sampled slots, once a decode step)")
+
+    # sampled at the config's depth and at depth 1, then greedy at the
+    # config's depth: the same prompts, so the step times compare
+    streams, timers = {}, {}
+    for kind, depth_cfg, timed in (("sampled", cfg, True),
+                                   ("sampled", _cfg_with(cfg, decode_overlap=False), False),
+                                   ("greedy", cfg, True)):
+        engine = build_generation_engine(depth_cfg, device=dev, params=int4_params)
+        temp = 0.8 if kind == "sampled" else 0.0
+        reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new, temperature=temp, top_k=40,
+                                  seed=1000 + i) for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        for r in reqs:
+            engine.submit(r)
+        engine.start()
+        try:
+            outs = [r.result(timeout=600) for r in reqs]
+        finally:
+            engine.stop()
+        torch.cuda.synchronize()
+        launches = read_counts(counters)
+        require(all(len(o) == new and all(0 <= t < vocab for t in o) for o in outs),
+                f"{kind} requests: a stream is short or out of vocab")
+        require_prefill_launches(engine, prompts, launches, f"{kind} requests")
+        if kind == "sampled":
+            streams[engine.pipeline_depth] = outs
+        if timed:
+            timers[kind] = (engine.steps, dict(engine.loop_timers))
+        del engine
+    (d_hi, hi), (d_lo, lo) = sorted(streams.items(), reverse=True)
+    same = sum(a == b for a, b in zip(hi, lo))
+    distinct = len({tuple(o) for o in hi})
+    print(f"sampling: {len(prompts)} sampled requests, {same} of {len(prompts)} streams at depth "
+          f"{d_hi} identical to depth {d_lo}; {distinct} distinct streams")
+    for kind, (steps, t) in timers.items():
+        print(f"sampling: {len(prompts)} {kind} requests at depth {d_hi} on {card}: {steps} decode "
+              f"steps, host clock in decode blocks {t['step'] * 1e3 / steps:.3f} ms a step, "
+              f"dispatch {t['dispatch'] * 1e3 / steps:.3f} ms a step; loop_timers "
+              + json.dumps({k: round(v, 3) for k, v in t.items()}))
+    require(same == len(prompts), "a sampled stream at depth 1 differs from the config's depth")
+    torch.cuda.empty_cache()
 
 
 # -- phase 4: kernels of the batch ModelInfer path ------------------------------
@@ -1399,10 +1549,13 @@ def _plain_cfg(cfg):
                      prompt_lookup_ngram=None)
 
 
-def generate_all(engine, prompts, new, counters, kernels, what, card, absent=()):
+def generate_all(engine, prompts, new, counters, kernels, what, card, absent=(),
+                 dense_prefills=False):
     """Serve ``prompts`` concurrently through ``engine`` (counters zeroed
     just before, read just after); every kernel of ``kernels`` must have
-    launched and none of ``absent``. Returns (token lists, launches)."""
+    launched and none of ``absent``; with ``dense_prefills``, every
+    prefill and chunk through its kernel (``require_prefill_launches``).
+    Returns (token lists, launches)."""
     import torch
 
     from starpu_inference_server_tpu_torch.serving.generation import GenerationRequest
@@ -1429,6 +1582,8 @@ def generate_all(engine, prompts, new, counters, kernels, what, card, absent=())
         require(launches[name] > 0, f"kernel {name} was not launched on the {what} path")
     for name in absent:
         require(launches[name] == 0, f"kernel {name} was launched on the {what} path")
+    if dense_prefills:
+        require_prefill_launches(engine, prompts, launches, what)
     step_s = engine.loop_timers["step"]
     extra = ""
     if engine.draft_spec is not None or engine.headroom():
@@ -1476,7 +1631,7 @@ def w4a8_path(int4_params, counters, card, dev):
     _, launches = generate_all(engine, prompts, 24, counters,
                                ("int4_matmul_w4a8", "decode_attention", "causal_attention",
                                 "chunk_prefill_attention"), "llama_w4a8", card,
-                               absent=("int4_matmul",))
+                               absent=("int4_matmul",), dense_prefills=True)
     del engine
     torch.cuda.empty_cache()
     return launches, per_step
@@ -2060,7 +2215,7 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
     got, ran = generate_all(engine, prompts, 32, counters,
                             ("flat_decode_attention", "int4_matmul", "causal_attention",
                              "chunk_prefill_attention"), "llama_decoder flat", card,
-                            absent=("decode_attention",))
+                            absent=("decode_attention",), dense_prefills=True)
     same = sum(a == b for a, b in zip(got, want))
     print(f"llama_decoder flat: {same} of {len(want)} streams identical to the standard layout's")
     require(same == len(want), "llama_decoder flat: a stream differs from the standard engine's")
@@ -2070,7 +2225,8 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
                                      params=int4_params)
     require(engine.pipeline_depth == 1, "decode_overlap: false did not give depth 1")
     got, _ = generate_all(engine, prompts, 32, counters, DECODER_KERNELS,
-                          "llama_decoder at depth 1 (decode_overlap: false)", card)
+                          "llama_decoder at depth 1 (decode_overlap: false)", card,
+                          dense_prefills=True)
     same = sum(a == b for a, b in zip(got, want))
     print(f"overlap: {same} of {len(want)} streams at depth 1 identical to depth "
           f"{int(cfg.model.options['decode_pipeline_depth'])}")
@@ -2131,6 +2287,18 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
     return launches
 
 
+def _ptxas_kernels(report: str) -> list:
+    """(mangled name, registers, spill store bytes) of each entry function
+    in a ``ptxas -v`` report."""
+    out = []
+    for chunk in report.split("Compiling entry function '")[1:]:
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((chunk.split("'", 1)[0], int(regs.group(1)) if regs else 0,
+                    int(spill.group(1)) if spill else 0))
+    return out
+
+
 def main() -> int:
     pkg = ROOT / "starpu_inference_server_tpu_torch"
     configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
@@ -2169,6 +2337,14 @@ def main() -> int:
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", report))
         print(f"ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
               f"{spills} bytes of spill stores")
+        if name in ("causal_attention", "chunk_prefill_attention", "bidirectional_attention"):
+            # the attention libraries by route: the bf16 tensor-core kernels
+            # (``*_mma``) and the f32 CUDA-core ones
+            for route, tc in (("tensor-core (bf16)", True), ("CUDA-core (f32)", False)):
+                ks = [k for k in _ptxas_kernels(report) if ("_mma" in k[0]) == tc]
+                print(f"ptxas {name} {route}: {len(ks)} kernels, registers "
+                      f"{min((k[1] for k in ks), default=0)}-{max((k[1] for k in ks), default=0)}, "
+                      f"spill stores {sum(k[2] for k in ks)} bytes")
 
     cfg = load_config(str(CONFIG))
     t0 = time.perf_counter()
@@ -2184,6 +2360,7 @@ def main() -> int:
     spec, int4_params = engine.spec, engine.params  # the W4A8 path reuses the int4 tree
     del engine
     torch.cuda.empty_cache()
+    sampling_phase(spec, int4_params, counters, card, dev)
 
     rows.update(batch_kernel_phase(dev))
     bert_launches, bert_forward = bert_path(counters, card)

@@ -9,21 +9,36 @@
 // prompt length are padding: computed, never read (the decoder ignores
 // them), exactly as on the TPU.
 //
-// Bound on the H100: at the main-path shapes (T = 256 or 512) the least
-// time is the few MB of q, k, v and out at the memory rate, with the
-// bf16 tensor-core time for the ~T*T/2*Hq*D*4 FLOPs close behind; this
-// kernel computes in f32 on CUDA cores, so its own limit is the FMA
-// rate. Design: one block per (query tile, KV head, batch row); its
-// 128 threads are the tile's query rows for all rep heads of the KV
-// head (128/rep query positions), each holding its q row and f32
-// accumulator in registers.
-// The block loops over 64-key chunks of K/V up to the tile's last query
-// position (chunks above the diagonal are never loaded), stages each
-// chunk in shared memory once for all 128 rows, and runs the online
-// softmax in sub-blocks of 16 keys (common.cuh FlashRow). The [Hq, T, T]
-// scores never exist in device memory. CUDA cores only in this version.
+// Bound on the H100: at the main-path shapes (prefill buckets 64 to 512)
+// the least time is the few MB of q, k, v and out at the memory rate,
+// with the bf16 tensor-core time for the ~T*T/2*Hq*D*4 FLOPs close
+// behind; at T <= 512 a call is too short to reach either, and the grid
+// (T/64 tiles x heads) sets how much of the card it fills.
+//
+// Two routes, chosen by dtype (not a fallback: each is the kernel of its
+// dtype):
+//
+// bf16 (the path's): the tensor-core tile of flash_mma.cuh with its
+// CausalKeys source. Key tiles wholly above a block's last query position
+// are never loaded (the TPU kernel skips them the same way), only the
+// diagonal tile masks per element (-1e30, the plain version's mask), and
+// the grid runs the longest query tiles first (tile index reversed in
+// the slowest grid dimension), which balances the triangle. A block holds
+// 64 positions of one query head (grid (Hq, B, T/64)); the TPU's KV-major
+// packing of 64 / rep positions x the rep heads of a KV head measured 1-5%
+// slower on the H100 (PERF.md).
+//
+// f32: one query row per thread on CUDA cores (common.cuh FlashRow), f32
+// probabilities, the kernel of the FP32 witnesses. One block per (query
+// tile, KV head, batch row); its 128 threads are the tile's query rows
+// for all rep heads of the KV head (128/rep query positions), each
+// holding its q row and f32 accumulator in registers. The block loops
+// over 64-key chunks of K/V up to the tile's last query position, stages
+// each chunk in shared memory once for all 128 rows, and runs the online
+// softmax in sub-blocks of 16 keys. The [Hq, T, T] scores never exist in
+// device memory on either route.
 
-#include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -81,24 +96,53 @@ causal_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (t < Tlen) row.store(out + (((size_t)b * Tlen + t) * hq + head) * D);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int Tlen, int Hkv,
-           int rep, int D, cudaStream_t st) {
+int launch_f32(const void* q, const void* k, const void* v, void* out, int B, int Tlen, int Hkv,
+               int rep, int D, cudaStream_t st) {
   const int bq = kRows / rep;
   const dim3 grid((Tlen + bq - 1) / bq, Hkv, B);
   const float inv = 1.f / sqrtf(static_cast<float>(D));
+  const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
+              *vf = static_cast<const float*>(v);
   if (D == 64) {
-    causal_attention_kernel<T, 64><<<grid, kRows, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), Tlen, Hkv, rep, inv);
+    causal_attention_kernel<float, 64><<<grid, kRows, 0, st>>>(qf, kf, vf,
+                                                               static_cast<float*>(out), Tlen,
+                                                               Hkv, rep, inv);
   } else if (D == 128) {
-    causal_attention_kernel<T, 128><<<grid, kRows, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), Tlen, Hkv, rep, inv);
+    causal_attention_kernel<float, 128><<<grid, kRows, 0, st>>>(qf, kf, vf,
+                                                                static_cast<float*>(out), Tlen,
+                                                                Hkv, rep, inv);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// -- bf16: tensor-core flash attention (flash_mma.cuh) ------------------------
+
+template <int D>
+__global__ void __launch_bounds__(sis::flash::kThreads)
+causal_attention_mma(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                     int Tlen, int Hkv, int rep, float inv_sqrt_d) {
+  using namespace sis::flash;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = gridDim.z - 1 - blockIdx.z;  // longest tiles first
+  const int b = blockIdx.y;
+  const QRows rows{b, Tlen, Hkv * rep, tile * kBQ, (int)blockIdx.x};
+  const size_t base = ((size_t)b * Tlen * Hkv + blockIdx.x / rep) * D;
+  const CausalKeys<D> keys{k + base, v + base, (size_t)Hkv * D, min(rows.q0 + kBQ, Tlen) - 1,
+                           inv_sqrt_d};
+  attend<D>(q, out, rows, keys, smem);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int Tlen, int Hkv,
+               int rep, cudaStream_t st) {
+  const dim3 grid(Hkv * rep, B, (Tlen + sis::flash::kBQ - 1) / sis::flash::kBQ);
+  return sis::flash::launch<D>(
+      causal_attention_mma<D>, grid, false, st, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k), static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), Tlen, Hkv, rep, 1.f / sqrtf(static_cast<float>(D)));
 }
 
 }  // namespace
@@ -108,7 +152,8 @@ extern "C" int sis_causal_attention(const void* q, const void* k, const void* v,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rep < 1 || kRows % rep != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == sis::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Tlen, Hkv, rep, D, st);
-  return launch<float>(q, k, v, out, B, Tlen, Hkv, rep, D, st);
+  if (dtype != sis::kBF16) return launch_f32(q, k, v, out, B, Tlen, Hkv, rep, D, st);
+  if (D == 64) return launch_mma<64>(q, k, v, out, B, Tlen, Hkv, rep, st);
+  if (D == 128) return launch_mma<128>(q, k, v, out, B, Tlen, Hkv, rep, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

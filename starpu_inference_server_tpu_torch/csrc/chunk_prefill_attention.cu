@@ -15,14 +15,26 @@
 //
 // Bound on the H100: bytes and bf16 operations about even at start =
 // 256, operations for longer pasts (C*start*Hq*D*4 FLOPs against
-// start*Hkv*D*2 bytes of int8 cache); this kernel computes in f32 on
-// CUDA cores, so its own limit is the FMA rate. Design: as
-// causal_attention.cu, one block per (query tile, KV head) with one
-// query row per thread for all rep heads. Cache chunks are dequantized
-// (int8 * scale -> f32) while they are staged in shared memory, once for
-// all 128 rows, so the cache is read in its int8 form once per tile.
+// start*Hkv*D*2 bytes of int8 cache).
+//
+// Two routes, chosen by dtype (not a fallback: each is the kernel of its
+// dtype):
+//
+// bf16 (the path's): the tensor-core tile of flash_mma.cuh with its
+// ChunkKeys source: the past's tiles arrive as int8 through cp.async and
+// are widened to bf16 in shared memory (exact), with k_scale applied to
+// S's columns after the mma and v_scale to P's before its hi/lo split, so
+// the cache is read in its int8 form once per query tile and no rounded
+// dequantized value appears; then the chunk's own keys, causally, as in
+// causal_attention. Rows and grid order as there (64 chunk rows of one
+// query head a block, grid (Hq, 1, tiles), longest tiles first).
+//
+// f32: as causal_attention's f32 route, one block per (query tile, KV
+// head) with one query row per thread for all rep heads, the kernel of
+// the FP32 witnesses. Cache chunks are dequantized (int8 * scale -> f32)
+// while they are staged in shared memory, once for all 128 rows.
 
-#include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -103,19 +115,18 @@ chunk_prefill_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_row,
   if (c < C) row.store(out + ((size_t)c * hq + head) * D);
 }
 
-template <typename T>
-int launch(const void* q, const void* kr, const void* vr, const void* ksc, const void* vsc,
-           const void* kc, const void* vc, void* out, int C, int Tmax, int Hkv, int rep, int D,
-           int start, cudaStream_t st) {
+int launch_f32(const void* q, const void* kr, const void* vr, const void* ksc, const void* vsc,
+               const void* kc, const void* vc, void* out, int C, int Tmax, int Hkv, int rep, int D,
+               int start, cudaStream_t st) {
   const int bq = kRows / rep;
   const dim3 grid((C + bq - 1) / bq, Hkv);
   const float inv = 1.f / sqrtf(static_cast<float>(D));
-#define SIS_CHUNK_LAUNCH(DD)                                                              \
-  chunk_prefill_kernel<T, DD><<<grid, kRows, 0, st>>>(                                    \
-      static_cast<const T*>(q), static_cast<const int8_t*>(kr),                           \
-      static_cast<const int8_t*>(vr), static_cast<const float*>(ksc),                     \
-      static_cast<const float*>(vsc), static_cast<const T*>(kc), static_cast<const T*>(vc), \
-      static_cast<T*>(out), C, Tmax, Hkv, rep, start, inv)
+#define SIS_CHUNK_LAUNCH(DD)                                                                  \
+  chunk_prefill_kernel<float, DD><<<grid, kRows, 0, st>>>(                                    \
+      static_cast<const float*>(q), static_cast<const int8_t*>(kr),                           \
+      static_cast<const int8_t*>(vr), static_cast<const float*>(ksc),                         \
+      static_cast<const float*>(vsc), static_cast<const float*>(kc),                          \
+      static_cast<const float*>(vc), static_cast<float*>(out), C, Tmax, Hkv, rep, start, inv)
   if (D == 64) {
     SIS_CHUNK_LAUNCH(64);
   } else if (D == 128) {
@@ -127,6 +138,41 @@ int launch(const void* q, const void* kr, const void* vr, const void* ksc, const
   return static_cast<int>(cudaGetLastError());
 }
 
+// -- bf16: tensor-core flash attention (flash_mma.cuh) ------------------------
+
+template <int D>
+__global__ void __launch_bounds__(sis::flash::kThreads)
+chunk_prefill_mma(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict__ k_row,
+                  const int8_t* __restrict__ v_row, const float* __restrict__ k_scale,
+                  const float* __restrict__ v_scale, const __nv_bfloat16* __restrict__ k_cur,
+                  const __nv_bfloat16* __restrict__ v_cur, __nv_bfloat16* __restrict__ out,
+                  int C, int Tmax, int Hkv, int rep, int start, float inv_sqrt_d) {
+  using namespace sis::flash;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = gridDim.z - 1 - blockIdx.z;  // longest tiles first
+  const int hkv = blockIdx.x / rep;
+  const QRows rows{0, C, Hkv * rep, tile * kBQ, (int)blockIdx.x};
+  const ChunkKeys<D> keys{k_row + (size_t)hkv * D, v_row + (size_t)hkv * D,
+                          k_scale + hkv, v_scale + hkv,
+                          k_cur + (size_t)hkv * D, v_cur + (size_t)hkv * D,
+                          Hkv, min(start, Tmax), min(rows.q0 + kBQ, C) - 1, inv_sqrt_d};
+  attend<D>(q, out, rows, keys, smem);
+}
+
+template <int D>
+int launch_mma(const void* q, const void* kr, const void* vr, const void* ksc, const void* vsc,
+               const void* kc, const void* vc, void* out, int C, int Tmax, int Hkv, int rep,
+               int start, cudaStream_t st) {
+  const dim3 grid(Hkv * rep, 1, (C + sis::flash::kBQ - 1) / sis::flash::kBQ);
+  return sis::flash::launch<D>(
+      chunk_prefill_mma<D>, grid, true, st, static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int8_t*>(kr), static_cast<const int8_t*>(vr),
+      static_cast<const float*>(ksc), static_cast<const float*>(vsc),
+      static_cast<const __nv_bfloat16*>(kc), static_cast<const __nv_bfloat16*>(vc),
+      static_cast<__nv_bfloat16*>(out), C, Tmax, Hkv, rep, start,
+      1.f / sqrtf(static_cast<float>(D)));
+}
+
 }  // namespace
 
 extern "C" int sis_chunk_prefill_attention(const void* q, const void* k_row, const void* v_row,
@@ -136,9 +182,14 @@ extern "C" int sis_chunk_prefill_attention(const void* q, const void* k_row, con
                                            int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rep < 1 || kRows % rep != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == sis::kBF16)
-    return launch<__nv_bfloat16>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax,
-                                 Hkv, rep, D, start, st);
-  return launch<float>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv, rep,
-                       D, start, st);
+  if (dtype != sis::kBF16)
+    return launch_f32(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv, rep, D,
+                      start, st);
+  if (D == 64)
+    return launch_mma<64>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
+                          rep, start, st);
+  if (D == 128)
+    return launch_mma<128>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
+                           rep, start, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

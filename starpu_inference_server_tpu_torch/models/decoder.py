@@ -290,13 +290,15 @@ def _use_fused_decode_attention(spec: DecoderSpec, t_max: int, ref: torch.Tensor
 
 def _use_fused_prefill_attention(spec: DecoderSpec, seq: int, ref: torch.Tensor,
                                  min_seq: int = 256) -> bool:
-    return (
-        nn.use_kernels(ref)
-        and spec.head_dim >= 64
-        and seq >= min_seq
-        and seq % 128 == 0
-        and spec.q_heads % spec.kv_heads == 0
-    )
+    """Causal and chunked-prefill attention (``forward_logits``,
+    ``prefill``, ``prefill_chunk``). On the card the kernels take any
+    sequence and ``max_len`` (shapes outside their own limits raise in the
+    wrapper); where the kernel routes are forced on CPU tensors, the JAX
+    package's TPU gate applies (``seq`` >= ``min_seq``, a multiple of
+    128), so parity tests route as JAX does."""
+    if not nn.use_kernels(ref) or spec.q_heads % spec.kv_heads:
+        return False
+    return ref.is_cuda or (spec.head_dim >= 64 and seq >= min_seq and seq % 128 == 0)
 
 
 # -- full (teacher-forcing) forward ----------------------------------------

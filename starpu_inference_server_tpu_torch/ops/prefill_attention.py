@@ -10,18 +10,24 @@
   query attends every key, under an ADDITIVE key bias (0 / -1e9), so a
   fully masked sample gives the mean of v and never NaN.
 
-Bound on the H100: at the main-path shapes (256- to 512-row blocks) the
+Bound on the H100: at the main-path shapes (64- to 1024-row blocks) the
 least time is set by the few MB of inputs and outputs, with the bf16
-tensor-core rate close behind. The causal and chunked kernels run on
-CUDA cores in f32, so their own limit is the FMA rate: one block per
-(query tile, KV head), one query row per thread for all ``rep`` heads,
-K/V chunks staged once per block in shared memory (dequantized there for
-the int8 past), online softmax in registers. The encoder kernel's bf16
-route is tensor-core flash attention (mma.sync for Q K^T and P V, 64
-query rows a block, a cp.async double buffer of K/V tiles, P carried as
-two bf16 terms so its weights stay f32-exact); its f32 route keeps the
-one-row-per-thread body, whose f32 probabilities the FP32 witnesses
-hold to 1e-5. The [Hq, T, T] scores never reach device memory.
+tensor-core rate close behind. The bf16 route of all three kernels is
+one tensor-core flash tile (``csrc/flash_mma.cuh``): 64 query rows a
+block, mma.sync for Q K^T and P V, a cp.async double buffer of K/V
+tiles, the online softmax on the accumulator fragments and P carried as
+two bf16 terms so its weights stay f32-exact. The kernels differ in
+their key source: the encoder's additive key bias over every key tile;
+the causal kernel's tiles up to the block's last position, masked per
+element only on the diagonal tile, longest query tiles first; the
+chunked kernel's int8 past, staged as int8 and widened to bf16 in shared
+memory with the scales applied in f32 to S's and P's columns, then the
+chunk's own keys causally. A block holds 64 positions of one query head:
+on the H100 that measured 1-5% ahead of the TPU's KV-major packing of
+(position, rep head) rows, which shares each K/V tile among the rep
+heads (PERF.md). The f32 route of each keeps the
+one-row-per-thread CUDA-core body, whose f32 probabilities the FP32
+witnesses hold to 1e-5. The [Hq, T, T] scores never reach device memory.
 
 The ``*_plain`` functions beside them compute the same function in plain
 PyTorch: CPU tensors take them, and on the card they are only the
@@ -148,8 +154,7 @@ def chunk_prefill_attention(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur,
     out = torch.empty((c, hq, d), dtype=q.dtype, device=q.device)
     fn = _bound("chunk_prefill_attention", "sis_chunk_prefill_attention", 8, 7)
     rc = fn(*(a.data_ptr() for a in tensors), out.data_ptr(), c, t, hkv, rep, d, start,
-            _build.BF16 if q.dtype == torch.bfloat16 else _build.F32,
-            _build.stream_ptr(q))
+            _build.BF16 if q.dtype == torch.bfloat16 else _build.F32, _build.stream_ptr(q))
     _build.check(rc, "chunk_prefill_attention")
     launches["chunk_prefill_attention"] += 1
     return out if out_dtype == q.dtype else out.to(out_dtype)

@@ -34,6 +34,12 @@ and the same serving options:
   fails the open requests with ``RuntimeError`` and goes on serving.
   Greedy and seeded-sampling streams are the same at any depth.
 
+Sampled tokens are the JAX engine's: ``serving/sampling.py`` draws them
+on the device with the port's copy of ``jax.random`` under the key
+``fold_in(PRNGKey(seed), progress)``, so a request samples the same
+tokens as there, however it is interleaved, with or without speculation.
+Greedy decoding takes the first maximum, as ``jnp.argmax`` does.
+
 Differences from the JAX engine:
 
 - PyTorch runs eagerly; there is no jit, no donation (the caches are
@@ -41,11 +47,6 @@ Differences from the JAX engine:
   Work is ordered by the CUDA stream: a block chained off the carry,
   a prefill, a release's length reset run in the order they were
   dispatched, as the JAX programs did.
-- Sampled tokens use a ``torch.Generator`` seeded from (seed, absolute
-  progress), so a request samples the same tokens however it is
-  interleaved, with or without speculation; they differ from
-  ``jax.random``'s. Greedy decoding takes the first maximum, as
-  ``jnp.argmax`` does.
 - After a failure (a fetch past its deadline, an error in a step) the
   loop fails every open request and keeps running, where the JAX
   engine's loop thread ends.
@@ -78,6 +79,7 @@ from ..ops import nn
 from ..ops.quant import pack_int4_tree
 from ..utils.clock import now_s
 from ..utils.logger import get_logger
+from . import sampling
 
 
 @dataclasses.dataclass
@@ -145,11 +147,6 @@ class _PrefillLanding:
     event: object              # the copy's torch.cuda.Event, None on the CPU
     seq: int                   # dispatch sequence number of the prefill
     row: int = 0               # this landing's row of ``logits``
-
-
-def _sample_seed(seed: int, progress: int) -> int:
-    """Generator seed of a request's token at absolute ``progress``."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(progress) & 0xFFFFFFFF)
 
 
 def _ngram_drafts(history: torch.Tensor, len_h: torch.Tensor, k: int, n: int):
@@ -412,41 +409,38 @@ class GenerationEngine:
 
     # -- device fns --------------------------------------------------------
 
-    def _sample(self, logits, snap, step: int):
-        """Greedy argmax (first maximum) where temperature is 0; elsewhere
-        temperature / top-k sampling from a Generator seeded by (seed,
-        progress + step). ``step`` counts the decode steps (verify windows)
-        since the snapshot over every block chained from it, so the
-        progress of a slot alive at that step is exactly ``progress +
-        step`` and a request samples the same tokens at any depth."""
-        temps, top_k = snap["temps"], snap["top_k"]
+    def _sample(self, logits, snap, prog):
+        """The JAX engine's ``_sample_tokens``, on the device and without a
+        host sync: greedy argmax (first maximum) for every slot, then, for
+        the snapshot's sampled slots only, temperature / top-k sampling
+        under ``fold_in(PRNGKey(seed), prog)`` (``serving/sampling.py``).
+        ``prog`` is the device carry's progress: a live slot's progress is
+        the snapshot's plus the steps (verify windows) since it, so a
+        request samples the same tokens at any depth. A snapshot with no
+        sampled slot draws no noise at all."""
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        for i in np.nonzero(temps > 0)[0]:
-            scaled = logits[i] / max(float(temps[i]), 1e-6)
-            k = int(top_k[i])
-            if k > 0:
-                kth = torch.topk(scaled, min(k, scaled.shape[-1])).values[-1]
-                scaled = torch.where(scaled < kth, torch.full_like(scaled, -float("inf")), scaled)
-            gen = torch.Generator(device=logits.device)
-            gen.manual_seed(_sample_seed(snap["seeds"][i], snap["progress"][i] + step))
-            probs = torch.softmax(scaled, dim=-1)
-            nxt[i] = torch.multinomial(probs, 1, generator=gen)[0].to(torch.int32)
-        return nxt
+        smp = snap["sample"]
+        if smp is None:
+            return nxt
+        idx = smp["idx"]
+        keys = sampling.fold_in(sampling.prng_key(smp["seeds"]), prog.index_select(0, idx))
+        drawn = sampling.sample_rows(logits.index_select(0, idx), smp["temps"], smp["top_k"],
+                                     keys, smp["k_max"])
+        return nxt.index_copy(0, idx, drawn.to(torch.int32))
 
-    def _decode_and_sample(self, ids, alive, prog, snap, chain: int):
-        """One block of ``steps_per_sync`` decode steps, block ``chain`` of
-        the snapshot's chain. DEVICE-SIDE COMPLETION: a slot whose token
-        hits its eos or exhausts its budget drops out of ``alive`` on the
-        device, so later steps (and later blocks chained off this carry)
-        stop advancing its cache; frozen slots repeat their last id in the
-        token block. Returns (tokens int32 [steps, S, 1], next ids,
+    def _decode_and_sample(self, ids, alive, prog, snap):
+        """One block of ``steps_per_sync`` decode steps. DEVICE-SIDE
+        COMPLETION: a slot whose token hits its eos or exhausts its budget
+        drops out of ``alive`` on the device, so later steps (and later
+        blocks chained off this carry) stop advancing its cache; frozen
+        slots repeat their last id in the token block. Returns (tokens int32 [steps, S, 1], next ids,
         progress, alive): the block and its device carry."""
         steps = self.steps_per_sync
         eos, limit = snap["eos_dev"], snap["limit_dev"]
         tokens = torch.empty((steps, self.num_slots, 1), dtype=torch.int32, device=self.device)
         for i in range(steps):
             _, logits = self._step_fn(self.spec, self.params, self.cache, ids, alive, self.dtype)
-            nxt = self._sample(logits, snap, chain * steps + i)
+            nxt = self._sample(logits, snap, prog)
             nxt = torch.where(alive, nxt, ids)
             prog = prog + alive.to(torch.int32)
             done = alive & ((nxt == eos) | (prog >= limit))
@@ -455,16 +449,15 @@ class GenerationEngine:
             ids = nxt
         return tokens, ids, prog, alive
 
-    def _verify_accept(self, cur, drafts, alive, prog, snap, step: int):
+    def _verify_accept(self, cur, drafts, alive, prog, snap):
         """Shared verify-and-commit of both draft sources: score the
         [cur, drafts] window with ONE target forward, accept the longest
         draft prefix equal to the target's greedy tokens plus the target's
         own next token, then clamp the commit count ON THE DEVICE to the
         slot's remaining budget and to the first EOS inside the window.
         Sampled slots accept no drafts: they commit one token per window,
-        sampled with the plain engine's seed of its absolute progress
-        (``progress + step`` while the slot is alive), so a sampled
-        request gets the plain engine's tokens.
+        sampled under the key of its progress as in the plain engine, so
+        a sampled request gets the plain engine's tokens.
 
         Returns (out [S, K+1], counts [S], accepted [S], nxt [S],
         alive_next [S], progress [S])."""
@@ -477,7 +470,7 @@ class GenerationEngine:
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)      # [S, K+1]
         matches = drafts == greedy[:, :k]
         accepted = torch.cumprod(matches.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
-        first = self._sample(logits[:, 0], snap, step)
+        first = self._sample(logits[:, 0], snap, prog)
         accepted = torch.where(snap["sampled_dev"], torch.zeros_like(accepted), accepted)
         out = greedy.clone()
         out[:, 0] = first
@@ -498,7 +491,7 @@ class GenerationEngine:
         nxt = torch.where(counts > 0, nxt, cur)
         return out, counts, accepted, nxt, alive & ~done, prog
 
-    def _speculative_block(self, cur, alive, prog, snap, chain: int):
+    def _speculative_block(self, cur, alive, prog, snap):
         """``steps_per_sync`` windows of draft-K-then-verify. The draft runs
         K+1 greedy steps: the extra step's output is discarded, but it
         writes d_K's KV into the draft cache, which a fully accepted
@@ -508,7 +501,7 @@ class GenerationEngine:
         device carry: next ids, progress, alive)."""
         k = self.speculate_k
         packed = []
-        for b in range(self.steps_per_sync):
+        for _ in range(self.steps_per_sync):
             tok = cur
             toks = []
             for _ in range(k + 1):
@@ -518,7 +511,7 @@ class GenerationEngine:
                 toks.append(tok)
             drafts = torch.stack(toks[:k], dim=1)                  # [S, K]
             out, counts, accepted, nxt, alive_next, prog = self._verify_accept(
-                cur, drafts, alive, prog, snap, chain * self.steps_per_sync + b)
+                cur, drafts, alive, prog, snap)
             dl = self._draft_cache.lengths
             dl.copy_(torch.where(alive, self.cache.lengths, dl))
             packed.append(torch.cat([out, counts[:, None],
@@ -526,7 +519,7 @@ class GenerationEngine:
             cur, alive = nxt, alive_next
         return torch.stack(packed), cur, prog, alive
 
-    def _prompt_lookup_block(self, cur, alive, prog, snap, chain: int):
+    def _prompt_lookup_block(self, cur, alive, prog, snap):
         """``steps_per_sync`` windows of PROMPT-LOOKUP speculation: drafts
         are the K tokens after the most recent earlier occurrence of the
         trailing n-gram in (prompt + tokens so far), verified by the
@@ -542,14 +535,14 @@ class GenerationEngine:
         hist = self._history
         rows = torch.arange(s, device=dev)
         packed = []
-        for b in range(self.steps_per_sync):
+        for _ in range(self.steps_per_sync):
             start = self.cache.lengths.clone().to(torch.int64)
             pos_cur = start.clamp(0, t - 1)
             hist[rows, pos_cur] = torch.where(alive, cur, hist[rows, pos_cur])
             drafts, found = _ngram_drafts(hist, start + 1, k, n)
             drafts = torch.where((found & alive)[:, None], drafts, torch.zeros_like(drafts))
             out, counts, accepted, nxt, alive_next, prog = self._verify_accept(
-                cur, drafts, alive, prog, snap, chain * self.steps_per_sync + b)
+                cur, drafts, alive, prog, snap)
             # out[j] is the token at position start + 1 + j for j < counts
             pos = (start[:, None] + 1 + torch.arange(k + 1, device=dev)[None, :]).clamp(0, t - 1)
             emit = (torch.arange(k + 1, device=dev)[None, :] < counts[:, None]) & alive[:, None]
@@ -1093,7 +1086,23 @@ class GenerationEngine:
         snap["ids_dev"], snap["progress_dev"] = dev[0], dev[2]
         snap["eos_dev"], snap["limit_dev"] = dev[3], dev[4]
         snap["active_dev"], snap["sampled_dev"] = dev[1] > 0, dev[5] > 0
+        snap["sample"] = self._upload_sampling(snap)
         return snap
+
+    def _upload_sampling(self, snap):
+        """The sampling parameters of the snapshot's sampled slots, on the
+        device in one copy (slot indices, temperatures as their f32 bits,
+        top-k, seeds), with the largest top-k as a host int; None when no
+        active slot samples, so a greedy snapshot draws no noise."""
+        idx = np.nonzero(snap["active"] & (snap["temps"] > 0))[0]
+        if idx.size == 0:
+            return None
+        temps = snap["temps"][idx]
+        packed = self._upload(np.stack([
+            idx, temps.view(np.int32), snap["top_k"][idx], snap["seeds"][idx]]).astype(np.int64))
+        return {"idx": packed[0], "temps": packed[1].to(torch.int32).view(torch.float32),
+                "top_k": packed[2], "seeds": packed[3],
+                "k_max": int(snap["top_k"][idx].max())}
 
     def _dispatch_block(self, ids, progress, snap, alive=None, chain: int = 0) -> dict:
         """Dispatch one block (no sync): from the snapshot's uploaded
@@ -1109,7 +1118,7 @@ class GenerationEngine:
         else:
             fn = self._decode_and_sample
         alive = snap["active_dev"] if alive is None else alive
-        tokens, nxt, prog, alive = fn(ids, alive, progress, snap, chain)
+        tokens, nxt, prog, alive = fn(ids, alive, progress, snap)
         host, event = self._start_fetch(tokens)
         return {"host": host, "event": event, "nxt": nxt, "prog": prog, "alive": alive,
                 "snap": snap, "seq": self._dispatch_seq, "chain": chain}

@@ -137,6 +137,54 @@ def test_chunk_prefill_attention_kernel(dev, dtype, start):
            1e-2 if dtype == torch.bfloat16 else 2e-5)
 
 
+def _attn_limit(got, ref):
+    """chip_smoke.py's element limit for attention kernels, 2^-7 |ref| + 1e-3."""
+    g, r = got.float(), ref.float()
+    return bool(((g - r).abs() <= 2.0 ** -7 * r.abs() + 1e-3).all())
+
+
+# the tensor-core route: every prefill bucket of llama_decoder.yml, a
+# ragged T, rep 1 and 4, D 64 and 128; q = 3 N(0, 1) gives sharp logits
+@pytest.mark.parametrize("rep,d", [(1, 64), (4, 64), (1, 128), (4, 128)])
+@pytest.mark.parametrize("t", [64, 128, 200, 256, 512])
+def test_causal_attention_bf16_tensor_cores(dev, t, rep, d):
+    g = _gen(dev, t * rep + d)
+    hkv = 2
+    q = (3 * torch.randn(1, t, hkv * rep, d, device=dev, generator=g)).to(torch.bfloat16)
+    k = torch.randn(1, t, hkv, d, device=dev, generator=g).to(torch.bfloat16)
+    v = torch.randn(1, t, hkv, d, device=dev, generator=g).to(torch.bfloat16)
+    before = pa.launches["causal_attention"]
+    first = pa.causal_attention(q, k, v, rep)
+    second = pa.causal_attention(q, k, v, rep)
+    torch.cuda.synchronize()
+    assert pa.launches["causal_attention"] == before + 2
+    assert torch.equal(first, second)
+    assert _attn_limit(first, pa.causal_attention_plain(q, k, v, rep))
+
+
+# the int8 past at several starts (0: none; 37: a ragged tile), t_max a
+# multiple of 128 and not
+@pytest.mark.parametrize("t_max", [1024, 1000])
+@pytest.mark.parametrize("start", [0, 37, 256, 300, 512])
+def test_chunk_prefill_attention_bf16_tensor_cores(dev, start, t_max):
+    g = _gen(dev, start + t_max)
+    c, hkv, rep, d = 256, 2, 4, 64
+    args = (
+        (3 * torch.randn(c, hkv * rep, d, device=dev, generator=g)).to(torch.bfloat16),
+        torch.randint(-127, 128, (t_max, hkv, d), device=dev, generator=g, dtype=torch.int8),
+        torch.randint(-127, 128, (t_max, hkv, d), device=dev, generator=g, dtype=torch.int8),
+        torch.rand(t_max, hkv, device=dev, generator=g) * 0.01 + 0.01,
+        torch.rand(t_max, hkv, device=dev, generator=g) / 127 + 1e-3,
+        torch.randn(c, hkv, d, device=dev, generator=g).to(torch.bfloat16),
+        torch.randn(c, hkv, d, device=dev, generator=g).to(torch.bfloat16),
+    )
+    first = pa.chunk_prefill_attention(*args, start, rep)
+    second = pa.chunk_prefill_attention(*args, start, rep)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _attn_limit(first, pa.chunk_prefill_attention_plain(*args, start, rep))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(1, 512, 1000), (7, 300, 37), (50, 512, 1000)])
 def test_int8_matmul_kernel(dev, dtype, m, k, n):
@@ -445,12 +493,15 @@ def test_engine_with_small_pages_runs_the_attention_kernels(dev, case):
 
 # -- overlapped dispatch ------------------------------------------------------------
 
+@pytest.mark.parametrize("sampled", [False, True])
 @pytest.mark.parametrize("case", ["dense", "paged_lookup"])
-def test_chained_block_does_not_sync_the_host(dev, case):
+def test_chained_block_does_not_sync_the_host(dev, case, sampled):
     """A block chained off the previous block's device carry makes no
     host sync: it is dispatched under sync debug mode "error", which
     raises on any synchronizing call. Both blocks' tokens then arrive on
-    the host, the second continuing the first."""
+    the host, the second continuing the first. With ``sampled`` one of
+    the two slots samples (temperature 0.8, top-k 40): its draws run on
+    the device too."""
     import numpy as np
 
     from starpu_inference_server_tpu_torch.models import decoder as td
@@ -465,12 +516,14 @@ def test_chained_block_does_not_sync_the_host(dev, case):
     eng = tgen.GenerationEngine(spec, params, dtype=torch.float32, device="cuda", num_slots=2,
                                 max_len=96, prefill_buckets=[16], steps_per_sync=2,
                                 decode_overlap=True, pipeline_depth=2, **kw)
-    for prompt in ([3, 7, 11, 3, 7], [5, 2, 9]):
+    for prompt, temp in (([3, 7, 11, 3, 7], 0.8 if sampled else 0.0), ([5, 2, 9], 0.0)):
         eng.submit(tgen.GenerationRequest(prompt_ids=np.asarray(prompt, np.int32),
-                                          max_new_tokens=20))
+                                          max_new_tokens=20, temperature=temp, top_k=40,
+                                          seed=3))
     eng._admit_pending()
     eng._land_prefills(force=True)
     snap = eng._snapshot_active()
+    assert (snap["sample"] is not None) == sampled
     first = eng._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -482,3 +535,70 @@ def test_chained_block_does_not_sync_the_host(dev, case):
         torch.cuda.set_sync_debug_mode("default")
     got = [eng._fetch(r["host"], r["event"]).copy() for r in (first, chained)]
     assert got[0].shape == got[1].shape and not np.array_equal(got[0], got[1])
+
+
+def test_engine_prefills_every_bucket_through_the_prefill_kernels(dev):
+    """Off the JAX package's TPU gate: at max_len 96 with buckets 16 and 32
+    and 32-token chunks, every prefill and chunk of the card's engine runs
+    causal_attention or chunk_prefill_attention, and the FP32 streams
+    equal the plain route's."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.models import decoder as td
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.serving import generation as tgen
+    from starpu_inference_server_tpu_torch.weights import params_from_numpy
+
+    spec = td.get_spec("llama-tiny", {"layers": 2, "hidden": 256, "q_heads": 4, "kv_heads": 2,
+                                      "intermediate": 256, "vocab": 128})
+    params = params_from_numpy(td.init_params(spec, np.random.default_rng(0)))
+    prompts = [[3, 7, 11, 3, 7, 11, 3], list(range(1, 21)), list(range(5, 45))]
+
+    def serve():
+        eng = tgen.GenerationEngine(spec, params, dtype=torch.float32, device="cuda",
+                                    num_slots=2, max_len=96, prefill_buckets=[16, 32],
+                                    prefill_chunk=32, steps_per_sync=2)
+        eng.start()
+        try:
+            reqs = [tgen.GenerationRequest(prompt_ids=np.asarray(p, np.int32), max_new_tokens=10)
+                    for p in prompts]
+            for r in reqs:
+                eng.submit(r)
+            return [r.result(timeout=300) for r in reqs]
+        finally:
+            eng.stop()
+
+    before = dict(pa.launches)
+    got = serve()
+    torch.cuda.synchronize()
+    # 2 layers x (two bucketed prefills; the 40-token prompt's two chunks)
+    assert pa.launches["causal_attention"] - before["causal_attention"] == 4
+    assert pa.launches["chunk_prefill_attention"] - before["chunk_prefill_attention"] == 4
+    nn.set_use_kernels(False)
+    try:
+        want = serve()
+    finally:
+        nn.set_use_kernels(None)
+    assert got == want
+
+
+@pytest.mark.parametrize("head_dim", [32, 96])
+def test_prefill_outside_the_kernels_limits_raises(dev, head_dim):
+    """On the card a prefill never turns to the plain attention: a
+    head_dim the kernels do not take (they take 64 and 128) raises in the
+    causal kernel's wrapper, and the kernel is never launched."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.models import decoder as td
+    from starpu_inference_server_tpu_torch.weights import params_from_numpy
+
+    spec = td.get_spec("llama-tiny", {"layers": 1, "hidden": 4 * head_dim, "q_heads": 4,
+                                      "kv_heads": 2, "intermediate": 256, "vocab": 128})
+    assert spec.head_dim == head_dim
+    params = params_from_numpy(td.init_params(spec, np.random.default_rng(0)), device=dev)
+    cache = td.init_cache(spec, 1, 96, device=dev)
+    ids = torch.arange(1, 33, dtype=torch.int32, device=dev)
+    before = pa.launches["causal_attention"]
+    with pytest.raises(ValueError, match="causal_attention kernel needs D"):
+        td.prefill(spec, params, cache, ids, 30, 0, torch.float32)
+    assert pa.launches["causal_attention"] == before

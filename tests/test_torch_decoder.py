@@ -147,3 +147,40 @@ def test_inactive_slot_parks_its_write_at_the_last_row(weights):
     assert torch.equal(cache.k[0][1, 7], before)
     assert cache.k[0][1, MAX_LEN - 1].abs().sum() > 0
     assert cache.lengths.tolist() == [1, 7]
+
+
+@pytest.mark.parametrize("seq,min_seq", [(64, 256), (128, 256), (200, 256), (256, 256),
+                                         (384, 256), (256, 512), (512, 512), (1000, 512)])
+def test_prefill_gate_on_cpu_tensors_is_the_jax_packages(weights, seq, min_seq):
+    """Kernel routes forced on CPU tensors: the prefill gate is the JAX
+    package's TPU gate (on the card the kernels take every bucket)."""
+    jspec, tspec, _, _ = weights
+    jnn.set_use_pallas(True)
+    tnn.set_use_kernels(True)
+    try:
+        want = jd._use_fused_prefill_attention(jspec, seq, min_seq=min_seq)
+        got = td._use_fused_prefill_attention(tspec, seq, torch.zeros(1), min_seq=min_seq)
+    finally:
+        jnn.set_use_pallas(False)
+        tnn.set_use_kernels(None)
+    assert got == want == (seq >= min_seq and seq % 128 == 0)
+
+
+@pytest.mark.parametrize("bucket", [64, 256])
+def test_forced_kernels_route_a_cpu_prefill_as_jax_does(weights, bucket, monkeypatch):
+    """Bucket 64 takes the jnp-style attention even with the kernel routes
+    forced, bucket 256 the causal kernel's wrapper, as in the JAX package."""
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as tpa
+
+    _, tspec, unpacked, _ = weights
+    calls = []
+    plain = tpa.causal_attention
+    monkeypatch.setattr(tpa, "causal_attention", lambda *a, **kw: calls.append(1) or plain(*a, **kw))
+    ids = torch.from_numpy(np.random.default_rng(6).integers(0, 512, bucket).astype(np.int32))
+    tnn.set_use_kernels(True)
+    try:
+        td.prefill(tspec, params_from_numpy(unpacked), td.init_cache(tspec, 1, MAX_LEN), ids,
+                   bucket - 3, 0, torch.float32)
+    finally:
+        tnn.set_use_kernels(None)
+    assert len(calls) == (tspec.layers if bucket == 256 else 0)
