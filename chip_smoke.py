@@ -19,28 +19,38 @@ max_len 1024, int4 weights, int8 KV cache, bf16):
    operations); int4_matmul's device time in one decode step, summed
    over its shapes, and its two-call bit-equality; causal_attention at
    every prefill bucket (64 to 512) and chunk_prefill_attention at
-   starts 0, 256 and 512, in both row layouts of their tensor-core
-   route, each bit-equal over two calls;
+   starts 0, 256 and 512 on their tensor-core route, each bit-equal over
+   two calls;
 2. model: llama-1b at full width and depth, one 300-token prompt through
    the chunked-prefill path plus 4 decode steps, kernels on and off,
    with each kernel's launches in one decode step;
 3. serving: the generation engine answers concurrent greedy requests
    (bucket 64, bucket 256, chunked), every prefill through
    causal_attention and every chunk through chunk_prefill_attention
-   (launches counted exactly); then one decode block with every slot
-   busy, driven by hand: its host clock beside its device span (CUDA
-   events) and device busy time (torch.profiler); then sampling on the
-   device: ``sample_tokens`` on the card against the same call on the
-   CPU (equal bits, equal tokens), and 16 sampled requests whose streams
-   at depth 4 equal depth 1's.
+   (launches counted exactly, and decode_attention once a layer for
+   every decode step, every greedy block being a replay of the engine's
+   CUDA graph); then one decode block with every slot busy, driven by
+   hand from one snapshot and cache twice, by the body run eagerly and by
+   the graph replay (equal tokens, carry and cache bytes): each one's
+   host clock beside its device span (CUDA events), device busy time
+   (torch.profiler) and launches a step, and the graph's memory pool;
+   then sampling on the device: ``sample_tokens`` on the card against
+   the same call on the CPU (equal bits, equal tokens), and 16 sampled
+   requests whose streams at depth 4 equal depth 1's; then llama-tiny
+   at its registered width (head_dim 32): causal_attention and
+   chunk_prefill_attention at D = 32 against their plain versions, and
+   an FP32 engine whose every prefill bucket runs causal_attention, whose
+   chunks run chunk_prefill_attention, and whose greedy streams equal
+   the kernels-off engine's.
 
 The batch ModelInfer path (configs/bert_long.yml: BERT-base s=512 W8A8;
 configs/resnet18_int8.yml: ResNet-18 int8 with ``stem_fused`` set on
 in code):
 
-4. kernels: int8_matmul, bidirectional_attention (and its two-call
-   bit-equality) and fused_stem at the path's shapes, checked and timed
-   as in 1;
+4. kernels: bidirectional_attention (and its two-call bit-equality)
+   and fused_stem at the path's shapes, checked and timed as in 1
+   (int8_matmul, which the ResNet fc shares with the int8 decoder, is
+   checked and timed at both paths' shapes in 7);
 5. model: BERT-base at full depth, B=16, kernels on against off;
    ResNet-18 at B=32, fused stem against the s2d stem; launches per
    forward, and the host-clock time of one forward at two batch sizes;
@@ -57,9 +67,13 @@ The decoder extras (configs/llama_w4a8.yml, llama_speculative.yml,
 llama_prompt_lookup.yml, llama_paged.yml; llama-1b at full width and
 depth):
 
-7. kernels: int4_matmul_w4a8 (K6), window_decode_attention (K9),
-   paged_decode_attention (K10) and paged_window_decode_attention (K11)
-   at the configs' shapes, checked and timed as in 1;
+7. kernels: int8_matmul (K2) at every dense shape of an int8 decode
+   step at 16 and 64 slots and at the ResNet fc, int4_matmul_w4a8 (K6)
+   at every dense shape at 16, 64, 128, 1 and 256 rows (bit-equal to its
+   plain version), each bit-equal over two calls, with its time in one
+   decode step; window_decode_attention (K9), paged_decode_attention
+   (K10) and paged_window_decode_attention (K11) at the configs' shapes,
+   checked and timed as in 1;
 8. model: W4A8 llama-1b kernels on vs off (on the int4 tree of phase 1,
    built after the int4 path so each runs under its own W8A8 mode),
    launches per decode step; on one int8 tree shared by the other three
@@ -320,13 +334,7 @@ def kernel_phase(spec, cfg_opts, dev):
     # yardstick (torch.matmul on the dequantized bf16 weight) cycles its
     # own copies the same way, so both read their weights from device
     # memory (its time on one warm weight is printed beside it).
-    shapes = {
-        "qkv": (spec.hidden, (hq + 2 * hkv) * d),
-        "o": (hq * d, spec.hidden),
-        "gate_up": (spec.hidden, 2 * spec.intermediate),
-        "down": (spec.intermediate, spec.hidden),
-        "lm_head": (spec.hidden, spec.vocab),
-    }
+    shapes = _dense_shapes(spec)
     cases = [(name, S) for name in shapes] + [("lm_head", 1), ("gate_up", 64), ("gate_up", 256)]
     tol_mm = 1e-4  # x max|ref|: same bf16 operands, f32 sums in another order
     per_shape = []
@@ -344,9 +352,10 @@ def kernel_phase(spec, cfg_opts, dev):
         err = max_err(got, ref)
         tol = tol_mm * ref.abs().max().item()
         shape = f"M={m} K={k} N={n}"
-        plan = mk.int4_matmul_plan(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+        plan = mk.matmul_plan("int4_matmul", m, n, k,
+                              torch.cuda.get_device_properties(dev).multi_processor_count)
         print(f"kernel int4_matmul {shape} ({name}): max_abs_err={err:.3e} tol={tol:.3e}; tile "
-              f"{mk.INT4_TILES[plan.variant]}, {plan.splits} splits, {plan.grid} blocks")
+              f"{mk.QMM_TILES[plan.variant]}, {plan.splits} splits, {plan.grid} blocks")
         require(err <= tol, f"int4_matmul {name} M={m} disagrees with its plain version")
         if name == "gate_up" and m == S:
             again = mk.int4_matmul(x, w4s[0], scs[0])
@@ -372,11 +381,8 @@ def kernel_phase(spec, cfg_opts, dev):
         del w4s, scs, w_deqs
     # K1's device time in one decode step: every layer's four dense
     # shapes at M = S, then the lm_head
-    at_s = {r["layer"]: r["ms"] for r in per_shape if r["m"] == S}
-    step_ms = spec.layers * sum(at_s[n] for n in ("qkv", "o", "gate_up", "down")) + at_s["lm_head"]
-    lib_step = {r["layer"]: r["library_ms"] for r in per_shape if r["m"] == S}
-    lib_step_ms = (spec.layers * sum(lib_step[n] for n in ("qkv", "o", "gate_up", "down"))
-                   + lib_step["lm_head"])
+    step_ms = _step_ms(spec, per_shape, S)
+    lib_step_ms = _step_ms(spec, per_shape, S, "library_ms")
     print(f"int4_matmul per decode step ({spec.layers} layers x qkv, o, gate_up, down + lm_head "
           f"at M={S}): kernel {step_ms:.4f} ms, torch.matmul bf16 (cycled) {lib_step_ms:.4f} ms")
     rows["int4_matmul"]["decode_step_ms"] = step_ms
@@ -567,7 +573,11 @@ def model_phase(engine, dev, counters, what="int4", tol=1e-1):
 # -- phase 3: serving ---------------------------------------------------------
 
 def _timers(engine) -> str:
-    return json.dumps({k: round(v, 3) for k, v in engine.loop_timers.items()})
+    """The loop timers, and the host seconds the greedy block's warm-up and
+    capture took inside ``dispatch`` (once per engine)."""
+    block = engine._greedy
+    capture = f"; graph warm-up and capture {block.capture_s:.3f} s" if block is not None else ""
+    return json.dumps({k: round(v, 3) for k, v in engine.loop_timers.items()}) + capture
 
 
 def require_prefill_launches(engine, prompts, launches, what) -> None:
@@ -589,6 +599,29 @@ def require_prefill_launches(engine, prompts, launches, what) -> None:
                                         f"{want} (one a layer for every dense prefill or chunk)")
 
 
+def _decode_marks(engine):
+    block = engine._greedy
+    return engine.steps, (block.warmups if block is not None else 0)
+
+
+def require_decode_launches(engine, launches, kernel, marks, what) -> None:
+    """Every decode step of the greedy engine ran ``kernel`` once a layer,
+    whether its block was a graph replay (whose launches the engine adds
+    to the counters) or eager: the steps of the consumed blocks since
+    ``marks`` (``_decode_marks``), plus one block for each warm-up run
+    before a capture. Every block was a replay."""
+    steps0, warm0 = marks
+    block = engine._greedy
+    require(block is not None and block.replays > 0, f"{what}: no decode block was a graph replay")
+    want = engine.spec.layers * (engine.steps - steps0
+                                 + engine.steps_per_sync * (block.warmups - warm0))
+    require(launches[kernel] == want, f"{what}: {kernel} launched {launches[kernel]} times, want "
+                                      f"{want} (one a layer for every decode step)")
+    print(f"{what}: {kernel} launched {want} times, once a layer for each of "
+          f"{engine.steps - steps0} decode steps in {block.replays} graph replays and "
+          f"{block.warmups - warm0} warm-up block(s): exact")
+
+
 def serving_phase(engine, counters, card):
     import numpy as np
 
@@ -603,6 +636,7 @@ def serving_phase(engine, counters, card):
     prompts += [rng.integers(0, vocab, 64).astype(np.int32) for _ in range(fill)]
     new = 32
     zero_counts(counters)
+    marks = _decode_marks(engine)
     t0 = time.perf_counter()
     reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
     for r in reqs:  # all queued before the loop starts: one admission order
@@ -614,6 +648,7 @@ def serving_phase(engine, counters, card):
     finally:
         engine.stop()
     launches = read_counts(counters)
+    require_decode_launches(engine, launches, "decode_attention", marks, "llama_decoder")
     for i, out in enumerate(outs):
         require(len(out) == new, f"request {i} returned {len(out)} tokens")
         require(all(0 <= t < vocab for t in out), f"request {i} returned out-of-vocab tokens")
@@ -633,20 +668,51 @@ def serving_phase(engine, counters, card):
     return launches, prompts, outs
 
 
-def decode_block_phase(engine, card, k1_step_ms):
-    """Where one decode block's time goes: every slot busy (16-token
-    prompts), blocks driven by hand at depth 1 after the serving phase.
-    For one block, the host clock of its dispatch (the launches of
-    ``steps_per_sync`` steps) and of its consume (the wait for its tokens
-    and their commit) and the device span between CUDA events recorded
-    before and after the dispatch (the device idles inside it wherever
-    the host enqueues slower than the card runs); for the next block, the
-    device busy time, the sum of its kernels' times in a torch.profiler
-    trace. The engine then serves the requests to their end."""
-    import numpy as np
-    import torch
+def _cache_tensors(cache) -> list:
+    out = [cache.lengths]
+    for leaves in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        out.extend(leaves)
+    if hasattr(cache, "table"):
+        out.append(cache.table)
+    return out
+
+
+def _profile_block(fn):
+    """Run ``fn`` under torch.profiler: (device ms by kernel name, host
+    [(op, self CPU ms, count)]), or None where the profiler fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()),
+                      key=lambda t: -t[1])
+        return by_name, host
+    except Exception as exc:  # noqa: BLE001 - profiling may be unavailable on a machine
+        print(f"decode block: torch.profiler failed ({exc!r}); device busy time not measured")
+        return None
+
+
+def decode_block_phase(engine, card, k1_step_ms):
+    """Where one decode block's time goes, the body run eagerly against
+    the engine's CUDA graph: every slot busy (16-token prompts), blocks
+    driven by hand at depth 1 after the serving phase. From one snapshot
+    and the same cache contents (saved before, restored between), one
+    block by the body called directly (``_decode_and_sample``) and one by
+    the engine's dispatch, a replay of its graph: equal tokens, carry and
+    cache bytes. For each, the host clock of the dispatch (the enqueue)
+    and of the wait for its tokens, and the device span between CUDA
+    events around the dispatch; under torch.profiler, each one's device
+    busy time (the sum of its kernels' times) and its cudaLaunchKernel and
+    cudaGraphLaunch calls a step. The engine then serves the requests to
+    their end."""
+    import numpy as np
+    import torch
 
     from starpu_inference_server_tpu_torch.serving.generation import GenerationRequest
 
@@ -665,61 +731,94 @@ def decode_block_phase(engine, card, k1_step_ms):
             f"decode block: {engine.active_count()} of {engine.num_slots} slots active")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    snap = engine._snapshot_active()
+    require(snap["sample"] is None, "decode block: the snapshot samples")
+    cache = _cache_tensors(engine.cache)
+    saved = [t.clone() for t in cache]
 
-    def block():
-        snap = engine._snapshot_active()
+    def restore():
+        for t, v in zip(cache, saved):
+            t.copy_(v)
+        torch.cuda.synchronize()
+
+    def eager():
+        return engine._decode_and_sample(snap["ids_dev"], snap["active_dev"],
+                                         snap["progress_dev"], snap)
+
+    def timed(dispatch, fetch):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        rec = engine._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap)
+        out = dispatch()
         end.record()
         t1 = time.perf_counter()
-        engine._consume_block(rec)
-        return (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+        tokens = fetch(out)
+        return out, tokens, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
 
-    block()  # warm-up
-    dispatch_ms, consume_ms = block()
-    span_ms = start.elapsed_time(end)
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            block()
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-        busy_ms = sum(by_name.values()) if by_name else None
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()),
-                      key=lambda t: -t[1])
-    except Exception as exc:  # noqa: BLE001 - profiling may be unavailable on a machine
-        print(f"decode block: torch.profiler failed ({exc!r}); device busy time not measured")
-        busy_ms, top, host = None, [], []
+    e_out, e_tokens, e_dispatch, e_wait = timed(eager, lambda o: o[0].cpu().numpy())
+    e_span = start.elapsed_time(end)
+    e_cache = [t.clone() for t in cache]
+    restore()
+    e_prof = _profile_block(eager)
+    restore()
+    rec, g_tokens, g_dispatch, g_wait = timed(
+        lambda: engine._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap),
+        lambda r: engine._fetch(r["host"], r["event"]).copy())
+    g_span = start.elapsed_time(end)
+    same_tokens = bool(np.array_equal(e_tokens, g_tokens))
+    same_carry = all(bool(torch.equal(a, b)) for a, b in
+                     zip(e_out[1:], (rec["nxt"], rec["prog"], rec["alive"])))
+    same_cache = all(bool(torch.equal(a, b)) for a, b in zip(cache, e_cache))
+    engine._consume_block(rec)  # commit the replayed block
+    del saved, e_cache
+    torch.cuda.empty_cache()
+
+    def replayed():
+        nsnap = engine._snapshot_active()
+        engine._consume_block(engine._dispatch_block(nsnap["ids_dev"], nsnap["progress_dev"],
+                                                     nsnap))
+
+    g_prof = _profile_block(replayed)
     engine.start()
     try:
         outs = [r.result(timeout=600) for r in reqs]
     finally:
         engine.stop()
     require(all(len(o) == 4 * steps for o in outs), "decode block: a request came back short")
-    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms ({busy_ms / steps:.3f} a step)"
-    host_ms = dispatch_ms + consume_ms
-    bound = ("" if busy_ms is None else
-             f"; the step is {'host' if dispatch_ms > busy_ms else 'device'}-bound "
-             f"(dispatch {dispatch_ms / busy_ms:.2f}x the device busy time)")
-    print(f"decode block on {card}: {steps} steps x {engine.num_slots} slots at depth 1, host "
-          f"clock {host_ms:.3f} ms ({host_ms / steps:.3f} a step) = dispatch {dispatch_ms:.3f} + "
-          f"consume {consume_ms:.3f}; device span (CUDA events around the dispatch) "
-          f"{span_ms:.3f} ms; device busy (torch.profiler kernel sum) {busy}; int4_matmul per "
-          f"step from the kernel phase {k1_step_ms:.3f} ms{bound}")
-    if top:
-        print("decode block, device ms by kernel (top 5): "
-              + json.dumps({k[:80]: round(v, 4) for k, v in top}))
-    if host:  # host clock under the profiler, which slows the host: shares, not times
-        launches = sum(n for key, _, n in host if key == "cudaLaunchKernel")
-        print(f"decode block, host: {launches / steps:.0f} kernel launches a step; self CPU ms by "
-              f"op under the profiler (top 6): "
-              + json.dumps({k[:40]: [round(ms, 3), n] for k, ms, n in host[:6]}))
-    return dict(host_ms=host_ms, dispatch_ms=dispatch_ms, consume_ms=consume_ms,
-                span_ms=span_ms, busy_ms=busy_ms)
+    block = engine._greedy
+    print(f"decode block on {card}: {steps} steps x {engine.num_slots} slots, the body eager "
+          f"against the graph replay from the same snapshot and cache: tokens equal {same_tokens}, "
+          f"carry equal {same_carry}, cache bytes equal {same_cache}; graph memory pool "
+          f"{block.pool_bytes / 2 ** 20:.1f} MiB (torch.cuda.memory_reserved around the capture), "
+          f"{block.replays} replays, {block.warmups} warm-up block(s)")
+    require(same_tokens and same_carry and same_cache,
+            "decode block: the graph replay differs from the body run eagerly")
+    result = {}
+    for what, dispatch_ms, wait_ms, span, prof in (
+            ("eager", e_dispatch, e_wait, e_span, e_prof),
+            ("graph", g_dispatch, g_wait, g_span, g_prof)):
+        host_ms = dispatch_ms + wait_ms
+        busy_ms, line = None, ""
+        if prof is not None:
+            by_name, host = prof
+            busy_ms = sum(by_name.values()) if by_name else None
+            calls = {key: n for key, _, n in host if key in ("cudaLaunchKernel", "cudaGraphLaunch")}
+            line = (f"; device busy (torch.profiler kernel sum) "
+                    + ("not measured" if busy_ms is None else
+                       f"{busy_ms:.3f} ms ({busy_ms / steps:.3f} a step)")
+                    + f"; cudaLaunchKernel {calls.get('cudaLaunchKernel', 0) / steps:.1f} a step, "
+                      f"cudaGraphLaunch {calls.get('cudaGraphLaunch', 0)} in the block")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            if top:
+                line += ("; device ms by kernel (top 6): "
+                         + json.dumps({k[:70]: round(v, 4) for k, v in top}))
+        print(f"decode block {what} on {card}: host clock {host_ms:.3f} ms ({host_ms / steps:.3f} a "
+              f"step) = dispatch {dispatch_ms:.3f} + wait for the tokens {wait_ms:.3f}; device "
+              f"span (CUDA events around the dispatch) {span:.3f} ms{line}")
+        result[what] = dict(host_ms=host_ms, dispatch_ms=dispatch_ms, span_ms=span,
+                            busy_ms=busy_ms)
+    print(f"decode block: int4_matmul per step from the kernel phase {k1_step_ms:.3f} ms")
+    return result
 
 
 def sampling_phase(spec, int4_params, counters, card, dev):
@@ -817,7 +916,9 @@ def sampling_phase(spec, int4_params, counters, card, dev):
         if kind == "sampled":
             streams[engine.pipeline_depth] = outs
         if timed:
-            timers[kind] = (engine.steps, dict(engine.loop_timers))
+            block = engine._greedy
+            timers[kind] = (engine.steps, dict(engine.loop_timers,
+                                               capture=block.capture_s if block else 0.0))
         del engine
     (d_hi, hi), (d_lo, lo) = sorted(streams.items(), reverse=True)
     same = sum(a == b for a, b in zip(hi, lo))
@@ -827,10 +928,116 @@ def sampling_phase(spec, int4_params, counters, card, dev):
     for kind, (steps, t) in timers.items():
         print(f"sampling: {len(prompts)} {kind} requests at depth {d_hi} on {card}: {steps} decode "
               f"steps, host clock in decode blocks {t['step'] * 1e3 / steps:.3f} ms a step, "
-              f"dispatch {t['dispatch'] * 1e3 / steps:.3f} ms a step; loop_timers "
+              f"dispatch {t['dispatch'] * 1e3 / steps:.3f} ms a step (graph warm-up and capture "
+              f"{t['capture']:.3f} s of it, once); loop_timers "
               + json.dumps({k: round(v, 3) for k, v in t.items()}))
     require(same == len(prompts), "a sampled stream at depth 1 differs from the config's depth")
     torch.cuda.empty_cache()
+
+
+def tiny_phase(rows, counters, card, dev):
+    """A llama-tiny decoder at its registered width (hidden 256, 8 query
+    and 4 KV heads: head_dim 32; 4 layers, vocab 2048), random FP32
+    weights from seed 0. First causal_attention and
+    chunk_prefill_attention at head_dim 32 against their plain versions,
+    bf16 (tensor cores) and f32, each bit-equal over two calls (added to
+    the kernels' per_shape lists). Then an FP32 engine (buckets 16-128,
+    128-row chunks, max_len 256) serves prompts at every bucket and one
+    chunked: every prefill through causal_attention, every chunk through
+    chunk_prefill_attention, one launch a layer each, every decode block a
+    graph replay; its greedy streams must equal the same engine's with the
+    kernels off."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import get_spec, init_params
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationEngine,
+        GenerationRequest,
+    )
+
+    spec = get_spec("llama-tiny", {})
+    hq, hkv, d, rep = spec.q_heads, spec.kv_heads, spec.head_dim, spec.rep
+    require(d == 32, f"llama-tiny's head_dim is {d}, not 32")
+    g = torch.Generator(device=dev).manual_seed(32)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (64, 128):
+            q = (3 * torch.randn(1, t, hq, d, device=dev, generator=g)).to(dtype)
+            k = torch.randn(1, t, hkv, d, device=dev, generator=g).to(dtype)
+            v = torch.randn(1, t, hkv, d, device=dev, generator=g).to(dtype)
+            got = pa.causal_attention(q, k, v, rep)
+            err = attn_check(f"causal_attention D=32 {dtype} T={t}", got,
+                             pa.causal_attention_plain(q, k, v, rep))
+            require(torch.equal(got, pa.causal_attention(q, k, v, rep)),
+                    f"causal_attention D=32 T={t} gave other bits on a second call")
+            if dtype == torch.bfloat16:
+                ms = time_ms(lambda: pa.causal_attention(q, k, v, rep))
+                print(f"time causal_attention D=32 T={t} (llama-tiny): kernel {ms:.4f} ms")
+                rows["causal_attention"]["per_shape"].append(
+                    dict(max_abs_err=err, ms=ms, shape=f"B=1 T={t} Hq={hq} D={d}"))
+        c, tmax = 128, 256
+        k_row = torch.randint(-127, 128, (tmax, hkv, d), device=dev, generator=g, dtype=torch.int8)
+        v_row = torch.randint(-127, 128, (tmax, hkv, d), device=dev, generator=g, dtype=torch.int8)
+        ks = torch.rand(tmax, hkv, device=dev, generator=g) * 0.01 + 0.01
+        vs = torch.rand(tmax, hkv, device=dev, generator=g) / 127 + 1e-3
+        q = (3 * torch.randn(c, hq, d, device=dev, generator=g)).to(dtype)
+        kc = torch.randn(c, hkv, d, device=dev, generator=g).to(dtype)
+        vc = torch.randn(c, hkv, d, device=dev, generator=g).to(dtype)
+        args = (q, k_row, v_row, ks, vs, kc, vc, 128, rep)
+        got = pa.chunk_prefill_attention(*args)
+        err = attn_check(f"chunk_prefill_attention D=32 {dtype} C={c} start=128", got,
+                         pa.chunk_prefill_attention_plain(*args))
+        require(torch.equal(got, pa.chunk_prefill_attention(*args)),
+                "chunk_prefill_attention D=32 gave other bits on a second call")
+        if dtype == torch.bfloat16:
+            ms = time_ms(lambda: pa.chunk_prefill_attention(*args))
+            print(f"time chunk_prefill_attention D=32 C={c} start=128 (llama-tiny): kernel "
+                  f"{ms:.4f} ms")
+            rows["chunk_prefill_attention"]["per_shape"].append(
+                dict(max_abs_err=err, ms=ms, shape=f"C={c} start=128 T={tmax} Hq={hq} D={d}"))
+
+    params = init_params(spec, np.random.default_rng(0))
+    rng = np.random.default_rng(33)
+    lens = [10, 20, 50, 100, 200, 7, 64, 128]  # buckets 16, 32, 64, 128; 200 in two chunks
+    prompts = [rng.integers(0, spec.vocab, n).astype(np.int32) for n in lens]
+    streams = {}
+    for kernels in (True, False):
+        nn.set_use_kernels(None if kernels else False)
+        try:
+            engine = GenerationEngine(spec, params, dtype=torch.float32, device=dev, num_slots=4,
+                                      max_len=256, prefill_buckets=[16, 32, 64, 128],
+                                      prefill_chunk=128, steps_per_sync=4, decode_overlap=True,
+                                      pipeline_depth=4)
+            torch.cuda.synchronize()
+            zero_counts(counters)
+            marks = _decode_marks(engine)
+            reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=24) for p in prompts]
+            for r in reqs:
+                engine.submit(r)
+            engine.start()
+            try:
+                streams[kernels] = [r.result(timeout=600) for r in reqs]
+            finally:
+                engine.stop()
+            torch.cuda.synchronize()
+            launches = read_counts(counters)
+        finally:
+            nn.set_use_kernels(None)
+        if kernels:
+            require_prefill_launches(engine, prompts, launches, "llama-tiny")
+            require_decode_launches(engine, launches, "decode_attention", marks, "llama-tiny")
+            print(f"llama-tiny (head_dim 32) on {card}: {len(prompts)} requests at buckets 16-128 "
+                  f"and one chunked prompt, launches "
+                  + json.dumps({k: v for k, v in launches.items() if v}))
+        else:
+            require(not any(launches.values()), "llama-tiny with the kernels off launched one")
+        del engine
+    same = sum(a == b for a, b in zip(streams[True], streams[False]))
+    print(f"llama-tiny (head_dim 32) FP32: {same} of {len(prompts)} greedy streams with the "
+          f"kernels on identical to the kernels off")
+    require(same == len(prompts), "llama-tiny: a stream with the kernels on differs from off")
 
 
 # -- phase 4: kernels of the batch ModelInfer path ------------------------------
@@ -844,49 +1051,12 @@ def batch_kernel_phase(dev):
     import torch
     import torch.nn.functional as F
 
-    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
     from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
     from starpu_inference_server_tpu_torch.ops import stem_kernel as sk
 
     g = torch.Generator(device=dev).manual_seed(4321)
     bf16 = torch.bfloat16
     rows = {}
-
-    # int8_matmul at the ResNet-18 fc: rows = batch bucket, K = 512,
-    # N = 1000 (not a multiple of 16 bytes: the kernel masks the edge).
-    # The row reports M = 32 (the largest bucket); copies of the weight,
-    # cycled, keep each call's weight out of the 50 MB L2.
-    k, n = 512, 1000
-    copies = math.ceil(120e6 / (k * n))
-    wqs = [torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
-           for _ in range(copies)]
-    sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
-    per_shape = []
-    for m in (1, 8, 32):
-        x = torch.randn(m, k, device=dev, generator=g).to(bf16)
-        got = mk.int8_matmul(x, wqs[0], sc)
-        ref = mk.int8_matmul_plain(x, wqs[0], sc)
-        err = max_err(got, ref)
-        tol = 1e-4 * ref.abs().max().item()
-        shape = f"M={m} K={k} N={n}"
-        print(f"kernel int8_matmul {shape}: max_abs_err={err:.3e} tol={tol:.3e} (1e-4 max|ref|; "
-              f"median |ref| {ref.abs().median().item():.3e})")
-        require(err <= tol, f"int8_matmul M={m} disagrees with its plain version")
-        it = iter(range(10 ** 9))
-        ms = time_ms(lambda: mk.int8_matmul(x, wqs[next(it) % copies], sc))
-        plain_ms = time_ms(lambda: mk.int8_matmul_plain(x, wqs[0], sc), iters=5)
-        w_deq = (wqs[0].float() * sc).to(bf16)
-        lib_ms = time_ms(lambda: torch.matmul(x, w_deq))
-        b_ms, b_by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 4, 2.0 * m * k * n)
-        print(f"time int8_matmul {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.matmul bf16 {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms, shape=shape)
-        per_shape.append(row)
-        if m == 32:
-            rows["int8_matmul"] = dict(row, per_shape=per_shape,
-                                       library="torch.matmul on the pre-dequantized bf16 weight")
-    del wqs
 
     # bidirectional_attention at BERT-base s=512, B=16: sharp logits
     # (q = 3 N(0,1), so q.k/8 has std ~3); samples 0-2 padded at three
@@ -1304,7 +1474,86 @@ def _time_cycled(fn, copies, iters: int = 20):
     return time_ms(lambda: fn(next(it) % copies), iters=iters)
 
 
-def extras_kernel_phase(spec, dev):
+def _dense_shapes(spec) -> dict:
+    """(K, N) of the decoder's dense layers: four a layer, then the lm_head."""
+    hq, hkv, d = spec.q_heads, spec.kv_heads, spec.head_dim
+    return {"qkv": (spec.hidden, (hq + 2 * hkv) * d), "o": (hq * d, spec.hidden),
+            "gate_up": (spec.hidden, 2 * spec.intermediate),
+            "down": (spec.intermediate, spec.hidden), "lm_head": (spec.hidden, spec.vocab)}
+
+
+def _step_ms(spec, per_shape, m, key="ms") -> float:
+    """A kernel's time in one decode step at ``m`` rows: every layer's
+    four dense shapes, then the lm_head."""
+    at = {r["layer"]: r[key] for r in per_shape if r["m"] == m}
+    return spec.layers * sum(at[n] for n in ("qkv", "o", "gate_up", "down")) + at["lm_head"]
+
+
+def int8_kernel_phase(spec, dev, card=""):
+    """int8_matmul (K2) at the shapes its paths give it: every dense layer
+    of an int8 decode step at 16 slots (llama_speculative.yml's and
+    llama_prompt_lookup.yml's plain and draft decode) and 64
+    (llama_paged.yml), and the ResNet-18 fc at batch 1, 8 and 32 (K = 512,
+    N = 1000: the ragged N is masked in the kernel). Each is held against
+    its plain version (the products are exact, f32 sums in another order:
+    1e-4 max|ref|), bit-equal over two calls, and timed beside the plain
+    version, the bf16 ``torch.matmul`` on the dequantized weight and the
+    bound, kernel and library each on cycled copies of the weight (past
+    the 50 MB L2). The row reports gate_up at 64 slots."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = [(name, m, k, n) for m in (16, 64) for name, (k, n) in _dense_shapes(spec).items()]
+    cases += [("fc", m, 512, 1000) for m in (1, 8, 32)]
+    per_shape = []
+    row = None
+    for name, m, k, n in cases:
+        x = torch.randn(m, k, device=dev, generator=g).to(bf16)
+        copies = _copies(k * n)
+        wqs = [torch.randint(-128, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+               for _ in range(copies)]
+        sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
+        got = mk.int8_matmul(x, wqs[0], sc)
+        ref = mk.int8_matmul_plain(x, wqs[0], sc)
+        err = max_err(got, ref)
+        tol = 1e-4 * ref.abs().max().item()
+        same = bool(torch.equal(got, mk.int8_matmul(x, wqs[0], sc)))
+        plan = mk.matmul_plan("int8_matmul", m, n, k, sms)
+        shape = f"M={m} K={k} N={n}"
+        print(f"kernel int8_matmul {shape} ({name}): max_abs_err={err:.3e} tol={tol:.3e} "
+              f"(1e-4 max|ref|); two calls bit-equal {same}; tile {mk.QMM_TILES[plan.variant]}, "
+              f"{plan.splits} splits, {plan.grid} blocks")
+        require(err <= tol, f"int8_matmul {name} M={m} disagrees with its plain version")
+        require(same, f"int8_matmul {name} M={m} gave other bits on a second call")
+        ms = _time_cycled(lambda i: mk.int8_matmul(x, wqs[i], sc), copies)
+        plain_ms = time_ms(lambda: mk.int8_matmul_plain(x, wqs[0], sc), iters=5)
+        w_deqs = [(wqs[i % copies].float() * sc).to(bf16) for i in range(_copies(k * n * 2))]
+        lib_ms = _time_cycled(lambda i: torch.matmul(x, w_deqs[i]), len(w_deqs))
+        b_ms, b_by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 4, 2.0 * m * k * n)
+        print(f"time int8_matmul {shape} ({name}) on {card}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms ({len(w_deqs)} dequantized "
+              f"weights cycled), bound {b_ms:.4f} ms ({b_by})")
+        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=lib_ms, shape=shape, splits=plan.splits, grid=plan.grid)
+        per_shape.append(dict(layer=name, m=m, **entry))
+        if name == "gate_up" and m == 64:
+            row = entry
+        del wqs, w_deqs
+    steps = {m: (_step_ms(spec, per_shape, m), _step_ms(spec, per_shape, m, "library_ms"))
+             for m in (16, 64)}
+    for m, (k_ms, l_ms) in steps.items():
+        print(f"int8_matmul per decode step ({spec.layers} layers x qkv, o, gate_up, down + "
+              f"lm_head at M={m}): kernel {k_ms:.4f} ms, torch.matmul bf16 (cycled) {l_ms:.4f} ms")
+    return {"int8_matmul": dict(row, per_shape=per_shape,
+                                decode_step_ms={str(m): v[0] for m, v in steps.items()},
+                                library="torch.matmul bf16 on the dequantized weight, cycled")}
+
+
+def extras_kernel_phase(spec, dev, card=""):
     """K6, K9, K10 and K11 at the shapes their configs give them, held
     against their plain versions and timed beside the plain version, a
     library yardstick the port never calls and the bound."""
@@ -1320,41 +1569,38 @@ def extras_kernel_phase(spec, dev):
     hq, hkv, d, rep = spec.q_heads, spec.kv_heads, spec.head_dim, spec.rep
     rows = {}
 
-    # int4_matmul_w4a8 at M = 16 (the decode step of llama_w4a8.yml), 1
-    # (the lm_head of a prefill) and 256 (a prefill chunk) over every
-    # dense shape. The integer product is exact, so the kernel must equal
-    # the plain version up to the final f32 multiplies: held to the JAX
-    # package's rtol 1e-5, atol 1e-4 per element, and bit equality is
-    # reported. Library: torch._int_mm on the unpacked int8 weight where
-    # its shape rules allow it (M > 16), else torch.matmul bf16 on a
+    # int4_matmul_w4a8 at M = 16 (the decode step of llama_w4a8.yml), 64
+    # and 128 (wider decode batches), 1 (the lm_head of a prefill) and 256
+    # (a prefill chunk) over every dense shape. The integer product is
+    # exact and the kernel scales it as the plain version does, so it must
+    # equal the plain version bit for bit, and itself over two calls.
+    # Library: torch._int_mm on the unpacked int8 weight where its shape
+    # rules allow it (M > 16), else torch.matmul bf16 on a
     # pre-dequantized weight.
-    shapes = {
-        "qkv": (spec.hidden, (hq + 2 * hkv) * d),
-        "o": (hq * d, spec.hidden),
-        "gate_up": (spec.hidden, 2 * spec.intermediate),
-        "down": (spec.intermediate, spec.hidden),
-        "lm_head": (spec.hidden, spec.vocab),
-    }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     per_shape = []
-    for m in (16, 1, 256):
-        for name, (k, n) in shapes.items():
+    for m in (16, 64, 128, 1, 256):
+        for name, (k, n) in _dense_shapes(spec).items():
             x_q = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
             sx = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
             copies = max(1, math.ceil(120e6 / (k * n // 2)))
             w4s, scs = [], []
             for _ in range(copies):
-                w4s.append(pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g,
+                w4s.append(pack_int4(torch.randint(-8, 8, (k, n), device=dev, generator=g,
                                                    dtype=torch.int8)))
                 scs.append(torch.rand(1, n, device=dev, generator=g) * 0.02 + 1e-3)
             got = mk.int4_matmul_w4a8(x_q, sx, w4s[0], scs[0])
             ref = mk.int4_matmul_w4a8_plain(x_q, sx, w4s[0], scs[0])
             err = max_err(got, ref)
-            worst = ((got - ref).abs() / (1e-4 + 1e-5 * ref.abs())).max().item()
             exact = bool(torch.equal(got, ref))
+            twice = bool(torch.equal(got, mk.int4_matmul_w4a8(x_q, sx, w4s[0], scs[0])))
+            plan = mk.matmul_plan("int4_matmul_w4a8", m, n, k, sms)
             shape = f"M={m} K={k} N={n}"
-            print(f"kernel int4_matmul_w4a8 {shape} ({name}): max_abs_err={err:.3e}, worst "
-                  f"err/limit {worst:.3f} (limit 1e-4 + 1e-5 |ref|), bit-equal {exact}")
-            require(worst <= 1.0, f"int4_matmul_w4a8 {name} M={m} disagrees with its plain version")
+            print(f"kernel int4_matmul_w4a8 {shape} ({name}): max_abs_err={err:.3e}, bit-equal "
+                  f"to the plain version {exact}, two calls bit-equal {twice}; tile "
+                  f"{mk.QMM_TILES[plan.variant]}, {plan.splits} splits, {plan.grid} blocks")
+            require(exact, f"int4_matmul_w4a8 {name} M={m} is not bit-equal to its plain version")
+            require(twice, f"int4_matmul_w4a8 {name} M={m} gave other bits on a second call")
             ms = _time_cycled(lambda i: mk.int4_matmul_w4a8(x_q, sx, w4s[i], scs[0]), copies)
             plain_ms = time_ms(lambda: mk.int4_matmul_w4a8_plain(x_q, sx, w4s[0], scs[0]), iters=3)
             if m > 16:
@@ -1368,14 +1614,18 @@ def extras_kernel_phase(spec, dev):
                 library = "torch.matmul bf16 on the pre-dequantized weight"
             b_ms, b_by = bound_ms(m * k + m * 4 + k * n // 2 + n * 4 + m * n * 4, 2.0 * m * k * n,
                                   PEAK_INT8)
-            print(f"time int4_matmul_w4a8 {shape} ({name}): kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                  f" ms, {library} {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+            print(f"time int4_matmul_w4a8 {shape} ({name}) on {card}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, {library} {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
             row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                       library_ms=lib_ms, shape=shape, library=library)
-            per_shape.append(dict(layer=name, **row))
+                       library_ms=lib_ms, shape=shape, library=library, splits=plan.splits,
+                       grid=plan.grid)
+            per_shape.append(dict(layer=name, m=m, **row))
             if name == "gate_up" and m == 16:
                 rows["int4_matmul_w4a8"] = dict(row, per_shape=per_shape)
             del w4s, scs, w8
+    rows["int4_matmul_w4a8"]["decode_step_ms"] = _step_ms(spec, per_shape, 16)
+    print(f"int4_matmul_w4a8 per decode step ({spec.layers} layers + lm_head at M=16): kernel "
+          f"{rows['int4_matmul_w4a8']['decode_step_ms']:.4f} ms")
 
     # window_decode_attention at the verify of llama_speculative.yml
     # (W = 5) and llama_prompt_lookup.yml (W = 9): S = 16, T = 1024, mixed
@@ -1550,18 +1800,21 @@ def _plain_cfg(cfg):
 
 
 def generate_all(engine, prompts, new, counters, kernels, what, card, absent=(),
-                 dense_prefills=False):
+                 dense_prefills=False, decode_kernel=None):
     """Serve ``prompts`` concurrently through ``engine`` (counters zeroed
     just before, read just after); every kernel of ``kernels`` must have
     launched and none of ``absent``; with ``dense_prefills``, every
-    prefill and chunk through its kernel (``require_prefill_launches``).
-    Returns (token lists, launches)."""
+    prefill and chunk through its kernel (``require_prefill_launches``);
+    with ``decode_kernel``, the greedy engine's every block a graph replay
+    and that kernel launched once a layer a decode step
+    (``require_decode_launches``). Returns (token lists, launches)."""
     import torch
 
     from starpu_inference_server_tpu_torch.serving.generation import GenerationRequest
 
     torch.cuda.synchronize()
     zero_counts(counters)
+    marks = _decode_marks(engine)
     t0 = time.perf_counter()
     reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=new) for p in prompts]
     for r in reqs:  # all queued before the loop starts: one admission order
@@ -1584,6 +1837,8 @@ def generate_all(engine, prompts, new, counters, kernels, what, card, absent=(),
         require(launches[name] == 0, f"kernel {name} was launched on the {what} path")
     if dense_prefills:
         require_prefill_launches(engine, prompts, launches, what)
+    if decode_kernel is not None:
+        require_decode_launches(engine, launches, decode_kernel, marks, what)
     step_s = engine.loop_timers["step"]
     extra = ""
     if engine.draft_spec is not None or engine.headroom():
@@ -1631,7 +1886,8 @@ def w4a8_path(int4_params, counters, card, dev):
     _, launches = generate_all(engine, prompts, 24, counters,
                                ("int4_matmul_w4a8", "decode_attention", "causal_attention",
                                 "chunk_prefill_attention"), "llama_w4a8", card,
-                               absent=("int4_matmul",), dense_prefills=True)
+                               absent=("int4_matmul",), dense_prefills=True,
+                               decode_kernel="decode_attention")
     del engine
     torch.cuda.empty_cache()
     return launches, per_step
@@ -1785,7 +2041,11 @@ def window_model_phase(params, spec, counters, dev):
             f"paged_decode_attention ran {per_paged_step['paged_decode_attention']} times per step")
     require(per_paged_verify["paged_window_decode_attention"] == layers,
             "paged_window_decode_attention count per verify")
-    return {"window_decode_attention": per_verify["window_decode_attention"],
+    require(per_step["int8_matmul"] == 4 * layers + 1,
+            f"int8_matmul ran {per_step['int8_matmul']} times in an int8 decode step (want "
+            f"{4 * layers + 1}: four dense layers a layer and the lm_head)")
+    return {"int8_matmul": per_step["int8_matmul"],
+            "window_decode_attention": per_verify["window_decode_attention"],
             "paged_decode_attention": per_paged_step["paged_decode_attention"],
             "paged_window_decode_attention": per_paged_verify["paged_window_decode_attention"]}
 
@@ -1822,7 +2082,7 @@ def speculation_path(spec, params, rigged_params, counters, card, dev):
             plain = build_generation_engine(_plain_cfg(cfg), device=dev, params=tree)
             plain_runs[id(tree)], _ = generate_all(
                 plain, prm, new, counters, ("int8_matmul", "decode_attention"),
-                f"{what} (plain reference)", card)
+                f"{what} (plain reference)", card, decode_kernel="decode_attention")
             del plain
         want = plain_runs[id(tree)]
         engine = build_generation_engine(cfg, device=dev, params=tree)
@@ -1868,7 +2128,8 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
             prompts.append(rng.integers(0, vocab, int(rng.integers(40, 200))).astype(np.int32))
     engine = build_generation_engine(cfg, device=dev, params=params)
     got, launches = generate_all(engine, prompts, 16, counters,
-                                 ("paged_decode_attention", "int8_matmul"), "llama_paged", card)
+                                 ("paged_decode_attention", "int8_matmul"), "llama_paged", card,
+                                 decode_kernel="paged_decode_attention")
     paged_got = got
     acct = engine.page_accounting()
     refs = int((engine._page_refs > 0).sum())
@@ -1883,7 +2144,8 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
     dense = build_generation_engine(_cfg_with(cfg, kv_page_size=None, kv_pool_pages=None),
                                     device=dev, params=params)
     want, _ = generate_all(dense, prompts, 16, counters, ("decode_attention",),
-                           "llama_paged as a dense engine (reference)", card)
+                           "llama_paged as a dense engine (reference)", card,
+                           decode_kernel="decode_attention")
     same = sum(a == b for a, b in zip(got, want))
     print(f"llama_paged: {same} of {len(prompts)} streams identical to the dense engine "
           f"(dense prefix hits {dense.prefix_hits})")
@@ -1929,6 +2191,7 @@ def extras_path(spec, int4_params, counters, card, dev):
         spec, params, rigged, rig_prompts, spec_results["lookup_rigged"]["want"], counters, card,
         dev)
     launches = {
+        "int8_matmul": paged_launches["int8_matmul"],
         "int4_matmul_w4a8": w4a8_launches["int4_matmul_w4a8"],
         "window_decode_attention": spec_results["speculative"]["launches"][
             "window_decode_attention"],
@@ -2215,7 +2478,8 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
     got, ran = generate_all(engine, prompts, 32, counters,
                             ("flat_decode_attention", "int4_matmul", "causal_attention",
                              "chunk_prefill_attention"), "llama_decoder flat", card,
-                            absent=("decode_attention",), dense_prefills=True)
+                            absent=("decode_attention",), dense_prefills=True,
+                            decode_kernel="flat_decode_attention")
     same = sum(a == b for a, b in zip(got, want))
     print(f"llama_decoder flat: {same} of {len(want)} streams identical to the standard layout's")
     require(same == len(want), "llama_decoder flat: a stream differs from the standard engine's")
@@ -2226,7 +2490,7 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
     require(engine.pipeline_depth == 1, "decode_overlap: false did not give depth 1")
     got, _ = generate_all(engine, prompts, 32, counters, DECODER_KERNELS,
                           "llama_decoder at depth 1 (decode_overlap: false)", card,
-                          dense_prefills=True)
+                          dense_prefills=True, decode_kernel="decode_attention")
     same = sum(a == b for a, b in zip(got, want))
     print(f"overlap: {same} of {len(want)} streams at depth 1 identical to depth "
           f"{int(cfg.model.options['decode_pipeline_depth'])}")
@@ -2254,7 +2518,8 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
     engine = build_generation_engine(paged_cfg, device=dev, params=ctx["params"])
     got, ran = generate_all(engine, prompts, 16, counters,
                             ("flat_paged_decode_attention", "int8_matmul"), "llama_paged flat",
-                            card, absent=("paged_decode_attention",))
+                            card, absent=("paged_decode_attention",),
+                            decode_kernel="flat_paged_decode_attention")
     acct = engine.page_accounting()
     refs = int((engine._page_refs > 0).sum())
     std = ctx["paged_stats"]
@@ -2318,10 +2583,6 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from starpu_inference_server_tpu_torch.ops import _build
-    from starpu_inference_server_tpu_torch.ops import decode_attention as da
-    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
-    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
-    from starpu_inference_server_tpu_torch.ops import stem_kernel as sk
     from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
     from starpu_inference_server_tpu_torch.utils.config import load_config
 
@@ -2352,7 +2613,7 @@ def main() -> int:
     print(f"engine: {cfg.model.family} ({cfg.model.quantization.value}, "
           f"{cfg.model.compute_dtype}) built in {time.perf_counter() - t0:.1f} s")
 
-    counters = [mk.launches, da.launches, pa.launches, sk.launches]
+    counters = _build.launch_counters()
     rows = kernel_phase(engine.spec, cfg.model.options, dev)
     per_step = model_phase(engine, dev, counters)
     launches, dec_prompts, dec_outs = serving_phase(engine, counters, card)
@@ -2361,6 +2622,7 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     sampling_phase(spec, int4_params, counters, card, dev)
+    tiny_phase(rows, counters, card, dev)
 
     rows.update(batch_kernel_phase(dev))
     bert_launches, bert_forward = bert_path(counters, card)
@@ -2370,7 +2632,8 @@ def main() -> int:
     for name in RESNET_KERNELS:
         launches[name] = resnet_launches[name]
 
-    rows.update(extras_kernel_phase(spec, dev))
+    rows.update(int8_kernel_phase(spec, dev, card))
+    rows.update(extras_kernel_phase(spec, dev, card))
     extra_launches, extra_step, ctx = extras_path(spec, int4_params, counters, card, dev)
     launches.update(extra_launches)
 
@@ -2386,9 +2649,16 @@ def main() -> int:
             if name == "int4_matmul":
                 extra.update(decode_step_ms=r["decode_step_ms"],
                              library="torch.matmul bf16 on dequantized weights, cycled")
+        elif name == "int8_matmul":  # launches: the llama_paged burst (64 slots, the row's M)
+            extra = {"launches_per_decode_step": extra_step[name],
+                     "decode_step_ms": r["decode_step_ms"], "library": r["library"],
+                     "launches_resnet_serving": resnet_launches[name],
+                     "launches_per_resnet_forward": resnet_forward[name]}
         elif name in EXTRA_KERNELS + FLAT_KERNELS:
             per = "verify" if "window" in name else "decode_step"
             extra = {f"launches_per_{per}": extra_step[name], "library": r["library"]}
+            if "decode_step_ms" in r:
+                extra["decode_step_ms"] = r["decode_step_ms"]
             if name in FLAT_KERNELS:
                 extra.update(twin=r["twin"], twin_ms=r["twin_ms"],
                              bit_equal_to_twin=r["bit_equal_to_twin"])

@@ -14,9 +14,14 @@ serves the 128 greedy requests of chip_smoke.py's decoder serving phase
 (after a short warm-up run) and prints the host clock per decode step and
 ``admit``; then, with all 128 slots busy, it drives decode blocks by hand at
 depth 1 and prints one block's host clock and, from a torch.profiler trace
-of the next, its device busy time and the host's self-CPU table. The first
-tokens of three streams are printed so the trees' outputs can be compared.
-Only the engine API that every tree shares is used.
+of the next, its device busy time and the host's self-CPU table (where the
+tree replays a CUDA graph for the block, ``cudaGraphLaunch`` stands in the
+table in place of the ``cudaLaunchKernel`` calls). The first tokens of
+three streams are printed so the trees' outputs can be compared. Last it
+times the tree's int8_matmul and int4_matmul_w4a8 at llama-1b's gate_up
+(K = 2048, N = 11008) at their decode rows, with the tree's own
+``chip_smoke.time_ms`` on weights cycled past the L2. Only the engine and
+kernel API that every tree shares is used.
 """
 
 from __future__ import annotations
@@ -111,6 +116,38 @@ def measure(root: str) -> None:
     finally:
         engine.stop()
     print("streams " + json.dumps([o[:4] for o in outs[:3]]), flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    matmuls(root)
+
+
+def matmuls(root: str) -> None:
+    """int8_matmul (M = 16, 64) and int4_matmul_w4a8 (M = 16) at gate_up."""
+    import torch
+
+    import chip_smoke as cs
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+    from starpu_inference_server_tpu_torch.ops.quant import pack_int4
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    k, n = 2048, 11008
+    copies = 6  # 6 x 22.5 MB int8 weights: past the 50 MB L2
+    wqs = [torch.randint(-128, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+           for _ in range(copies)]
+    w4s = [pack_int4(torch.randint(-8, 8, (k, n), device=dev, generator=g, dtype=torch.int8))
+           for _ in range(copies)]
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
+    for m in (16, 64):
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        it = iter(range(10 ** 9))
+        ms = cs.time_ms(lambda: mk.int8_matmul(x, wqs[next(it) % copies], sc))
+        print(f"int8_matmul M={m} K={k} N={n}: {ms:.4f} ms", flush=True)
+    x_q = torch.randint(-127, 128, (16, k), device=dev, generator=g, dtype=torch.int8)
+    sx = torch.rand(16, 1, device=dev, generator=g) * 0.02 + 1e-3
+    it = iter(range(10 ** 9))
+    ms = cs.time_ms(lambda: mk.int4_matmul_w4a8(x_q, sx, w4s[next(it) % copies], sc))
+    print(f"int4_matmul_w4a8 M=16 K={k} N={n}: {ms:.4f} ms", flush=True)
 
 
 def main(argv) -> int:

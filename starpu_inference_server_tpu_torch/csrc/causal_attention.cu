@@ -37,6 +37,11 @@
 // each chunk in shared memory once for all 128 rows, and runs the online
 // softmax in sub-blocks of 16 keys. The [Hq, T, T] scores never exist in
 // device memory on either route.
+//
+// Both routes take head_dim 32, 64 and 128. At 32 (llama-tiny) the f32
+// route is instantiated too, rather than sending f32 inputs through the
+// tensor cores with bf16 operands: that would change the function the
+// FP32 witnesses compute.
 
 #include "flash_mma.cuh"
 
@@ -103,7 +108,11 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int B, in
   const float inv = 1.f / sqrtf(static_cast<float>(D));
   const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
               *vf = static_cast<const float*>(v);
-  if (D == 64) {
+  if (D == 32) {
+    causal_attention_kernel<float, 32><<<grid, kRows, 0, st>>>(qf, kf, vf,
+                                                               static_cast<float*>(out), Tlen,
+                                                               Hkv, rep, inv);
+  } else if (D == 64) {
     causal_attention_kernel<float, 64><<<grid, kRows, 0, st>>>(qf, kf, vf,
                                                                static_cast<float*>(out), Tlen,
                                                                Hkv, rep, inv);
@@ -153,6 +162,7 @@ extern "C" int sis_causal_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (rep < 1 || kRows % rep != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != sis::kBF16) return launch_f32(q, k, v, out, B, Tlen, Hkv, rep, D, st);
+  if (D == 32) return launch_mma<32>(q, k, v, out, B, Tlen, Hkv, rep, st);
   if (D == 64) return launch_mma<64>(q, k, v, out, B, Tlen, Hkv, rep, st);
   if (D == 128) return launch_mma<128>(q, k, v, out, B, Tlen, Hkv, rep, st);
   return static_cast<int>(cudaErrorInvalidValue);

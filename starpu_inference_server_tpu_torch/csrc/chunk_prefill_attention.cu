@@ -33,6 +33,11 @@
 // head) with one query row per thread for all rep heads, the kernel of
 // the FP32 witnesses. Cache chunks are dequantized (int8 * scale -> f32)
 // while they are staged in shared memory, once for all 128 rows.
+//
+// Both routes take head_dim 32, 64 and 128. At 32 (llama-tiny) the f32
+// route is instantiated too, rather than sending f32 inputs through the
+// tensor cores with bf16 operands: that would change the function the
+// FP32 witnesses compute.
 
 #include "flash_mma.cuh"
 
@@ -127,7 +132,9 @@ int launch_f32(const void* q, const void* kr, const void* vr, const void* ksc, c
       static_cast<const int8_t*>(vr), static_cast<const float*>(ksc),                         \
       static_cast<const float*>(vsc), static_cast<const float*>(kc),                          \
       static_cast<const float*>(vc), static_cast<float*>(out), C, Tmax, Hkv, rep, start, inv)
-  if (D == 64) {
+  if (D == 32) {
+    SIS_CHUNK_LAUNCH(32);
+  } else if (D == 64) {
     SIS_CHUNK_LAUNCH(64);
   } else if (D == 128) {
     SIS_CHUNK_LAUNCH(128);
@@ -185,6 +192,9 @@ extern "C" int sis_chunk_prefill_attention(const void* q, const void* k_row, con
   if (dtype != sis::kBF16)
     return launch_f32(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv, rep, D,
                       start, st);
+  if (D == 32)
+    return launch_mma<32>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
+                          rep, start, st);
   if (D == 64)
     return launch_mma<64>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
                           rep, start, st);

@@ -28,21 +28,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// round-to-nearest-even through bfloat16 and back (the x.astype(bf16)
-// of the TPU int4 kernel)
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// sign-extended nibbles of one packed int4 byte: low = even row,
-// high = odd row (pairwise layout, ops/quant.py:pack_int4)
-__device__ __forceinline__ int sext_lo(uint8_t b) {
-  return static_cast<int>(static_cast<int8_t>(static_cast<uint8_t>(b << 4))) >> 4;
-}
-__device__ __forceinline__ int sext_hi(uint8_t b) {
-  return static_cast<int>(static_cast<int8_t>(b)) >> 4;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -42,6 +42,13 @@
 // f32 dot products of a tile into logits in place) and pscale() (whether
 // P's columns take the per-key v factor).
 //
+// Head dims: D = 32 (llama-tiny), 64 and 128 are instantiated. At D = 32
+// Q K^T is two k16 steps and P V four n8 tiles; a bf16 row is 64 bytes,
+// padded to 80, so the 8 row addresses of an ldmatrix fall on 8 distinct
+// 16-byte bank groups (80 r mod 128 = 0, 80, 32, 112, 64, 16, 96, 48) and
+// every cp.async destination stays 16-byte aligned; an int8 staging row
+// is 32 bytes padded to 48.
+//
 // Query rows (QRows): q and out are [B, T, Hq, D]; row r of the block is
 // position q0 + r of one query head. On the H100 this measured 1-5% ahead
 // of the TPU kernels' KV-major packing (64 / rep positions x the rep

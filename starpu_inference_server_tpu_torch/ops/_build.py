@@ -142,6 +142,15 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed to launch: cudaError {rc}")
 
 
+def launch_counters() -> tuple:
+    """The launch-count tables of every kernel wrapper module: each
+    wrapper adds one to its entry where it launches its kernel."""
+    from . import decode_attention, matmul_kernels, prefill_attention, stem_kernel
+
+    return (matmul_kernels.launches, decode_attention.launches, prefill_attention.launches,
+            stem_kernel.launches)
+
+
 def stream_ptr(tensor) -> int:
     import torch
 

@@ -1,34 +1,33 @@
 """Quantized matmul kernels: counterpart of ``ops/pallas_kernels.py``.
 
-``int4_matmul`` replaces the TPU kernel
-``starpu_inference_server_tpu/ops/pallas_kernels.py:int4_matmul``
-(``_int4_matmul_kernel``) with the hand-written CUDA kernel in
-``csrc/int4_matmul.cu``. Bound on the H100: at the decode batch of 128
-rows the bf16 tensor-core rate (512 FLOPs per packed weight byte); at
-one row, the packed-weight bytes. Design: mma.sync bf16 tensor-core
-tiles whose B fragments are unpacked from the pairwise nibbles in
-registers (device memory only ever holds the packed weight), with a
-split of K that :func:`int4_matmul_plan` chooses so every shape fills
-the card, and a fixed-order reduction of the splits (see the source).
+Three kernels replace the TPU kernels of
+``starpu_inference_server_tpu/ops/pallas_kernels.py``, all on one
+tensor-core body (``csrc/quant_matmul.cuh``) with an unpack policy each:
 
-``int8_matmul`` replaces the TPU kernel
-``starpu_inference_server_tpu/ops/pallas_kernels.py:int8_matmul``
-(``_matmul_kernel``) with ``csrc/int8_matmul.cu``. Bound on the H100: on
-the path (the ResNet-18 fc at batch <= 32, K = 512, N = 1000) the int8
-weight bytes; design: 32 columns per block, K split over the block's
-threads, the ragged N edge masked in the kernel (see the source).
+- ``int4_matmul`` (``int4_matmul``, ``_int4_matmul_kernel``;
+  ``csrc/int4_matmul.cu``): bf16(x) times the pairwise-packed int4
+  weight, mma.sync m16n8k16 bf16 -> f32, every dense layer of the int4
+  decoder. Bound on the H100: at the decode batch of 128 rows the bf16
+  tensor-core rate (512 FLOPs per packed weight byte); at one row, the
+  packed-weight bytes.
+- ``int8_matmul`` (``int8_matmul``, ``_matmul_kernel``;
+  ``csrc/int8_matmul.cu``): bf16(x) times the int8 weight, the same
+  mma, every dense layer of an int8 decode step (<= 64 rows) and the
+  ResNet fc. Bound: the int8 weight bytes.
+- ``int4_matmul_w4a8`` (``int4_matmul_w4a8``, ``_int4_w4a8_kernel``;
+  ``csrc/int4_matmul_w4a8.cu``): int8 activations times the packed int4
+  weight, mma.sync m16n8k32 s8 x s8 -> s32, exact, scaled once by
+  ``x_scale[m] * scale[n]``. Bound: the packed weight bytes.
+
+Design, shared: B fragments are unpacked from the weight bytes in
+registers (device memory only ever holds the quantized weight), a
+cp.async ring of weight tiles, a tile variant and a split of K that
+:func:`matmul_plan` chooses so every shape fills the card, and a
+fixed-order reduction of the splits (see the sources).
 
 Beside each kernel, a ``*_plain`` function computes the same function
 in plain PyTorch: CPU tensors take it, and on the card it only serves as
 the reference the kernel is checked against.
-
-``int4_matmul_w4a8`` replaces the TPU kernel
-``starpu_inference_server_tpu/ops/pallas_kernels.py:int4_matmul_w4a8``
-(``_int4_w4a8_kernel``) with ``csrc/int4_matmul_w4a8.cu``. Bound on the
-H100: at decode (M = 16) the packed weight bytes; design: int8
-activations and unpacked int4 weights in shared memory as words of four
-k values, contracted with ``__dp4a`` into exact int32 sums, scaled once
-by ``x_scale[m] * scale[n]`` (see the source).
 """
 
 from __future__ import annotations
@@ -55,49 +54,65 @@ def _bound(name: str, symbol: str, n_ptrs: int = 4, n_ints: int = 4):
     return fn
 
 
-# (rows, columns) of each int4_matmul tile variant, by the index the C
-# entry point takes (csrc/int4_matmul.cu:launch_variant), and the k-tile
-INT4_TILES = ((16, 128), (64, 128), (128, 128))
-INT4_BK = 64
+# (rows, columns) of each tile variant of the quantized matmul body, by the
+# index the C entry points take (csrc/quant_matmul.cuh:launch), the most
+# rows each variant is chosen for (the 64-row tile, twice over, measured
+# ahead of the 128-row one at 128 rows on the H100), and the k-tile
+QMM_TILES = ((16, 128), (64, 128), (128, 128))
+QMM_MAX_ROWS = (16, 128, None)
+QMM_BK = 64
+
+# what one k-tile of a block costs, in bytes of device memory moved in the
+# same time, by kernel; fitted to split sweeps of llama-1b's shapes on an
+# H100 (scripts/torch_int4_split_sweep.py, PERF.md)
+KTILE_BYTES = {"int4_matmul": 5e6, "int8_matmul": 10e6, "int4_matmul_w4a8": 5e6}
 
 
-class Int4Plan(NamedTuple):
-    variant: int     # index into INT4_TILES
+class MatmulPlan(NamedTuple):
+    variant: int     # index into QMM_TILES
     splits: int      # K is cut into this many ranges of whole k-tiles
     grid: int        # blocks of the GEMM launch: output tiles x splits
-    workspace: int   # f32 elements of partial sums (0 when not split)
+    workspace: int   # 4-byte elements of partial sums (0 when not split)
 
 
 @functools.lru_cache(maxsize=None)
-def int4_matmul_plan(m: int, n: int, k: int, sms: int) -> Int4Plan:
-    """Tile variant and split of K for ``int4_matmul`` on a card of
-    ``sms`` SMs. The tile is the smallest that holds the rows. Where the
-    output tiles alone fall short of one block per SM, K is split into
-    S ranges of whole k-tiles (split ``s`` of KT k-tiles takes
-    [s KT / S, (s + 1) KT / S)), S chosen among the splits that give
-    every SM a block: the
+def matmul_plan(kernel: str, m: int, n: int, k: int, sms: int) -> MatmulPlan:
+    """Tile variant and split of K for ``kernel`` (a key of
+    ``KTILE_BYTES``) on a card of ``sms`` SMs. The tile is the first
+    whose ``QMM_MAX_ROWS`` holds the rows. K is cut into S ranges of
+    whole k-tiles (split ``s`` of KT k-tiles takes [s KT / S,
+    (s + 1) KT / S)), S chosen among the splits that give every SM a
+    block (output tiles x S >= sms; S = 1 where the tiles alone do): the
     least time on the busiest SM, counted in k-tiles of one block (blocks
     are dealt out one per SM a round, so it runs ceil(tiles S / sms)
     blocks of ceil(KT / S) k-tiles and about two k-tiles' worth of
     start-up each), plus what each further split's partial sums cost to
-    write and read back (8 bytes an output; a k-tile of a block takes
-    about as long as 5 MB of device memory). The constants are fitted to
-    split sweeps of llama-1b's shapes on an H100 (PERF.md)."""
-    variant = next(i for i, (bm, _) in enumerate(INT4_TILES)
-                   if m <= bm or i == len(INT4_TILES) - 1)
-    bm, bn = INT4_TILES[variant]
+    write and read back (8 bytes an output, against the kernel's
+    ``KTILE_BYTES``)."""
+    variant = next(i for i, rows in enumerate(QMM_MAX_ROWS) if rows is None or m <= rows)
+    bm, bn = QMM_TILES[variant]
     tiles = math.ceil(m / bm) * math.ceil(n / bn)
-    ktiles = math.ceil(k / INT4_BK)
-    splits = 1
-    if tiles < sms:
-        reduce = m * n * 8 / 5e6
+    ktiles = math.ceil(k / QMM_BK)
+    reduce = m * n * 8 / KTILE_BYTES[kernel]
 
-        def cost(s):
-            return math.ceil(tiles * s / sms) * (math.ceil(ktiles / s) + 2) + (s - 1) * reduce
+    def cost(s):
+        return math.ceil(tiles * s / sms) * (math.ceil(ktiles / s) + 2) + (s - 1) * reduce
 
-        fill = [s for s in range(2, ktiles + 1) if tiles * s >= sms] or [ktiles]
-        splits = min(fill, key=lambda s: (cost(s), s))
-    return Int4Plan(variant, splits, tiles * splits, splits * m * n if splits > 1 else 0)
+    fill = [s for s in range(1, ktiles + 1) if tiles * s >= sms] or [ktiles]
+    splits = min(fill, key=lambda s: (cost(s), s))
+    return MatmulPlan(variant, splits, tiles * splits, splits * m * n if splits > 1 else 0)
+
+
+def _plan_and_workspace(kernel: str, m: int, n: int, k: int, device, dtype):
+    """The launch plan of ``kernel`` and its split workspace (None when K
+    is not split), allocated on the current stream like the output."""
+    plan = matmul_plan(kernel, m, n, k, _sm_count(device))
+    ws = torch.empty(plan.workspace, dtype=dtype, device=device) if plan.workspace else None
+    return plan, ws
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 _sms = {}
@@ -143,12 +158,9 @@ def int4_matmul(x: torch.Tensor, w_p4: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    plan = int4_matmul_plan(m, n, k, _sm_count(x.device))
-    ws = (torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
-          if plan.workspace else None)
+    plan, ws = _plan_and_workspace("int4_matmul", m, n, k, x.device, torch.float32)
     rc = _bound("int4_matmul", "sis_int4_matmul", 5, 6)(
-        x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        ws.data_ptr() if ws is not None else None, m, n, k,
+        x.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(), _ptr(ws), m, n, k,
         _build.BF16 if x.dtype == torch.bfloat16 else _build.F32, plan.variant, plan.splits,
         _build.stream_ptr(x))
     _build.check(rc, "int4_matmul")
@@ -185,9 +197,11 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor) -> torc
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0:
         return y
-    rc = _bound("int8_matmul", "sis_int8_matmul")(
-        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), m, n, k,
-        _build.BF16 if x.dtype == torch.bfloat16 else _build.F32, _build.stream_ptr(x))
+    plan, ws = _plan_and_workspace("int8_matmul", m, n, k, x.device, torch.float32)
+    rc = _bound("int8_matmul", "sis_int8_matmul", 5, 6)(
+        x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), y.data_ptr(), _ptr(ws), m, n, k,
+        _build.BF16 if x.dtype == torch.bfloat16 else _build.F32, plan.variant, plan.splits,
+        _build.stream_ptr(x))
     _build.check(rc, "int8_matmul")
     launches["int8_matmul"] += 1
     return y
@@ -228,16 +242,17 @@ def int4_matmul_w4a8(x_q: torch.Tensor, x_scale: torch.Tensor,
     y = torch.empty((m, n), dtype=torch.float32, device=x_q.device)
     if m == 0:
         return y
-    rc = _bound("int4_matmul_w4a8", "sis_int4_matmul_w4a8", 5, 3)(
+    plan, ws = _plan_and_workspace("int4_matmul_w4a8", m, n, k, x_q.device, torch.int32)
+    rc = _bound("int4_matmul_w4a8", "sis_int4_matmul_w4a8", 6, 5)(
         x_q.data_ptr(), x_scale.data_ptr(), w_p4.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        m, n, k, _build.stream_ptr(x_q))
+        _ptr(ws), m, n, k, plan.variant, plan.splits, _build.stream_ptr(x_q))
     _build.check(rc, "int4_matmul_w4a8")
     launches["int4_matmul_w4a8"] += 1
     return y
 
 
 __all__ = [
-    "INT4_BK", "INT4_TILES", "Int4Plan", "int4_matmul", "int4_matmul_plain",
-    "int4_matmul_plan", "int8_matmul", "int8_matmul_plain",
+    "KTILE_BYTES", "MatmulPlan", "QMM_BK", "QMM_MAX_ROWS", "QMM_TILES", "int4_matmul", "int4_matmul_plain",
+    "matmul_plan", "int8_matmul", "int8_matmul_plain",
     "int4_matmul_w4a8", "int4_matmul_w4a8_plain", "launches",
 ]

@@ -60,6 +60,10 @@ def set_w8a8(enabled: bool) -> None:
     _W8A8 = bool(enabled)
 
 
+def w8a8_enabled() -> bool:
+    return _W8A8
+
+
 def resolve_weight(w, dtype=torch.bfloat16) -> torch.Tensor:
     """Materialize a (possibly quantized/packed) weight at compute dtype."""
     if is_packed_int4_leaf(w):

@@ -33,7 +33,9 @@ The ``*_plain`` functions beside them compute the same function in plain
 PyTorch: CPU tensors take them, and on the card they are only the
 references the kernels are checked against.
 Layouts are the JAX package's: q ``[B, T, Hq, D]`` / ``[C, Hq, D]``, K/V
-with ``Hkv`` heads and no GQA repeats.
+with ``Hkv`` heads and no GQA repeats. The causal and chunked kernels
+take head_dim 32 (llama-tiny), 64 and 128, the encoder kernel 64 and
+128; another head_dim raises in the wrapper.
 """
 
 from __future__ import annotations
@@ -59,11 +61,17 @@ def _bound(name: str, symbol: str, n_ptrs: int, n_ints: int):
     return fn
 
 
-def _check_kernel_args(q, rep: int, d: int, what: str) -> None:
+# head dims each kernel is instantiated for; any other raises in the
+# wrapper (there is no plain fallback on the card)
+PREFILL_HEAD_DIMS = (32, 64, 128)
+ENCODER_HEAD_DIMS = (64, 128)
+
+
+def _check_kernel_args(q, rep: int, d: int, what: str, dims=PREFILL_HEAD_DIMS) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} takes f32 or bf16, got {q.dtype}")
-    if d not in (64, 128) or 128 % rep:
-        raise ValueError(f"{what} kernel needs D in (64, 128) and rep dividing 128 "
+    if d not in dims or 128 % rep:
+        raise ValueError(f"{what} kernel needs D in {dims} and rep dividing 128 "
                          f"(D={d}, rep={rep})")
 
 
@@ -186,7 +194,7 @@ def bidirectional_attention(q, k, v, key_bias, rep: int = 1, out_dtype=None) -> 
     out_dtype = out_dtype or q.dtype
     if not q.is_cuda:
         return bidirectional_attention_plain(q, k, v, key_bias, rep, out_dtype)
-    _check_kernel_args(q, rep, d, "bidirectional_attention")
+    _check_kernel_args(q, rep, d, "bidirectional_attention", ENCODER_HEAD_DIMS)
     q, k, v = (a.to(q.dtype).contiguous() for a in (q, k, v))
     bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)

@@ -44,8 +44,12 @@ Differences from the JAX engine:
 
 - PyTorch runs eagerly; there is no jit, no donation (the caches are
   updated in place, see models/decoder.py) and no executable per bucket.
-  Work is ordered by the CUDA stream: a block chained off the carry,
-  a prefill, a release's length reset run in the order they were
+  The one compiled program is the greedy decode block: on the card it is
+  a CUDA graph of ``_decode_and_sample``, captured once per engine and
+  replayed for every block of a snapshot with no sampled slot
+  (``_GreedyBlock``). Sampled blocks, verify windows and prefills run
+  eagerly. Work is ordered by the CUDA stream: a block chained off the
+  carry, a prefill, a release's length reset run in the order they were
   dispatched, as the JAX programs did.
 - After a failure (a fetch past its deadline, an error in a step) the
   loop fails every open request and keeps running, where the JAX
@@ -75,7 +79,7 @@ from ..models.paged_decoder import (
     set_table_row,
 )
 from ..models.registry import resolve_device
-from ..ops import nn
+from ..ops import _build, nn
 from ..ops.quant import pack_int4_tree
 from ..utils.clock import now_s
 from ..utils.logger import get_logger
@@ -186,6 +190,119 @@ def _copy_slot_rows(cache, src: int, dst: int) -> None:
     for leaves in (cache.k, cache.v, cache.k_scale, cache.v_scale):
         for a in leaves:
             a[dst] = a[src]
+
+
+class _GreedyBlock:
+    """The greedy decode block, ``_decode_and_sample`` of a snapshot with
+    no sampled slot, on static buffers the engine owns: each block's
+    inputs (ids, alive, progress, eos, limit) are copied into them on the
+    stream, and the block leaves its carry (next ids, progress, alive) in
+    the same buffers, so a chained block reads the previous one's carry
+    where it lies. The records of the blocks in flight alias these
+    buffers; only the newest record's carry is ever read (to chain), and
+    each block's tokens are copied to the host on the stream before the
+    next block runs.
+
+    On the card the body is captured once as a CUDA graph and every block
+    is one replay of it: the counterpart of the JAX engine's jitted
+    ``fori_loop``, one launch where the eager body enqueues ~1,600 a step.
+    The capture is preceded by one eager run of the body with no slot
+    alive (it builds and loads the kernel libraries and the plans, and
+    changes no cache row a live slot reads: dead slots park their writes)
+    on a side stream, and uses one private memory pool. A kernel wrapper
+    counts its launches in Python, which a replay does not run: the counts
+    made while capturing are moved to each replay. The graph is captured
+    again if the kernel routes or the W8A8 mode change. A failed capture
+    or replay raises; the engine then fails its open requests. On the CPU
+    the body runs eagerly on the same buffers."""
+
+    def __init__(self, device: torch.device, num_slots: int):
+        self.device = dev = device
+        s = num_slots
+        self.ids = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self.alive = torch.zeros((s,), dtype=torch.bool, device=dev)
+        self.prog = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self.eos = torch.full((s,), -1, dtype=torch.int32, device=dev)
+        self.limit = torch.zeros((s,), dtype=torch.int32, device=dev)
+        self.graph = None
+        self.key = None
+        self.tokens = None       # the graph's static output
+        self.deltas = ()         # launches per replay, by counter table
+        self.pool = None
+        self.pool_bytes = 0      # device memory the capture reserved
+        self.warmups = 0         # eager blocks with no slot alive, one before each capture
+        self.capture_s = 0.0     # host seconds spent warming up and capturing
+        self.replays = 0
+
+    def _body(self, body) -> torch.Tensor:
+        snap = {"eos_dev": self.eos, "limit_dev": self.limit, "sample": None}
+        tokens, ids, prog, alive = body(self.ids, self.alive, self.prog, snap)
+        self.ids.copy_(ids)
+        self.prog.copy_(prog)
+        self.alive.copy_(alive)
+        return tokens
+
+    def run(self, body, ids, alive, prog, eos, limit):
+        """One block of ``body`` (the engine's ``_decode_and_sample``) from
+        these inputs; returns (tokens, next ids, progress, alive), the last
+        three being the static buffers."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            key = (nn.use_kernels(self.device), nn.w8a8_enabled())
+            if self.graph is None or self.key != key:
+                self._capture(body, key)
+        for dst, src in ((self.ids, ids), (self.alive, alive), (self.prog, prog),
+                         (self.eos, eos), (self.limit, limit)):
+            if src is not dst:
+                dst.copy_(src)
+        if not cuda:
+            return self._body(body), self.ids, self.prog, self.alive
+        self.graph.replay()
+        self.replays += 1
+        for table, delta in zip(_build.launch_counters(), self.deltas):
+            for name, n in delta.items():
+                table[name] += n
+        return self.tokens, self.ids, self.prog, self.alive
+
+    def _capture(self, body, key) -> None:
+        t0 = time.perf_counter()
+        dev = self.device
+        self.graph = None
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        bufs = (self.ids, self.alive, self.prog, self.eos, self.limit)
+        saved = [b.clone() for b in bufs]  # a chained block's carry, if one is there
+        counters = _build.launch_counters()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.alive.zero_()
+            self._body(body)  # the warm-up: its launches are real and stay counted
+            self.warmups += 1
+            before = [dict(t) for t in counters]
+            reserved = torch.cuda.memory_reserved(dev)
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                tokens = self._body(body)
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture is invalid already; the body's error is the one to raise
+                raise
+            graph.capture_end()
+            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.deltas = tuple({name: t[name] - b[name] for name in t if t[name] != b[name]}
+                            for t, b in zip(counters, before))
+        for table, delta in zip(counters, self.deltas):
+            for name, n in delta.items():
+                table[name] -= n  # recorded, not launched
+        for b, v in zip(bufs, saved):
+            b.copy_(v)
+        self.graph, self.key, self.tokens = graph, key, tokens
+        self.capture_s += time.perf_counter() - t0
 
 
 class GenerationEngine:
@@ -334,6 +451,7 @@ class GenerationEngine:
         self._consumed_seq = 0
         self.fetch_timeout_s = float(fetch_timeout_s)
         self._slots: List[Optional[_SlotState]] = [None] * num_slots
+        self._greedy: Optional[_GreedyBlock] = None  # made at the first greedy block
         self._pending: deque = deque()
         self._lock = threading.Lock()
         self._work = threading.Condition(self._lock)
@@ -448,6 +566,15 @@ class GenerationEngine:
             tokens[i, :, 0] = nxt
             ids = nxt
         return tokens, ids, prog, alive
+
+    def _greedy_block(self, ids, alive, prog, snap):
+        """``_decode_and_sample`` of a greedy snapshot through the engine's
+        static buffers: one CUDA graph replay on the card (``_GreedyBlock``).
+        Returns what the body returns."""
+        if self._greedy is None:
+            self._greedy = _GreedyBlock(self.device, self.num_slots)
+        return self._greedy.run(self._decode_and_sample, ids, alive, prog, snap["eos_dev"],
+                                snap["limit_dev"])
 
     def _verify_accept(self, cur, drafts, alive, prog, snap):
         """Shared verify-and-commit of both draft sources: score the
@@ -1115,6 +1242,8 @@ class GenerationEngine:
             fn = self._prompt_lookup_block
         elif self._draft_params is not None:
             fn = self._speculative_block
+        elif snap["sample"] is None:
+            fn = self._greedy_block
         else:
             fn = self._decode_and_sample
         alive = snap["active_dev"] if alive is None else alive

@@ -74,7 +74,7 @@ def test_int4_matmul_kernel_gives_the_same_bits_twice(dev, m, k, n, split):
     """Split partial sums are added in a fixed order, never by atomics:
     two calls on the same inputs agree bit for bit, split or not."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert (mk.int4_matmul_plan(m, n, k, sms).splits > 1) == split
+    assert (mk.matmul_plan("int4_matmul", m, n, k, sms).splits > 1) == split
     g = _gen(dev, m * k)
     x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
     w4 = pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g, dtype=torch.int8))
@@ -197,6 +197,58 @@ def test_int8_matmul_kernel(dev, dtype, m, k, n):
     torch.cuda.synchronize()
     assert mk.launches["int8_matmul"] == before + 1
     _close(got, mk.int8_matmul_plain(x, wq, sc), 1e-5)
+
+
+# llama-1b's dense layers (K, N), at the rows the int8 decoder gives
+# int8_matmul (16 and 64 slots) and the W4A8 one int4_matmul_w4a8 (16,
+# and 64 / 128 beside it)
+LLAMA_1B_DENSE = {"qkv": (2048, 3072), "o": (2048, 2048), "gate_up": (2048, 11008),
+                  "down": (5504, 2048), "lm_head": (2048, 32000)}
+# ragged rows (1, 17, 63), N off 16 (no 16-byte weight rows), K off the
+# 64-deep stage, and the ResNet-18 fc
+RAGGED_QMM = [(1, 98, 257), (17, 300, 37), (63, 2000, 1000), (17, 5504, 2056), (63, 136, 130)]
+INT8_PATH = ([(m, k, n) for m in (16, 64) for k, n in LLAMA_1B_DENSE.values()]
+             + [(m, 512, 1000) for m in (1, 8, 32)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", INT8_PATH + RAGGED_QMM)
+def test_int8_matmul_tensor_cores_at_path_and_ragged_shapes(dev, dtype, m, k, n):
+    """K2 on the tensor cores at every shape of its path and at ragged
+    ones: within f32 summation order of its plain version (the products
+    are exact) and bit-equal over two calls, split or not."""
+    g = _gen(dev, 7 * m + n)
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+    wq = torch.randint(-128, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+    wq[0, : min(n, 8)] = -128  # the int8 extremes convert exactly
+    wq[1, : min(n, 8)] = 127
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
+    before = mk.launches["int8_matmul"]
+    first = mk.int8_matmul(x, wq, sc)
+    second = mk.int8_matmul(x, wq, sc)
+    torch.cuda.synchronize()
+    assert mk.launches["int8_matmul"] == before + 2
+    assert torch.equal(first, second)
+    _close(first, mk.int8_matmul_plain(x, wq, sc), 1e-5)
+
+
+@pytest.mark.parametrize("m,k,n", [(m, k, n) for m in (16, 64, 128)
+                                   for k, n in LLAMA_1B_DENSE.values()] + RAGGED_QMM)
+def test_int4_matmul_w4a8_tensor_cores_are_exact(dev, m, k, n):
+    """K6 on the tensor cores (s8 mma, int32 split partials) at the W4A8
+    decoder's shapes and ragged ones: bit-equal to the float64 plain
+    version, and over two calls."""
+    g = _gen(dev, 5 * m + k)
+    x_q = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+    sx = torch.rand(m, 1, device=dev, generator=g) * 0.05 + 1e-3
+    wi = torch.randint(-8, 8, (k, n), device=dev, generator=g, dtype=torch.int8)
+    w4 = pack_int4(wi)
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.1
+    first = mk.int4_matmul_w4a8(x_q, sx, w4, sc)
+    second = mk.int4_matmul_w4a8(x_q, sx, w4, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, mk.int4_matmul_w4a8_plain(x_q, sx, w4, sc))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -537,6 +589,180 @@ def test_chained_block_does_not_sync_the_host(dev, case, sampled):
     assert got[0].shape == got[1].shape and not np.array_equal(got[0], got[1])
 
 
+# -- the greedy decode block as one CUDA graph -------------------------------------
+#
+# Every greedy block of an engine whose block is _decode_and_sample is a
+# replay of one captured graph. Each case is an engine of llama-tiny's
+# registered widths (2 layers) at bf16 on a tree that routes its dense
+# layers through a kernel: int4 (K1) standard and flat, int8 (K2) paged,
+# and W4A8 (K6).
+
+GRAPH_CASES = {
+    "int4": (4, dict(), False, "int4_matmul"),
+    "int4_flat": (4, dict(kv_cache_layout="flat"), False, "int4_matmul"),
+    "int8_paged": (8, dict(kv_page_size=16), False, "int8_matmul"),
+    "w4a8": (4, dict(), True, "int4_matmul_w4a8"),
+}
+
+
+def _graph_engine(case, depth):
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.models import decoder as td
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.ops.quant import maybe_quantize_tree
+    from starpu_inference_server_tpu_torch.serving import generation as tgen
+    from starpu_inference_server_tpu_torch.weights import params_from_numpy
+
+    bits, kw, w8a8, _ = GRAPH_CASES[case]
+    spec = td.get_spec("llama-tiny", {"layers": 2})
+    params = maybe_quantize_tree(params_from_numpy(td.init_params(spec, np.random.default_rng(0))),
+                                 bits)
+    nn.set_w8a8(w8a8)
+    return tgen.GenerationEngine(spec, params, dtype=torch.bfloat16, device="cuda", num_slots=4,
+                                 max_len=128, prefill_buckets=[16, 32], prefill_chunk=32,
+                                 steps_per_sync=3, decode_overlap=depth > 1,
+                                 pipeline_depth=depth, **kw)
+
+
+def _graph_prompts():
+    return [[3, 7, 11, 3, 7, 11, 3], list(range(1, 41)), [5, 2, 9, 1, 13], [4, 8, 4, 8],
+            [9, 9, 2], list(range(40, 52))]
+
+
+def _admit_all(eng, n):
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.serving import generation as tgen
+
+    for p in _graph_prompts()[:n]:
+        eng.submit(tgen.GenerationRequest(prompt_ids=np.asarray(p, np.int32),
+                                          max_new_tokens=16))
+    for _ in range(8):
+        eng._admit_pending()
+    eng._land_prefills(force=True)
+    assert eng.active_count() == n
+
+
+def _cache_tensors(cache):
+    out = [cache.lengths]
+    for leaves in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        out.extend(leaves)
+    if hasattr(cache, "table"):
+        out.append(cache.table)
+    return out
+
+
+@pytest.fixture
+def w8a8_off():
+    from starpu_inference_server_tpu_torch.ops import nn
+
+    yield
+    nn.set_w8a8(False)
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_block_equals_the_eager_body(dev, w8a8_off, case, depth):
+    """``depth`` blocks (one, or one and three chained off the carry) by
+    replay, captured and replayed under sync debug mode "error", against
+    the body called eagerly on a second engine in the same state: equal
+    tokens, equal carry, equal cache bytes; each replay adds the body's
+    launches to the counters."""
+    import numpy as np
+
+    counter = GRAPH_CASES[case][3]
+    eng, ref = _graph_engine(case, depth), _graph_engine(case, depth)
+    _admit_all(eng, 4)
+    _admit_all(ref, 4)
+    snap, rsnap = eng._snapshot_active(), ref._snapshot_active()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        recs = [eng._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap)]
+        before = mk.launches[counter]
+        for chain in range(1, depth):
+            last = recs[-1]
+            recs.append(eng._dispatch_block(last["nxt"], last["prog"], snap, last["alive"],
+                                            chain))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    replayed = mk.launches[counter] - before
+    got = [eng._fetch(r["host"], r["event"]).copy() for r in recs]
+    block = eng._greedy
+    assert block.graph is not None and block.replays == depth
+    # the warm-up the engine ran before its capture: one block on its
+    # fresh buffers (ids 0) with no slot alive, whose parked writes (row
+    # t_max - 1, or garbage page 0) land in the cache too
+    zeros = torch.zeros_like(rsnap["ids_dev"])
+    ref._decode_and_sample(zeros, zeros > 0, zeros,
+                           {"eos_dev": zeros - 1, "limit_dev": zeros, "sample": None})
+    ids, alive, prog = rsnap["ids_dev"], rsnap["active_dev"], rsnap["progress_dev"]
+    want = []
+    for _ in range(depth):
+        b0 = mk.launches[counter]
+        tokens, ids, prog, alive = ref._decode_and_sample(ids, alive, prog, rsnap)
+        eager_launches = mk.launches[counter] - b0
+        want.append(tokens.cpu().numpy())
+    assert eager_launches == 3 * (4 * 2 + 1)  # steps x (four dense layers a layer + lm_head)
+    assert replayed == (depth - 1) * eager_launches
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(block.ids, ids) and torch.equal(block.prog, prog)
+    assert torch.equal(block.alive, alive)
+    for a, b in zip(_cache_tensors(eng.cache), _cache_tensors(ref.cache)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_engine_streams_equal_at_depth_1_and_4(dev, w8a8_off, case):
+    """Served greedy streams through the replayed graph, six requests on
+    four slots (slot churn, a chunked prompt): depth 4 equals depth 1,
+    and both engines replayed their graph."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.serving import generation as tgen
+
+    outs = {}
+    for depth in (1, 4):
+        eng = _graph_engine(case, depth)
+        reqs = [tgen.GenerationRequest(prompt_ids=np.asarray(p, np.int32), max_new_tokens=n)
+                for p, n in zip(_graph_prompts(), (14, 9, 17, 6, 12, 10))]
+        for r in reqs:
+            eng.submit(r)
+        eng.start()
+        try:
+            outs[depth] = [r.result(timeout=300) for r in reqs]
+        finally:
+            eng.stop()
+        assert eng._greedy.replays > 0
+    assert outs[1] == outs[4]
+    assert [len(o) for o in outs[4]] == [14, 9, 17, 6, 12, 10]
+
+
+def test_a_failed_capture_raises_and_fails_the_open_requests(dev, monkeypatch):
+    """A capture that fails raises out of the block, and the engine loop
+    fails the open requests; the body never runs eagerly in its place."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.serving import generation as tgen
+
+    eng = _graph_engine("int4", 1)
+
+    def broken(self, body, key):
+        raise RuntimeError("capture failed")
+
+    monkeypatch.setattr(tgen._GreedyBlock, "_capture", broken)
+    req = tgen.GenerationRequest(prompt_ids=np.asarray([3, 7, 11], np.int32), max_new_tokens=8)
+    eng.submit(req)
+    eng.start()
+    try:
+        with pytest.raises(RuntimeError, match="capture failed"):
+            req.result(timeout=120)
+    finally:
+        eng.stop()
+
+
 def test_engine_prefills_every_bucket_through_the_prefill_kernels(dev):
     """Off the JAX package's TPU gate: at max_len 96 with buckets 16 and 32
     and 32-token chunks, every prefill and chunk of the card's engine runs
@@ -582,11 +808,62 @@ def test_engine_prefills_every_bucket_through_the_prefill_kernels(dev):
     assert got == want
 
 
-@pytest.mark.parametrize("head_dim", [32, 96])
+def test_prefill_at_head_dim_32_runs_the_kernels(dev):
+    """llama-tiny's head_dim 32: a prefill runs causal_attention once a
+    layer and a chunk chunk_prefill_attention once a layer, each within
+    the attention limit of its plain version, at bf16 (tensor cores) and
+    f32 (CUDA cores)."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.models import decoder as td
+
+    spec = td.get_spec("llama-tiny", {"layers": 2})
+    assert spec.head_dim == 32 and spec.rep == 2
+    g = _gen(dev, 32)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (64, 100, 256):
+            q = (3 * torch.randn(1, t, spec.q_heads, 32, device=dev, generator=g)).to(dtype)
+            k = torch.randn(1, t, spec.kv_heads, 32, device=dev, generator=g).to(dtype)
+            v = torch.randn(1, t, spec.kv_heads, 32, device=dev, generator=g).to(dtype)
+            got = pa.causal_attention(q, k, v, spec.rep)
+            assert torch.equal(got, pa.causal_attention(q, k, v, spec.rep))
+            torch.cuda.synchronize()
+            assert _attn_limit(got, pa.causal_attention_plain(q, k, v, spec.rep))
+        c, tmax = 64, 256
+        k_row = torch.randint(-127, 128, (tmax, spec.kv_heads, 32), device=dev, generator=g,
+                              dtype=torch.int8)
+        v_row = torch.randint(-127, 128, (tmax, spec.kv_heads, 32), device=dev, generator=g,
+                              dtype=torch.int8)
+        ks = torch.rand(tmax, spec.kv_heads, device=dev, generator=g) * 0.01 + 0.01
+        vs = torch.rand(tmax, spec.kv_heads, device=dev, generator=g) / 127 + 1e-3
+        for start in (0, 37, 128):
+            q = (3 * torch.randn(c, spec.q_heads, 32, device=dev, generator=g)).to(dtype)
+            kc = torch.randn(c, spec.kv_heads, 32, device=dev, generator=g).to(dtype)
+            vc = torch.randn(c, spec.kv_heads, 32, device=dev, generator=g).to(dtype)
+            args = (q, k_row, v_row, ks, vs, kc, vc, start, spec.rep)
+            got = pa.chunk_prefill_attention(*args)
+            torch.cuda.synchronize()
+            assert _attn_limit(got, pa.chunk_prefill_attention_plain(*args))
+    from starpu_inference_server_tpu_torch.weights import params_from_numpy
+
+    params = params_from_numpy(td.init_params(spec, np.random.default_rng(0)), device=dev)
+    cache = td.init_cache(spec, 1, 96, device=dev)
+    before = dict(pa.launches)
+    td.prefill(spec, params, cache, torch.arange(1, 33, dtype=torch.int32, device=dev), 30, 0,
+               torch.bfloat16)
+    td.prefill_chunk(spec, params, cache, torch.arange(3, 35, dtype=torch.int32, device=dev),
+                     30, 32, 0, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert pa.launches["causal_attention"] - before["causal_attention"] == spec.layers
+    assert (pa.launches["chunk_prefill_attention"] - before["chunk_prefill_attention"]
+            == spec.layers)
+
+
+@pytest.mark.parametrize("head_dim", [48, 96])
 def test_prefill_outside_the_kernels_limits_raises(dev, head_dim):
     """On the card a prefill never turns to the plain attention: a
-    head_dim the kernels do not take (they take 64 and 128) raises in the
-    causal kernel's wrapper, and the kernel is never launched."""
+    head_dim the kernels do not take (they take 32, 64 and 128) raises in
+    the causal kernel's wrapper, and the kernel is never launched."""
     import numpy as np
 
     from starpu_inference_server_tpu_torch.models import decoder as td

@@ -242,3 +242,93 @@ def test_no_block_is_chained_past_every_slots_budget(target):
     assert out == _solo(target, [3, 7, 11], 6)
     # one prefill, then ceil((6 - 1) / 4) = 2 blocks, not the depth's 4
     assert eng._dispatch_seq == 3 and eng.steps == 8
+
+
+# -- the greedy block's static buffers -------------------------------------------
+#
+# A snapshot with no sampled slot runs its blocks through the engine's
+# static buffers (``_GreedyBlock``; on the card, one CUDA graph replay a
+# block): inputs copied in, the carry left in the same buffers, which the
+# records of chained blocks alias. On the CPU the body runs eagerly on
+# them, so the chaining is held here.
+
+LAYOUTS = {"standard": dict(), "flat": dict(kv_cache_layout="flat"),
+           "paged": dict(kv_page_size=8)}
+
+
+def _greedy_requests():
+    prompts = [[3, 7, 11, 3, 7, 11, 3], list(range(1, 31)), [5, 2, 9, 1, 13], [4, 8, 4, 8],
+               [9, 9, 2], list(range(40, 52))]
+    return [tgen.GenerationRequest(prompt_ids=np.asarray(p, np.int32), max_new_tokens=n)
+            for p, n in zip(prompts, (14, 9, 17, 6, 12, 10))]
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_greedy_streams_through_the_static_buffers_equal_depth_1(target, layout):
+    """Greedy requests only, so every block goes through the static
+    buffers: at depth 4 (three blocks chained off the buffers' carry
+    while the host commits the oldest) the streams equal depth 1's, with
+    slot churn (six requests on two slots) and a chunked prompt."""
+    kw = LAYOUTS[layout]
+    want = _serve(_engine(target, 1, **kw), _greedy_requests())
+    eng = _engine(target, 4, **kw)
+    got = _serve(eng, _greedy_requests())
+    assert got == want
+    assert [len(out) for out in got] == [14, 9, 17, 6, 12, 10]
+    assert eng._greedy is not None and eng._greedy.graph is None  # no graph on the CPU
+
+
+def _admitted(target, layout):
+    eng = _engine(target, 4, steps_per_sync=3, **LAYOUTS[layout])
+    for r in _greedy_requests()[:2]:
+        eng.submit(r)
+    eng._admit_pending()
+    while eng._prefilling is not None:  # the chunked prompt
+        eng._admit_pending()
+    eng._land_prefills(force=True)
+    assert eng.active_count() == 2
+    return eng
+
+
+def _cache_tensors(cache):
+    out = [cache.lengths]
+    for leaves in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        out.extend(leaves)
+    if hasattr(cache, "table"):
+        out.append(cache.table)
+    return out
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_chained_greedy_blocks_equal_the_body_called_directly(target, layout):
+    """Four blocks dispatched by hand, each chained off the last record's
+    carry, which is the engine's static buffers; against the body
+    (``_decode_and_sample``) called four times on a second engine in the
+    same state, on fresh tensors: equal tokens, equal carry, equal cache
+    bytes."""
+    eng, ref = _admitted(target, layout), _admitted(target, layout)
+    snap = eng._snapshot_active()
+    assert snap["sample"] is None
+    recs = [eng._dispatch_block(snap["ids_dev"], snap["progress_dev"], snap)]
+    for chain in range(1, 4):
+        last = recs[-1]
+        recs.append(eng._dispatch_block(last["nxt"], last["prog"], snap, last["alive"], chain))
+    block = eng._greedy
+    for rec in recs:
+        assert rec["nxt"] is block.ids and rec["prog"] is block.prog
+        assert rec["alive"] is block.alive
+    got = [eng._fetch(r["host"], r["event"]).copy() for r in recs]
+
+    rsnap = ref._snapshot_active()
+    ids, alive, prog = rsnap["ids_dev"], rsnap["active_dev"], rsnap["progress_dev"]
+    want = []
+    for _ in range(4):
+        tokens, ids, prog, alive = ref._decode_and_sample(ids, alive, prog, rsnap)
+        want.append(tokens.numpy().copy())
+    assert ref._greedy is None  # the body alone, no static buffers
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert torch.equal(block.ids, ids) and torch.equal(block.prog, prog)
+    assert torch.equal(block.alive, alive)
+    for a, b in zip(_cache_tensors(eng.cache), _cache_tensors(ref.cache)):
+        assert torch.equal(a, b)
