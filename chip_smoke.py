@@ -17,7 +17,10 @@ max_len 1024, int4 weights, int8 KV cache, bf16):
    with CUDA events beside the plain version, a library yardstick the
    port never calls, and the least time the card could take (bytes or
    operations); int4_matmul's device time in one decode step, summed
-   over its shapes, and its two-call bit-equality; causal_attention at
+   over its shapes, and its two-call bit-equality; decode_attention at
+   the decoder's 128 slots, at 16 (the W4A8 engine's) and at 128 slots
+   of the burst's short contexts, each printing the split count of
+   ``decode_split_plan`` and bit-equal over two calls; causal_attention at
    every prefill bucket (64 to 512) and chunk_prefill_attention at
    starts 0, 256 and 512 on their tensor-core route, each bit-equal over
    two calls;
@@ -33,7 +36,8 @@ max_len 1024, int4 weights, int8 KV cache, bf16):
    hand from one snapshot and cache twice, by the body run eagerly and by
    the graph replay (equal tokens, carry and cache bytes): each one's
    host clock beside its device span (CUDA events), device busy time
-   (torch.profiler) and launches a step, and the graph's memory pool;
+   (torch.profiler), its top kernels and the decode attention kernels'
+   share, launches a step, and the graph's memory pool;
    then sampling on the device: ``sample_tokens`` on the card against
    the same call on the CPU (equal bits, equal tokens), and 16 sampled
    requests whose streams at depth 4 equal depth 1's; then llama-tiny
@@ -73,7 +77,8 @@ depth):
    plain version), each bit-equal over two calls, with its time in one
    decode step; window_decode_attention (K9), paged_decode_attention
    (K10) and paged_window_decode_attention (K11) at the configs' shapes,
-   checked and timed as in 1;
+   checked and timed as in 1, each with its split count and bit-equal
+   over two calls;
 8. model: W4A8 llama-1b kernels on vs off (on the int4 tree of phase 1,
    built after the int4 path so each runs under its own W8A8 mode),
    launches per decode step; on one int8 tree shared by the other three
@@ -94,9 +99,10 @@ set in code on llama_decoder.yml, llama_prompt_lookup.yml and
 llama_paged.yml; full width and depth):
 
 10. kernels: the four FLAT-layout kernels (K12a-d) at the configs'
-    shapes, held against their plain versions, bit for bit against their
-    standard twins (K3, K9, K10, K11) on the same logical cache, and
-    timed beside the twins;
+    shapes (K12a at each of K3's timed shapes), held against their plain
+    versions, bit for bit against their standard twins (K3, K9, K10, K11)
+    on the same logical cache and over two calls, and timed beside the
+    twins;
 11. model: decode and verify steps, dense and paged, flat against
     standard on the same contents (equal logits), launches per step;
 12. serving: llama_decoder.yml flat on the int4 tree (its 128 requests,
@@ -112,6 +118,11 @@ decoder configs) unless stated. Requests are queued before the engine
 starts, so runs of one config admit in the same order. Every serving
 phase zeroes the launch counters just before its requests and reads them
 just after; each kernel of that path must show > 0.
+
+Every decode-side library (the eight kernels on
+``csrc/decode_mma.cuh``) prints the ptxas registers and spill bytes of
+each of its instantiations (head dim, m16 tiles), also in its entry of
+the kernels line.
 
 It prints the card's name and power limit, one ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Without CUDA, or
@@ -387,44 +398,65 @@ def kernel_phase(spec, cfg_opts, dev):
           f"at M={S}): kernel {step_ms:.4f} ms, torch.matmul bf16 (cycled) {lib_step_ms:.4f} ms")
     rows["int4_matmul"]["decode_step_ms"] = step_ms
 
-    # decode_attention at S slots (and S = 1). Logits are far from flat
-    # (k up to ~10 after its scale, q ~ N(0, 1): logit std ~4), so a wrong
-    # logit scale or softmax moves every output. S slots have mixed
-    # lengths including 0 and T - 1; the S = 1 slot attends T - 1.
-    for s in (S, 1):
-        q = torch.randn(s, hq, d, device=dev, generator=g).to(bf16)
-        kc = torch.randint(-127, 128, (s, T, hkv, d), device=dev, generator=g, dtype=torch.int8)
-        vc = torch.randint(-127, 128, (s, T, hkv, d), device=dev, generator=g, dtype=torch.int8)
-        ks = torch.rand(s, T, hkv, device=dev, generator=g) * 0.03 + 0.05
-        vs = torch.rand(s, T, hkv, device=dev, generator=g) / 127 + 1e-3
+    # decode_attention at S slots (the row), S = 1, and two more shapes of
+    # the path, each printing the split count decode_split_plan chose: S
+    # = 16 (the W4A8 engine's slots) and S slots at the burst's short
+    # contexts (80-120 positions a slot). Logits are far from flat (k up
+    # to ~10 after its scale, q ~ N(0, 1): logit std ~4), so a wrong logit
+    # scale or softmax moves every output. The row's slots have mixed
+    # lengths including 0 and T - 1; the S = 1 slot attends T - 1. Each is
+    # bit-equal over two calls. The row's cache (134 MB) is past the L2;
+    # the others are timed on cycled copies (``_copies``).
+    per_shape = []
+    for s, what in ((S, "row"), (1, "check"), (16, "w4a8 slots"), (S, "short contexts")):
         lens = torch.randint(0, T, (s,), device=dev, generator=g, dtype=torch.int32)
-        if s == 1:
+        if what == "check":
             lens[0] = T - 1
+        elif what == "short contexts":
+            lens = torch.randint(80, 121, (s,), device=dev, generator=g, dtype=torch.int32)
         else:
             lens[0], lens[1] = 0, T - 1
-        got = da.decode_attention(q, kc, vc, ks, vs, lens, rep)
-        ref = da.decode_attention_plain(q, kc, vc, ks, vs, lens, rep)
-        err = attn_check(f"decode_attention S={s} T={T}", got, ref)
-        if s != S:
-            continue
-        ms = time_ms(lambda: da.decode_attention(q, kc, vc, ks, vs, lens, rep))
-        plain_ms = time_ms(lambda: da.decode_attention_plain(q, kc, vc, ks, vs, lens, rep), iters=3)
-        kd = (kc.float() * ks[..., None]).to(bf16).transpose(1, 2)  # [S, Hkv, T, D]
-        vd = (vc.float() * vs[..., None]).to(bf16).transpose(1, 2)
-        mask = (torch.arange(T, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
-        q4 = q[:, :, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            q4, kd, vd, attn_mask=mask, enable_gqa=True))
         live = (lens.to(torch.int64) + 1).sum().item()
         nbytes = 2 * s * hq * d * 2 + live * hkv * (2 * d + 2 * 4) + 4 * s
+        copies = 1 if what in ("row", "check") else _copies(nbytes)
+        q = torch.randn(s, hq, d, device=dev, generator=g).to(bf16)
+        caches = [(torch.randint(-127, 128, (s, T, hkv, d), device=dev, generator=g,
+                                 dtype=torch.int8),
+                   torch.randint(-127, 128, (s, T, hkv, d), device=dev, generator=g,
+                                 dtype=torch.int8),
+                   torch.rand(s, T, hkv, device=dev, generator=g) * 0.03 + 0.05,
+                   torch.rand(s, T, hkv, device=dev, generator=g) / 127 + 1e-3)
+                  for _ in range(copies)]
+        got = da.decode_attention(q, *caches[0], lens, rep)
+        ref = da.decode_attention_plain(q, *caches[0], lens, rep)
+        splits = da.decode_split_plan(s, hkv, T, 1, rep, d).splits
+        err = attn_check(f"decode_attention S={s} T={T} ({what}, {splits} splits)", got, ref)
+        require(torch.equal(got, da.decode_attention(q, *caches[0], lens, rep)),
+                f"decode_attention S={s} ({what}) gave other bits on a second call")
+        if what == "check":
+            continue
+        ms = _time_cycled(lambda i: da.decode_attention(q, *caches[i], lens, rep), copies)
+        plain_ms = _time_cycled(lambda i: da.decode_attention_plain(q, *caches[i], lens, rep),
+                                copies, iters=3)
+        deq = [((kc.float() * ks[..., None]).to(bf16).transpose(1, 2),  # [S, Hkv, T, D]
+                (vc.float() * vs[..., None]).to(bf16).transpose(1, 2))
+               for kc, vc, ks, vs in caches[:_copies(2 * s * T * hkv * d * 2)]]
+        mask = (torch.arange(T, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        lib_ms = _time_cycled(lambda i: F.scaled_dot_product_attention(
+            q4, *deq[i], attn_mask=mask, enable_gqa=True), len(deq))
         b_ms, b_by = bound_ms(nbytes, 4.0 * live * hq * d)
-        print(f"time decode_attention S={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        rows["decode_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                                        shape=f"S={s} T={T} live={live}",
-                                        lengths=lens.tolist())  # K12a reuses them
-        del kc, vc, ks, vs, kd, vd
+        print(f"time decode_attention S={s} ({what}, {splits} splits): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); two calls "
+              f"bit-equal; {copies} cache copies cycled")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms, shape=f"S={s} T={T} live={live}", splits=splits,
+                   lengths=lens.tolist())  # K12a reuses them
+        per_shape.append(row)
+        if what == "row":
+            rows["decode_attention"] = row
+        del caches, deq
+    rows["decode_attention"] = dict(rows["decode_attention"], per_shape=per_shape)
 
     # causal_attention at every prefill bucket (the row: 256); q is
     # 3 x N(0, 1), so logits have std ~3 as above; each bit-equal over
@@ -798,7 +830,7 @@ def decode_block_phase(engine, card, k1_step_ms):
             ("eager", e_dispatch, e_wait, e_span, e_prof),
             ("graph", g_dispatch, g_wait, g_span, g_prof)):
         host_ms = dispatch_ms + wait_ms
-        busy_ms, line = None, ""
+        busy_ms, line, attn_ms = None, "", None
         if prof is not None:
             by_name, host = prof
             busy_ms = sum(by_name.values()) if by_name else None
@@ -812,11 +844,15 @@ def decode_block_phase(engine, card, k1_step_ms):
             if top:
                 line += ("; device ms by kernel (top 6): "
                          + json.dumps({k[:70]: round(v, 4) for k, v in top}))
+            # decode attention: csrc/decode_mma.cuh's main and merge kernels
+            attn_ms = sum(v for k, v in by_name.items()
+                          if "dmma::attend_kernel" in k or "dmma::merge_kernel" in k)
+            line += f"; decode attention (decode_mma.cuh) {attn_ms:.4f} ms in the block"
         print(f"decode block {what} on {card}: host clock {host_ms:.3f} ms ({host_ms / steps:.3f} a "
               f"step) = dispatch {dispatch_ms:.3f} + wait for the tokens {wait_ms:.3f}; device "
               f"span (CUDA events around the dispatch) {span:.3f} ms{line}")
         result[what] = dict(host_ms=host_ms, dispatch_ms=dispatch_ms, span_ms=span,
-                            busy_ms=busy_ms)
+                            busy_ms=busy_ms, attention_ms=attn_ms if prof is not None else None)
     print(f"decode block: int4_matmul per step from the kernel phase {k1_step_ms:.3f} ms")
     return result
 
@@ -1653,7 +1689,11 @@ def extras_kernel_phase(spec, dev, card=""):
                 torch.rand(s_, t_, hkv, device=dev, generator=g) / 127 + 1e-3))
         got = da.window_decode_attention(q, *caches[0], lens, rep)
         ref = da.window_decode_attention_plain(q, *caches[0], lens, rep)
-        err = attn_check(f"window_decode_attention S={s_} T={t_} W={w}", got, ref)
+        splits = da.decode_split_plan(s_, hkv, t_, w, rep, d).splits
+        err = attn_check(f"window_decode_attention S={s_} T={t_} W={w} ({splits} splits)", got,
+                         ref)
+        require(torch.equal(got, da.window_decode_attention(q, *caches[0], lens, rep)),
+                f"window_decode_attention W={w} gave other bits on a second call")
         ms = _time_cycled(lambda i: da.window_decode_attention(q, *caches[i], lens, rep),
                           len(caches))
         plain_ms = _time_cycled(
@@ -1671,11 +1711,11 @@ def extras_kernel_phase(spec, dev, card=""):
             qt, *deq[i], attn_mask=mask, enable_gqa=True), len(deq))
         attended = (last + 1).sum().item()
         b_ms, b_by = bound_ms(nbytes, 4.0 * attended * hq * d)
-        print(f"time window_decode_attention S={s_} W={w}: kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-              f" ms, sdpa (float mask) {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-              f"{len(caches)} cache copies cycled")
+        print(f"time window_decode_attention S={s_} W={w} ({splits} splits): kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa (float mask) {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); two calls bit-equal; {len(caches)} cache copies cycled")
         row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                   library_ms=lib_ms, shape=f"S={s_} W={w} T={t_} live={live}",
+                   library_ms=lib_ms, shape=f"S={s_} W={w} T={t_} live={live}", splits=splits,
                    library="scaled_dot_product_attention with a float mask",
                    copies=len(caches))
         per_shape.append(row)
@@ -1731,6 +1771,9 @@ def extras_kernel_phase(spec, dev, card=""):
         got = fn(q, kp, vp, ksp, vsp, table, lens, rep)
         require(bool(torch.isfinite(got.float()).all()),
                 f"{name} read the garbage page (non-finite output)")
+        require(torch.equal(got, fn(q, kp, vp, ksp, vsp, table, lens, rep)),
+                f"{name} gave other bits on a second call")
+        splits = da.decode_split_plan(s_, hkv, mp * page, w, rep, d).splits
         # the plain version gathers page 0 and masks it: finite scales there
         refs = []
         for kp, vp, ksp, vsp in pools:
@@ -1738,8 +1781,8 @@ def extras_kernel_phase(spec, dev, card=""):
             ks_ref[0], vs_ref[0] = 1.0, 1.0
             refs.append((kp, vp, ks_ref, vs_ref))
         ref = plain(q, *refs[0], table, lens, rep)
-        err = attn_check(f"{name} S={s_} page={page} W={w} ({crossing} windows cross a page)",
-                         got, ref)
+        err = attn_check(f"{name} S={s_} page={page} W={w} ({crossing} windows cross a page, "
+                         f"{splits} splits)", got, ref)
         ms = _time_cycled(lambda i: fn(q, *pools[i], table, lens, rep), len(pools))
         plain_ms = _time_cycled(lambda i: plain(q, *refs[i], table, lens, rep), len(pools),
                                 iters=3)
@@ -1762,9 +1805,9 @@ def extras_kernel_phase(spec, dev, card=""):
         b_ms, b_by = bound_ms(nbytes, 4.0 * attended * hq * d)
         print(f"time {name} S={s_} W={w}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"gather + dequantize + sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
-              f"{len(pools)} pool copies cycled")
+              f"two calls bit-equal; {len(pools)} pool copies cycled")
         rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=lib_ms,
+                          library_ms=lib_ms, splits=splits,
                           shape=f"S={s_} W={w} page={page} pool={n_pages} live={live}",
                           library="no one call; sequence gather + dequantize + "
                                   "scaled_dot_product_attention", copies=len(pools))
@@ -2213,6 +2256,9 @@ def extras_path(spec, int4_params, counters, card, dev):
 
 FLAT_KERNELS = ("flat_decode_attention", "flat_window_decode_attention",
                 "flat_paged_decode_attention", "flat_paged_window_decode_attention")
+# the eight kernels on csrc/decode_mma.cuh
+DECODE_SIDE = ("decode_attention", "window_decode_attention", "paged_decode_attention",
+               "paged_window_decode_attention") + FLAT_KERNELS
 
 
 def _flat_of(k, v, ks, vs):
@@ -2238,6 +2284,7 @@ def _flat_row(name, q, std, tail, nbytes, flops, library, lib_fn, shape, garbage
     want = twin(q, *std[0], *tail)
     torch.cuda.synchronize()
     require(torch.equal(got, want), f"{name} is not bit-equal to {twin_name} on the same cache")
+    require(torch.equal(got, fn(q, *flat[0], *tail)), f"{name} gave other bits on a second call")
     refs = flat
     if garbage_page:
         require(bool(torch.isfinite(got.float()).all()),
@@ -2256,20 +2303,22 @@ def _flat_row(name, q, std, tail, nbytes, flops, library, lib_fn, shape, garbage
     b_ms, b_by = bound_ms(nbytes, flops)
     print(f"time {name} {shape}: kernel {ms:.4f} ms, its standard twin {twin_name} {twin_ms:.4f} "
           f"ms in this call, plain {plain_ms:.4f} ms, {library} {lib_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by}); bit-equal to the twin; {n} copies cycled")
+          f"{b_ms:.4f} ms ({b_by}); bit-equal to the twin and over two calls; {n} copies cycled")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=lib_ms, shape=shape, library=library, twin=twin_name,
                 twin_ms=twin_ms, bit_equal_to_twin=True, copies=n)
 
 
 def flat_kernel_phase(spec, k3_lengths, dev):
-    """K12a-d at the shapes their configs give them: K12a at
-    llama_decoder.yml's S = 128, T = 1024 with the K3 row's live lengths,
-    K12b at S = 16 with W = 5 and 9, K12c and K12d at llama_paged.yml's S =
+    """K12a-d at the shapes their configs give them: K12a at the lengths of
+    each timed K3 shape (``k3_lengths``, llama_decoder.yml's S = 128 row
+    first), K12b at S = 16 with W = 5 and 9, K12c and K12d at llama_paged.yml's S =
     64, pages of 256, a pool of 129 (page 0 NaN). The bytes and the
     library yardsticks are their standard twins'."""
     import torch
     import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
 
     g = torch.Generator(device=dev).manual_seed(4343)
     bf16 = torch.bfloat16
@@ -2288,21 +2337,28 @@ def flat_kernel_phase(spec, k3_lengths, dev):
         return ((kc.float() * ks[..., None]).to(bf16).transpose(1, 2),
                 (vc.float() * vs[..., None]).to(bf16).transpose(1, 2))
 
-    # K12a
-    s_, t_ = len(k3_lengths), 1024
-    lens = torch.tensor(k3_lengths, dtype=torch.int32, device=dev)
-    live = int((lens.to(torch.int64) + 1).sum())
-    nbytes = 2 * s_ * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_
-    caches = [dense_cache(s_, t_) for _ in range(_copies(nbytes))]
-    q = torch.randn(s_, hq, d, device=dev, generator=g).to(bf16)
-    kd, vd = deq(*caches[0])
-    mask = (torch.arange(t_, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
-    rows["flat_decode_attention"] = _flat_row(
-        "flat_decode_attention", q, caches, (lens, rep), nbytes, 4.0 * live * hq * d,
-        "sdpa on the dequantized cache", lambda: time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], kd, vd, attn_mask=mask, enable_gqa=True)),
-        f"S={s_} T={t_} live={live}")
-    del caches, kd, vd
+    # K12a at each of K3's timed shapes (the row first), with its lengths
+    t_ = 1024
+    per_shape = []
+    for lengths in k3_lengths:
+        s_ = len(lengths)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        live = int((lens.to(torch.int64) + 1).sum())
+        nbytes = 2 * s_ * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s_
+        caches = [dense_cache(s_, t_) for _ in range(_copies(nbytes))]
+        q = torch.randn(s_, hq, d, device=dev, generator=g).to(bf16)
+        dq = [deq(*c) for c in caches[:_copies(2 * s_ * t_ * hkv * d * 2)]]
+        mask = (torch.arange(t_, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+        splits = da.decode_split_plan(s_, hkv, t_, 1, rep, d).splits
+        row = _flat_row(
+            "flat_decode_attention", q, caches, (lens, rep), nbytes, 4.0 * live * hq * d,
+            "sdpa on the dequantized cache", lambda: _time_cycled(
+                lambda i: F.scaled_dot_product_attention(
+                    q[:, :, None, :], *dq[i], attn_mask=mask, enable_gqa=True), len(dq)),
+            f"S={s_} T={t_} live={live} ({splits} splits)")
+        per_shape.append(dict(row, splits=splits))
+        del caches, dq
+    rows["flat_decode_attention"] = dict(per_shape[0], per_shape=per_shape)
 
     # K12b
     s_, t_ = 16, 1024
@@ -2320,12 +2376,14 @@ def flat_kernel_phase(spec, k3_lengths, dev):
         mask = mask[:, None].to(bf16)
         qt = q.transpose(1, 2)
         dq = [deq(*c) for c in caches[:_copies(2 * s_ * t_ * hkv * d * 2)]]
+        splits = da.decode_split_plan(s_, hkv, t_, w, rep, d).splits
         row = _flat_row(
             "flat_window_decode_attention", q, caches, (lens, rep), nbytes,
             4.0 * int((last + 1).sum()) * hq * d, "sdpa (float mask) on the dequantized cache",
             lambda: _time_cycled(lambda i: F.scaled_dot_product_attention(
                 qt, *dq[i], attn_mask=mask, enable_gqa=True), len(dq)),
-            f"S={s_} W={w} T={t_} live={live}")
+            f"S={s_} W={w} T={t_} live={live} ({splits} splits)")
+        row["splits"] = splits
         per_shape.append(row)
         if w == 5:
             rows["flat_window_decode_attention"] = dict(row, per_shape=per_shape)
@@ -2374,11 +2432,13 @@ def flat_kernel_phase(spec, k3_lengths, dev):
             return F.scaled_dot_product_attention(q4, kd.transpose(1, 2), vd.transpose(1, 2),
                                                   attn_mask=mask, enable_gqa=True)
 
-        rows[name] = _flat_row(
+        splits = da.decode_split_plan(s_, hkv, mp * page, w, rep, d).splits
+        rows[name] = dict(_flat_row(
             name, q, pools, (table, lens, rep), nbytes, 4.0 * int((last + 1).sum()) * hq * d,
             "no one call; sequence gather + dequantize + sdpa",
             lambda: _time_cycled(sequence, len(finite)),
-            f"S={s_} W={w} page={page} pool={n_pages} live={live}", garbage_page=True)
+            f"S={s_} W={w} page={page} pool={n_pages} live={live} ({splits} splits)",
+            garbage_page=True), splits=splits)
         del pools, finite
     torch.cuda.empty_cache()
     return rows
@@ -2592,20 +2652,29 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     reports = _build.build_all()
+    ptxas = {}
     print(f"build: {len(_build.KERNELS)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():  # ptxas -v: registers and spills of each library
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", report))
         print(f"ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers, "
               f"{spills} bytes of spill stores")
-        if name in ("causal_attention", "chunk_prefill_attention", "bidirectional_attention"):
+        if name in ("causal_attention", "chunk_prefill_attention", "bidirectional_attention",
+                    *DECODE_SIDE):
             # the attention libraries by route: the bf16 tensor-core kernels
-            # (``*_mma``) and the f32 CUDA-core ones
+            # (``*_mma``; ``sis::dmma`` for the decode side) and the f32
+            # CUDA-core ones
             for route, tc in (("tensor-core (bf16)", True), ("CUDA-core (f32)", False)):
-                ks = [k for k in _ptxas_kernels(report) if ("_mma" in k[0]) == tc]
+                ks = [k for k in _ptxas_kernels(report) if ("mma" in k[0]) == tc]
                 print(f"ptxas {name} {route}: {len(ks)} kernels, registers "
                       f"{min((k[1] for k in ks), default=0)}-{max((k[1] for k in ks), default=0)}, "
                       f"spill stores {sum(k[2] for k in ks)} bytes")
+        if name in DECODE_SIDE:  # each instantiation of decode_mma.cuh: head dim, m16 tiles
+            ptxas[name] = {f"D{m[1]}_MT{m[2]}": [regs_, spill]
+                           for k, regs_, spill in _ptxas_kernels(report)
+                           for m in [re.search(r"attend_kernelILi(\d+)ELi(\d+)E", k)] if m}
+            print(f"ptxas {name} decode_mma.cuh [registers, spill store bytes]: "
+                  f"{json.dumps(ptxas[name])}")
 
     cfg = load_config(str(CONFIG))
     t0 = time.perf_counter()
@@ -2617,7 +2686,8 @@ def main() -> int:
     rows = kernel_phase(engine.spec, cfg.model.options, dev)
     per_step = model_phase(engine, dev, counters)
     launches, dec_prompts, dec_outs = serving_phase(engine, counters, card)
-    decode_block_phase(engine, card, rows["int4_matmul"]["decode_step_ms"])
+    block = decode_block_phase(engine, card, rows["int4_matmul"]["decode_step_ms"])
+    rows["decode_attention"]["graph_block_ms"] = block["graph"]["attention_ms"]
     spec, int4_params = engine.spec, engine.params  # the W4A8 path reuses the int4 tree
     del engine
     torch.cuda.empty_cache()
@@ -2637,7 +2707,9 @@ def main() -> int:
     extra_launches, extra_step, ctx = extras_path(spec, int4_params, counters, card, dev)
     launches.update(extra_launches)
 
-    rows.update(flat_kernel_phase(spec, rows["decode_attention"]["lengths"], dev))
+    k3 = rows["decode_attention"]
+    k3.pop("lengths")
+    rows.update(flat_kernel_phase(spec, [r.pop("lengths") for r in k3["per_shape"]], dev))
     extra_step.update(flat_step_phase(spec, ctx["params"], counters, dev))
     launches.update(flat_path(int4_params, (dec_prompts, dec_outs), ctx, counters, card, dev))
 
@@ -2665,6 +2737,10 @@ def main() -> int:
         else:
             forward = bert_forward if name in BERT_KERNELS else resnet_forward
             extra = {"launches_per_forward": forward[name], "library": r["library"]}
+        if name in DECODE_SIDE:
+            extra.update(splits=r.get("splits"), ptxas=ptxas.get(name, "built before this run"))
+            if name == "decode_attention":
+                extra["graph_block_ms"] = r["graph_block_ms"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",

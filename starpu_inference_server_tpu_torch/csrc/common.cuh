@@ -67,6 +67,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred
                "l"(src), "r"(pred ? 16 : 0));
 }
 
+// 4 bytes global -> shared (a strided f32 scale); zero-filled when `pred`
+// is false
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -245,10 +252,11 @@ struct PagedRows {
 };
 
 // ---------------------------------------------------------------------------
-// Decode attention over the dense int8 KV cache: the body shared by
-// decode_attention (standard layout) and flat_decode_attention (FLAT).
+// Decode attention over the dense int8 KV cache, f32 route: the body
+// shared by decode_attention (standard layout) and flat_decode_attention
+// (FLAT) for f32 queries (the bf16 route is decode_mma.cuh).
 //
-//   q / out [S, Hq, D] (bf16 or f32); k / v and their scales addressed by
+//   q / out [S, Hq, D] f32; k / v and their scales addressed by
 //   `rows` (DenseRows); lengths int32 [S]: slot s attends positions
 //   0..lengths[s] (the new token sits at lengths[s]). GQA: query head
 //   h*rep + r reads KV head h; nothing is repeated.
@@ -280,11 +288,11 @@ inline size_t decode_smem_bytes(int rep, int D) {
          sizeof(float) * ((size_t)rep * D + (size_t)rep * kDecCH + kDecCH + 3 * (size_t)rep);
 }
 
-template <typename TQ, typename Rows>
+template <typename Rows>
 __device__ __forceinline__ void decode_attention_body(
-    const TQ* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+    const float* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
-    const int* __restrict__ lengths, TQ* __restrict__ out, Rows rows, int T, int Hkv, int rep,
+    const int* __restrict__ lengths, float* __restrict__ out, Rows rows, int T, int Hkv, int rep,
     int D, float inv_sqrt_d) {
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* v_s = reinterpret_cast<int8_t*>(smem);          // [CH][D]
@@ -306,7 +314,7 @@ __device__ __forceinline__ void decode_attention_body(
   n = n < 1 ? 1 : (n > T ? T : n);
 
   const size_t q_base = ((size_t)s * hq + (size_t)h * rep) * D;
-  for (int i = tid; i < rd; i += kDecCH) q_s[i] = to_f(q[q_base + i]);
+  for (int i = tid; i < rd; i += kDecCH) q_s[i] = q[q_base + i];
   if (tid < rep) {
     m_s[tid] = kNeg;
     l_s[tid] = 0.f;
@@ -407,7 +415,7 @@ __device__ __forceinline__ void decode_attention_body(
     const int o = tid + j * kDecCH;
     if (o < rd) {
       const int r = o / D;
-      out[q_base + o] = from_f<TQ>(acc[j] / fmaxf(l_s[r], 1e-30f));
+      out[q_base + o] = acc[j] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }
@@ -423,13 +431,14 @@ inline int launch_decode(Kernel kernel, int S, int Hkv, int rep, int D, cudaStre
 }
 
 // ---------------------------------------------------------------------------
-// Window attention over the int8 KV cache: the body shared by
+// Window attention over the int8 KV cache, f32 route (the bf16 route of
+// all six kernels is decode_mma.cuh): the body shared by
 // window_decode_attention (dense cache, W query rows per slot),
 // paged_decode_attention (page table, W = 1),
 // paged_window_decode_attention (page table, W rows) and their FLAT
 // twins.
 //
-//   q / out [S, W, Hq, D] (bf16 or f32); k / v and their scales addressed
+//   q / out [S, W, Hq, D] f32; k / v and their scales addressed
 //   per (slot, position, KV head) by `rows` (DenseRows or PagedRows);
 //   lengths int32 [S]. Row w of slot s sits at position lengths[s] + w and
 //   attends positions <= lengths[s] + w (the verify mask; W = 1 is the
@@ -459,11 +468,11 @@ inline bool window_shape_ok(int R, int D) {
          window_smem_bytes(R, D) <= 227 * 1024;
 }
 
-template <typename TQ, typename Rows>
+template <typename Rows>
 __device__ __forceinline__ void window_attention(
-    const TQ* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
+    const float* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
-    const int* __restrict__ lengths, TQ* __restrict__ out, Rows rows, int T, int W, int Hkv,
+    const int* __restrict__ lengths, float* __restrict__ out, Rows rows, int T, int W, int Hkv,
     int rep, int D, float inv_sqrt_d) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int R = W * rep;
@@ -490,7 +499,7 @@ __device__ __forceinline__ void window_attention(
   for (int i = tid; i < R * D; i += kWinThreads) {
     const int r = i / D;
     const int w = r / rep;
-    q_s[i] = to_f(q[(((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + i % D]);
+    q_s[i] = q[(((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + i % D];
   }
   if (tid < R) {
     m_s[tid] = kNeg;
@@ -591,7 +600,7 @@ __device__ __forceinline__ void window_attention(
       const int r = o / D;
       const int w = r / rep;
       const size_t dst = (((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + o % D;
-      out[dst] = from_f<TQ>(acc[jo] / fmaxf(l_s[r], 1e-30f));
+      out[dst] = acc[jo] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }

@@ -4,6 +4,7 @@
 //   [S, T, Hkv], lengths int32 [S]; slot s attends positions
 //   0..lengths[s] (the new token sits at lengths[s]). GQA: query head
 //   h*rep + r reads KV head h; nothing is repeated. out [S, Hq, D].
+//   ws: f32 workspace of the split partials (null with one split).
 //
 // Replaces the TPU kernels starpu_inference_server_tpu/ops/
 // decode_attention.py decode_attention (_grouped_kernel, slot-grouped
@@ -11,46 +12,47 @@
 // grouping was a fix for TPU grid-step overhead and is not needed here.
 //
 // Bound on the H100: device-memory bytes. Each step reads every live
-// slot's int8 K/V rows and their scales once; the FLOPs are ~2 per byte.
-// Design (common.cuh decode_attention_body, shared with
-// flat_decode_attention.cu): one block per (KV head, slot) serves the
-// head's `rep` query heads, so each K/V byte is read once, and the loop
-// over 128-position chunks stops at the slot's length.
+// slot's int8 K/V rows and their scales once; the operations are ~2 a
+// byte. Design: bf16 queries take decode_mma.cuh (the W = 1 case of the
+// tensor-core body shared by all eight decode-side kernels): one work
+// item per (KV head, slot, context split) serves the head's rep query
+// heads as one m16 tile, its 4 warps split the keys of each 64-position
+// tile, the int8 rows widen to bf16 in registers, and the context is
+// split over blocks when (KV head, slot) pairs alone leave the card empty
+// (ops/decode_attention.py decode_split_plan), the splits merged in
+// order by a second kernel. f32 queries keep the CUDA-core body
+// (common.cuh decode_attention_body), shared with
+// flat_decode_attention.cu.
 
-#include "common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
-template <typename TQ>
 __global__ void __launch_bounds__(sis::kDecCH)
-decode_attention_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
-                        const int8_t* __restrict__ v, const float* __restrict__ ks,
-                        const float* __restrict__ vs, const int* __restrict__ lengths,
-                        TQ* __restrict__ out, int T, int Hkv, int rep, int D,
-                        float inv_sqrt_d) {
-  sis::decode_attention_body<TQ>(q, k, v, ks, vs, lengths, out, sis::DenseRows<false>{T, Hkv},
-                                 T, Hkv, rep, D, inv_sqrt_d);
+decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
+                     const int8_t* __restrict__ v, const float* __restrict__ ks,
+                     const float* __restrict__ vs, const int* __restrict__ lengths,
+                     float* __restrict__ out, int T, int Hkv, int rep, int D, float inv_sqrt_d) {
+  sis::decode_attention_body(q, k, v, ks, vs, lengths, out, sis::DenseRows<false>{T, Hkv}, T,
+                             Hkv, rep, D, inv_sqrt_d);
 }
 
 }  // namespace
 
 extern "C" int sis_decode_attention(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs, const void* lengths,
-                                    void* out, int S, int T, int Hkv, int rep, int D,
-                                    int q_dtype, void* stream) {
+                                    void* out, void* ws, int S, int T, int Hkv, int rep, int D,
+                                    int q_dtype, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float inv = 1.f / sqrtf(static_cast<float>(D));
   if (q_dtype == sis::kBF16) {
-    return sis::launch_decode(
-        decode_attention_kernel<__nv_bfloat16>, S, Hkv, rep, D, st,
-        static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-        static_cast<const int8_t*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(lengths),
-        static_cast<__nv_bfloat16*>(out), T, Hkv, rep, D, inv);
+    return sis::dmma::launch(
+        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, 1, Hkv, rep, D, splits),
+        sis::DenseRows<false>{T, Hkv}, S, st);
   }
   return sis::launch_decode(
-      decode_attention_kernel<float>, S, Hkv, rep, D, st, static_cast<const float*>(q),
+      decode_attention_f32, S, Hkv, rep, D, st, static_cast<const float*>(q),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(lengths), static_cast<float*>(out), T, Hkv, rep, D, inv);
+      static_cast<const int*>(lengths), static_cast<float*>(out), T, Hkv, rep, D,
+      1.f / sqrtf(static_cast<float>(D)));
 }

@@ -4,63 +4,53 @@
 //   q [S, W, Hq, D] (bf16 or f32); k/v pools int8 [N, page, Hkv*D], k/v
 //   scale pools f32 [N, Hkv, page]; table int32 [S, max_pages]; lengths
 //   int32 [S]. Row w of slot s sits at logical position lengths[s] + w and
-//   attends logical positions <= lengths[s] + w. out [S, W, Hq, D].
+//   attends logical positions <= lengths[s] + w. out [S, W, Hq, D]; ws as
+//   paged_decode_attention.
 //
 // Replaces the TPU kernel starpu_inference_server_tpu/ops/
 // decode_attention.py _flat_paged_window_kernel (via
 // _flat_paged_window_decode_attention, the pallas_call at :807).
 //
 // Bound on the H100: device-memory bytes, as
-// paged_window_decode_attention. Design: that kernel's body (common.cuh
-// window_attention, one block per (KV head, slot) for all W * rep rows)
+// paged_window_decode_attention. Design: that kernel's body
+// (decode_mma.cuh for bf16 queries, common.cuh window_attention for f32)
 // with the address of PagedRows<true>. Every staged position is looked up
 // in the table on its own, so a window that crosses a page boundary needs
 // nothing special. On the same logical pool the result has
 // paged_window_decode_attention's bits.
 
-#include "common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
-template <typename TQ>
 __global__ void __launch_bounds__(sis::kWinThreads)
-flat_paged_window_decode_attention_kernel(const TQ* __restrict__ q,
-                                          const int8_t* __restrict__ k,
-                                          const int8_t* __restrict__ v,
-                                          const float* __restrict__ ks,
-                                          const float* __restrict__ vs,
-                                          const int* __restrict__ table,
-                                          const int* __restrict__ lengths,
-                                          TQ* __restrict__ out, int max_pages, int page, int W,
-                                          int Hkv, int rep, int D, float inv_sqrt_d) {
-  sis::window_attention<TQ>(q, k, v, ks, vs, lengths, out,
-                            sis::PagedRows<true>{table, max_pages, page, Hkv}, max_pages * page,
-                            W, Hkv, rep, D, inv_sqrt_d);
+flat_paged_window_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ table, const int* __restrict__ lengths, float* __restrict__ out,
+    int max_pages, int page, int W, int Hkv, int rep, int D, float inv_sqrt_d) {
+  sis::window_attention(q, k, v, ks, vs, lengths, out,
+                        sis::PagedRows<true>{table, max_pages, page, Hkv}, max_pages * page, W,
+                        Hkv, rep, D, inv_sqrt_d);
 }
 
 }  // namespace
 
 extern "C" int sis_flat_paged_window_decode_attention(
     const void* q, const void* k, const void* v, const void* ks, const void* vs,
-    const void* table, const void* lengths, void* out, int S, int max_pages, int page, int W,
-    int Hkv, int rep, int D, int q_dtype, void* stream) {
+    const void* table, const void* lengths, void* out, void* ws, int S, int max_pages,
+    int page, int W, int Hkv, int rep, int D, int q_dtype, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float inv = 1.f / sqrtf(static_cast<float>(D));
-  const int R = W * rep;
+  const sis::PagedRows<true> rows{static_cast<const int*>(table), max_pages, page, Hkv};
   if (q_dtype == sis::kBF16) {
-    return sis::launch_window(
-        flat_paged_window_decode_attention_kernel<__nv_bfloat16>, S, Hkv, R, D, st,
-        static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-        static_cast<const int8_t*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(table),
-        static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), max_pages, page, W,
-        Hkv, rep, D, inv);
+    return sis::dmma::launch(sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws,
+                                                  max_pages * page, W, Hkv, rep, D, splits),
+                             rows, S, st);
   }
   return sis::launch_window(
-      flat_paged_window_decode_attention_kernel<float>, S, Hkv, R, D, st,
-      static_cast<const float*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const float*>(ks),
-      static_cast<const float*>(vs), static_cast<const int*>(table),
-      static_cast<const int*>(lengths), static_cast<float*>(out), max_pages, page, W, Hkv, rep,
-      D, inv);
+      flat_paged_window_decode_attention_f32, S,
+      Hkv, W * rep, D, st, static_cast<const float*>(q),
+      static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+      static_cast<const float*>(ks), static_cast<const float*>(vs), rows.table,
+      static_cast<const int*>(lengths), static_cast<float*>(out), max_pages, page, W, Hkv,
+      rep, D, 1.f / sqrtf(static_cast<float>(D)));
 }

@@ -5,7 +5,8 @@
 //   scale pools f32 [N, page, Hkv]; table int32 [S, max_pages] maps a
 //   slot's logical page to a pool page; lengths int32 [S]. Slot s attends
 //   logical positions 0..lengths[s]; position p lives in pool page
-//   table[s, p / page] at row p % page. out [S, Hq, D].
+//   table[s, p / page] at row p % page. out [S, Hq, D]; ws: f32 workspace
+//   of the split partials (null with one split).
 //
 // Replaces the TPU kernel starpu_inference_server_tpu/ops/
 // decode_attention.py paged_decode_attention (_paged_kernel), whose body
@@ -13,53 +14,47 @@
 // maps only.
 //
 // Bound on the H100: device-memory bytes, as the dense decode kernel: a
-// step reads the live rows of every slot's pages once. Design
-// (common.cuh window_attention with W = 1): one block per (KV head, slot)
-// serves the head's rep query heads; each staged row's address goes
-// through the table (one int32 read per position, cached), and the
-// masks are by LOGICAL position. The loop stops at lengths[s], so table
-// entries past the slot's length (page 0, the garbage page, where nothing
-// is allocated) are never read.
+// step reads the live rows of every slot's pages once. Design: the W = 1
+// case of the window body (decode_mma.cuh for bf16 queries, common.cuh
+// window_attention for f32) with PagedRows<false>: every staged row's
+// address goes through the table (one int32 read a position, cached), so
+// a 64-position tile may cross pages of any size, and the masks are by
+// LOGICAL position. Tiles stop at lengths[s], so table entries past the
+// slot's length (page 0, the garbage page, where nothing is allocated)
+// are never read.
 
-#include "common.cuh"
+#include "decode_mma.cuh"
 
 namespace {
 
-template <typename TQ>
 __global__ void __launch_bounds__(sis::kWinThreads)
-paged_decode_attention_kernel(const TQ* __restrict__ q, const int8_t* __restrict__ k,
-                              const int8_t* __restrict__ v, const float* __restrict__ ks,
-                              const float* __restrict__ vs, const int* __restrict__ table,
-                              const int* __restrict__ lengths, TQ* __restrict__ out,
-                              int max_pages, int page, int Hkv, int rep, int D,
-                              float inv_sqrt_d) {
-  sis::window_attention<TQ>(q, k, v, ks, vs, lengths, out,
-                            sis::PagedRows<false>{table, max_pages, page, Hkv}, max_pages * page,
-                            1, Hkv, rep, D, inv_sqrt_d);
+paged_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
+    const int8_t* __restrict__ v, const float* __restrict__ ks, const float* __restrict__ vs,
+    const int* __restrict__ table, const int* __restrict__ lengths, float* __restrict__ out,
+    int max_pages, int page, int W, int Hkv, int rep, int D, float inv_sqrt_d) {
+  sis::window_attention(q, k, v, ks, vs, lengths, out,
+                        sis::PagedRows<false>{table, max_pages, page, Hkv}, max_pages * page, W,
+                        Hkv, rep, D, inv_sqrt_d);
 }
 
 }  // namespace
 
-extern "C" int sis_paged_decode_attention(const void* q, const void* k, const void* v,
-                                          const void* ks, const void* vs, const void* table,
-                                          const void* lengths, void* out, int S, int max_pages,
-                                          int page, int Hkv, int rep, int D, int q_dtype,
-                                          void* stream) {
+extern "C" int sis_paged_decode_attention(
+    const void* q, const void* k, const void* v, const void* ks, const void* vs,
+    const void* table, const void* lengths, void* out, void* ws, int S, int max_pages,
+    int page, int Hkv, int rep, int D, int q_dtype, int splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float inv = 1.f / sqrtf(static_cast<float>(D));
+  const sis::PagedRows<false> rows{static_cast<const int*>(table), max_pages, page, Hkv};
   if (q_dtype == sis::kBF16) {
-    return sis::launch_window(
-        paged_decode_attention_kernel<__nv_bfloat16>, S, Hkv, rep, D, st,
-        static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-        static_cast<const int8_t*>(v), static_cast<const float*>(ks),
-        static_cast<const float*>(vs), static_cast<const int*>(table),
-        static_cast<const int*>(lengths), static_cast<__nv_bfloat16*>(out), max_pages, page,
-        Hkv, rep, D, inv);
+    return sis::dmma::launch(sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws,
+                                                  max_pages * page, 1, Hkv, rep, D, splits),
+                             rows, S, st);
   }
   return sis::launch_window(
-      paged_decode_attention_kernel<float>, S, Hkv, rep, D, st, static_cast<const float*>(q),
+      paged_decode_attention_f32, S,
+      Hkv, 1 * rep, D, st, static_cast<const float*>(q),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
-      static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(table), static_cast<const int*>(lengths),
-      static_cast<float*>(out), max_pages, page, Hkv, rep, D, inv);
+      static_cast<const float*>(ks), static_cast<const float*>(vs), rows.table,
+      static_cast<const int*>(lengths), static_cast<float*>(out), max_pages, page, 1, Hkv,
+      rep, D, 1.f / sqrtf(static_cast<float>(D)));
 }

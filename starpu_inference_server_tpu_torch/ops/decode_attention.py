@@ -35,14 +35,29 @@ flat function; each flat function reads the flat cache in place (no
 transpose, no copy), with its own entry in ``launches``.
 
 Bound on the H100: device-memory bytes (the live int8 K/V rows and
-scales, read once per call). Design: one block per (KV head, slot)
+scales, read once per call). Bodies: bf16 queries, in all eight
+kernels, run one tensor-core body, ``csrc/decode_mma.cuh`` (decode is
+its W = 1 case): a work item is one (KV head, slot, context split) and
 serves every query row of the head (``rep`` heads, times W for a
-window), so each K/V byte is read once, and the chunk loop stops at the
-last live position. Decode and its flat twin share
-``csrc/common.cuh:decode_attention_body``; the other six share
-``window_attention``; the layout is the address functor of the body
-(``DenseRows`` / ``PagedRows``, standard or flat), so a flat kernel has
-its twin's bits on the same logical cache.
+window) as m16 tiles of ``mma.sync``, so each K/V byte is read once;
+its 4 warps split the keys of each 64-position tile, the int8 rows
+widen to bf16 in registers, and tiles stop at the last live position.
+f32 queries (the FP32 witnesses) keep the CUDA-core bodies of
+``csrc/common.cuh``: ``decode_attention_body`` for K3 and its flat twin,
+``window_attention`` for the other six. The layout is the address
+functor of the body (``DenseRows`` / ``PagedRows``, standard or flat),
+so a flat kernel has its twin's bits on the same logical cache.
+
+Splits. On the bf16 route :func:`decode_split_plan` cuts the context
+into ranges of whole 64-position tiles when the (KV head, slot) pairs
+alone would leave the card short of blocks. It reads static shapes
+only, never ``lengths`` (a device tensor, new at every replay of a CUDA
+graph), so one plan serves every call of a shape. With more than one
+split each block writes its partial (max, sum, accumulator) in f32 to a
+workspace the wrapper allocates, and a second kernel of the same call
+merges the splits in split order, skipping those wholly past the
+slot's last live position: no atomics, the same bits on every call. The
+merge is part of the call and counts no launch of its own.
 
 Beside each, a ``*_plain`` function computes the same thing in plain
 PyTorch: CPU tensors take it, and on the card it is only the reference
@@ -52,11 +67,14 @@ cache as standard and calls the standard plain function.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import _build
+from .matmul_kernels import _sm_count
 
 launches = {"decode_attention": 0, "window_decode_attention": 0,
             "paged_decode_attention": 0, "paged_window_decode_attention": 0,
@@ -66,8 +84,65 @@ launches = {"decode_attention": 0, "window_decode_attention": 0,
 _fns = {}
 
 # the window kernels' limits (csrc/common.cuh: kWinThreads * kWinMaxOut
-# outputs per block)
+# outputs per block; csrc/decode_mma.cuh kMaxOut)
 _WINDOW_MAX_OUT = 16 * 256
+# the tensor-core body (csrc/decode_mma.cuh): head dims, positions a
+# staged tile, and the blocks an SM that the split plan aims for
+DECODE_HEAD_DIMS = (32, 64, 128)
+DECODE_TILE = 64
+DECODE_FILL = 2
+H100_SMS = 132
+
+
+class DecodeSplitPlan(NamedTuple):
+    splits: int     # context ranges, one block each per (KV head, slot)
+    positions: int  # L: split i owns positions [i L, (i + 1) L)
+    workspace: int  # f32 elements of the split partials (0 with one split)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_split_plan(s: int, hkv: int, t: int, w: int, rep: int, d: int,
+                      sms: int = H100_SMS) -> DecodeSplitPlan:
+    """How the bf16 decode-side kernels cut the context of ``s`` slots of
+    ``t`` positions (``hkv`` KV heads, ``w`` query rows a slot, ``rep``
+    query heads a KV head, head dim ``d``) on a card of ``sms`` SMs.
+
+    One split where the (KV head, slot) pairs already give
+    ``DECODE_FILL`` blocks an SM; else at least as many splits as make
+    up that count, at most one a 64-position tile, each a whole number of
+    tiles.
+    Static quantities only: the plan never sees ``lengths``, so a CUDA
+    graph of a call replays with any lengths. The workspace holds each
+    split's accumulator [R, D] and (max, sum) [R, 2] per (KV head, slot),
+    R = w * rep. Raises outside the body's limits (``d`` in
+    ``DECODE_HEAD_DIMS``, ``w * rep * d <= 4096``)."""
+    rows = w * rep
+    if d not in DECODE_HEAD_DIMS or rows < 1 or rows * d > _WINDOW_MAX_OUT or min(s, hkv, t) < 1:
+        raise ValueError(f"decode kernels need D in {DECODE_HEAD_DIMS} and W * rep * D <= "
+                         f"{_WINDOW_MAX_OUT} (S={s}, Hkv={hkv}, T={t}, W={w}, rep={rep}, D={d})")
+    tiles = math.ceil(t / DECODE_TILE)
+    items = s * hkv
+    want = min(tiles, math.ceil(DECODE_FILL * sms / items))
+    splits = 1 if want <= 1 else math.ceil(tiles / (tiles // want))
+    positions = DECODE_TILE * math.ceil(tiles / splits)
+    workspace = splits * items * rows * (d + 2) if splits > 1 else 0
+    return DecodeSplitPlan(splits, positions, workspace)
+
+
+def _split(q, s, hkv, t, w, rep, d):
+    """(workspace or None, split count) of a launch: the plan's on the
+    bf16 route, one split and no workspace on the f32 route. The caller
+    holds the workspace until the launch is enqueued."""
+    if q.dtype != torch.bfloat16:
+        return None, 1
+    plan = decode_split_plan(s, hkv, t, w, rep, d, _sm_count(q.device))
+    if plan.splits == 1:
+        return None, 1
+    return torch.empty(plan.workspace, dtype=torch.float32, device=q.device), plan.splits
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _bound(name: str, n_ptrs: int, n_ints: int):
@@ -94,6 +169,13 @@ def _int8_caches(name, caches):
         if a.data_ptr() % 16:
             raise ValueError(f"{name} needs 16-byte aligned K/V")
     return out
+
+
+def _aligned(q):
+    """q contiguous and 16-byte aligned (the tensor-core body loads it 16
+    bytes a thread): a view at an odd offset is copied."""
+    q = q.contiguous()
+    return q.clone() if q.data_ptr() % 16 else q
 
 
 def _check_window(name, w, rep, d) -> None:
@@ -165,12 +247,13 @@ def _decode_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
         raise ValueError(f"{name} kernel needs D % 16 == 0, rep <= 8 and "
                          f"rep * D <= 1024 (D={d}, rep={rep})")
     caches = _int8_caches(name, caches)
-    q = q.contiguous()
+    q = _aligned(q)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
-    rc = _bound(name, 7, 6)(
+    ws, splits = _split(q, s, hkv, t, 1, rep, d)
+    rc = _bound(name, 8, 7)(
         q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
-        s, t, hkv, rep, d, code, _build.stream_ptr(q))
+        _ptr(ws), s, t, hkv, rep, d, code, splits, _build.stream_ptr(q))
     return _finish(name, rc, out, out_dtype)
 
 
@@ -246,12 +329,13 @@ def _window_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
     code = _dtype_code(name, q)
     _check_window(name, w, rep, d)
     caches = _int8_caches(name, caches)
-    q = q.contiguous()
+    q = _aligned(q)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    rc = _bound(name, 7, 7)(
+    ws, splits = _split(q, s, hkv, t, w, rep, d)
+    rc = _bound(name, 8, 8)(
         q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
-        s, t, w, hkv, rep, d, code, _build.stream_ptr(q))
+        _ptr(ws), s, t, w, hkv, rep, d, code, splits, _build.stream_ptr(q))
     return _finish(name, rc, out, out_dtype)
 
 
@@ -359,14 +443,16 @@ def _paged_launch(name, q, caches, table, lengths, page, hkv, rep, out_dtype):
     code = _dtype_code(name, q)
     _check_window(name, w, rep, d)
     caches = _int8_caches(name, caches)
-    q = q.contiguous()
+    q = _aligned(q)
     table = table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    ints = (q.shape[0], table.shape[1], page) + ((w,) if window else ()) + (hkv, rep, d, code)
-    rc = _bound(name, 8, len(ints))(
+    ws, splits = _split(q, q.shape[0], hkv, table.shape[1] * page, w, rep, d)
+    ints = ((q.shape[0], table.shape[1], page) + ((w,) if window else ())
+            + (hkv, rep, d, code, splits))
+    rc = _bound(name, 9, len(ints))(
         q.data_ptr(), *(a.data_ptr() for a in caches), table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), *ints, _build.stream_ptr(q))
+        out.data_ptr(), _ptr(ws), *ints, _build.stream_ptr(q))
     return _finish(name, rc, out, out_dtype)
 
 

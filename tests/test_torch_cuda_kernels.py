@@ -16,7 +16,10 @@ W4A8 kernel exact against its float64 plain version (ragged M, N, K),
 verify windows and paged caches with shuffled tables, windows that
 cross a page and unallocated table entries past a slot's length, the
 four FLAT-layout kernels against their plain versions and bit for bit
-against their standard twins on the same logical cache, engines that
+against their standard twins on the same logical cache, the bf16 route
+of all eight decode-side kernels at split shapes (1 and 4 slots, lengths
+at tile and split edges, pages of 16, head_dim 32 and 128) bit-equal
+over two calls and as CUDA graphs replayed with other lengths, engines that
 serve through each of them, and a chained decode block that never syncs
 the host."""
 
@@ -475,6 +478,124 @@ def test_flat_kernels_match_plain_and_standard_twin(dev, dtype, case):
         ks[0], vs[0] = 1.0, 1.0  # the plain version gathers page 0 and masks it
         flat = _flat_of(k, v, ks, vs)
     _close(got, getattr(da, name + "_plain")(q, *flat, *tail), tol)
+
+
+# -- the tensor-core, split-context body (csrc/decode_mma.cuh) ----------------------
+#
+# The bf16 route of all eight decode-side kernels cuts the context into
+# splits (ops/decode_attention.py:decode_split_plan) at few slots: S = 1
+# and 4 at T = 1024 take 16 splits of 64 positions. Lengths 0, 63 and 64
+# put a slot's last live position at the edge of a tile and of a split,
+# T - W in the last one. Heads: llama-1b's (8 KV heads, rep 4, D 64),
+# llama-tiny's (D 32) and rep 8 at D 128; windows of 9 rows (4 at D 128,
+# the 4096-output limit). Paged caches use pages of 16 rows, so a tile
+# crosses four pages, with the garbage page's scales NaN.
+
+DECODE_SIDE = ("decode_attention", "window_decode_attention", "paged_decode_attention",
+               "paged_window_decode_attention", "flat_decode_attention",
+               "flat_window_decode_attention", "flat_paged_decode_attention",
+               "flat_paged_window_decode_attention")
+SPLIT_HEADS = {"d64_rep4": (8, 4, 64, 9), "d32_rep2": (4, 2, 32, 9), "d128_rep8": (1, 8, 128, 4)}
+SPLIT_T = 1024
+SPLIT_PAGE = 16
+
+
+def _split_case(dev, name, heads, lengths, seed, all_pages=False):
+    """Inputs of kernel ``name`` at T = 1024 for slots of ``lengths``:
+    (q, the caches or pools, the table or nothing). A paged slot holds
+    the pages its window reaches (all of them with ``all_pages``), the
+    rest of its table points at page 0, whose scales are NaN."""
+    hkv, rep, d, w_max = SPLIT_HEADS[heads]
+    w = w_max if "window" in name else 1
+    s = len(lengths)
+    g = _gen(dev, seed)
+    q = torch.randn(s, w, hkv * rep, d, device=dev, generator=g).to(torch.bfloat16)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    rows = (s * SPLIT_T // SPLIT_PAGE + 1, SPLIT_PAGE) if "paged" in name else (s, SPLIT_T)
+    k = torch.randint(-127, 128, (*rows, hkv, d), device=dev, generator=g, dtype=torch.int8)
+    v = torch.randint(-127, 128, (*rows, hkv, d), device=dev, generator=g, dtype=torch.int8)
+    ks = torch.rand(*rows, hkv, device=dev, generator=g) / 127 * 8
+    vs = torch.rand(*rows, hkv, device=dev, generator=g) / 127
+    tail = ()
+    if "paged" in name:
+        ks[0], vs[0] = float("nan"), float("nan")
+        mp = SPLIT_T // SPLIT_PAGE
+        perm = (torch.randperm(rows[0] - 1, device=dev, generator=g) + 1).to(torch.int32)
+        table = torch.zeros(s, mp, dtype=torch.int32, device=dev)
+        for i, n in enumerate(lengths.tolist()):
+            live = mp if all_pages else (n + w - 1) // SPLIT_PAGE + 1
+            table[i, :live] = perm[i * mp:i * mp + live]
+        tail = (table,)
+    caches = _flat_of(k, v, ks, vs) if name.startswith("flat_") else (k, v, ks, vs)
+    if w == 1:
+        q = q[:, 0]
+    return q, caches, tail, lengths, rep
+
+
+def _finite_page0(caches):
+    k, v, ks, vs = caches
+    ks, vs = ks.clone(), vs.clone()
+    ks[0], vs[0] = 1.0, 1.0
+    return k, v, ks, vs
+
+
+@pytest.mark.parametrize("s", [1, 4])
+@pytest.mark.parametrize("heads", sorted(SPLIT_HEADS))
+@pytest.mark.parametrize("name", DECODE_SIDE)
+def test_decode_side_kernels_at_split_shapes(dev, name, heads, s):
+    w = SPLIT_HEADS[heads][3] if "window" in name else 1
+    edges = [0, 63, 64, SPLIT_T - w]
+    cases = [edges] if s == 4 else [[n] for n in edges]
+    fn, plain = getattr(da, name), getattr(da, name + "_plain")
+    for lengths in cases:
+        q, caches, tail, lens, rep = _split_case(dev, name, heads, lengths, sum(lengths) + s)
+        hkv, d = SPLIT_HEADS[heads][0], SPLIT_HEADS[heads][2]
+        t = SPLIT_T
+        assert da.decode_split_plan(s, hkv, t, w, rep, d).splits == 16
+        before = da.launches[name]
+        got = fn(q, *caches, *tail, lens, rep)
+        again = fn(q, *caches, *tail, lens, rep)
+        torch.cuda.synchronize()
+        assert da.launches[name] == before + 2  # the merge kernel counts no launch
+        assert torch.equal(got, again)  # splits merged in order: the same bits
+        assert bool(torch.isfinite(got.float()).all())  # page 0 (NaN scales) never read
+        if name.startswith("flat_"):  # bit-equal to the standard twin on the same cache
+            k, v, ks, vs = caches
+            hkv = ks.shape[-2]
+            std = (da.std_kv_view(k, hkv), da.std_kv_view(v, hkv),
+                   da.std_scale_view(ks).contiguous(), da.std_scale_view(vs).contiguous())
+            assert torch.equal(got, getattr(da, name[len("flat_"):])(q, *std, *tail, lens, rep))
+        ref_caches = _finite_page0(caches) if "paged" in name else caches
+        _close(got, plain(q, *ref_caches, *tail, lens, rep), 1e-2)
+
+
+@pytest.mark.parametrize("name", DECODE_SIDE)
+def test_decode_side_kernel_graph_replays_with_other_lengths(dev, name):
+    """A CUDA graph of one call (4 slots, 16 splits: the workspace comes
+    from the graph's pool) replayed after new lengths are copied into
+    its lengths buffer gives the eager call's bits for those lengths."""
+    heads = "d64_rep4"
+    w = SPLIT_HEADS[heads][3] if "window" in name else 1
+    first, second = [0, 63, 64, SPLIT_T - w], [SPLIT_T - w, 200, 1, 700]
+    q, caches, tail, lens, rep = _split_case(dev, name, heads, first, 31, all_pages=True)
+    fn = getattr(da, name)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(q, *caches, *tail, lens, rep)  # build, bind and warm up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(q, *caches, *tail, lens, rep)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn(q, *caches, *tail, lens, rep))
+    lens.copy_(torch.tensor(second, dtype=torch.int32, device=dev))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, fn(q, *caches, *tail, lens, rep))
+    _close(out, getattr(da, name + "_plain")(q, *caches, *tail, lens, rep), 1e-2)
 
 
 # -- the engine off the TPU tiling gate --------------------------------------------
