@@ -52,12 +52,16 @@ configs/resnet18_int8.yml: ResNet-18 int8 with ``stem_fused`` set on
 in code):
 
 4. kernels: bidirectional_attention (and its two-call bit-equality)
-   and fused_stem at the path's shapes, checked and timed as in 1
-   (int8_matmul, which the ResNet fc shares with the int8 decoder, is
-   checked and timed at both paths' shapes in 7);
+   at the path's shapes, checked and timed as in 1; fused_stem at B=1,
+   4, 8 (the serving batches) and 32 (the row), f32 and bf16 output,
+   each bit-equal over two calls, timed beside the cuDNN sequence in
+   NCHW and in channels_last (int8_matmul, which the ResNet fc shares
+   with the int8 decoder, is checked and timed at both paths' shapes
+   in 7);
 5. model: BERT-base at full depth, B=16, kernels on against off;
    ResNet-18 at B=32, fused stem against the s2d stem; launches per
-   forward, and the host-clock time of one forward at two batch sizes;
+   forward, and the host-clock time of one forward at two batch sizes
+   (ResNet: with each stem, beside the device busy time);
 6. serving: the port's gRPC InferenceServer on a local port for each
    config, warmed up, answers concurrent ModelInfer calls (64 BERT
    requests with varied padding, 128 ResNet images), each response held
@@ -141,6 +145,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -726,7 +731,7 @@ def _profile_block(fn):
                       key=lambda t: -t[1])
         return by_name, host
     except Exception as exc:  # noqa: BLE001 - profiling may be unavailable on a machine
-        print(f"decode block: torch.profiler failed ({exc!r}); device busy time not measured")
+        print(f"torch.profiler failed ({exc!r}); device busy time not measured")
         return None
 
 
@@ -1126,39 +1131,58 @@ def batch_kernel_phase(dev):
         library="scaled_dot_product_attention with a float mask")
     del q, kk, v, qt, kt, vt
 
-    # fused_stem at B=1 and B=32 (the row): the padded s2d image of a
-    # random input, a folded random stem weight and a BN affine
-    for bsz in (1, 32):
+    # fused_stem at B=1, 4, 8 (the serving batches) and 32 (the row): the
+    # padded s2d image of a random input, a folded random stem weight and
+    # a BN affine; f32 and bf16 output held against the plain version, two
+    # calls bit-equal, timed beside the cuDNN sequence in NCHW and in
+    # channels_last (the faster is the row's library time)
+    per_shape = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for bsz in (1, 4, 8, 32):
         zp = torch.zeros(bsz, 118, 118, 12, device=dev)
         zp[:, 3:115, 3:115] = torch.randn(bsz, 112, 112, 12, device=dev, generator=g)
+        zp = zp.to(bf16)
         w = (torch.randn(192, 64, device=dev, generator=g) * 0.1).to(bf16)
         scale = torch.rand(64, device=dev, generator=g) + 0.5
         shift = torch.randn(64, device=dev, generator=g) * 0.1
-        got = sk.fused_stem(zp, w, scale, shift)
-        ref = sk.fused_stem_plain(zp, w, scale, shift)
-        err = attn_check(f"fused_stem B={bsz}", got, ref)
-        if bsz != 32:
-            continue
+        for out_dtype in (torch.float32, bf16):
+            got = sk.fused_stem(zp, w, scale, shift, out_dtype)
+            ref = sk.fused_stem_plain(zp, w, scale, shift, out_dtype)
+            what = "bf16" if out_dtype == bf16 else "f32"
+            err = attn_check(f"fused_stem B={bsz} {what} out", got, ref)
+            same = bool(torch.equal(got, sk.fused_stem(zp, w, scale, shift, out_dtype)))
+            print(f"kernel fused_stem B={bsz} {what} out: two calls bit-equal {same}")
+            require(same, f"fused_stem B={bsz} gave other bits on a second call")
         ms = time_ms(lambda: sk.fused_stem(zp, w, scale, shift))
         plain_ms = time_ms(lambda: sk.fused_stem_plain(zp, w, scale, shift), iters=5)
-        zb = zp.to(bf16).permute(0, 3, 1, 2).contiguous()
-        wk = w.reshape(4, 4, 12, 64).permute(3, 2, 0, 1).contiguous()
         sc4, sh4 = scale.reshape(1, -1, 1, 1).to(bf16), shift.reshape(1, -1, 1, 1).to(bf16)
+        library = {}
+        for layout, fmt in (("NCHW", torch.contiguous_format),
+                            ("channels_last", torch.channels_last)):
+            zb = zp.permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+            wk = w.reshape(4, 4, 12, 64).permute(3, 2, 0, 1).contiguous(memory_format=fmt)
 
-        def sequence():
-            y = F.conv2d(zb, wk)[:, :, :113, :113]
-            return F.max_pool2d(torch.relu(y * sc4 + sh4), kernel_size=3, stride=2)
+            def sequence(zb=zb, wk=wk):
+                y = F.conv2d(zb, wk)[:, :, :113, :113]
+                return F.max_pool2d(torch.relu(y * sc4 + sh4), kernel_size=3, stride=2)
 
-        lib_ms = time_ms(sequence)
+            library[layout] = time_ms(sequence)
+        best = min(library, key=library.get)
         nbytes = bsz * 118 * 118 * 12 * 2 + 192 * 64 * 2 + 2 * 64 * 4 + bsz * 56 * 56 * 64 * 2
         b_ms, b_by = bound_ms(nbytes, 2.0 * bsz * 112 * 112 * 192 * 64)
-        print(f"time fused_stem B={bsz}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"sequence conv2d+affine+relu+max_pool2d (bf16 cuDNN) {lib_ms:.4f} ms, "
+        print(f"time fused_stem B={bsz} (grid {sk.stem_plan(bsz, sms)}): kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, sequence conv2d+affine+relu+max_pool2d (bf16 cuDNN) NCHW "
+              f"{library['NCHW']:.4f} ms, channels_last {library['channels_last']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
-        rows["fused_stem"] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, shape=f"B={bsz} zp [118,118,12] -> [56,56,64]",
-            library="sequence, not one call: conv2d + affine + relu + max_pool2d (bf16 cuDNN)")
+        row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=library[best], shape=f"B={bsz} zp [118,118,12] -> [56,56,64]",
+                   library=f"sequence, not one call: conv2d + affine + relu + max_pool2d "
+                           f"(bf16 cuDNN, {best}, the faster of NCHW and channels_last)",
+                   library_nchw_ms=library["NCHW"], library_channels_last_ms=library[
+                       "channels_last"], grid=sk.stem_plan(bsz, sms))
+        per_shape.append(row)
+        del zp
+    rows["fused_stem"] = dict(per_shape[-1], per_shape=per_shape)
     return rows
 
 
@@ -1262,9 +1286,26 @@ def resnet_model_phase(model, options, dev, counters):
     require(agree == 1.0, "ResNet argmax differs between the fused and the s2d stem")
     require(per_forward["fused_stem"] == 1 and per_forward["int8_matmul"] == 1,
             "ResNet forward did not run fused_stem and int8_matmul once each")
-    print(f"model resnet18 int8 forward, fused stem (host clock, synchronised, median of 3): "
-          f"B=32 {forward_ms(model, {'input': x}):.2f} ms, "
-          f"B=8 {forward_ms(model, {'input': x[:8]}):.2f} ms")
+    # the forward with each stem: the host clock a batch takes, and the
+    # device busy time (torch.profiler's kernel sum), which resolves the stem
+    s2d = types.SimpleNamespace(
+        apply=lambda inputs: unfused.apply(model.params, inputs, model.compute_dtype))
+    for bsz in (32, 8):
+        inputs = {"input": x[:bsz]}
+        line = []
+        for stem, target in (("fused", model), ("s2d", s2d)):
+            host = forward_ms(target, inputs)
+
+            def run(target=target):
+                with torch.inference_mode():
+                    target.apply(inputs)
+                torch.cuda.synchronize()
+
+            prof = _profile_block(run)
+            busy = "not measured" if prof is None else f"{sum(prof[0].values()):.4f} ms"
+            line.append(f"{stem} stem host {host:.2f} ms, device busy {busy}")
+        print(f"model resnet18 int8 forward B={bsz} (host clock, synchronised, median of 3; "
+              f"device busy: torch.profiler kernel sum of one forward): " + "; ".join(line))
     return per_forward
 
 
@@ -2669,6 +2710,10 @@ def main() -> int:
                 print(f"ptxas {name} {route}: {len(ks)} kernels, registers "
                       f"{min((k[1] for k in ks), default=0)}-{max((k[1] for k in ks), default=0)}, "
                       f"spill stores {sum(k[2] for k in ks)} bytes")
+        if name == "fused_stem":  # one instantiation per output type (its template argument)
+            ptxas[name] = {("f32" if "fused_stem_kernelIf" in k else "bf16"): [regs_, spill]
+                           for k, regs_, spill in _ptxas_kernels(report)}
+            print(f"ptxas fused_stem [registers, spill store bytes]: {json.dumps(ptxas[name])}")
         if name in DECODE_SIDE:  # each instantiation of decode_mma.cuh: head dim, m16 tiles
             ptxas[name] = {f"D{m[1]}_MT{m[2]}": [regs_, spill]
                            for k, regs_, spill in _ptxas_kernels(report)
@@ -2737,6 +2782,8 @@ def main() -> int:
         else:
             forward = bert_forward if name in BERT_KERNELS else resnet_forward
             extra = {"launches_per_forward": forward[name], "library": r["library"]}
+            if name == "fused_stem":
+                extra["ptxas"] = ptxas.get(name, "built before this run")
         if name in DECODE_SIDE:
             extra.update(splits=r.get("splits"), ptxas=ptxas.get(name, "built before this run"))
             if name == "decode_attention":

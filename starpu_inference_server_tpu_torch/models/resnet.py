@@ -192,8 +192,11 @@ def _stem_space_to_depth(stem, x, dtype, layout: str = "NCHW"):
 
 def _stem_fused(stem, x, dtype, layout: str = "NCHW"):
     """The whole stem (s2d conv + BN + ReLU + 3x3/2 max pool) in the
-    ``fused_stem`` kernel, on the weights :func:`_prepare_stem` made."""
-    z = _s2d_rearrange(x, layout)
+    ``fused_stem`` kernel, on the weights :func:`_prepare_stem` made.
+    The image is rounded to bf16 first, so the rearrange and the pad
+    move half the bytes; rounding is elementwise, so the kernel reads
+    the same bits."""
+    z = _s2d_rearrange(x.to(torch.bfloat16), layout)
     zp = torch.nn.functional.pad(z, (0, 0, 3, 3, 3, 3))
     return stem_kernel.fused_stem(zp, stem["fused_w"], stem["scale"], stem["shift"],
                                   out_dtype=dtype)

@@ -8,7 +8,8 @@ weight ``w [192, 64]`` (rows ``(s, t, channel)``, see
 ``models/resnet.py:_stem_fused``) and returns the pooled ``[B, 56, 56,
 64]`` activation; the [B, 112, 112, 64] conv activation never reaches
 device memory. Bound on the H100: operations (308 MFLOP per image
-against 0.7 MB); design in the source.
+against 0.7 MB); the kernel is an implicit GEMM on the tensor cores,
+design in the source. :func:`stem_plan` picks its grid from the batch.
 
 :func:`fused_stem_plain` is the same function in plain PyTorch: a conv
 in f32 on bf16-rounded operands, then BN, ReLU and the pool. CPU tensors
@@ -23,12 +24,30 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
+from .decode_attention import H100_SMS
+from .matmul_kernels import _sm_count
 
 launches = {"fused_stem": 0}
 
 _fns = {}
 
 ZP_SHAPE = (118, 118, 12)
+
+# work items: 7 x 8 pooled outputs (all 64 channels) of one image
+STEM_ITEMS_PER_IMAGE = 8 * 7
+# blocks of the kernel resident on one SM (shared memory and registers)
+STEM_BLOCKS_PER_SM = 2
+
+
+def stem_plan(batch: int, sms: int = H100_SMS) -> int:
+    """The grid of ``fused_stem`` for ``batch`` images on a card of
+    ``sms`` SMs: one block a work item up to what the card holds at once,
+    past that a persistent grid of that many blocks, each looping over
+    every grid-th item (it stages the weight once, and the next item's
+    input streams in while it computes)."""
+    if batch < 1:
+        raise ValueError(f"fused_stem plans batches of at least one image, got {batch}")
+    return min(batch * STEM_ITEMS_PER_IMAGE, STEM_BLOCKS_PER_SM * sms)
 
 
 def _check_shapes(zp, w, scale, shift) -> None:
@@ -65,6 +84,9 @@ def fused_stem(zp, w, scale, shift, out_dtype=torch.bfloat16) -> torch.Tensor:
         raise TypeError(f"fused_stem writes f32 or bf16, got {out_dtype}")
     zp = zp.to(torch.bfloat16).contiguous()
     w = w.to(device=zp.device, dtype=torch.bfloat16).contiguous()
+    if zp.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("fused_stem reads zp and w 16 bytes at a time: both must start "
+                         "16-byte aligned")
     scale = scale.to(device=zp.device, dtype=torch.float32).reshape(-1).contiguous()
     shift = shift.to(device=zp.device, dtype=torch.float32).reshape(-1).contiguous()
     b = zp.shape[0]
@@ -73,10 +95,10 @@ def fused_stem(zp, w, scale, shift, out_dtype=torch.bfloat16) -> torch.Tensor:
         return out
     fn = _fns.get("fused_stem")
     if fn is None:
-        fn = _fns["fused_stem"] = _build.bind("fused_stem", "sis_fused_stem", 5, 2)
+        fn = _fns["fused_stem"] = _build.bind("fused_stem", "sis_fused_stem", 5, 3)
     rc = fn(zp.data_ptr(), w.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
             b, _build.BF16 if out_dtype == torch.bfloat16 else _build.F32,
-            _build.stream_ptr(zp))
+            stem_plan(b, _sm_count(zp.device)), _build.stream_ptr(zp))
     _build.check(rc, "fused_stem")
     launches["fused_stem"] += 1
     return out

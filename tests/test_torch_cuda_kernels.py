@@ -294,20 +294,67 @@ def test_bidirectional_attention_bf16_padded_gives_the_same_bits_twice(dev):
     _close(first, ref, 1e-2)
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b", [1, 3])
-def test_fused_stem_kernel(dev, out_dtype, b):
+def _stem_inputs(dev, b, case="random"):
+    """K8's inputs: the padded s2d image of b images (zero margins), a
+    weight and a BN affine; "negative" shifts every conv value below 0,
+    "margins" puts large values only in the margins and the first and
+    last image rows."""
     g = _gen(dev, b)
     zp = torch.zeros(b, 118, 118, 12, device=dev)
     zp[:, 3:115, 3:115] = torch.randn(b, 112, 112, 12, device=dev, generator=g)
     w = (torch.randn(192, 64, device=dev, generator=g) * 0.1).to(torch.bfloat16)
     scale = torch.rand(64, device=dev, generator=g) + 0.5
     shift = torch.randn(64, device=dev, generator=g) * 0.1
+    if case == "negative":
+        shift -= 100.0
+    elif case == "margins":
+        edge = torch.ones(118, 118, dtype=torch.bool, device=dev)
+        edge[3:115, 3:115] = False
+        edge[[3, 114], 3:115] = True
+        zp.zero_()
+        zp[:, edge] = 50.0 * torch.randn(b, int(edge.sum()), 12, device=dev, generator=g)
+    return zp, w, scale, shift
+
+
+def _stem_check(zp, w, scale, shift, out_dtype):
+    """Two launches of K8, bit-equal, each counted once, against the plain
+    version; returns the first output."""
     torch.backends.cudnn.allow_tf32 = False
-    got = sk.fused_stem(zp, w, scale, shift, out_dtype)
+    before = sk.launches["fused_stem"]
+    first = sk.fused_stem(zp, w, scale, shift, out_dtype)
+    assert sk.launches["fused_stem"] == before + 1
+    second = sk.fused_stem(zp, w, scale, shift, out_dtype)
+    assert sk.launches["fused_stem"] == before + 2
     torch.cuda.synchronize()
-    _close(got, sk.fused_stem_plain(zp, w, scale, shift, out_dtype),
+    assert torch.equal(first, second)
+    _close(first, sk.fused_stem_plain(zp, w, scale, shift, out_dtype),
            1e-2 if out_dtype == torch.bfloat16 else 2e-5)
+    return first
+
+
+# B = 1 (56 work items), 3, 4 (one block an item), 8, 32, 33 (a
+# persistent grid of two blocks an SM, 33 images leaving a ragged last
+# round)
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 3, 4, 8, 32, 33])
+def test_fused_stem_kernel(dev, out_dtype, b):
+    out = _stem_check(*_stem_inputs(dev, b), out_dtype)
+    assert out.shape == (b, 56, 56, 64) and out.dtype == out_dtype
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["negative", "margins"])
+def test_fused_stem_kernel_edges(dev, case, out_dtype):
+    zp, w, scale, shift = _stem_inputs(dev, 3, case)
+    out = _stem_check(zp, w, scale, shift, out_dtype).float()
+    if case == "negative":
+        assert not out.any()
+    else:
+        # conv row and column -1 take no part: away from the edges the
+        # pool sees convolutions of zeros only
+        inner = torch.relu(shift).to(out_dtype).float()
+        assert out[:, :2].abs().max() > 10 * inner.abs().max()
+        assert torch.equal(out[:, 2:-1, 2:-1], inner.expand(3, 53, 53, 64))
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 64, 130), (16, 2048, 11008), (17, 98, 257),

@@ -238,20 +238,52 @@ def test_bidirectional_attention_matches_jax(rep):
 
 # -- fused_stem (K8) ----------------------------------------------------------
 
-def test_fused_stem_matches_jax():
+def _stem_inputs(case):
+    """(zp, w, scale, shift) of one K8 case, from numpy: the padded s2d
+    image of B images (zero margins), a weight and a BN affine."""
+    b = {"b1": 1, "b5": 5}.get(case, 2)
     rng = np.random.default_rng(5)
-    zp = np.zeros((2, 118, 118, 12), np.float32)
-    zp[:, 3:115, 3:115] = rng.standard_normal((2, 112, 112, 12))
+    zp = np.zeros((b, 118, 118, 12), np.float32)
+    zp[:, 3:115, 3:115] = rng.standard_normal((b, 112, 112, 12))
     w = (rng.standard_normal((192, 64)) * 0.1).astype(np.float32)
     scale = (rng.random(64) + 0.5).astype(np.float32)
     shift = (rng.standard_normal(64) * 0.1).astype(np.float32)
+    if case == "negative":
+        # every conv value is far below -shift: each pooled output is 0
+        shift -= 100.0
+    elif case == "margins":
+        # large values only in the 3-row / 3-column margins and the first
+        # and last image rows: conv row and column -1 (computed from the
+        # margin) must take no part in the pool, and the pool's own
+        # padding must act as zeros
+        zp[:] = 0.0
+        edge = np.ones((118, 118), bool)
+        edge[3:115, 3:115] = False
+        edge[[3, 114], 3:115] = True
+        zp[:, edge] = 50.0 * rng.standard_normal((b, int(edge.sum()), 12))
+    return zp, w, scale, shift
+
+
+@pytest.mark.parametrize("case", ["b2", "b1", "b5", "negative", "margins"])
+def test_fused_stem_matches_jax(case):
+    zp, w, scale, shift = _stem_inputs(case)
+    b = zp.shape[0]
     want = np.asarray(jsk.fused_stem(*(jnp.asarray(a) for a in (zp, w, scale, shift)),
                                      out_dtype=jnp.float32))
     got = tsk.fused_stem(*(_t(a) for a in (zp, w, scale, shift)), out_dtype=torch.float32)
-    assert got.shape == (2, 56, 56, 64)
+    assert got.shape == (b, 56, 56, 64)
     # bf16 operands, f32 sums in another order: far inside a bf16 ulp
     np.testing.assert_allclose(got.numpy(), want, rtol=2 ** -8, atol=1e-3)
     bf = tsk.fused_stem(*(_t(a) for a in (zp, w, scale, shift)))
     assert bf.dtype == torch.bfloat16
     np.testing.assert_allclose(bf.float().numpy(), want, rtol=2 ** -7, atol=1e-3)
+    if case == "negative":
+        assert not want.any() and not got.any() and not bf.float().any()
+    if case == "margins":
+        # the edges reach pooled rows and columns 0, 1 and 55 only; the
+        # rest pools convolutions of zeros: exactly relu(shift)
+        inner = np.broadcast_to(np.maximum(shift, 0.0), (b, 53, 53, 64))
+        assert np.abs(want[:, :2]).max() > 10 * np.abs(inner).max()
+        np.testing.assert_array_equal(want[:, 2:-1, 2:-1], inner)
+        np.testing.assert_array_equal(got.numpy()[:, 2:-1, 2:-1], inner)
     assert tsk.launches["fused_stem"] == 0

@@ -20,6 +20,7 @@ from starpu_inference_server_tpu.ops import prefill_attention as jpa
 from starpu_inference_server_tpu.ops import stem_kernel as jsk
 from starpu_inference_server_tpu.utils.config import ModelSettings as JSettings
 from starpu_inference_server_tpu.utils.config import QuantMode as JQuant
+from starpu_inference_server_tpu_torch.models import resnet
 from starpu_inference_server_tpu_torch.models.registry import build_model
 from starpu_inference_server_tpu_torch.ops import matmul_kernels as tmk
 from starpu_inference_server_tpu_torch.ops import nn as tnn
@@ -129,6 +130,36 @@ def test_fused_stem_matches_the_unfused_stem():
     rel = np.abs(got - ref) / (np.abs(ref).mean() + 1e-9)
     assert rel.mean() < 2e-3, rel.mean()
     assert (got.argmax(-1) == ref.argmax(-1)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+def test_fused_stem_glue_rounds_first_with_the_same_bits(monkeypatch, layout, dtype):
+    """``_stem_fused`` rounds the image to bf16 before the space-to-depth
+    rearrange and the pad (half the bytes through both copies). Rounding
+    is elementwise, so the kernel gets, and gives, the same bits as from
+    the f32 image rearranged, padded and rounded after."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 224, 224)).astype(np.float32))
+    if layout == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    stem = {"fused_w": torch.from_numpy(rng.standard_normal((192, 64)).astype(np.float32) * 0.1)
+            .to(torch.bfloat16),
+            "scale": torch.from_numpy(rng.random(64).astype(np.float32) + 0.5),
+            "shift": torch.from_numpy(rng.standard_normal(64).astype(np.float32) * 0.1)}
+    seen = []
+    kernel = tsk.fused_stem
+
+    def spy(zp, *args, **kwargs):
+        seen.append(zp)
+        return kernel(zp, *args, **kwargs)
+
+    monkeypatch.setattr(tsk, "fused_stem", spy)
+    got = resnet._stem_fused(stem, x, dtype, layout)
+    zp = torch.nn.functional.pad(resnet._s2d_rearrange(x, layout), (0, 0, 3, 3, 3, 3))
+    assert seen[0].dtype == torch.bfloat16 and torch.equal(seen[0], zp.to(torch.bfloat16))
+    want = tsk.fused_stem_plain(zp, stem["fused_w"], stem["scale"], stem["shift"], dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("family,options", [
