@@ -70,6 +70,23 @@ in code):
    Then two BERT witnesses, off the main path: the same model and
    requests at int8 weight-only (BF16) and unquantized at FP32, which
    show where the W8A8 model's gap to the batch-1 apply comes from.
+   The control and observability plane on these servers (each serves
+   ``/metrics`` on an ephemeral port): over the BERT burst, the
+   ``/metrics`` counter deltas equal the dispatcher's counts (jobs,
+   batches, OK statuses), ``gpu_memory_used_bytes`` equals
+   ``torch.cuda.memory_allocated`` and ``gpu_memory_total_bytes`` the
+   card's total, the congestion monitor ticked through the burst and its
+   gauges equal its last snapshot; the same burst once on a server
+   with the monitor off (batches formed and latencies side by side). On the
+   ResNet server: the 128-image burst once more on a server without
+   metrics and monitor (the cost of observability), then ModelConfig,
+   RepositoryIndex, unload (ModelInfer UNAVAILABLE, ModelReady false)
+   and load (a hot reload from the config's seed: the response for a
+   fixed image bit-equal, no tensor of the old tree alive, the
+   allocator's requested bytes back within 1 MiB), LogSettings,
+   TraceSetting around 16
+   requests (one ``batch`` trace event for each batch formed) and
+   reflection.
 
 The decoder extras (configs/llama_w4a8.yml, llama_speculative.yml,
 llama_prompt_lookup.yml, llama_paged.yml; llama-1b at full width and
@@ -95,8 +112,11 @@ depth):
    (every stream equal to the plain engine's, acceptance above a
    floor); the paged engine with 64 concurrent requests, a third sharing
    a 300-token prefix (prefix hits, no leaked page, streams against a
-   dense engine printed); the paged engine with prompt lookup set in
-   code, rigged (streams equal to the plain engine's).
+   dense engine printed), with a metrics recorder whose token, prefix
+   and TTFT families equal the engine's counts, then once without it
+   (the recorder's cost in decode seconds, every stream equal); the
+   paged engine with prompt lookup set in code, rigged
+   (streams equal to the plain engine's).
 
 The flat cache layout and overlapped dispatch (``kv_cache_layout: flat``
 set in code on llama_decoder.yml, llama_prompt_lookup.yml and
@@ -146,6 +166,7 @@ import sys
 import threading
 import time
 import types
+import weakref
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1313,13 +1334,15 @@ def resnet_model_phase(model, options, dev, counters):
 
 class LocalServer:
     """The port's InferenceServer on a local port, on its own asyncio
-    loop thread; warmup runs before it reports ready."""
+    loop thread; warmup runs before it reports ready. ``metrics_port`` is
+    set to 0: with the config's ``metrics_enabled`` every server of the
+    run serves ``/metrics`` on an ephemeral port, freed at its stop."""
 
     def __init__(self, cfg):
         from starpu_inference_server_tpu_torch.grpc.server import InferenceServer
 
-        cfg = dataclasses.replace(cfg, server=dataclasses.replace(cfg.server,
-                                                                  address="127.0.0.1:0"))
+        cfg = dataclasses.replace(cfg, metrics_port=0, server=dataclasses.replace(
+            cfg.server, address="127.0.0.1:0"))
         self.server = InferenceServer(cfg, device="cuda")
         self.ready = threading.Event()
         self.loop = asyncio.new_event_loop()
@@ -1339,8 +1362,14 @@ class LocalServer:
         self.thread.start()
         require(self.ready.wait(timeout) and self.error is None,
                 f"server {self.server.cfg.name} failed to start: {self.error!r}")
-        print(f"server {self.server.cfg.name}: built, warmed up and serving in "
-              f"{time.perf_counter() - t0:.1f} s on port {self.server.bound_port}")
+        cfg = self.server.cfg
+        require((self.server.metrics_port is not None) == cfg.metrics_enabled,
+                f"server {cfg.name}: metrics_enabled {cfg.metrics_enabled} but /metrics port "
+                f"{self.server.metrics_port}")
+        print(f"server {cfg.name}: built, warmed up and serving in "
+              f"{time.perf_counter() - t0:.1f} s on port {self.server.bound_port}; "
+              f"/metrics on port {self.server.metrics_port}; congestion monitor "
+              f"{'on' if cfg.congestion.enabled else 'off'}")
         return f"127.0.0.1:{self.server.bound_port}"
 
     def stop(self):
@@ -1401,14 +1430,21 @@ def batch_serving_phase(what, bundle, samples, output, tol, counters, path_kerne
     server = bundle.server
     target = bundle.target
     requests = [make_request(server.cfg.name, arrays, str(i)) for i, arrays in enumerate(samples)]
+    dispatcher = server.runner.dispatcher
     torch.cuda.synchronize()
     zero_counts(counters)
-    before = {size: agg["count"] for size, agg in server.runner.dispatcher.batch_stats.items()}
+    before = {size: agg["count"] for size, agg in dispatcher.batch_stats.items()}
+    done_before = dispatcher.completed_jobs
+    t_burst = time.perf_counter()
     resps, lat, wall = infer_all(target, requests)
+    burst = (t_burst, time.perf_counter())
+    # the dispatcher counts a batch just after its responses went out
+    require(dispatcher.wait_for_drain(done_before + len(requests), 30.0),
+            f"{what}: the dispatcher did not count every request")
     torch.cuda.synchronize()
     launches = read_counts(counters)
     formed = {size: int(agg["count"] - before.get(size, 0))
-              for size, agg in sorted(server.runner.dispatcher.batch_stats.items())}
+              for size, agg in sorted(dispatcher.batch_stats.items())}
     formed = {size: c for size, c in formed.items() if c}
     for name in path_kernels:
         require(launches[name] > 0, f"kernel {name} was not launched on the {what} path")
@@ -1448,7 +1484,132 @@ def batch_serving_phase(what, bundle, samples, output, tol, counters, path_kerne
     require(worst <= tol, f"{what}: a served response disagrees with a batch-1 apply")
     require(worst_elem <= 1.0, f"{what}: a served element disagrees with the batch-1 apply")
     require(argmax_ok, f"{what}: a served argmax differs from the batch-1 apply")
-    return launches
+    stats = dict(wall_s=wall, rate=len(requests) / wall, p50_ms=p50, p99_ms=p99, formed=formed,
+                 completed=dispatcher.completed_jobs - done_before, responses=resps, burst=burst)
+    return launches, stats
+
+
+# -- the control and observability plane on the batch servers ---------------
+
+# the congestion gauges and the snapshot field each one publishes
+CONGESTION_GAUGES = {
+    "inference_congestion_flag": lambda s: 1.0 if s.congested else 0.0,
+    "inference_congestion_score": lambda s: s.score,
+    "inference_lambda_rps": lambda s: s.ewma_lambda,
+    "inference_mu_rps": lambda s: s.ewma_mu,
+    "inference_rho_ewma": lambda s: s.ewma_rho,
+    "inference_queue_fill_ratio_ewma": lambda s: s.ewma_queue_fill,
+    "inference_e2e_latency_p95_ms": lambda s: s.p95_ms,
+    "inference_e2e_latency_p99_ms": lambda s: s.p99_ms,
+}
+
+
+def scrape_metrics(port) -> dict:
+    """{sample with its labels: value} of one HTTP scrape of /metrics."""
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as resp:
+        text = resp.read().decode()
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
+
+
+class TickLog:
+    """Every snapshot a server's congestion monitor publishes, with the
+    host clock it came at, taken by chaining onto the monitor's public
+    ``on_tick`` hook."""
+
+    def __init__(self, monitor):
+        self.snaps = []
+        inner = monitor.on_tick
+
+        def on_tick(snap):
+            self.snaps.append((time.perf_counter(), snap))
+            if inner is not None:
+                inner(snap)
+
+        monitor.on_tick = on_tick
+
+    def within(self, span) -> list:
+        return [s for t, s in self.snaps if span[0] <= t <= span[1]]
+
+    def largest_gap_ms(self, span) -> float:
+        """The longest time between two ticks in ``span``."""
+        stamps = [t for t, _ in self.snaps if span[0] <= t <= span[1]]
+        return max((b - a for a, b in zip(stamps, stamps[1:])), default=0.0) * 1e3
+
+
+def metrics_checks(what, bundle, before, stats, card):
+    """/metrics after a burst against the dispatcher's counts, and the
+    device-memory gauges against the allocator."""
+    import torch
+
+    server = bundle.server
+    port = server.metrics_port
+    after = scrape_metrics(port)
+
+    def delta(key):
+        return after.get(key, 0.0) - before.get(key, 0.0)
+
+    formed = sum(stats["formed"].values())
+    counters = {"inference_completed_total": (delta("inference_completed_total"),
+                                              stats["completed"]),
+                "inference_batch_size_count": (delta("inference_batch_size_count"), formed),
+                'requests_by_status_total{code="OK"}': (
+                    delta('requests_by_status_total{code="OK"}'), len(stats["responses"]))}
+    print(f"{what} /metrics deltas over the burst against the dispatcher's counts: "
+          f"{json.dumps({k: list(v) for k, v in counters.items()})}")
+    for key, (got, want) in counters.items():
+        require(got == want, f"{what}: /metrics {key} rose by {got}, the dispatcher counted {want}")
+    # device memory: the allocator's bytes in use, read with the server idle
+    torch.cuda.synchronize()
+    used = torch.cuda.memory_allocated(0)
+    server.recorder.sample_process_stats()
+    total = torch.cuda.mem_get_info(0)[1]
+    mem = scrape_metrics(port)
+    got_used = mem.get('gpu_memory_used_bytes{device="cuda:0"}')
+    got_total = mem.get('gpu_memory_total_bytes{device="cuda:0"}')
+    print(f"{what} /metrics device memory on {card}: gpu_memory_used_bytes {got_used} "
+          f"(torch.cuda.memory_allocated {used}), gpu_memory_total_bytes {got_total} "
+          f"(mem_get_info total {total}), gpu_device_count {mem.get('gpu_device_count')}")
+    require(got_used == used, f"{what}: gpu_memory_used_bytes {got_used} != allocated {used}")
+    require(got_total == total, f"{what}: gpu_memory_total_bytes {got_total} != {total}")
+
+
+def congestion_checks(what, bundle, stats, ticks, card):
+    """The monitor's ticks across a burst, and its gauges against its last
+    snapshot (the monitor stopped first, so no tick falls between the two
+    reads)."""
+    server = bundle.server
+    port = server.metrics_port
+    mon = server.congestion
+    interval_s = server.cfg.congestion.tick_interval_ms / 1000.0
+    burst = ticks.within(stats["burst"])
+    rose = len(burst)
+    mon.stop()
+    last = mon.snapshot()
+    gauges = scrape_metrics(port)
+    need = stats["wall_s"] / interval_s - 2
+    print(f"{what} congestion on {card}: {rose} ticks across a {stats['wall_s']:.3f} s burst "
+          f"(at least {need:.1f} required; tick {interval_s * 1e3:g} ms, the longest gap "
+          f"between two {ticks.largest_gap_ms(stats['burst']):.1f} ms), congested in "
+          f"{sum(s.congested for s in burst)} of {len(burst)}, entered "
+          f"{sum(1 for a, b in zip(burst, burst[1:]) if b.congested and not a.congested)} "
+          f"times; last snapshot tick {last.tick}: congested {last.congested}, score "
+          f"{last.score:.3f}, lambda {last.ewma_lambda:.2f}/s, mu {last.ewma_mu:.2f}/s, rho "
+          f"{last.ewma_rho:.3f}, fill {last.ewma_queue_fill}, p95 {last.p95_ms:.1f} ms, p99 "
+          f"{last.p99_ms:.1f} ms; batches formed {json.dumps(stats['formed'])}")
+    require(rose >= need, f"{what}: the congestion monitor ticked {rose} times in "
+                          f"{stats['wall_s']:.3f} s")
+    for key, field in CONGESTION_GAUGES.items():
+        require(gauges.get(key) == field(last),
+                f"{what}: /metrics {key} {gauges.get(key)} != the last snapshot's {field(last)}")
+    return dict(ticks=rose, congested_ticks=sum(s.congested for s in burst),
+                last=dataclasses.asdict(last))
 
 
 def bert_path(counters, card):
@@ -1469,10 +1630,34 @@ def bert_path(counters, card):
     try:
         per_forward = bert_model_phase(bundle.server.engine.model, bundle.server.engine.device,
                                        counters)
-        launches = batch_serving_phase("bert_long", bundle, samples, "last_hidden_state",
-                                       BERT_TOL, counters, BERT_KERNELS, card, "seq")
+        before = scrape_metrics(bundle.server.metrics_port)
+        ticks = TickLog(bundle.server.congestion)
+        launches, main = batch_serving_phase("bert_long", bundle, samples, "last_hidden_state",
+                                             BERT_TOL, counters, BERT_KERNELS, card, "seq")
+        metrics_checks("bert_long", bundle, before, main, card)
+        # the same config and burst with the congestion monitor off (the
+        # adaptive strategy on raw fill ratios)
+        off_cfg = dataclasses.replace(cfg, name="bert_long_congestion_off",
+                                      congestion=dataclasses.replace(cfg.congestion,
+                                                                     enabled=False))
+        control = LocalServer(off_cfg)
+        control.target = control.start()
+        try:
+            off = batch_serving_phase("bert_long congestion off", control, samples,
+                                      "last_hidden_state", BERT_TOL, counters, BERT_KERNELS,
+                                      card, "seq")[1]
+            require(control.server.congestion.snapshot().tick == -1,
+                    "bert_long congestion off: the monitor ticked")
+        finally:
+            control.stop()
+        congestion = congestion_checks("bert_long", bundle, main, ticks, card)
     finally:
         bundle.stop()
+    print(f"bert_long congestion on vs off on {card}: batches formed {json.dumps(main['formed'])} "
+          f"vs {json.dumps(off['formed'])}; p50 {main['p50_ms']:.1f} vs {off['p50_ms']:.1f} ms, "
+          f"p99 {main['p99_ms']:.1f} vs {off['p99_ms']:.1f} ms; {main['rate']:.1f} vs "
+          f"{off['rate']:.1f} seq/s; congested ticks in the burst {congestion['congested_ticks']} "
+          f"of {congestion['ticks']}")
     for quant, dtype, model_tol, serve_tol, elem_tol in BERT_CONTROLS:
         what = f"bert_long_{quant}_{dtype.lower()}"
         model = dataclasses.replace(cfg.model, quantization=QuantMode(quant), compute_dtype=dtype)
@@ -1486,6 +1671,169 @@ def bert_path(counters, card):
         finally:
             control.stop()
     return launches, per_forward
+
+
+def control_call(target, method, req, resp_cls=None, service="inference.GRPCInferenceService"):
+    """(status code name, details, response) of one unary call."""
+    import grpc
+
+    from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
+
+    resp_cls = resp_cls or getattr(pb, f"{method}Response")
+
+    async def go():
+        async with grpc.aio.insecure_channel(target) as channel:
+            call = channel.unary_unary(f"/{service}/{method}",
+                                       request_serializer=type(req).SerializeToString,
+                                       response_deserializer=resp_cls.FromString)
+            return await call(req, timeout=600)
+
+    try:
+        return "OK", "", asyncio.run(go())
+    except grpc.aio.AioRpcError as err:
+        return err.code().name, err.details(), None
+
+
+def reflect_services(target) -> list:
+    import grpc
+
+    from starpu_inference_server_tpu_torch.grpc import reflection_v1alpha_pb2 as rpb
+
+    async def go():
+        async with grpc.aio.insecure_channel(target) as channel:
+            call = channel.stream_stream(
+                "/grpc.reflection.v1alpha.ServerReflection/ServerReflectionInfo",
+                request_serializer=rpb.ServerReflectionRequest.SerializeToString,
+                response_deserializer=rpb.ServerReflectionResponse.FromString)()
+            await call.write(rpb.ServerReflectionRequest(list_services="*"))
+            resp = await call.read()
+            await call.done_writing()
+            return [s.name for s in resp.list_services_response.service]
+
+    return asyncio.run(go())
+
+
+def _tensors(node):
+    """Every tensor leaf of a parameter tree."""
+    import torch
+
+    if isinstance(node, dict):
+        for value in node.values():
+            yield from _tensors(value)
+    elif isinstance(node, (list, tuple)):
+        for value in node:
+            yield from _tensors(value)
+    elif isinstance(node, torch.Tensor):
+        yield node
+
+
+def control_plane_phase(bundle, samples, card):
+    """The KServe-v2 control RPCs on the ResNet server, over the socket:
+    ModelConfig, RepositoryIndex, the unload / load cycle (infers
+    UNAVAILABLE between; the load a hot reload from the config's seed,
+    its response bit-equal, every tensor of the old tree freed and the
+    allocator's requested bytes back where they were), LogSettings,
+    TraceSetting around 16 requests (one trace event a batch formed),
+    reflection."""
+    import gc
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
+    from starpu_inference_server_tpu_torch.grpc.service import PLATFORM
+
+    server, target = bundle.server, bundle.target
+    cfg = server.cfg
+    name = cfg.name
+    code, _, resp = control_call(target, "ModelConfig", pb.ModelConfigRequest(name=name))
+    want = [(s.name, list(s.dims)) for s in cfg.inputs + cfg.outputs]
+    got = [(t.name, list(t.dims)) for t in (*resp.config.input, *resp.config.output)] \
+        if resp is not None else None
+    require(code == "OK" and resp.config.name == name and resp.config.platform == PLATFORM
+            and resp.config.max_batch_size == cfg.max_batch_size and got == want,
+            f"{name}: ModelConfig {code} {resp} does not equal the config")
+    code, _, index = control_call(target, "RepositoryIndex", pb.RepositoryIndexRequest())
+    require(code == "OK" and [(m.name, m.state) for m in index.models] == [(name, "READY")],
+            f"{name}: RepositoryIndex {code} {index}")
+    image = make_request(name, samples[0], "fixed")
+    code, _, first = control_call(target, "ModelInfer", image)
+    require(code == "OK", f"{name}: ModelInfer before the cycle {code}")
+    code, _, _ = control_call(target, "RepositoryModelUnload",
+                              pb.RepositoryModelUnloadRequest(model_name=name))
+    unloaded = control_call(target, "ModelInfer", image)[0]
+    ready = control_call(target, "ModelReady", pb.ModelReadyRequest(name=name))[2].ready
+    require(code == "OK" and unloaded == "UNAVAILABLE" and not ready,
+            f"{name}: unload {code}, then ModelInfer {unloaded}, ModelReady {ready}")
+    # the old tree: a weak reference to each of its tensors, and the
+    # allocator's requested bytes (memory_allocated counts whole cached
+    # blocks, so it moves by a block's slack when a request of the new
+    # tree lands in a larger cached block)
+    old_leaves = [weakref.ref(t) for t in _tensors(server.engine.model.params)]
+    tree_bytes = sum(t().numel() * t().element_size() for t in old_leaves)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    req_before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    t0 = time.perf_counter()
+    code, details, _ = control_call(target, "RepositoryModelLoad",
+                                    pb.RepositoryModelLoadRequest(model_name=name))
+    reload_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    req_after = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    alive = sum(ref() is not None for ref in old_leaves)
+    code2, _, second = control_call(target, "ModelInfer", image)
+    same = code2 == "OK" and list(second.raw_output_contents) == list(first.raw_output_contents)
+    ready = control_call(target, "ModelReady", pb.ModelReadyRequest(name=name))[2].ready
+    print(f"{name} repository cycle on {card}: unload -> ModelInfer {unloaded}, ModelReady false; "
+          f"RepositoryModelLoad {code} (hot reload from seed {cfg.seed}) in {reload_s:.3f} s; "
+          f"response for a fixed image bit-equal after the cycle: {same}; old tree "
+          f"{len(old_leaves)} tensors, {tree_bytes} bytes, {alive} still alive; requested bytes "
+          f"{req_before} -> {req_after} ({req_after - req_before:+d}); "
+          f"torch.cuda.memory_allocated {mem_before} -> {mem_after} ({mem_after - mem_before:+d})")
+    require(code == "OK" and ready, f"{name}: RepositoryModelLoad {code} {details}")
+    require(same, f"{name}: the response after the reload differs")
+    require(alive == 0, f"{name}: {alive} tensors of the old tree outlived the reload")
+    require(abs(req_after - req_before) <= 1 << 20, f"{name}: the old tree was not freed")
+    # LogSettings: a round trip at the current verbosity
+    setting = pb.LogSettingsRequest.SettingValue(uint32_param=1)
+    code, _, log = control_call(target, "LogSettings",
+                                pb.LogSettingsRequest(settings={"verbosity": setting}))
+    require(code == "OK" and log.settings["verbosity"].uint32_param == 1
+            and log.settings["verbosity_name"].string_param == "INFO",
+            f"{name}: LogSettings {code} {log}")
+    # TraceSetting around 16 requests
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    dispatcher = server.runner.dispatcher
+    with tempfile.TemporaryDirectory(dir=build) as trace_dir:
+        value = pb.TraceSettingRequest.SettingValue
+        on = pb.TraceSettingRequest(settings={"trace_enabled": value(value=["true"]),
+                                              "trace_output": value(value=[trace_dir])})
+        code_on = control_call(target, "TraceSetting", on)[0]
+        before = sum(a["count"] for a in dispatcher.batch_stats.values())
+        done = dispatcher.completed_jobs
+        infer_all(target, [make_request(name, s, f"trace{i}") for i, s in enumerate(samples[:16])])
+        require(dispatcher.wait_for_drain(done + 16, 30.0), f"{name}: traced requests not counted")
+        formed = sum(a["count"] for a in dispatcher.batch_stats.values()) - before
+        off = pb.TraceSettingRequest(settings={"trace_enabled": value(value=["false"])})
+        code_off, _, resp = control_call(target, "TraceSetting", off)
+        events = json.loads((Path(trace_dir) / "batching_trace.json").read_text())["traceEvents"]
+    batches = sum(e["name"] == "batch" for e in events)
+    enqueued = sum(e["name"] == "request_enqueued" for e in events)
+    services = reflect_services(target)
+    print(f"{name} TraceSetting on {card}: enable {code_on}, 16 requests, disable {code_off} "
+          f"({list(resp.settings['trace_enabled'].value)}): {batches} batch events for {formed} "
+          f"batches formed, {enqueued} request_enqueued events; LogSettings round trip OK; "
+          f"reflection lists {services}")
+    require(code_on == code_off == "OK", f"{name}: TraceSetting {code_on} / {code_off}")
+    require(batches == formed and enqueued == 16, f"{name}: the trace holds {batches} batch "
+                                                  f"events for {formed} batches formed")
+    require("inference.GRPCInferenceService" in services, f"{name}: reflection lists {services}")
+    return dict(reload_s=reload_s, reload_mem_delta=mem_after - mem_before)
 
 
 def resnet_path(counters, card):
@@ -1504,8 +1852,28 @@ def resnet_path(counters, card):
         rng = np.random.default_rng(32)
         samples = [{"input": rng.standard_normal((1, 3, 224, 224)).astype(np.float32)}
                    for _ in range(RESNET_IMAGES)]
-        launches = batch_serving_phase("resnet18_int8", bundle, samples, "output", RESNET_SERVE_TOL,
-                                       counters, RESNET_KERNELS, card, "img", check_argmax=True)
+        launches, on = batch_serving_phase("resnet18_int8", bundle, samples, "output",
+                                           RESNET_SERVE_TOL, counters, RESNET_KERNELS, card,
+                                           "img", check_argmax=True)
+        # the cost of observability: the same burst on a server without
+        # metrics and congestion monitor
+        off_cfg = dataclasses.replace(cfg, name="resnet18_int8_observability_off",
+                                      metrics_enabled=False,
+                                      congestion=dataclasses.replace(cfg.congestion,
+                                                                     enabled=False))
+        quiet = LocalServer(off_cfg)
+        quiet.target = quiet.start()
+        try:
+            off = batch_serving_phase("resnet18_int8 observability off", quiet, samples,
+                                      "output", RESNET_SERVE_TOL, counters, RESNET_KERNELS,
+                                      card, "img", check_argmax=True)[1]
+        finally:
+            quiet.stop()
+        print(f"cost of observability, resnet18_int8 ({RESNET_IMAGES}-image burst) on {card}: "
+              f"with the config's metrics and congestion monitor {on['rate']:.1f} img/s, p50 "
+              f"{on['p50_ms']:.1f} ms; without {off['rate']:.1f} img/s, p50 "
+              f"{off['p50_ms']:.1f} ms")
+        control_plane_phase(bundle, samples, card)
     finally:
         bundle.stop()
     return launches, per_forward
@@ -2189,6 +2557,22 @@ def speculation_path(spec, params, rigged_params, counters, card, dev):
     return results, rig_prompts
 
 
+def generation_metrics_checks(recorder, engine, outs, requests) -> None:
+    """The engine's Prometheus families against its own counts."""
+    served = sum(len(o) for o in outs)
+    want = {"generation_tokens_total": served,
+            "generation_prefix_cache_hits_total": engine.prefix_hits,
+            "generation_prefix_tokens_reused_total": engine.prefix_tokens_reused,
+            "generation_time_to_first_token_ms_count": requests}
+    got = {k: recorder.registry.get_sample_value(k) for k in want}
+    print(f"llama_paged generation metrics against the engine's counts: "
+          f"{json.dumps({k: [got[k], want[k]] for k in got})}; generation_active_slots "
+          f"{recorder.registry.get_sample_value('generation_active_slots')}")
+    for key in got:
+        require(got[key] == want[key], f"llama_paged: {key} {got[key]} != {want[key]}")
+    require(engine.generated_tokens == served, "llama_paged: the engine's token count differs")
+
+
 def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, card, dev):
     """llama_paged.yml: 64 concurrent requests, a third sharing a
     300-token prefix, against a dense engine of the same weights (the
@@ -2197,6 +2581,7 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
     import numpy as np
     import torch
 
+    from starpu_inference_server_tpu_torch.monitoring.metrics import MetricsRecorder
     from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
     from starpu_inference_server_tpu_torch.utils.config import load_config
 
@@ -2210,11 +2595,14 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
             prompts.append(np.concatenate([prefix, rng.integers(0, vocab, 20).astype(np.int32)]))
         else:
             prompts.append(rng.integers(0, vocab, int(rng.integers(40, 200))).astype(np.int32))
-    engine = build_generation_engine(cfg, device=dev, params=params)
+    recorder = MetricsRecorder(port=None, model_name=cfg.name)
+    engine = build_generation_engine(cfg, device=dev, params=params, metrics=recorder)
     got, launches = generate_all(engine, prompts, 16, counters,
                                  ("paged_decode_attention", "int8_matmul"), "llama_paged", card,
                                  decode_kernel="paged_decode_attention")
     paged_got = got
+    generation_metrics_checks(recorder, engine, got, len(prompts))
+    with_s = engine.loop_timers["step"]
     acct = engine.page_accounting()
     refs = int((engine._page_refs > 0).sum())
     print(f"llama_paged pages after the burst: {json.dumps(acct)}; pages with a reference "
@@ -2225,6 +2613,20 @@ def paged_path(spec, params, rigged_params, rig_prompts, rig_want, counters, car
     paged_stats = dict(prefix_hits=engine.prefix_hits, reused=engine.prefix_tokens_reused,
                        pages=acct)
     del engine
+    # the cost of the recorder: the same burst without it, every stream equal
+    engine = build_generation_engine(cfg, device=dev, params=params)
+    what = "llama_paged without metrics"
+    again, _ = generate_all(engine, prompts, 16, counters,
+                            ("paged_decode_attention", "int8_matmul"), what, card,
+                            decode_kernel="paged_decode_attention")
+    require(again == paged_got, f"{what}: a stream differs from the first run's")
+    without_s = engine.loop_timers["step"]
+    del engine
+    print(f"cost of observability, llama_paged decode (64 requests, 16 tokens; loop_timers "
+          f"step, host seconds in decode blocks) on {card}: with the recorder {with_s:.3f} s, "
+          f"without {without_s:.3f} s")
+    paged_stats["decode_s_with_recorder"] = with_s
+    paged_stats["decode_s_without"] = without_s
     dense = build_generation_engine(_cfg_with(cfg, kv_page_size=None, kv_pool_pages=None),
                                     device=dev, params=params)
     want, _ = generate_all(dense, prompts, 16, counters, ("decode_attention",),
@@ -2665,6 +3067,14 @@ def _ptxas_kernels(report: str) -> list:
     return out
 
 
+def timed(phase_s: dict, name: str, fn, *args):
+    """fn(*args), its host seconds kept in ``phase_s[name]``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    phase_s[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main() -> int:
     pkg = ROOT / "starpu_inference_server_tpu_torch"
     configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
@@ -2694,7 +3104,8 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = _build.build_all()
     ptxas = {}
-    print(f"build: {len(_build.KERNELS)} kernel libraries ready in {time.perf_counter() - t0:.1f} s")
+    phase_s = {"build": round(time.perf_counter() - t0, 1)}
+    print(f"build: {len(_build.KERNELS)} kernel libraries ready in {phase_s['build']} s")
     for name, report in reports.items():  # ptxas -v: registers and spills of each library
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", report))
@@ -2728,35 +3139,43 @@ def main() -> int:
           f"{cfg.model.compute_dtype}) built in {time.perf_counter() - t0:.1f} s")
 
     counters = _build.launch_counters()
-    rows = kernel_phase(engine.spec, cfg.model.options, dev)
-    per_step = model_phase(engine, dev, counters)
-    launches, dec_prompts, dec_outs = serving_phase(engine, counters, card)
-    block = decode_block_phase(engine, card, rows["int4_matmul"]["decode_step_ms"])
+    rows = timed(phase_s, "kernels (int4 decoder)", kernel_phase, engine.spec,
+                 cfg.model.options, dev)
+    per_step = timed(phase_s, "model (int4 decoder)", model_phase, engine, dev, counters)
+    launches, dec_prompts, dec_outs = timed(phase_s, "serving (int4 decoder)", serving_phase,
+                                            engine, counters, card)
+    block = timed(phase_s, "decode block", decode_block_phase, engine, card,
+                  rows["int4_matmul"]["decode_step_ms"])
     rows["decode_attention"]["graph_block_ms"] = block["graph"]["attention_ms"]
     spec, int4_params = engine.spec, engine.params  # the W4A8 path reuses the int4 tree
     del engine
     torch.cuda.empty_cache()
-    sampling_phase(spec, int4_params, counters, card, dev)
-    tiny_phase(rows, counters, card, dev)
+    timed(phase_s, "sampling", sampling_phase, spec, int4_params, counters, card, dev)
+    timed(phase_s, "tiny", tiny_phase, rows, counters, card, dev)
 
-    rows.update(batch_kernel_phase(dev))
-    bert_launches, bert_forward = bert_path(counters, card)
-    resnet_launches, resnet_forward = resnet_path(counters, card)
+    rows.update(timed(phase_s, "kernels (batch)", batch_kernel_phase, dev))
+    bert_launches, bert_forward = timed(phase_s, "bert_long", bert_path, counters, card)
+    resnet_launches, resnet_forward = timed(phase_s, "resnet18_int8", resnet_path, counters,
+                                            card)
     for name in BERT_KERNELS:
         launches[name] = bert_launches[name]
     for name in RESNET_KERNELS:
         launches[name] = resnet_launches[name]
 
-    rows.update(int8_kernel_phase(spec, dev, card))
-    rows.update(extras_kernel_phase(spec, dev, card))
-    extra_launches, extra_step, ctx = extras_path(spec, int4_params, counters, card, dev)
+    rows.update(timed(phase_s, "kernels (int8)", int8_kernel_phase, spec, dev, card))
+    rows.update(timed(phase_s, "kernels (extras)", extras_kernel_phase, spec, dev, card))
+    extra_launches, extra_step, ctx = timed(phase_s, "extras", extras_path, spec, int4_params,
+                                            counters, card, dev)
     launches.update(extra_launches)
 
     k3 = rows["decode_attention"]
     k3.pop("lengths")
-    rows.update(flat_kernel_phase(spec, [r.pop("lengths") for r in k3["per_shape"]], dev))
-    extra_step.update(flat_step_phase(spec, ctx["params"], counters, dev))
-    launches.update(flat_path(int4_params, (dec_prompts, dec_outs), ctx, counters, card, dev))
+    rows.update(timed(phase_s, "kernels (flat)", flat_kernel_phase, spec,
+                      [r.pop("lengths") for r in k3["per_shape"]], dev))
+    extra_step.update(timed(phase_s, "model (flat)", flat_step_phase, spec, ctx["params"],
+                            counters, dev))
+    launches.update(timed(phase_s, "flat", flat_path, int4_params, (dec_prompts, dec_outs), ctx,
+                          counters, card, dev))
 
     kernels = []
     for name in _build.KERNELS:
@@ -2797,6 +3216,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], **extra,
             **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
+    print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

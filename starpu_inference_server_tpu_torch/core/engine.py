@@ -18,28 +18,44 @@ inference_runner.cpp:243-275). What changes on the card:
 ``staging_specs`` keeps the JAX engine's choice: FP32 wire inputs are
 staged as BF16 when the compute dtype is bf16 (the model casts at once
 anyway), which halves the H2D bytes.
+
+:meth:`reload` swaps in a freshly built model (RepositoryModelLoad), as
+the JAX engine's ``reload`` does: same quantization, same leaf shapes and
+dtypes, published whole.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.registry import BuiltModel
+from ..ops import nn
+from ..ops.quant import pack_int4_tree
 from ..utils.config import QuantMode, RuntimeConfig
 from ..utils.dtypes import canonical_dtype_name, torch_dtype
+from ..utils.exceptions import DeviceError
 from ..utils.logger import get_logger
+
+
+def _leaf_specs(tree, path: str = "") -> List[Tuple[str, object]]:
+    """(path, (shape, dtype)) of every tensor leaf of a param tree, and
+    (path, value) of every other leaf, in tree order."""
+    if isinstance(tree, dict):
+        return [spec for key in sorted(tree) for spec in _leaf_specs(tree[key], f"{path}/{key}")]
+    if isinstance(tree, (list, tuple)):
+        return [spec for i, node in enumerate(tree) for spec in _leaf_specs(node, f"{path}/{i}")]
+    if isinstance(tree, torch.Tensor):
+        return [(path, (tuple(tree.shape), str(tree.dtype)))]
+    return [(path, tree)]
 
 
 class ModelEngine:
     def __init__(self, cfg: RuntimeConfig, model: BuiltModel):
-        from ..ops import nn
-        from ..ops.quant import pack_int4_tree
-
         if cfg.devices.mesh.size > 1:
             raise NotImplementedError(
                 f"devices.mesh of size {cfg.devices.mesh.size}: multi-device serving is "
@@ -47,17 +63,48 @@ class ModelEngine:
                 "slice); the batch pipeline runs on one device"
             )
         self.cfg = cfg
-        self.model = model
         self.device = model.device
         nn.set_w8a8(model.quant in (QuantMode.W8A8, QuantMode.W4A8))
-        if nn.use_kernels(self.device) and model.quant in (QuantMode.INT4, QuantMode.W4A8):
-            # the int4 kernels read pairwise-packed weights
+        self._pack = nn.use_kernels(self.device) and model.quant in (QuantMode.INT4,
+                                                                      QuantMode.W4A8)
+        self.model = self._placed(model)
+        self._compile_lock = threading.Lock()
+        self._reload_lock = threading.Lock()
+        self._primed: set = set()  # buckets
+
+    def _placed(self, model: BuiltModel) -> BuiltModel:
+        """``model`` ready to serve: int4 leaves packed pairwise when the
+        int4 kernels read them, and its params visible to every stream
+        (they were made on the default stream; lanes read them on theirs)."""
+        if self._pack:
             model.params = pack_int4_tree(model.params)
         if self.device.type == "cuda":
-            # params were made on the default stream; lanes read them on theirs
             torch.cuda.synchronize(self.device)
-        self._compile_lock = threading.Lock()
-        self._primed: set = set()  # buckets
+        return model
+
+    def reload(self, model: BuiltModel) -> None:
+        """Hot weight reload (RepositoryModelLoad): serve ``model``, a
+        fresh build of the same config on this engine's device, in place
+        of the current one. A different quantization, device, or any leaf
+        whose shape or dtype differs raises ``DeviceError`` before
+        anything is published. The swap is one assignment under the
+        reload lock: an ``execute`` in flight holds the model it read
+        (old or new, never a mix), and the old tree's device memory
+        returns to the allocator once the last such call ends. Every
+        weight-derived constant (the ResNet stem's folded and staged
+        weights) is part of the tree, built with it."""
+        with self._reload_lock:  # serialize concurrent RepositoryModelLoad
+            old = self.model
+            if model.quant is not old.quant:
+                raise DeviceError(f"reload quantization {model.quant} != serving {old.quant}")
+            if model.device != self.device:
+                raise DeviceError(f"reload built on {model.device}, serving on {self.device}")
+            model = self._placed(model)
+            if _leaf_specs(model.params) != _leaf_specs(old.params):
+                raise DeviceError(
+                    "reloaded param tree structure/shapes/dtypes differ from the serving tree"
+                )
+            self.model = model
 
     @property
     def buckets(self) -> Sequence[int]:
@@ -91,8 +138,9 @@ class ModelEngine:
     def execute(self, inputs_on_device: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Run the model; returns device tensors as soon as the work is
         enqueued (the lane decides when to fence)."""
+        model = self.model  # one read: a concurrent reload swaps the whole model
         with torch.inference_mode():
-            return self.model.apply(inputs_on_device)
+            return model.apply(inputs_on_device)
 
     def run_padded(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         return self.execute(self.put_inputs(inputs))

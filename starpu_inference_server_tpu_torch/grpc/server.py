@@ -1,4 +1,5 @@
-"""Server bootstrap: config -> model -> engine -> warmup -> gRPC.
+"""Server bootstrap: config -> observability -> model -> engine -> warmup
+-> gRPC.
 
 Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 
@@ -11,9 +12,18 @@ every other family gets the batch pipeline: ``ModelEngine``, the bounded
 ``InferenceQueue`` and the ``TaskRunner`` (collector, lanes,
 dispatcher), warmed up by ``TaskRunner.warmup()``. It serves on the GPU
 (``cuda``); ``InferenceServer(cfg, device="cpu")`` serves on the CPU, as
-the tests do. Metrics and congestion control are not ported yet: the
-server runs with ``observability=None`` and ``congestion=None`` and says
-so once.
+the tests do.
+
+Wired as the JAX server wires it: the config's observability (Prometheus
+recorder on ``metrics_port``, 0 for an ephemeral port, and the batching
+trace logger) reaches the queue, the runner, the servicer and the
+generation engine; the congestion monitor ticks on its own thread and
+the adaptive strategy reads its snapshot; a batch server's
+RepositoryModelLoad rebuilds the weights from the config and hot-swaps
+them. Shutdown: close the queue, stop gRPC, drain, stop the monitor, the
+sampler and the exposer, flush the traces, fork the plot script.
+``profiler_port`` has no effect: ``torch.profiler`` has no server to
+attach to, and device traces are taken by the caller.
 """
 
 from __future__ import annotations
@@ -21,6 +31,9 @@ from __future__ import annotations
 import argparse
 import asyncio
 import signal
+import subprocess
+import sys
+from pathlib import Path
 from typing import Optional
 
 import grpc
@@ -28,6 +41,9 @@ import numpy as np
 
 from ..core.engine import ModelEngine
 from ..models.registry import build_model, get_family
+from ..monitoring.congestion import CongestionMonitor
+from ..monitoring.metrics import MetricsRecorder
+from ..monitoring.observability import RuntimeObservability, create_observability
 from ..serving.generation import build_generation_engine
 from ..serving.queue import InferenceQueue
 from ..serving.runner import TaskRunner
@@ -36,41 +52,102 @@ from ..utils.config import RuntimeConfig, load_config
 from ..utils.logger import get_logger, set_global_verbosity
 from .service import InferenceServicer, add_inference_service
 
+# scripts/plot_batch_summary.py of the checkout holding this package
+PLOT_SCRIPT = Path(__file__).resolve().parents[2] / "scripts" / "plot_batch_summary.py"
+
+
+def _log_congestion(congested: bool, snap) -> None:
+    get_logger().info("congestion %s at tick %d (score %.2f, rho %.2f, fill %.2f, p95 %.1f ms)",
+                      "entered" if congested else "cleared", snap.tick, snap.score,
+                      snap.ewma_rho, snap.ewma_queue_fill or 0.0, snap.p95_ms)
+
 
 class InferenceServer:
     """Owns the serving stack for one model (exactly one model per
     process, as in the reference)."""
 
-    def __init__(self, cfg: RuntimeConfig, device=None):
+    def __init__(self, cfg: RuntimeConfig, device=None,
+                 observability: Optional[RuntimeObservability] = None,
+                 expose_metrics: bool = True):
         self.cfg = cfg
-        log = get_logger()
         set_global_verbosity(cfg.verbosity)
-        self.observability = None
-        self.congestion = None
-        log.info("metrics and congestion control are not yet ported: "
-                 "serving with observability=None, congestion=None")
+        self.observability = (observability if observability is not None
+                              else create_observability(cfg, expose_metrics=expose_metrics))
+        try:
+            self._build(cfg, device)
+        except BaseException:
+            self._close_metrics()  # a failed start frees the exposer's port
+            raise
+        self._grpc_server: Optional["grpc.aio.Server"] = None
+        self.bound_port = 0
+
+    @property
+    def recorder(self) -> Optional[MetricsRecorder]:
+        """The Prometheus recorder (None when ``metrics_enabled`` is false)."""
+        metrics = self.observability.metrics
+        return metrics if isinstance(metrics, MetricsRecorder) else None
+
+    @property
+    def metrics_port(self) -> Optional[int]:
+        """The port ``/metrics`` is served on (None: not exposed)."""
+        return None if self.recorder is None else self.recorder.exposer_port
+
+    def _build(self, cfg: RuntimeConfig, device) -> None:
         watch = StopWatch()
+        self.queue = InferenceQueue(cfg.max_queue_size,
+                                    on_size_change=self.observability.on_queue_size)
+        self.congestion = CongestionMonitor(
+            cfg.congestion,
+            queue_probe=lambda: (self.queue.size(), self.queue.capacity),
+            on_state_change=_log_congestion,
+            # every tick's snapshot reaches the gauges (the JAX server
+            # publishes only at state changes)
+            on_tick=self.observability.on_congestion_snapshot,
+        )
         self.generation_engine = None
         self.engine = None
-        self.queue = None
         self.runner = None
         definition = get_family(cfg.model.family, cfg.model.options)
         if definition.supports_generation:
-            self.generation_engine = build_generation_engine(cfg, device=device)
-            where = self.generation_engine.device
+            self.generation_engine = build_generation_engine(cfg, device=device,
+                                                             metrics=self.recorder)
+            self.device = self.generation_engine.device
         else:
             self.engine = ModelEngine(cfg, build_model(cfg.model, seed=cfg.seed, device=device))
-            self.queue = InferenceQueue(cfg.max_queue_size)
-            self.runner = TaskRunner(cfg, self.engine, self.queue)
-            where = self.engine.device
-        log.info("model %s built on %s (quant=%s) in %.1f ms", cfg.model.family, where,
-                 cfg.model.quantization.value, watch.elapsed_ms())
-        self.servicer = InferenceServicer(cfg, queue=self.queue,
-                                          generation_engine=self.generation_engine)
+            self.runner = TaskRunner(cfg, self.engine, self.queue,
+                                     observability=self.observability,
+                                     congestion_monitor=self.congestion)
+            self.device = self.engine.device
+        self.servicer = InferenceServicer(
+            cfg, self.queue,
+            observability=self.observability,
+            congestion_monitor=self.congestion,
+            generation_engine=self.generation_engine,
+            # a generation server holds decode state against its params:
+            # its RepositoryModelLoad only gates
+            reload_model=self._reload_model if self.runner is not None else None,
+        )
         if self.runner is not None:
             self.servicer.batch_stats_source = self.runner.dispatcher
-        self._grpc_server: Optional["grpc.aio.Server"] = None
-        self.bound_port = 0
+        load_ms = watch.elapsed_ms()
+        if self.recorder is not None:
+            self.recorder.model_load_duration.observe(load_ms)
+            self.recorder.models_loaded.set(1)
+            self.recorder.max_inflight.set(cfg.max_inflight_tasks)
+        get_logger().info("model %s built on %s (quant=%s) in %.1f ms", cfg.model.family,
+                          self.device, cfg.model.quantization.value, load_ms)
+
+    # -- repository ----------------------------------------------------------
+
+    def _reload_model(self) -> None:
+        """RepositoryModelLoad: rebuild the model from the config's source
+        on the engine's device and hot-swap it into the engine."""
+        watch = StopWatch()
+        self.engine.reload(build_model(self.cfg.model, seed=self.cfg.seed,
+                                       device=self.engine.device))
+        get_logger().info("model %s reloaded in %.1f ms", self.cfg.name, watch.elapsed_ms())
+
+    # -- lifecycle -------------------------------------------------------------
 
     def start_pipeline(self, warmup: bool = True) -> None:
         log = get_logger()
@@ -84,22 +161,27 @@ class InferenceServer:
                 log.info("warmup: %d pinned jobs in %.1f ms", n, watch.elapsed_ms())
             else:
                 self.runner.start()
-            self.servicer.ready.set()
-            return
-        eng = self.generation_engine
-        eng.start()
-        if warmup:
-            watch = StopWatch()
-            # one prompt per prefill bucket, and one a token past the
-            # chunk size, so every path has run once before traffic
-            room = eng.headroom()
-            for bucket in eng.prefill_buckets:
-                if bucket + 2 + room <= eng.max_len:
-                    eng.generate(np.ones((bucket,), np.int32), max_new_tokens=2, timeout=1800.0)
-            chunk = eng.prefill_chunk
-            if chunk and chunk + 3 + room <= eng.max_len:
-                eng.generate(np.ones((chunk + 1,), np.int32), max_new_tokens=2, timeout=1800.0)
-            log.info("decoder warmup in %.1f ms", watch.elapsed_ms())
+        else:
+            eng = self.generation_engine
+            eng.start()
+            if warmup:
+                watch = StopWatch()
+                # one prompt per prefill bucket, and one a token past the
+                # chunk size, so every path has run once before traffic
+                room = eng.headroom()
+                for bucket in eng.prefill_buckets:
+                    if bucket + 2 + room <= eng.max_len:
+                        eng.generate(np.ones((bucket,), np.int32), max_new_tokens=2,
+                                     timeout=1800.0)
+                chunk = eng.prefill_chunk
+                if chunk and chunk + 3 + room <= eng.max_len:
+                    eng.generate(np.ones((chunk + 1,), np.int32), max_new_tokens=2,
+                                 timeout=1800.0)
+                log.info("decoder warmup in %.1f ms", watch.elapsed_ms())
+        self.congestion.start()
+        if self.recorder is not None:
+            self.recorder.start_sampler()
+            self.recorder.server_health.set(1)
         self.servicer.ready.set()
 
     async def serve(self, warmup: bool = True, ready_event=None) -> None:
@@ -114,8 +196,8 @@ class InferenceServer:
         self.bound_port = server.add_insecure_port(self.cfg.server.address)
         await server.start()
         self._grpc_server = server
-        log.info("serving %s on %s (port %d)", self.cfg.name, self.cfg.server.address,
-                 self.bound_port)
+        log.info("serving %s on %s (port %d; metrics port %s)", self.cfg.name,
+                 self.cfg.server.address, self.bound_port, self.metrics_port)
         if ready_event is not None:
             ready_event.set()
         stop = asyncio.Event()
@@ -130,22 +212,48 @@ class InferenceServer:
         await self.shutdown()
 
     async def shutdown(self) -> None:
+        """Close the queue for push, stop accepting, drain, stop the
+        monitor, the sampler and the exposer, flush the traces."""
         log = get_logger()
-        if self.queue is not None:
-            self.queue.close_for_push()
+        log.info("shutdown: closing queue for push")
+        self.queue.close_for_push()
         self.servicer.ready.clear()
         if self._grpc_server is not None:
             await self._grpc_server.stop(grace=5.0)
         if self.runner is not None:
             self.runner.stop(drain=True)
+        else:
+            self.generation_engine.stop()
+        self.congestion.stop()
+        if self.recorder is not None:
+            self.recorder.server_health.set(0)
+        self._close_metrics()
+        self.observability.flush()
+        self._run_trace_plots()
+        if self.runner is not None:
             d = self.runner.dispatcher
             log.info("shutdown complete: completed=%d failed=%d "
                      "throughput_window=%.1f inf/s over %.1f s", d.completed_jobs,
                      d.failed_jobs, d.perf.throughput(), d.perf.window_s())
+        else:
+            log.info("shutdown complete: generated_tokens=%d steps=%d",
+                     self.generation_engine.generated_tokens, self.generation_engine.steps)
+
+    def _close_metrics(self) -> None:
+        """Stop the sampler thread and free the exposer's port."""
+        if self.recorder is not None:
+            self.recorder.close()
+
+    def _run_trace_plots(self) -> None:
+        """Fork the plot script over the trace files at shutdown, as the
+        JAX server does (the reference forks scripts/plot_batch_summary.py)."""
+        if not self.cfg.trace_enabled or not self.cfg.trace_output:
             return
-        self.generation_engine.stop()
-        log.info("shutdown complete: generated_tokens=%d steps=%d",
-                 self.generation_engine.generated_tokens, self.generation_engine.steps)
+        try:
+            subprocess.Popen([sys.executable, str(PLOT_SCRIPT), self.cfg.trace_output],
+                             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        except OSError:
+            pass
 
     def request_stop(self) -> None:
         if hasattr(self, "_stop_event"):

@@ -330,13 +330,18 @@ class GenerationEngine:
         pin_cache_layouts: bool = False,
         fetch_timeout_s: float = 120.0,
         device=None,
+        metrics=None,
     ):
         """``params`` / ``draft_params``: the port's parameter trees (torch
         tensors; see ``weights.params_from_numpy``). ``device`` defaults
         to ``cuda`` and raises when CUDA is missing unless
         ``device='cpu'``. ``pin_cache_layouts`` (a TPU layout workaround)
         has no effect here but is refused with the flat layout, as in the
-        JAX engine."""
+        JAX engine. ``metrics``: a ``monitoring.metrics.MetricsRecorder``
+        whose generation families the engine updates, at the JAX engine's
+        points and only where the values are already on the host
+        (admission, landing, consume, release): nothing inside a decode
+        block reads the device for them."""
         if kv_cache_layout not in ("standard", "flat"):
             raise ValueError(
                 f"kv_cache_layout must be 'standard' or 'flat', got {kv_cache_layout!r}"
@@ -463,6 +468,7 @@ class GenerationEngine:
         # "step" splits into "dispatch" and "consume"
         self.loop_timers = {"admit": 0.0, "step": 0.0, "land": 0.0,
                             "dispatch": 0.0, "consume": 0.0}
+        self._metrics = metrics
 
     # -- placement ---------------------------------------------------------
 
@@ -513,6 +519,8 @@ class GenerationEngine:
             pause = 2e-5
             while not self._fetch_ready(event):
                 if time.monotonic() >= deadline:
+                    if self._metrics is not None:
+                        self._metrics.fetch_timeouts_total.inc()
                     raise RuntimeError(
                         f"device fetch did not complete within {self.fetch_timeout_s:g} s; "
                         "failing open requests"
@@ -900,6 +908,9 @@ class GenerationEngine:
                         _copy_slot_rows(self._draft_cache, src, free)  # dense in every mode
                     self.prefix_hits += 1
                     self.prefix_tokens_reused += l_star
+                    if self._metrics is not None:
+                        self._metrics.prefix_cache_hits_total.inc()
+                        self._metrics.prefix_tokens_reused_total.inc(l_star)
                     self._prefilling = _PrefillProgress(request=request, slot=free,
                                                         prompt=prompt, offset=l_star)
                     self._advance_chunk(self._prefilling)
@@ -1147,10 +1158,16 @@ class GenerationEngine:
         self._membership_dirty = True  # the in-flight carry lacks this slot
         first = self._sample_first(logits, request)
         request.first_token_at = now_s()
+        m = self._metrics
+        if m is not None:
+            m.generation_ttft.observe((request.first_token_at - request.submitted_at) * 1e3)
         self._emit(request, first)
         state = _SlotState(request=request, last_token=first, emitted=1)
         with self._lock:
             self._slots[slot] = state
+            if m is not None:
+                m.generation_active_slots.set(sum(s is not None for s in self._slots))
+                m.generation_pending.set(len(self._pending))
         if self._finished(state):
             self._release(slot)
 
@@ -1289,6 +1306,8 @@ class GenerationEngine:
             drafted &= packed[:, greedy, k1 + 2] > 0
         self.drafted_tokens += self.speculate_k * int(drafted.sum())
         self.accepted_drafts += int(packed[:, greedy, k1 + 1][drafted].sum())
+        if self._metrics is not None and self.drafted_tokens:
+            self._metrics.draft_acceptance_ratio.set(self.accepted_drafts / self.drafted_tokens)
 
     def _consume_block(self, rec: dict) -> None:
         """Fetch a dispatched block's tokens (the sync point) and commit
@@ -1312,6 +1331,9 @@ class GenerationEngine:
             tokens = block
         steps_n = tokens.shape[0]
         self.steps += steps_n
+        if self._metrics is not None and self.steps % 64 < steps_n:
+            for phase, secs in self.loop_timers.items():
+                self._metrics.generation_loop_seconds.labels(phase=phase).set(secs)
         finished = set()
         for i in range(self.num_slots):
             if not active[i]:
@@ -1355,6 +1377,8 @@ class GenerationEngine:
             state.emitted += n
             state.last_token = take[-1]
             self.generated_tokens += n
+            if self._metrics is not None:
+                self._metrics.generated_tokens_total.inc(n)
             if state.emitted >= req.max_new_tokens or (eos is not None and take[-1] == eos):
                 finished.add(i)
         for i in finished:
@@ -1373,6 +1397,8 @@ class GenerationEngine:
     def _emit(self, request: GenerationRequest, token: int) -> None:
         request.tokens.append(token)
         self.generated_tokens += 1
+        if self._metrics is not None:
+            self._metrics.generated_tokens_total.inc()
         if request.on_token is not None:
             request.on_token(token)
 
@@ -1390,9 +1416,13 @@ class GenerationEngine:
         with self._lock:
             state = self._slots[slot]
             self._slots[slot] = None
+            if self._metrics is not None:
+                self._metrics.generation_active_slots.set(sum(s is not None for s in self._slots))
         if state is not None:
             state.request.finished_at = now_s()
             state.request.done.set()
+            if self._metrics is not None:
+                self._metrics.generation_tokens_per_request.observe(state.emitted)
         # paged: return the slot's pages (under prefix_cache the grant is
         # RETAINED so its rows stay valid for hits)
         self._free_slot_pages(slot, retain=True)
@@ -1431,12 +1461,13 @@ def build_draft(cfg, spec: DecoderSpec, device):
     return definition.spec, params
 
 
-def build_generation_engine(cfg, device=None, params=None) -> GenerationEngine:
+def build_generation_engine(cfg, device=None, params=None, metrics=None) -> GenerationEngine:
     """Config -> model -> engine, the part of the server that needs
     neither ``grpc`` nor ``yaml`` (``chip_smoke.py`` drives it directly).
     ``params``: the config's parameter tree already built on ``device``
     (one tree may serve several engines of a process); built from the
-    config's seed when None.
+    config's seed when None. ``metrics``: the recorder whose generation
+    families the engine updates (None: none).
 
     Sets the process-wide W8A8 flag from the config, on or off, every
     time (W8A8 and W4A8 quantize the dense layers' activations). Raises
@@ -1494,4 +1525,5 @@ def build_generation_engine(cfg, device=None, params=None) -> GenerationEngine:
         pin_cache_layouts=bool(opts.get("pin_cache_layouts", False)),
         fetch_timeout_s=float(opts.get("fetch_timeout_s", 120.0)),
         device=dev,
+        metrics=metrics,
     )

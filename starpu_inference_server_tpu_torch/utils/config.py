@@ -15,6 +15,9 @@ Differences in the port:
   caller asks for ``cpu``), ``xla_env`` (there is no XLA),
   ``profiler_port`` (no ``jax.profiler`` server) and the model option
   ``pin_cache_layouts`` (a TPU layout workaround with no CUDA meaning).
+- ``metrics_port: 0`` is accepted and binds an ephemeral port (the bound
+  one is logged), so servers that start one after another in one process
+  do not contend for 9090; the JAX package refuses 0.
 """
 
 from __future__ import annotations
@@ -270,6 +273,13 @@ def _require(mapping: Mapping[str, Any], key: str) -> Any:
 def _as_positive_int(name: str, value: Any) -> int:
     if isinstance(value, bool) or not isinstance(value, int) or value <= 0:
         raise InvalidConfigValueError(f"{name} must be a positive integer, got {value!r}")
+    return value
+
+
+def _as_port(name: str, value: Any) -> int:
+    """A TCP port, or 0 for an ephemeral one."""
+    if isinstance(value, bool) or not isinstance(value, int) or not 0 <= value <= 65535:
+        raise InvalidConfigValueError(f"{name} must be a port in [0, 65535], got {value!r}")
     return value
 
 
@@ -586,7 +596,7 @@ def parse_config(raw: Mapping[str, Any]) -> RuntimeConfig:
         verbosity=Verbosity.parse(raw.get("verbosity", "info")),
         seed=int(raw.get("seed", 42)),
         metrics_enabled=bool(raw.get("metrics_enabled", True)),
-        metrics_port=_as_positive_int("metrics_port", raw.get("metrics_port", 9090)),
+        metrics_port=_as_port("metrics_port", raw.get("metrics_port", 9090)),
         profiler_port=int(raw.get("profiler_port", 0) or 0),
         trace_enabled=bool(raw.get("trace_enabled", False)),
         trace_output=str(raw.get("trace_output", "") or ""),

@@ -189,10 +189,10 @@ def test_liveness_and_metadata(harness):
 
 @pytest.mark.parametrize("case", ["wrong_name", "too_long", "unported_rpc"])
 def test_bad_requests_are_rejected(harness, case):
-    if case == "unported_rpc":
-        req, method, want = pb.ModelConfigRequest(name="llama"), "ModelConfig", \
+    if case == "unported_rpc":  # shared memory: UNIMPLEMENTED, as in the JAX server
+        req, method, want = pb.SystemSharedMemoryStatusRequest(), "SystemSharedMemoryStatus", \
             grpc.StatusCode.UNIMPLEMENTED
-        resp_cls = pb.ModelConfigResponse
+        resp_cls = pb.SystemSharedMemoryStatusResponse
     else:
         req = _request([1, 2, 3], 5) if case == "wrong_name" else _request([1] * 60, 30)
         if case == "wrong_name":
