@@ -6,7 +6,7 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then drives four groups of paths
+(one nvcc per source, all at once), then drives five groups of paths
 and fails (exit 1) if any phase fails.
 
 The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
@@ -137,6 +137,36 @@ llama_paged.yml; full width and depth):
     streams and pages as the standard paged run's) and flat with prompt
     lookup, rigged.
 
+Every model family and quant mode on one device (configs/vit_l_16.yml,
+resnet18_nhwc.yml, moe_decoder.yml, and llama_decoder.yml with
+``serve_logits: true`` set in code), after the batch path (13-14) and
+after the flat group (15-16):
+
+13. ViT-L/16 int8 (BF16, adaptive batching up to 32, two lanes, the
+    congestion monitor, traces off): the model at B = 32 against the FP32
+    forward of the same tree, its head's int8_matmul launch and a
+    forward's device busy time; 64 concurrent one-image requests, each
+    held against a batch-1 apply;
+14. ResNet-18 W8A8 on the NHWC wire: at B = 32 every conv's s8 x s8 ->
+    s32 sums (``torch._int_mm``) equal to float64 on the card, the fc's
+    int8_matmul launch and the device busy time; 128 concurrent images
+    against a batch-1 apply (the activation scale spans the batch: a
+    limit from the first reading), and the same images on an unquantized
+    FP32 witness server, element by element. The kernel rows this group
+    adds to the kernels' ``per_shape`` lists run after phase 7's:
+    int8_matmul at the ViT head (M = 32, K = 1024, N = 1000) and the MoE
+    routers (N = 8, 4), int4_matmul at the int4 router (N = 8);
+15. moe-8x1b (int8, 16 slots, cut to ``MOE_LAYERS`` layers): 16 greedy
+    requests through int8_matmul (router and projections at 16 rows),
+    causal_attention, chunk_prefill_attention and decode_attention, every
+    block a graph replay, the graphed block equal to the eager body, the
+    host clock of a step against its device busy time and the device
+    time of dequantizing the expert stacks; moe-tiny at FP32, kernels on
+    against off, equal streams;
+16. serve_logits: llama-1b int4 on the batch pipeline, 4 requests of 512
+    ids over gRPC, the logits against forward_logits at batch 1 on the
+    card, causal_attention once a layer a forward.
+
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
 starts, so runs of one config admit in the same order. Every serving
@@ -178,6 +208,10 @@ W4A8_CONFIG = ROOT / "configs" / "llama_w4a8.yml"
 SPEC_CONFIG = ROOT / "configs" / "llama_speculative.yml"
 LOOKUP_CONFIG = ROOT / "configs" / "llama_prompt_lookup.yml"
 PAGED_CONFIG = ROOT / "configs" / "llama_paged.yml"
+
+VIT_CONFIG = ROOT / "configs" / "vit_l_16.yml"
+NHWC_CONFIG = ROOT / "configs" / "resnet18_nhwc.yml"
+MOE_CONFIG = ROOT / "configs" / "moe_decoder.yml"
 
 # H100 SXM published peaks (dense): HBM3 bytes/s, bf16 tensor FLOP/s and
 # int8 tensor OP/s
@@ -756,7 +790,7 @@ def _profile_block(fn):
         return None
 
 
-def decode_block_phase(engine, card, k1_step_ms):
+def decode_block_phase(engine, card, k1_step_ms=None, label="decode block"):
     """Where one decode block's time goes, the body run eagerly against
     the engine's CUDA graph: every slot busy (16-token prompts), blocks
     driven by hand at depth 1 after the serving phase. From one snapshot
@@ -786,11 +820,11 @@ def decode_block_phase(engine, card, k1_step_ms):
         engine._admit_pending()
         engine._land_prefills(force=True)
     require(engine.active_count() == engine.num_slots,
-            f"decode block: {engine.active_count()} of {engine.num_slots} slots active")
+            f"{label}: {engine.active_count()} of {engine.num_slots} slots active")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     snap = engine._snapshot_active()
-    require(snap["sample"] is None, "decode block: the snapshot samples")
+    require(snap["sample"] is None, f"{label}: the snapshot samples")
     cache = _cache_tensors(engine.cache)
     saved = [t.clone() for t in cache]
 
@@ -842,15 +876,15 @@ def decode_block_phase(engine, card, k1_step_ms):
         outs = [r.result(timeout=600) for r in reqs]
     finally:
         engine.stop()
-    require(all(len(o) == 4 * steps for o in outs), "decode block: a request came back short")
+    require(all(len(o) == 4 * steps for o in outs), f"{label}: a request came back short")
     block = engine._greedy
-    print(f"decode block on {card}: {steps} steps x {engine.num_slots} slots, the body eager "
+    print(f"{label} on {card}: {steps} steps x {engine.num_slots} slots, the body eager "
           f"against the graph replay from the same snapshot and cache: tokens equal {same_tokens}, "
           f"carry equal {same_carry}, cache bytes equal {same_cache}; graph memory pool "
           f"{block.pool_bytes / 2 ** 20:.1f} MiB (torch.cuda.memory_reserved around the capture), "
           f"{block.replays} replays, {block.warmups} warm-up block(s)")
     require(same_tokens and same_carry and same_cache,
-            "decode block: the graph replay differs from the body run eagerly")
+            f"{label}: the graph replay differs from the body run eagerly")
     result = {}
     for what, dispatch_ms, wait_ms, span, prof in (
             ("eager", e_dispatch, e_wait, e_span, e_prof),
@@ -874,12 +908,13 @@ def decode_block_phase(engine, card, k1_step_ms):
             attn_ms = sum(v for k, v in by_name.items()
                           if "dmma::attend_kernel" in k or "dmma::merge_kernel" in k)
             line += f"; decode attention (decode_mma.cuh) {attn_ms:.4f} ms in the block"
-        print(f"decode block {what} on {card}: host clock {host_ms:.3f} ms ({host_ms / steps:.3f} a "
+        print(f"{label} {what} on {card}: host clock {host_ms:.3f} ms ({host_ms / steps:.3f} a "
               f"step) = dispatch {dispatch_ms:.3f} + wait for the tokens {wait_ms:.3f}; device "
               f"span (CUDA events around the dispatch) {span:.3f} ms{line}")
         result[what] = dict(host_ms=host_ms, dispatch_ms=dispatch_ms, span_ms=span,
                             busy_ms=busy_ms, attention_ms=attn_ms if prof is not None else None)
-    print(f"decode block: int4_matmul per step from the kernel phase {k1_step_ms:.3f} ms")
+    if k1_step_ms is not None:
+        print(f"{label}: int4_matmul per step from the kernel phase {k1_step_ms:.3f} ms")
     return result
 
 
@@ -1013,12 +1048,7 @@ def tiny_phase(rows, counters, card, dev):
     import torch
 
     from starpu_inference_server_tpu_torch.models.decoder import get_spec, init_params
-    from starpu_inference_server_tpu_torch.ops import nn
     from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
-    from starpu_inference_server_tpu_torch.serving.generation import (
-        GenerationEngine,
-        GenerationRequest,
-    )
 
     spec = get_spec("llama-tiny", {})
     hq, hkv, d, rep = spec.q_heads, spec.kv_heads, spec.head_dim, spec.rep
@@ -1064,6 +1094,24 @@ def tiny_phase(rows, counters, card, dev):
     rng = np.random.default_rng(33)
     lens = [10, 20, 50, 100, 200, 7, 64, 128]  # buckets 16, 32, 64, 128; 200 in two chunks
     prompts = [rng.integers(0, spec.vocab, n).astype(np.int32) for n in lens]
+    kernels_on_off_streams(spec, params, prompts, counters, card, dev, "llama-tiny (head_dim 32)")
+
+
+def kernels_on_off_streams(spec, params, prompts, counters, card, dev, what):
+    """An FP32 engine of ``spec`` (4 slots, buckets 16-128, 128-row
+    chunks, max_len 256, depth 4) serves ``prompts`` greedily twice, with
+    the kernels on and off: with them on, every prefill through
+    causal_attention and every chunk through chunk_prefill_attention, one
+    launch a layer each, every decode block a graph replay; with them off,
+    no kernel launched; the streams must be equal."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationEngine,
+        GenerationRequest,
+    )
+
     streams = {}
     for kernels in (True, False):
         nn.set_use_kernels(None if kernels else False)
@@ -1088,18 +1136,18 @@ def tiny_phase(rows, counters, card, dev):
         finally:
             nn.set_use_kernels(None)
         if kernels:
-            require_prefill_launches(engine, prompts, launches, "llama-tiny")
-            require_decode_launches(engine, launches, "decode_attention", marks, "llama-tiny")
-            print(f"llama-tiny (head_dim 32) on {card}: {len(prompts)} requests at buckets 16-128 "
+            require_prefill_launches(engine, prompts, launches, what)
+            require_decode_launches(engine, launches, "decode_attention", marks, what)
+            print(f"{what} on {card}: {len(prompts)} requests at buckets 16-128 "
                   f"and one chunked prompt, launches "
                   + json.dumps({k: v for k, v in launches.items() if v}))
         else:
-            require(not any(launches.values()), "llama-tiny with the kernels off launched one")
+            require(not any(launches.values()), f"{what} with the kernels off launched one")
         del engine
     same = sum(a == b for a, b in zip(streams[True], streams[False]))
-    print(f"llama-tiny (head_dim 32) FP32: {same} of {len(prompts)} greedy streams with the "
+    print(f"{what} FP32: {same} of {len(prompts)} greedy streams with the "
           f"kernels on identical to the kernels off")
-    require(same == len(prompts), "llama-tiny: a stream with the kernels on differs from off")
+    require(same == len(prompts), f"{what}: a stream with the kernels on differs from off")
 
 
 # -- phase 4: kernels of the batch ModelInfer path ------------------------------
@@ -3055,6 +3103,373 @@ def flat_path(int4_params, decoder_serving, ctx, counters, card, dev):
     return launches
 
 
+# -- every family and quant mode on one device: ViT, W8A8 ResNet, MoE, serve_logits -
+
+# Limits of this group, by mean relative error |a - b|.mean() / |b|.mean(),
+# set from the first reading on an H100 80GB HBM3 at 700 W (PERF.md
+# section 6), each about 3x over it:
+# - ViT-L/16 int8 at BF16 against the FP32 forward of the same int8 tree
+#   (bf16 activations through 24 layers of random weights): read 1.16e-2;
+# - ViT served against a batch-1 apply at BF16 (GEMMs of another batch
+#   size sum in another order, and a last-bit change flips a bf16
+#   rounding; through 24 layers that reaches the size of the BF16-against-
+#   FP32 gap): read 1.27e-2 and 1.29e-2;
+# - ResNet-18 W8A8 served against a batch-1 apply: the activation scale of
+#   every conv spans the whole batch in both packages, so a response
+#   depends on its batch-mates (ROADMAP queue 3): read 7.2e-3; the FP32
+#   unquantized witness, served the same images, carries the hard check
+#   (read 4.7e-7 against 1e-5, and element by element);
+# - serve_logits: the served logits against forward_logits at batch 1 on
+#   the card, the same computation: read 0 (bit-equal); the limit only
+#   leaves room for a library that picks another algorithm on a lane's
+#   stream.
+VIT_FP32_TOL = 3.5e-2
+VIT_SERVE_TOL = 4e-2
+NHWC_SERVE_TOL = 2e-2
+NHWC_WITNESS = ("none", "FP32", 1e-5, (1e-4, 1e-4))
+LOGITS_TOL = 1e-6
+VIT_IMAGES = 64
+# moe-8x1b's depth in this run: numpy draws its 4.4e9 weights at 16
+# layers in about a minute on the card's host, more than the run can spare;
+# every layer has the same shapes, so the per-layer and per-step numbers
+# scale with it
+MOE_LAYERS = 4
+LOGITS_REQUESTS = 4
+
+
+def narrow_matmul_rows(dev, card):
+    """K2 (int8_matmul) and K1 (int4_matmul) at the shapes this group
+    gives them that no earlier path did: the ViT-L/16 head (M = 32, K =
+    1024, N = 1000), the moe-8x1b router at 16 slots (K = 2048, N = 8:
+    int8, and int4, where the rank-2 router is packed) and the moe-tiny
+    router (K = 256, N = 4). Each held against its plain version (1e-4
+    max|ref|), bit-equal over two calls, timed on cycled copies beside the
+    plain version, torch.matmul bf16 on the dequantized weight and the
+    bound; at most 64 copies, so the routers' weights (4-16 KB) stay in
+    the L2, where a decode step's router may well find them. Returns
+    per-shape entries by kernel."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+    from starpu_inference_server_tpu_torch.ops.quant import pack_int4, unpack_int4
+
+    g = torch.Generator(device=dev).manual_seed(4711)
+    bf16 = torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    cases = (("int8_matmul", "vit_l_16 head", 32, 1024, 1000),
+             ("int8_matmul", "moe-8x1b router", 16, 2048, 8),
+             ("int8_matmul", "moe-tiny router", 16, 256, 4),
+             ("int4_matmul", "moe-8x1b router (int4)", 16, 2048, 8))
+    out = {"int8_matmul": [], "int4_matmul": []}
+    for kernel, name, m, k, n in cases:
+        int4 = kernel == "int4_matmul"
+        wbytes = k * n // 2 if int4 else k * n
+        copies = min(_copies(wbytes), 64)
+        x = torch.randn(m, k, device=dev, generator=g).to(bf16)
+        lo, hi = (-7, 8) if int4 else (-128, 128)
+        wqs = [torch.randint(lo, hi, (k, n), device=dev, generator=g, dtype=torch.int8)
+               for _ in range(copies)]
+        ws = [pack_int4(w) for w in wqs] if int4 else wqs
+        sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
+        fn, plain = ((mk.int4_matmul, mk.int4_matmul_plain) if int4
+                     else (mk.int8_matmul, mk.int8_matmul_plain))
+        got = fn(x, ws[0], sc)
+        ref = plain(x, ws[0], sc)
+        err = max_err(got, ref)
+        tol = 1e-4 * ref.abs().max().item()
+        same = bool(torch.equal(got, fn(x, ws[0], sc)))
+        plan = mk.matmul_plan(kernel, m, n, k, sms)
+        shape = f"M={m} K={k} N={n}"
+        print(f"kernel {kernel} {shape} ({name}): max_abs_err={err:.3e} tol={tol:.3e} (1e-4 "
+              f"max|ref|); two calls bit-equal {same}; tile {mk.QMM_TILES[plan.variant]}, "
+              f"{plan.splits} splits, {plan.grid} blocks")
+        require(err <= tol, f"{kernel} {name} disagrees with its plain version")
+        require(same, f"{kernel} {name} gave other bits on a second call")
+        ms = _time_cycled(lambda i: fn(x, ws[i], sc), copies)
+        plain_ms = time_ms(lambda: plain(x, ws[0], sc), iters=5)
+        deq = [((unpack_int4(ws[i]) if int4 else ws[i]).float() * sc).to(bf16)
+               for i in range(copies)]
+        lib_ms = _time_cycled(lambda i: torch.matmul(x, deq[i]), copies)
+        b_ms, b_by = bound_ms(m * k * 2 + wbytes + n * 4 + m * n * 4, 2.0 * m * k * n)
+        print(f"time {kernel} {shape} ({name}) on {card}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms ({copies} dequantized "
+              f"weights cycled), bound {b_ms:.4f} ms ({b_by})")
+        out[kernel].append(dict(layer=name, m=m, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, shape=shape,
+                                splits=plan.splits, grid=plan.grid))
+        del wqs, ws, deq
+    return out
+
+
+def forward_busy(model, inputs, what):
+    """The host clock of one forward (median of 3) and its device busy
+    time (torch.profiler's kernel sum), printed; returns the busy ms (None
+    where the profiler fails)."""
+    import torch
+
+    host = forward_ms(model, inputs)
+
+    def run():
+        with torch.inference_mode():
+            model.apply(inputs)
+        torch.cuda.synchronize()
+
+    prof = _profile_block(run)
+    busy = None if prof is None else sum(prof[0].values())
+    print(f"model {what} forward (host clock, synchronised, median of 3): {host:.2f} ms; device "
+          f"busy (torch.profiler kernel sum of one forward): "
+          + ("not measured" if busy is None else f"{busy:.4f} ms"))
+    return busy
+
+
+def vit_path(counters, card):
+    """configs/vit_l_16.yml (ViT-L/16, int8 weights, BF16, adaptive
+    batching up to 32, two lanes, the congestion monitor) on a local
+    server: the model at B = 32 against the FP32 forward of the same
+    tree, with the head's int8_matmul launch and the forward's device busy
+    time; then 64 concurrent one-image requests, each held against a
+    batch-1 apply. The config's batching traces are turned off in code
+    (a server that traces forks the plot script at its shutdown)."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(VIT_CONFIG))
+    cfg = dataclasses.replace(cfg, trace_enabled=False)
+    bundle = LocalServer(cfg)
+    bundle.target = bundle.start()
+    try:
+        model = bundle.server.engine.model
+        dev = bundle.server.engine.device
+        x = torch.from_numpy(np.random.default_rng(41).standard_normal((32, 3, 224, 224))
+                             .astype(np.float32)).to(dev)
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        with torch.inference_mode():
+            out = model.apply({"input": x})["output"]
+        torch.cuda.synchronize()
+        per_forward = read_counts(counters)
+        require(bool(torch.isfinite(out).all()), "ViT logits are not finite")
+        require(tuple(out.shape) == (32, 1000), f"ViT output shape {tuple(out.shape)}")
+        with torch.inference_mode():
+            ref = model.definition.apply(model.params, {"input": x}, torch.float32)["output"]
+        rel = rel_err(out, ref)
+        agree = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        print(f"model vit_l_16 int8 BF16 B=32: against the FP32 forward of the same tree, mean "
+              f"rel err {rel:.3e} (tol {VIT_FP32_TOL}), argmax agreement {agree:.3f}; launches "
+              f"in one forward: {json.dumps({k: v for k, v in per_forward.items() if v})}")
+        require(rel <= VIT_FP32_TOL, "ViT at BF16 disagrees with its FP32 forward")
+        require(per_forward["int8_matmul"] == 1,
+                f"ViT forward ran int8_matmul {per_forward['int8_matmul']} times (the head: 1)")
+        busy = forward_busy(model, {"input": x}, "vit_l_16 int8 B=32")
+        rng = np.random.default_rng(42)
+        samples = [{"input": rng.standard_normal((1, 3, 224, 224)).astype(np.float32)}
+                   for _ in range(VIT_IMAGES)]
+        launches, stats = batch_serving_phase("vit_l_16", bundle, samples, "output",
+                                              VIT_SERVE_TOL, counters, ("int8_matmul",), card,
+                                              "img")
+    finally:
+        bundle.stop()
+    return launches, dict(per_forward, busy_ms=busy, rate=stats["rate"])
+
+
+def resnet_w8a8_path(counters, card):
+    """configs/resnet18_nhwc.yml (ResNet-18 W8A8, NHWC wire, adaptive
+    batching up to 32) on a local server. The model at B = 32: every
+    integer contraction of the forward (each conv, by im2col) is held
+    against the same product in float64 on the card (the s32 sums of
+    ``nn._int_mm_s32`` equal,
+    and the f32 the conv uses equal to the exact sum rounded once), with
+    the fc's int8_matmul launch and the device busy time. Then 128
+    concurrent one-image requests, each against a batch-1 apply within
+    ``NHWC_SERVE_TOL`` (the activation scale spans the batch), and the same
+    requests on a witness server of the config unquantized at FP32, within
+    ``NHWC_WITNESS``'s limits and element by element."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.utils.config import QuantMode, load_config
+
+    cfg = load_config(str(NHWC_CONFIG))
+    require(cfg.model.options.get("input_layout") == "NHWC", "resnet18_nhwc.yml is not NHWC")
+    rng = np.random.default_rng(43)
+    samples = [{"input": rng.standard_normal((1, 224, 224, 3)).astype(np.float32)}
+               for _ in range(RESNET_IMAGES)]
+    bundle = LocalServer(cfg)
+    bundle.target = bundle.start()
+    try:
+        require(nn.w8a8_enabled(), "the W8A8 server did not turn the W8A8 flag on")
+        model = bundle.server.engine.model
+        dev = bundle.server.engine.device
+        x = torch.from_numpy(np.random.default_rng(44).standard_normal((32, 224, 224, 3))
+                             .astype(np.float32)).to(dev)
+        plain_dot = nn._int_dot
+        checks = []
+
+        def checked(x_q, w):
+            y = plain_dot(x_q, w)
+            exact = x_q.double() @ w.double()  # every partial sum exact below 2^53
+            checks.append((tuple(x_q.shape), tuple(w.shape),
+                           bool(torch.equal(nn._int_mm_s32(x_q, w).double(), exact)),
+                           bool(torch.equal(y, exact.float())), exact.abs().max().item()))
+            return y
+
+        torch.cuda.synchronize()
+        zero_counts(counters)
+        nn._int_dot = checked
+        try:
+            with torch.inference_mode():
+                out = model.apply({"input": x})["output"]
+            torch.cuda.synchronize()
+        finally:
+            nn._int_dot = plain_dot
+        per_forward = read_counts(counters)
+        require(bool(torch.isfinite(out).all()) and tuple(out.shape) == (32, 1000),
+                "ResNet W8A8 logits are not finite or of the wrong shape")
+        exact_ok = all(c[2] and c[3] for c in checks)
+        print(f"model resnet18 W8A8 NHWC B=32 on {card}: {len(checks)} integer contractions (M x "
+              f"K by K x N: {', '.join(f'{a[0]}x{a[1]} by {b[1]}' for a, b, *_ in checks[:4])}, "
+              f"...), s32 sums of torch._int_mm equal to float64 on the card: {exact_ok}; largest "
+              f"|sum| {max(c[4] for c in checks):.0f} (2^24 = 16777216); launches in one forward: "
+              f"{json.dumps({k: v for k, v in per_forward.items() if v})}")
+        require(len(checks) == 20, f"{len(checks)} integer contractions in a ResNet-18 forward "
+                                   f"(its 20 convs)")
+        require(exact_ok, "a W8A8 conv's integer sums differ from float64 on the card")
+        require(per_forward["int8_matmul"] == 1, "the W8A8 fc did not run int8_matmul once")
+        busy = forward_busy(model, {"input": x}, "resnet18 W8A8 NHWC B=32")
+        launches, stats = batch_serving_phase("resnet18_nhwc (W8A8)", bundle, samples, "output",
+                                              NHWC_SERVE_TOL, counters, ("int8_matmul",), card,
+                                              "img")
+    finally:
+        bundle.stop()
+    quant, dtype, tol, elem = NHWC_WITNESS
+    wcfg = dataclasses.replace(cfg, name=f"resnet18_nhwc_{quant}_{dtype.lower()}",
+                               model=dataclasses.replace(cfg.model, quantization=QuantMode(quant),
+                                                         compute_dtype=dtype))
+    witness = LocalServer(wcfg)
+    witness.target = witness.start()
+    try:
+        require(not nn.w8a8_enabled(), "the unquantized witness left the W8A8 flag on")
+        batch_serving_phase(f"resnet18_nhwc witness ({quant}, {dtype})", witness, samples,
+                            "output", tol, counters, (), card, "img", check_argmax=True,
+                            elem_tol=elem)
+    finally:
+        witness.stop()
+    return launches, dict(per_forward, busy_ms=busy, rate=stats["rate"])
+
+
+def moe_path(counters, card, dev):
+    """configs/moe_decoder.yml (moe-8x1b at full width, ``MOE_LAYERS``
+    layers, int8 weights and KV cache, 16 slots, the 1x1x1 expert mesh) on
+    the generation engine: 16 greedy requests of 32 tokens (prompts of 40,
+    200 and 600 tokens, the last chunked, and 13 of 64), every prefill and
+    chunk through its kernel, every decode block a graph replay, the
+    router and attention projections through int8_matmul at 16 rows; the
+    decode block phase (eager body against the graph replay: equal
+    tokens, carry and cache bytes; host clock, device busy time); the
+    device time of dequantizing one layer's expert stacks, and its share
+    of a step. Then moe-tiny at its registered width (head_dim 32, 4
+    experts) at FP32, kernels on against off: equal streams."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import get_spec, init_params
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(MOE_CONFIG))
+    require(cfg.devices.mesh.size == 1, "moe_decoder.yml's mesh is not one device")
+    opts = dict(cfg.model.options, layers=MOE_LAYERS)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=opts))
+    t0 = time.perf_counter()
+    engine = build_generation_engine(cfg, device=dev)
+    spec = engine.spec
+    print(f"engine: {cfg.model.family} ({cfg.model.quantization.value}, "
+          f"{cfg.model.compute_dtype}; {spec.layers} layers, {spec.num_experts} experts, top "
+          f"{spec.experts_per_token}) built in {time.perf_counter() - t0:.1f} s")
+    require(spec.is_moe and spec.hidden == 2048 and spec.num_experts == 8, "not moe-8x1b")
+    rng = np.random.default_rng(52)
+    lens = [40, 200, 600] + [64] * (engine.num_slots - 3)
+    prompts = [rng.integers(0, spec.vocab, n).astype(np.int32) for n in lens]
+    t0 = time.perf_counter()
+    _, launches = generate_all(engine, prompts, 32, counters,
+                               ("int8_matmul", "decode_attention", "causal_attention",
+                                "chunk_prefill_attention"), "moe_decoder", card,
+                               dense_prefills=True, decode_kernel="decode_attention")
+    wall = time.perf_counter() - t0
+    admit = engine.loop_timers["admit"]
+    print(f"moe_decoder: admit {admit:.3f} s of a {wall:.3f} s wall ({admit / wall:.1%})")
+    block = decode_block_phase(engine, card, label="moe decode block")
+    steps = engine.steps_per_sync
+    experts = engine.params["layers"][0]["mlp"]["experts"]
+    bf16 = torch.bfloat16
+
+    def dequantize():
+        nn.resolve_weight(experts["gate_up"]["w"], bf16)
+        nn.resolve_weight(experts["down"]["w"], bf16)
+
+    deq_ms = time_ms(dequantize, iters=5)
+    busy = block["graph"]["busy_ms"]
+    step_ms = None if busy is None else busy / steps
+    mb = sum(experts[n]["w"]["w_q"].numel() for n in ("gate_up", "down")) * 2 / 1e6
+    print(f"moe decode step on {card}: dequantizing one layer's expert stacks ({mb:.0f} MB of "
+          f"bf16 out) takes {deq_ms:.4f} ms of device time, {spec.layers} layers "
+          f"{spec.layers * deq_ms:.3f} ms a step against a step's device busy time "
+          + ("not measured" if step_ms is None else
+             f"{step_ms:.3f} ms ({spec.layers * deq_ms / step_ms:.1%})"))
+    del engine, experts
+    torch.cuda.empty_cache()
+
+    tiny = get_spec("moe-tiny", {})
+    require(tiny.head_dim == 32 and tiny.num_experts == 4, "moe-tiny is not head_dim 32, 4 experts")
+    rng = np.random.default_rng(53)
+    prompts = [rng.integers(0, tiny.vocab, n).astype(np.int32)
+               for n in (10, 20, 50, 100, 200, 7, 64, 128)]
+    kernels_on_off_streams(tiny, init_params(tiny, np.random.default_rng(0)), prompts, counters,
+                           card, dev, "moe-tiny (4 experts, head_dim 32)")
+    return launches, dict(block=block, dequantize_layer_ms=deq_ms, step_busy_ms=step_ms,
+                          admit_s=admit, wall_s=wall)
+
+
+def serve_logits_path(counters, card):
+    """configs/llama_decoder.yml (llama-1b, int4) with ``serve_logits:
+    true`` set in code: the decoder on the batch pipeline, no generation
+    engine. 4 concurrent ModelInfer requests of 512 ids; every response's
+    logits held against forward_logits at batch 1 on the card (the
+    model's ``apply``), causal_attention once a layer a forward."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(CONFIG))
+    opts = dict(cfg.model.options, serve_logits=True)
+    cfg = dataclasses.replace(cfg, name="llama_logits",
+                              model=dataclasses.replace(cfg.model, options=opts))
+    seq = cfg.inputs[0].dims[0]
+    bundle = LocalServer(cfg)
+    bundle.target = bundle.start()
+    try:
+        require(bundle.server.generation_engine is None and bundle.server.runner is not None,
+                "the serve_logits server is not a batch server")
+        rng = np.random.default_rng(54)
+        samples = [{"input_ids": rng.integers(0, 32000, (1, seq)).astype(np.int64)}
+                   for _ in range(LOGITS_REQUESTS)]
+        launches, stats = batch_serving_phase("llama_decoder serve_logits", bundle, samples,
+                                              "logits", LOGITS_TOL, counters,
+                                              ("int4_matmul", "causal_attention"), card, "seq")
+        layers = len(bundle.server.engine.model.params["layers"])
+        want = layers * LOGITS_REQUESTS
+        require(launches["causal_attention"] == want,
+                f"serve_logits: causal_attention launched {launches['causal_attention']} times, "
+                f"want {want} (one a layer a forward of T = {seq})")
+    finally:
+        bundle.stop()
+    return launches, stats
+
+
 def _ptxas_kernels(report: str) -> list:
     """(mangled name, registers, spill store bytes) of each entry function
     in a ``ptxas -v`` report."""
@@ -3078,7 +3493,7 @@ def timed(phase_s: dict, name: str, fn, *args):
 def main() -> int:
     pkg = ROOT / "starpu_inference_server_tpu_torch"
     configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
-               PAGED_CONFIG)
+               PAGED_CONFIG, VIT_CONFIG, NHWC_CONFIG, MOE_CONFIG)
     if not pkg.is_dir() or not all(c.is_file() for c in configs):
         print("chip_smoke: FAIL: run from a checkout of the repository "
               "(starpu_inference_server_tpu_torch/ and configs/ not found)", file=sys.stderr)
@@ -3161,8 +3576,14 @@ def main() -> int:
         launches[name] = bert_launches[name]
     for name in RESNET_KERNELS:
         launches[name] = resnet_launches[name]
+    vit_launches, vit_forward = timed(phase_s, "vit_l_16", vit_path, counters, card)
+    nhwc_launches, nhwc_forward = timed(phase_s, "resnet18_nhwc (W8A8)", resnet_w8a8_path,
+                                        counters, card)
 
     rows.update(timed(phase_s, "kernels (int8)", int8_kernel_phase, spec, dev, card))
+    for name, entries in timed(phase_s, "kernels (narrow N)", narrow_matmul_rows, dev,
+                               card).items():
+        rows[name]["per_shape"].extend(entries)
     rows.update(timed(phase_s, "kernels (extras)", extras_kernel_phase, spec, dev, card))
     extra_launches, extra_step, ctx = timed(phase_s, "extras", extras_path, spec, int4_params,
                                             counters, card, dev)
@@ -3176,6 +3597,24 @@ def main() -> int:
                             counters, dev))
     launches.update(timed(phase_s, "flat", flat_path, int4_params, (dec_prompts, dec_outs), ctx,
                           counters, card, dev))
+    del int4_params, ctx
+    torch.cuda.empty_cache()
+    moe_launches, moe = timed(phase_s, "moe_decoder", moe_path, counters, card, dev)
+    logits_launches, _ = timed(phase_s, "serve_logits", serve_logits_path, counters, card)
+    # launches on this slice's paths, by kernel (each path's own counted run)
+    slice_launches = {
+        "int8_matmul": {"vit_l_16_serving": vit_launches["int8_matmul"],
+                        "per_vit_forward": vit_forward["int8_matmul"],
+                        "resnet18_nhwc_serving": nhwc_launches["int8_matmul"],
+                        "per_resnet18_nhwc_forward": nhwc_forward["int8_matmul"],
+                        "moe_decoder_serving": moe_launches["int8_matmul"]},
+        "decode_attention": {"moe_decoder_serving": moe_launches["decode_attention"]},
+        "chunk_prefill_attention": {
+            "moe_decoder_serving": moe_launches["chunk_prefill_attention"]},
+        "causal_attention": {"moe_decoder_serving": moe_launches["causal_attention"],
+                             "serve_logits": logits_launches["causal_attention"]},
+        "int4_matmul": {"serve_logits": logits_launches["int4_matmul"]},
+    }
 
     kernels = []
     for name in _build.KERNELS:
@@ -3207,6 +3646,8 @@ def main() -> int:
             extra.update(splits=r.get("splits"), ptxas=ptxas.get(name, "built before this run"))
             if name == "decode_attention":
                 extra["graph_block_ms"] = r["graph_block_ms"]
+        if name in slice_launches:
+            extra["launches_on_this_slices_paths"] = slice_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",
@@ -3216,6 +3657,11 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"], **extra,
             **({"per_shape": r["per_shape"]} if "per_shape" in r else {}),
         })
+    print(f"this slice's paths on {card}: vit_l_16 {vit_forward['rate']:.1f} img/s, forward "
+          f"B=32 busy {vit_forward['busy_ms']} ms; resnet18_nhwc W8A8 {nhwc_forward['rate']:.1f} "
+          f"img/s, forward B=32 busy {nhwc_forward['busy_ms']} ms; moe_decoder admit "
+          f"{moe['admit_s']:.3f} s of {moe['wall_s']:.3f} s, a step's device busy "
+          f"{moe['step_busy_ms']} ms, expert dequantize {moe['dequantize_layer_ms']:.4f} ms a layer")
     print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)

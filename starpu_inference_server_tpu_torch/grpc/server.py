@@ -8,9 +8,12 @@ Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 Decoder families get the continuous-batching generation engine (with
 its draft model, prompt lookup, paged cache and prefix cache as the
 config's options ask, see ``serving/generation.py:build_generation_engine``);
-every other family gets the batch pipeline: ``ModelEngine``, the bounded
+every other family, and a decoder with ``model.options.serve_logits:
+true`` (teacher-forced logits of ``input_ids``, the JAX server's scoring
+service), gets the batch pipeline: ``ModelEngine``, the bounded
 ``InferenceQueue`` and the ``TaskRunner`` (collector, lanes,
-dispatcher), warmed up by ``TaskRunner.warmup()``. It serves on the GPU
+dispatcher), warmed up by ``TaskRunner.warmup()``. A batch server answers
+``ModelStreamInfer`` UNIMPLEMENTED, as the JAX server does. It serves on the GPU
 (``cuda``); ``InferenceServer(cfg, device="cpu")`` serves on the CPU, as
 the tests do.
 
@@ -108,7 +111,8 @@ class InferenceServer:
         self.engine = None
         self.runner = None
         definition = get_family(cfg.model.family, cfg.model.options)
-        if definition.supports_generation:
+        serve_logits = bool(cfg.model.options.get("serve_logits", False))
+        if definition.supports_generation and not serve_logits:
             self.generation_engine = build_generation_engine(cfg, device=device,
                                                              metrics=self.recorder)
             self.device = self.generation_engine.device

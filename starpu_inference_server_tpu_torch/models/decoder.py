@@ -41,12 +41,15 @@ from ..utils.config import TensorSpec
 from .registry import ModelDefinition, register_family
 
 # variant -> (hidden, layers, q_heads, kv_heads, intermediate, vocab,
-#             num_experts, experts_per_token); MoE variants wait for a
-#             later slice
+#             num_experts, experts_per_token); num_experts 0 = dense MLP
 _VARIANTS = {
     "llama-tiny": (256, 4, 8, 4, 688, 2048, 0, 2),
     "llama-1b": (2048, 16, 32, 8, 5504, 32000, 0, 2),
     "llama-7b": (4096, 32, 32, 32, 11008, 32000, 0, 2),
+    # MoE decoders (mixtral-style routed SwiGLU experts, top-2)
+    "moe-tiny": (256, 4, 8, 4, 688, 2048, 4, 2),
+    "moe-8x1b": (2048, 16, 32, 8, 5504, 32000, 8, 2),
+    "mixtral-8x7b": (4096, 32, 32, 8, 14336, 32000, 8, 2),
 }
 
 ROPE_THETA = 10000.0
@@ -60,18 +63,24 @@ class DecoderSpec:
     kv_heads: int
     intermediate: int
     vocab: int
+    # mixture-of-experts MLP (0 experts = dense SwiGLU)
     num_experts: int = 0
     experts_per_token: int = 2
 
     def __post_init__(self):
-        if self.num_experts:
-            raise NotImplementedError(
-                "mixture-of-experts decoders are not yet ported (ROADMAP)"
+        if self.num_experts and self.experts_per_token > self.num_experts:
+            raise ValueError(
+                f"experts_per_token ({self.experts_per_token}) cannot "
+                f"exceed num_experts ({self.num_experts})"
             )
 
     @property
     def head_dim(self) -> int:
         return self.hidden // self.q_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
 
     @property
     def rep(self) -> int:
@@ -189,14 +198,31 @@ def _linear(rng, cin, cout):
 
 
 def init_params(spec: DecoderSpec, rng: np.random.Generator):
-    """numpy tree, drawn in the JAX package's order (``decoder.py:225``)."""
+    """numpy tree, drawn in the JAX package's order (``decoder.py:225``).
+    An MoE layer's MLP is a router [H, E] and stacked experts, ``gate_up``
+    [E, H, 2I] and ``down`` [E, I, H], drawn before the attention
+    projections, as there."""
     qkv_out = (spec.q_heads + 2 * spec.kv_heads) * spec.head_dim
     layers = []
     for _ in range(spec.layers):
-        mlp = {
-            "gate_up": _linear(rng, spec.hidden, 2 * spec.intermediate),
-            "down": _linear(rng, spec.intermediate, spec.hidden),
-        }
+        if spec.is_moe:
+            e = spec.num_experts
+            scale_g = 1.0 / math.sqrt(spec.hidden)
+            scale_d = 1.0 / math.sqrt(spec.intermediate)
+            mlp = {
+                "router": _linear(rng, spec.hidden, e),
+                "experts": {
+                    "gate_up": {"w": (rng.standard_normal(
+                        (e, spec.hidden, 2 * spec.intermediate)) * scale_g).astype(np.float32)},
+                    "down": {"w": (rng.standard_normal(
+                        (e, spec.intermediate, spec.hidden)) * scale_d).astype(np.float32)},
+                },
+            }
+        else:
+            mlp = {
+                "gate_up": _linear(rng, spec.hidden, 2 * spec.intermediate),
+                "down": _linear(rng, spec.intermediate, spec.hidden),
+            }
         layers.append({
             "attn_norm": {"gamma": np.ones((spec.hidden,), np.float32)},
             "attn": {
@@ -229,6 +255,66 @@ def _fused_mlp(layer, x, dtype):
     gate, up = fused[..., :inter], fused[..., inter:]
     act = F.silu(gate.to(torch.float32)).to(dtype) * up
     return nn.dense(layer["mlp"]["down"], act, dtype)
+
+
+def _top_k_ranks(probs: torch.Tensor) -> torch.Tensor:
+    """The place of each expert in ``jax.lax.top_k``'s order: probability
+    descending, ties to the lower index. rank[t, e] = #{j: p_j > p_e} +
+    #{j < e: p_j == p_e}. Elementwise over [T, E, E], so no sort, no host
+    sync and no data-dependent shape (``torch.topk`` promises no order
+    among ties on CUDA)."""
+    e = probs.shape[-1]
+    pe, pj = probs[..., :, None], probs[..., None, :]
+    lower = torch.ones((e, e), dtype=torch.bool, device=probs.device).tril(-1)  # j < e
+    return ((pj > pe) | ((pj == pe) & lower)).sum(dim=-1)
+
+
+def _expert_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """[E, T, K] x [E, K, N] -> f32 [E, T, N]: operands at their dtype,
+    products accumulated in f32 and the result kept in f32 (the JAX
+    einsum's preferred_element_type=float32; a plain bf16 ``torch.bmm``
+    would round the result to bf16). On CUDA at bf16 it is cuBLAS's bf16
+    GEMM with an f32 output; elsewhere an f32 product of the same
+    (exactly widened) operands."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.bmm(a, w, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), w.to(torch.float32))
+
+
+def _moe_mlp(spec: DecoderSpec, layer, x, dtype):
+    """Mixtral-style routed SwiGLU MoE in the JAX package's dense-dispatch
+    form (``decoder.py:295-328``): the router dense, softmax in f32, top-k
+    with renormalisation, a one-hot combine [T, E]; every expert computes
+    every token through two batched contractions over the stacked
+    weights (dequantized whole by ``resolve_weight``), and the combine
+    sums over E in f32. Static shapes throughout, so a decode block that
+    runs it captures as one CUDA graph."""
+    moe = layer["mlp"]
+    lead = x.shape[:-1]
+    xf = x.reshape(-1, x.shape[-1])  # [T, H]
+    logits = nn.dense(moe["router"], xf, dtype).to(torch.float32)  # [T, E]
+    probs = torch.softmax(logits, dim=-1)
+    ranks = _top_k_ranks(probs)
+    picked = [(ranks == r).to(torch.float32) for r in range(spec.experts_per_token)]
+    vals = [(probs * p).sum(dim=-1) for p in picked]  # the k largest, in top_k's order
+    total = sum(vals)  # in top_k's order (0 + v is v: exact)
+    combine = sum(p * (v / total)[:, None] for p, v in zip(picked, vals))  # [T, E]
+    wg = nn.resolve_weight(moe["experts"]["gate_up"]["w"], dtype)  # [E, H, 2I]
+    wd = nn.resolve_weight(moe["experts"]["down"]["w"], dtype)     # [E, I, H]
+    e = wg.shape[0]
+    h = _expert_matmul(xf.to(dtype).expand(e, *xf.shape), wg)     # f32 [E, T, 2I]
+    inter = h.shape[-1] // 2
+    act = (F.silu(h[..., :inter]) * h[..., inter:]).to(dtype)
+    y = _expert_matmul(act, wd)                                     # f32 [E, T, H]
+    y = torch.einsum("te,eth->th", combine, y)
+    return y.reshape(*lead, x.shape[-1]).to(dtype)
+
+
+def _mlp_block(spec: DecoderSpec, layer, x, dtype):
+    """Dense or routed MLP, decided by the param tree (a ``router``)."""
+    if "router" in layer["mlp"]:
+        return _moe_mlp(spec, layer, x, dtype)
+    return _fused_mlp(layer, x, dtype)
 
 
 def rms_norm(p, x, eps=1e-5):
@@ -331,7 +417,7 @@ def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype) -> torch
         attn = attn.reshape(b, t, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     x = rms_norm(params["final_norm"], x)
     return nn.dense(params["lm_head"], x, dtype).to(torch.float32)
 
@@ -377,7 +463,7 @@ def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
         attn = attn.reshape(1, p, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     cache.lengths[slot] = length
     x = rms_norm(params["final_norm"], x)
     last = x[0, length - 1]
@@ -448,7 +534,7 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             attn = attn.reshape(1, c, spec.q_heads * spec.head_dim)
         x = x + nn.dense(layer["attn"]["o"], attn.to(dtype), dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     cache.lengths[slot] = start + valid
     x = rms_norm(params["final_norm"], x)
     last = x[0, valid - 1]
@@ -504,7 +590,7 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
                 s, 1, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     x = rms_norm(params["final_norm"], x)
     logits = nn.dense(params["lm_head"], x[:, 0], dtype).to(torch.float32)
     cache.lengths.copy_(torch.where(active, positions + 1, positions))
@@ -571,7 +657,7 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
                 s, w, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     x = rms_norm(params["final_norm"], x)
     logits = nn.dense(params["lm_head"], x.reshape(s * w, -1), dtype)
     return cache, logits.reshape(s, w, spec.vocab).to(torch.float32)

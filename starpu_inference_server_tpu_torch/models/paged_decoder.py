@@ -46,7 +46,7 @@ from .decoder import (
     _dequantize_kv,
     _f32,
     _flat_rows,
-    _fused_mlp,
+    _mlp_block,
     _project_qkv,
     _quantize_kv,
     _softmax_cast,
@@ -216,7 +216,7 @@ def paged_prefill(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch.Ten
         attn = attn.reshape(1, p, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     cache.lengths[slot] = length
     x = rms_norm(params["final_norm"], x)
     logits = nn.dense(params["lm_head"], x[0, length - 1][None, :], dtype)[0]
@@ -273,7 +273,7 @@ def paged_prefill_chunk(spec: DecoderSpec, params, cache: PagedKVCache, ids: tor
         attn = attn.reshape(1, c, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     cache.lengths[slot] = start + valid
     x = rms_norm(params["final_norm"], x)
     logits = nn.dense(params["lm_head"], x[0, valid - 1][None, :], dtype)[0]
@@ -325,7 +325,7 @@ def paged_decode_step(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch
                 s, 1, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     x = rms_norm(params["final_norm"], x)
     logits = nn.dense(params["lm_head"], x[:, 0], dtype).to(torch.float32)
     cache.lengths.copy_(torch.where(active, positions + 1, positions))
@@ -380,7 +380,7 @@ def paged_verify_step(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch
                 s, w, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _fused_mlp(layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype)
     x = rms_norm(params["final_norm"], x)
     logits = nn.dense(params["lm_head"], x.reshape(s * w, -1), dtype)
     return cache, logits.reshape(s, w, spec.vocab).to(torch.float32)

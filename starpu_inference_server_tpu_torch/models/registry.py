@@ -4,8 +4,8 @@ Counterpart of ``starpu_inference_server_tpu/models/registry.py``.
 ``build_model`` makes the same parameter tree as the JAX package: random
 weights come from the same ``np.random.default_rng(seed)`` calls in the
 same order (or from an ``.npz`` archive), are quantized per the config
-and land on the target device as torch tensors. Orbax checkpoints and
-the ViT family wait for later slices.
+and land on the target device as torch tensors. Orbax checkpoints wait
+for a later slice.
 """
 
 from __future__ import annotations
@@ -22,9 +22,6 @@ from ..utils.dtypes import torch_dtype
 from ..utils.exceptions import ModelLoadError, UnknownModelFamilyError
 
 InitFn = Callable[[np.random.Generator], Any]
-
-# families of the JAX package that this port does not serve yet
-NOT_YET_PORTED = ("vit_b_16", "vit_l_16")
 
 QUANT_BITS = {QuantMode.NONE: None, QuantMode.INT8: 8, QuantMode.INT4: 4,
               QuantMode.W8A8: 8, QuantMode.W4A8: 4}
@@ -56,7 +53,7 @@ def register_family(name: str):
 
 
 def _ensure_loaded() -> None:
-    from . import bert, decoder, identity, resnet  # noqa: F401
+    from . import bert, decoder, identity, resnet, vit  # noqa: F401
 
 
 def available_families() -> Tuple[str, ...]:
@@ -68,11 +65,6 @@ def get_family(name: str, options: Optional[Mapping[str, Any]] = None) -> ModelD
     _ensure_loaded()
     make_definition = _REGISTRY.get(name)
     if make_definition is None:
-        if name in NOT_YET_PORTED or name.startswith("vit"):
-            raise UnknownModelFamilyError(
-                f"model family {name!r} is not yet ported to the PyTorch package "
-                f"(ROADMAP queue 1); ported: {', '.join(sorted(_REGISTRY))}"
-            )
         raise UnknownModelFamilyError(
             f"unknown model family {name!r}; available: {', '.join(sorted(_REGISTRY))}"
         )

@@ -73,16 +73,28 @@ def resolve_weight(w, dtype=torch.bfloat16) -> torch.Tensor:
     return w.to(dtype)
 
 
+def _int_mm_s32(x_q: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+    """s8 [M, K] x s8 [K, N] -> exact s32 [M, N] by ``torch._int_mm``
+    (cuBLASLt) on CUDA, M > 16. K and N are padded with zeros to the
+    multiples of 8 it needs (zeros add nothing); the weight goes in
+    column-major order, the "TN" form that cuBLASLt's int8 GEMM takes at
+    every shape (the row-major form is refused at small K on an H100)."""
+    k, n = w_int.shape
+    kp, np_ = -k % 8, -n % 8
+    if kp or np_:
+        x_q = F.pad(x_q, (0, kp))
+        w_int = F.pad(w_int, (0, np_, 0, kp))
+    y = torch._int_mm(x_q.contiguous(), w_int.t().contiguous().t())
+    return y[:, :n] if np_ else y
+
+
 def _int_dot(x_q: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
     """Exact s8 x s8 contraction (XLA's preferred_element_type=int32) as
-    f32. On CUDA, where ``torch._int_mm`` takes the shape (more than 16
-    rows, K and N multiples of 8), it is the s8 x s8 -> s32 product;
+    f32: on CUDA above 16 rows the s32 product of :func:`_int_mm_s32`,
     elsewhere float64, where every partial sum is exact. Both give the
     same integers, rounded once to f32 as XLA's int32 -> f32 cast does."""
-    m, k = x_q.shape
-    n = w_int.shape[1]
-    if x_q.is_cuda and m > 16 and k % 8 == 0 and n % 8 == 0:
-        return torch._int_mm(x_q.contiguous(), w_int.contiguous()).to(torch.float32)
+    if x_q.is_cuda and x_q.shape[0] > 16:
+        return _int_mm_s32(x_q, w_int).to(torch.float32)
     return (x_q.to(torch.float64) @ w_int.to(torch.float64)).to(torch.float32)
 
 
@@ -175,6 +187,45 @@ def _spatial_pads(padding, h: int, w: int, kh: int, kw: int, stride: int):
     return (int(t), int(b)), (int(l), int(r))
 
 
+def _patches(x: torch.Tensor, kh: int, kw: int, stride: int, pads) -> torch.Tensor:
+    """im2col of an NHWC tensor: [B, Ho, Wo, kh * kw, C] (taps major,
+    channels minor: the order of an HWIO kernel reshaped to [kh kw C, O]),
+    padded with zeros, by strided slices, so any dtype (int8 too) works."""
+    (pt, pb), (pl, pr) = pads
+    if pt or pb or pl or pr:
+        x = F.pad(x, (0, 0, pl, pr, pt, pb))
+    ho = (x.shape[1] - kh) // stride + 1
+    wo = (x.shape[2] - kw) // stride + 1
+    taps = [x[:, i:i + stride * (ho - 1) + 1:stride, j:j + stride * (wo - 1) + 1:stride]
+            for i in range(kh) for j in range(kw)]
+    return torch.stack(taps, dim=3)
+
+
+def _conv2d_w8a8(wnode, x: torch.Tensor, stride: int, pads, groups: int) -> torch.Tensor:
+    """The W8A8 conv of the JAX package (``ops/nn.py:183-198``): ONE
+    per-tensor activation scale over the whole batch (absmax / 127, 1 for
+    an all-zero input), ``x_q = clip(round(x / sx), -127, 127)``, an exact
+    s8 x s8 -> s32 conv (im2col and :func:`_int_dot`, group by group),
+    then ``f32(y) * sx * scale[O]`` in that order. An f32 conv of the
+    int8 values would not be exact: a 3x3x512 window reaches 127^2 x 4608,
+    past 2^24. Returns f32 [B, Ho, Wo, O]."""
+    w_q = wnode["w_q"]
+    kh, kw, cin_g, out = w_q.shape
+    xf = x.to(torch.float32)
+    absmax = xf.abs().amax()
+    sx = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    x_q = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
+    cols = _patches(x_q, kh, kw, stride, pads)  # [B, Ho, Wo, kh kw, C]
+    b, ho, wo = cols.shape[:3]
+    cols = cols.reshape(b * ho * wo, kh * kw, groups, cin_g)
+    w = w_q.reshape(kh * kw, cin_g, groups, out // groups)
+    y = torch.cat([_int_dot(cols[:, :, g].reshape(-1, kh * kw * cin_g),
+                            w[:, :, g].reshape(kh * kw * cin_g, -1)) for g in range(groups)],
+                  dim=1)
+    y = y * sx * wnode["scale"].reshape(1, -1).to(torch.float32)
+    return y.reshape(b, ho, wo, out)
+
+
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
            dtype=torch.bfloat16) -> torch.Tensor:
     """NHWC conv, ``p = {'w': [kh, kw, in/groups, out] dense or int8, 'b'?}``.
@@ -184,28 +235,29 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
     first (weight-only). On CUDA at bf16 the conv runs in bf16 through
     cuDNN, which accumulates in f32 and rounds the output once, as the
     JAX path does before its bias; elsewhere it runs in f32 on the
-    rounded operands. W8A8 convolutions (s8 activations) are not ported
-    (ROADMAP)."""
+    rounded operands. Under W8A8 an int8 (or int4-valued) weight takes the
+    exact s8 x s8 conv of :func:`_conv2d_w8a8`, whose per-tensor
+    activation scale spans the batch, in both packages."""
     wnode = p["w"]
     if is_quantized_leaf(wnode) and _W8A8:
-        raise NotImplementedError(
-            "W8A8 convolutions are not yet ported to the PyTorch package "
-            "(ROADMAP queue 1); serve ResNet weight-only (quantization: int8)"
-        )
-    w = resolve_weight(wnode, dtype)
-    kh, kw = w.shape[0], w.shape[1]
-    (pt, pb), (pl, pr) = _spatial_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
-    xc = x.permute(0, 3, 1, 2)
-    wc = w.permute(3, 2, 0, 1)
-    if x.is_cuda and dtype == torch.bfloat16:
-        xc, wc = xc.to(dtype), wc.to(dtype)
+        kh, kw = wnode["w_q"].shape[:2]
+        pads = _spatial_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
+        y = _conv2d_w8a8(wnode, x, stride, pads, groups)
     else:
-        xc, wc = xc.to(dtype).to(torch.float32), wc.to(torch.float32)
-    if pt == pb and pl == pr:
-        y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), groups=groups)
-    else:
-        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, groups=groups)
-    y = y.permute(0, 2, 3, 1).to(torch.float32)
+        w = resolve_weight(wnode, dtype)
+        kh, kw = w.shape[0], w.shape[1]
+        (pt, pb), (pl, pr) = _spatial_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(3, 2, 0, 1)
+        if x.is_cuda and dtype == torch.bfloat16:
+            xc, wc = xc.to(dtype), wc.to(dtype)
+        else:
+            xc, wc = xc.to(dtype).to(torch.float32), wc.to(torch.float32)
+        if pt == pb and pl == pr:
+            y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), groups=groups)
+        else:
+            y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, groups=groups)
+        y = y.permute(0, 2, 3, 1).to(torch.float32)
     if "b" in p and p["b"] is not None:
         y = y + p["b"].to(torch.float32)
     return y.to(dtype)

@@ -1431,7 +1431,7 @@ class GenerationEngine:
 
 
 # options of the JAX engine that this port does not serve yet
-_UNPORTED_OPTIONS = {"pipe_microgroups": 0, "serve_logits": False}
+_UNPORTED_OPTIONS = {"pipe_microgroups": 0}
 
 
 def build_draft(cfg, spec: DecoderSpec, device):

@@ -20,8 +20,10 @@ against their standard twins on the same logical cache, the bf16 route
 of all eight decode-side kernels at split shapes (1 and 4 slots, lengths
 at tile and split edges, pages of 16, head_dim 32 and 128) bit-equal
 over two calls and as CUDA graphs replayed with other lengths, engines that
-serve through each of them, and a chained decode block that never syncs
-the host."""
+serve through each of them, a chained decode block that never syncs
+the host, the MoE decode block as a graph, and the W8A8 conv's integer
+route (``torch._int_mm``) exact at the shapes cuBLASLt's row-major form
+refuses and equal to the CPU's bits."""
 
 import pytest
 import torch
@@ -763,13 +765,16 @@ def test_chained_block_does_not_sync_the_host(dev, case, sampled):
 # replay of one captured graph. Each case is an engine of llama-tiny's
 # registered widths (2 layers) at bf16 on a tree that routes its dense
 # layers through a kernel: int4 (K1) standard and flat, int8 (K2) paged,
-# and W4A8 (K6).
+# and W4A8 (K6); and moe-tiny's (2 layers, 4 experts) at int8, whose
+# router and attention projections run K2 and whose experts run two
+# batched contractions on the dequantized stacks.
 
 GRAPH_CASES = {
     "int4": (4, dict(), False, "int4_matmul"),
     "int4_flat": (4, dict(kv_cache_layout="flat"), False, "int4_matmul"),
     "int8_paged": (8, dict(kv_page_size=16), False, "int8_matmul"),
     "w4a8": (4, dict(), True, "int4_matmul_w4a8"),
+    "moe_int8": (8, dict(), False, "int8_matmul"),
 }
 
 
@@ -783,7 +788,7 @@ def _graph_engine(case, depth):
     from starpu_inference_server_tpu_torch.weights import params_from_numpy
 
     bits, kw, w8a8, _ = GRAPH_CASES[case]
-    spec = td.get_spec("llama-tiny", {"layers": 2})
+    spec = td.get_spec("moe-tiny" if case.startswith("moe") else "llama-tiny", {"layers": 2})
     params = maybe_quantize_tree(params_from_numpy(td.init_params(spec, np.random.default_rng(0))),
                                  bits)
     nn.set_w8a8(w8a8)
@@ -872,7 +877,9 @@ def test_graphed_block_equals_the_eager_body(dev, w8a8_off, case, depth):
         tokens, ids, prog, alive = ref._decode_and_sample(ids, alive, prog, rsnap)
         eager_launches = mk.launches[counter] - b0
         want.append(tokens.cpu().numpy())
-    assert eager_launches == 3 * (4 * 2 + 1)  # steps x (four dense layers a layer + lm_head)
+    # steps x (the kernel's dense layers a layer x 2 layers + lm_head): an
+    # MoE layer has three (qkv, o, the router), a dense one four
+    assert eager_launches == 3 * ((3 if case.startswith("moe") else 4) * 2 + 1)
     assert replayed == (depth - 1) * eager_launches
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -1047,3 +1054,55 @@ def test_prefill_outside_the_kernels_limits_raises(dev, head_dim):
     with pytest.raises(ValueError, match="causal_attention kernel needs D"):
         td.prefill(spec, params, cache, ids, 30, 0, torch.float32)
     assert pa.launches["causal_attention"] == before
+
+
+# -- W8A8 convolutions and the MoE MLP on the card ------------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(17, 64, 128), (784, 64, 128), (100, 147, 4),
+                                   (25088, 576, 64), (40, 4608, 512)])
+def test_int_mm_s32_on_the_card_is_exact(dev, m, k, n):
+    """``torch._int_mm`` through ``_int_mm_s32`` (K and N padded to
+    multiples of 8, the weight column-major): exact s32 sums at shapes the
+    row-major form is refused at (K = 64 at 17 and 784 rows), at the
+    unfolded stem's K = 147 with a grouped conv's N = 4, and at ResNet's
+    widest windows (3x3x512: sums past 2^24)."""
+    from starpu_inference_server_tpu_torch.ops import nn
+
+    g = _gen(dev, m + k + n)
+    x = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+    got = nn._int_mm_s32(x, w)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.double(), x.double() @ w.double())
+
+
+@pytest.mark.parametrize("case", ["stride2", "groups32", "stem_k147", "s2d_k192", "vit_k768"])
+def test_w8a8_conv_on_the_card_equals_the_cpu(dev, case):
+    """The W8A8 conv on CUDA tensors (``torch._int_mm``) gives the CPU
+    route's bits (float64 sums) at bf16, in every shape class of the
+    paths: a strided 3x3, ResNeXt's 32 groups, both ResNet stems and the
+    ViT patch conv."""
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.ops.quant import maybe_quantize_tree
+
+    shape, kh, cin_g, out, stride, padding, groups = {
+        "stride2": ((4, 28, 28, 64), 3, 64, 128, 2, 1, 1),
+        "groups32": ((2, 14, 14, 128), 3, 4, 128, 2, 1, 32),
+        "stem_k147": ((2, 56, 56, 3), 7, 3, 64, 2, 3, 1),
+        "s2d_k192": ((2, 56, 56, 12), 4, 12, 64, 1, [(2, 1), (2, 1)], 1),
+        "vit_k768": ((2, 224, 224, 3), 16, 3, 1024, 16, "VALID", 1),
+    }[case]
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(shape, generator=g)
+    p = maybe_quantize_tree({"w": torch.randn(kh, kh, cin_g, out, generator=g) * 0.1,
+                             "b": torch.randn(out, generator=g)}, 8)
+    nn.set_w8a8(True)
+    try:
+        want = nn.conv2d(p, x, stride=stride, padding=padding, groups=groups)
+        cuda_p = {"w": {k: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                        for k, v in p["w"].items()}, "b": p["b"].to(dev)}
+        got = nn.conv2d(cuda_p, x.to(dev), stride=stride, padding=padding, groups=groups)
+    finally:
+        nn.set_w8a8(False)
+    assert torch.equal(got.cpu(), want)
+

@@ -10,6 +10,7 @@ import threading
 import grpc
 import numpy as np
 import pytest
+import torch
 
 from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
 from starpu_inference_server_tpu_torch.grpc.server import InferenceServer
@@ -205,8 +206,18 @@ def test_bad_requests_are_rejected(harness, case):
 
 
 def test_non_decoder_family_is_not_yet_ported():
-    with pytest.raises(UnknownModelFamilyError, match="not yet ported"):
-        InferenceServer(decoder_cfg(family="vit_b_16"), device="cpu")
+    """Every model family of the JAX package is served now (ViT was the
+    last non-decoder family); a name that neither package registers is
+    refused at the door, and ``pipe_microgroups``, which waits for the
+    multi-device slice, is refused as not yet ported."""
+    from starpu_inference_server_tpu.models import available_families as jax_families
+    from starpu_inference_server_tpu_torch.models import available_families
+
+    assert set(jax_families()) <= set(available_families())
+    with pytest.raises(UnknownModelFamilyError, match="unknown model family"):
+        InferenceServer(decoder_cfg(family="vit_h_14"), device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        InferenceServer(decoder_cfg(pipe_microgroups=2), device="cpu")
 
 
 # -- the batch ModelInfer route -------------------------------------------------
@@ -356,3 +367,114 @@ def test_batch_model_infer_serves_bert_like_the_jax_model():
     # the JAX package's own BERT tolerance (test_bidirectional_attention.py)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
     assert resp.server_inference_ms > 0
+
+
+# -- serve_logits: a decoder on the batch route -----------------------------------
+
+def logits_cfg(parse=parse_config, seq=16):
+    """llama-tiny (2 layers, hidden 128, int4) with ``serve_logits: true``:
+    teacher-forced logits of ``input_ids`` through the batch pipeline."""
+    return parse({
+        "name": "m",
+        "model": {"family": "llama-tiny", "compute_dtype": "FP32", "quantization": "int4",
+                  "options": {"layers": 2, "hidden": 128, "q_heads": 2, "kv_heads": 1,
+                              "intermediate": 256, "vocab": 128, "seq_len": seq,
+                              "serve_logits": True}},
+        "inputs": [{"name": "input_ids", "dims": [seq], "dtype": "INT64"}],
+        "outputs": [{"name": "logits", "dims": [seq, 128], "dtype": "FP32"}],
+        "pool_size": 2, "max_batch_size": 2, "batch_coalesce_timeout_ms": 2,
+        "batching_strategy": "adaptive", "max_queue_size": 16, "max_inflight_tasks": 2,
+        "warmup_request_nb": 1, "seed": 5,
+        "metrics_enabled": False, "server": {"address": "127.0.0.1:0"},
+    })
+
+
+class _JaxHarness(Harness):
+    def __init__(self, cfg):  # the JAX package's server in the same harness
+        from starpu_inference_server_tpu.grpc.server import InferenceServer as JaxServer
+
+        self.server = JaxServer(cfg, expose_metrics=False)
+        self.ready = threading.Event()
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+
+def test_serve_logits_server_answers_like_the_jax_server():
+    """A port server and a JAX server of the same ``serve_logits`` config
+    side by side: neither builds a generation engine; four concurrent
+    ModelInfer requests of 16 ids each get the same teacher-forced logits
+    (int4 weights at FP32: f32 sums in another order, limit 1e-4);
+    ModelStreamInfer answers UNIMPLEMENTED on both, as on any batch
+    model."""
+    from starpu_inference_server_tpu.utils import config as jcfg
+
+    rng = np.random.default_rng(4)
+    ids = [rng.integers(0, 128, (1, 16)).astype(np.int64) for _ in range(4)]
+    outs = {}
+    with _JaxHarness(logits_cfg(jcfg.parse_config)) as j, Harness(logits_cfg()) as t:
+        assert t.server.generation_engine is None and t.server.runner is not None
+        assert j.server.generation_engine is None
+        for name, h in (("jax", j), ("torch", t)):
+            async def go(target=h.target):
+                async with grpc.aio.insecure_channel(target) as channel:
+                    call = channel.unary_unary(
+                        "/inference.GRPCInferenceService/ModelInfer",
+                        request_serializer=pb.ModelInferRequest.SerializeToString,
+                        response_deserializer=pb.ModelInferResponse.FromString)
+                    return await asyncio.gather(*(
+                        call(_infer_request({"input_ids": x}, rid=str(i)), timeout=120)
+                        for i, x in enumerate(ids)))
+
+            resps = run(go())
+            assert [r.outputs[0].name for r in resps] == ["logits"] * 4
+            assert all(list(r.outputs[0].shape) == [1, 16, 128] for r in resps)
+            outs[name] = [np.frombuffer(r.raw_output_contents[0], np.float32).reshape(16, 128)
+                          for r in resps]
+
+            async def stream(target=h.target):
+                async with grpc.aio.insecure_channel(target) as channel:
+                    call = channel.stream_stream(
+                        "/inference.GRPCInferenceService/ModelStreamInfer",
+                        request_serializer=pb.ModelInferRequest.SerializeToString,
+                        response_deserializer=pb.ModelStreamInferResponse.FromString)
+                    return await call().read()
+
+            with pytest.raises(grpc.aio.AioRpcError) as err:
+                run(stream())
+            assert err.value.code() == grpc.StatusCode.UNIMPLEMENTED
+    for got, want in zip(outs["torch"], outs["jax"]):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_logits_engine_packs_int4_and_reloads():
+    """The batch engine of a ``serve_logits`` decoder with the kernel
+    routes forced on: its int4 leaves are packed pairwise (the embedding
+    table too, gathered packed), its logits equal the unpacked tree's
+    (the int4 kernel's plain version rounds activations to bf16, as the
+    kernel does: limit 5e-2, the decoder tests' own), and a hot reload of
+    the same config swaps in a tree of the same leaves with equal
+    outputs."""
+    from starpu_inference_server_tpu_torch.core.engine import ModelEngine
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.ops import nn
+
+    cfg = logits_cfg()
+    ids = torch.from_numpy(np.random.default_rng(6).integers(0, 128, (2, 16)))
+    plain = build_model(cfg.model, seed=cfg.seed, device="cpu")
+    with torch.inference_mode():
+        want = plain.apply({"input_ids": ids})["logits"]
+    nn.set_use_kernels(True)
+    try:
+        engine = ModelEngine(cfg, build_model(cfg.model, seed=cfg.seed, device="cpu"))
+        layer = engine.model.params["layers"][0]
+        assert "w_p4" in layer["attn"]["qkv"]["w"] and "w_p4" in engine.model.params["embed"]["w"]
+        got = engine.fetch(engine.run_padded({"input_ids": ids}))["logits"]
+        engine.reload(build_model(cfg.model, seed=cfg.seed, device="cpu"))
+        again = engine.fetch(engine.run_padded({"input_ids": ids}))["logits"]
+    finally:
+        nn.set_use_kernels(None)
+    assert got.shape == (2, 16, 128)
+    rel = ((got - want).abs().mean() / want.abs().mean()).item()
+    assert rel < 5e-2, rel
+    assert torch.equal(got, again)

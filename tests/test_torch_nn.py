@@ -108,3 +108,92 @@ def test_int_dot_is_exact(rows):
     exact = x_q.astype(np.int64) @ w.astype(np.int64)
     np.testing.assert_array_equal(tnn._int_dot(_t(x_q), _t(w)).numpy(),
                                   exact.astype(np.float32))
+
+
+# -- W8A8 convolutions ---------------------------------------------------------
+
+W8A8_CONVS = {
+    # name: (input NHWC, kernel, in/groups, out, stride, padding, groups)
+    "stride2_int_pad": ((2, 15, 14, 8), 3, 8, 16, 2, 1, 1),
+    "same": ((2, 9, 10, 8), 3, 8, 16, 1, "SAME", 1),
+    "valid_stride2": ((2, 11, 11, 8), 3, 8, 24, 2, "VALID", 1),
+    "groups4": ((2, 9, 9, 16), 3, 4, 16, 1, 1, 4),
+    "groups32_resnext": ((1, 8, 8, 128), 3, 4, 128, 2, 1, 32),
+    "s2d_stem_k192": ((2, 12, 12, 12), 4, 12, 64, 1, [(2, 1), (2, 1)], 1),
+    "unfolded_stem_k147": ((2, 20, 20, 3), 7, 3, 64, 2, 3, 1),
+    "vit_patch_k768": ((2, 32, 32, 3), 16, 3, 40, 16, "VALID", 1),
+}
+
+
+@pytest.fixture
+def w8a8_mode():
+    jnn.set_w8a8(True)
+    tnn.set_w8a8(True)
+    yield
+    jnn.set_w8a8(False)
+    tnn.set_w8a8(False)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(W8A8_CONVS))
+def test_w8a8_conv2d_is_bit_equal_to_jax(w8a8_mode, case, dtype):
+    """The s8 x s8 -> s32 conv is exact in both packages (XLA's int32
+    conv; the port's im2col through ``_int_dot``), the per-tensor
+    activation scale and the f32 rescale are the same IEEE operations in
+    the same order: the outputs are equal bit for bit (tolerance 0), at
+    every stride, padding and group count, and at the s2d stem's K = 192,
+    the unfolded stem's K = 147 and the ViT patch conv's K = 768."""
+    shape, kh, cin_g, out, stride, padding, groups = W8A8_CONVS[case]
+    rng = np.random.default_rng(len(case))
+    x = rng.standard_normal(shape).astype(np.float32)
+    p = {"w": (rng.standard_normal((kh, kh, cin_g, out)) * 0.2).astype(np.float32),
+         "b": rng.standard_normal(out).astype(np.float32)}
+    p = jq.maybe_quantize_tree({k: jnp.asarray(v) for k, v in p.items()}, 8)
+    jd, td = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
+    want = _np(jnn.conv2d(p, jnp.asarray(x).astype(jd), stride=stride, padding=padding,
+                          groups=groups, dtype=jd))
+    got = _np(tnn.conv2d(params_from_numpy(p), _t(x).to(td), stride=stride, padding=padding,
+                         groups=groups, dtype=td))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def test_w8a8_conv2d_keeps_integer_sums_an_f32_conv_would_lose(w8a8_mode):
+    """127-valued activations against mostly 127-valued weights over
+    3x3x512 windows: the s32 sums reach 6.8e7, past 2^24, where an f32
+    conv of the same integers rounds its partial sums (a quarter of these
+    outputs come out different). The port's conv, like the JAX
+    package's, gives the exact sums, rounded once to f32 and scaled."""
+    rng = np.random.default_rng(5)
+    w_q = np.where(rng.random((3, 3, 512, 8)) < 0.9, 127,
+                   rng.integers(-127, 128, (3, 3, 512, 8))).astype(np.int8)
+    scale = (rng.random((1, 1, 1, 8)) * 1e-3 + 1e-3).astype(np.float32)
+    leaf = {"w": {"w_q": w_q, "scale": scale, "bits": 8}}
+    x = np.full((1, 6, 6, 512), 2.5, np.float32)  # x_q = 127 everywhere
+    got = tnn.conv2d(params_from_numpy(leaf), _t(x), padding="VALID", dtype=torch.float32)
+    want = np.asarray(jnn.conv2d(leaf, jnp.asarray(x), padding="VALID", dtype=jnp.float32))
+    np.testing.assert_array_equal(got.numpy(), want)
+    cols = np.stack([np.full((4, 4, 512), 127, np.int64)] * 9, axis=2).reshape(16, -1)
+    exact = cols @ w_q.astype(np.int64).reshape(-1, 8)
+    assert exact.max() > 2 ** 24
+    sx = np.float32(2.5) / np.float32(127.0)
+    np.testing.assert_array_equal(
+        got.numpy().reshape(16, 8), exact.astype(np.float32) * sx * scale.reshape(1, 8))
+    f32_conv = torch.nn.functional.conv2d(
+        torch.full((1, 512, 6, 6), 127.0), _t(w_q).permute(3, 2, 0, 1).float())
+    lost = f32_conv.permute(0, 2, 3, 1).reshape(16, 8).numpy() != exact.astype(np.float32)
+    assert lost.any()
+
+
+@pytest.mark.parametrize("m,k,n", [(40, 147, 4), (17, 64, 128), (33, 192, 64)])
+def test_int_mm_s32_pads_to_exact_sums(m, k, n):
+    """``torch._int_mm``'s route (K and N padded with zeros to multiples of
+    8, the weight column-major) gives the exact integer sums, at the
+    unfolded stem's K = 147, a grouped conv's N = 4 and shapes that the
+    row-major form is refused at on the card."""
+    rng = np.random.default_rng(m + k + n)
+    x_q = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    got = tnn._int_mm_s32(_t(x_q), _t(w))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (m, n)
+    np.testing.assert_array_equal(got.numpy(), x_q.astype(np.int64) @ w.astype(np.int64))

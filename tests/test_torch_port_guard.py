@@ -8,7 +8,9 @@
 - Every file in ``configs/`` parses to the same values in both packages,
   and each llama config the generation engine serves builds from its
   yml on the CPU (one layer, the yml's widths) and generates, in the
-  standard cache layout and with ``kv_cache_layout: flat`` set in code.
+  standard cache layout and with ``kv_cache_layout: flat`` set in code;
+  ``vit_l_16.yml``, ``resnet18_nhwc.yml`` and ``moe_decoder.yml`` each
+  start a port server on the CPU (cut in depth) and answer a request.
 - ``chip_smoke.py`` fails, printing no result, without CUDA and outside
   a checkout.
 """
@@ -149,6 +151,62 @@ def test_served_llama_config_builds_flat_and_generates_on_cpu(name):
     finally:
         eng.stop()
     assert len(out) == 3 and all(0 <= t < 32000 for t in out)
+
+
+# the configs this slice serves, each cut so that a CPU builds and runs it:
+# depth (ViT-L/16 to one layer, moe-8x1b to one layer with two of its eight
+# experts: a layer at full width is 270M parameters an expert pair) and the
+# batch buckets (to 1 and 2)
+NEW_SERVED = {
+    "vit_l_16": dict(options={"num_layers": 1}, max_batch_size=2),
+    "resnet18_nhwc": dict(options={}, max_batch_size=2),
+    "moe_decoder": dict(options={"layers": 1, "num_experts": 2}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NEW_SERVED))
+def test_new_served_config_starts_a_server_on_cpu(name, tmp_path):
+    """``vit_l_16.yml`` (INT8 ViT-L/16), ``resnet18_nhwc.yml`` (W8A8
+    ResNet-18, NHWC wire) and ``moe_decoder.yml`` (moe-8x1b, int8, the
+    1x1x1 expert mesh) start a port server from their yml at full width,
+    cut as ``NEW_SERVED`` says (``metrics_port: 0``, traces under
+    ``tmp_path``): the batch configs warm up their pipeline and answer a
+    request of one sample, the MoE config gets the generation engine and
+    answers a greedy request."""
+    import asyncio
+
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.grpc.server import InferenceServer
+    from starpu_inference_server_tpu_torch.ops import nn
+
+    path = ROOT / "configs" / f"{name}.yml"
+    cfg = tcfg.load_config(str(path))
+    cut = NEW_SERVED[name]
+    model = dataclasses.replace(cfg.model, options=dict(cfg.model.options, **cut["options"]))
+    cfg = dataclasses.replace(cfg, model=model, metrics_port=0,
+                              trace_output=str(tmp_path / "trace"),
+                              max_batch_size=cut.get("max_batch_size", cfg.max_batch_size))
+    server = InferenceServer(cfg, device="cpu")
+    try:
+        server.start_pipeline(warmup=True)
+        if name == "moe_decoder":
+            eng = server.generation_engine
+            assert server.runner is None and eng.spec.is_moe and eng.spec.hidden == 2048
+            out = eng.generate(np.arange(1, 41, dtype=np.int32), max_new_tokens=3, timeout=300)
+            assert len(out) == 3 and all(0 <= t < 32000 for t in out)
+        else:
+            assert server.generation_engine is None
+            assert nn.w8a8_enabled() == (name == "resnet18_nhwc")
+            spec = cfg.inputs[0]
+            x = np.random.default_rng(0).standard_normal((1, *spec.dims)).astype(np.float32)
+            out = server.engine.conform_outputs(server.engine.fetch(
+                server.engine.run_padded({spec.name: torch.from_numpy(x)})))["output"]
+            assert out.shape == (1, 1000) and np.isfinite(out).all()
+    finally:
+        asyncio.new_event_loop().run_until_complete(server.shutdown())
+        nn.set_w8a8(False)
 
 
 def test_config_keeps_strict_keys_and_suggestions():
