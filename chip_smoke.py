@@ -6,7 +6,7 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then drives five groups of paths
+(one nvcc per source, all at once), then drives six groups of paths
 and fails (exit 1) if any phase fails.
 
 The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
@@ -166,6 +166,33 @@ after the flat group (15-16):
 16. serve_logits: llama-1b int4 on the batch pipeline, 4 requests of 512
     ids over gRPC, the logits against forward_logits at batch 1 on the
     card, causal_attention once a layer a forward.
+
+Clients and checkpoints, last: every server is started from the CLI
+(``python -m starpu_inference_server_tpu_torch.grpc.server --config
+<temp yml>``) as its own process, on a fresh port with ``metrics_port:
+0``, and every client runs as its own process; a kernel's launches are
+read from its server's log (the counts after warmup and at shutdown):
+
+17. ResNet-152 int8 (ci/perf/resnet152_ci_perf.yml) from a checkpoint of
+    its FP32 tree (the config's seed), beside a server of the same yml
+    built from the seed. The card's machine has no ``tensorstore``, so the
+    checkpoint is the flat-key ``.npz`` that ``load_params`` reads, written
+    here (tests/test_torch_checkpoint.py holds the Orbax route). The port
+    client replays ci/perf/ci_perf_resnet_smoke.csv with the flags of
+    scripts/run_perf_smoke.sh (64 requests handled and validated), then
+    scripts/check_perf_summary.py reads the summary (its verdict printed:
+    its thresholds were set for another machine), then the full
+    ci_perf_resnet.csv (6,300 requests: handled + rejected = sent); one
+    image's response equal, bit for bit, on both servers; int8_matmul (the
+    fc) launched, fused_stem not;
+18. configs/llama_decoder.yml: the generation client, 128 requests of 32
+    tokens at concurrency 128, unary (which pays for the decode graph's
+    capture), then streaming (time to first token); a direct stream equal
+    to the unary response for each of the client's pooled prompts;
+    int4_matmul, decode_attention and causal_attention launched;
+19. configs/bert_long.yml at FP32, unquantized, seed 42: the BERT client at
+    s = 512 with ``--validate`` against its reference model on the card;
+    bidirectional_attention launched.
 
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
@@ -3470,6 +3497,420 @@ def serve_logits_path(counters, card):
     return launches, stats
 
 
+# -- clients and checkpoints: the CLI entry points as separate processes ----------
+
+PERF_CONFIG = ROOT / "ci" / "perf" / "resnet152_ci_perf.yml"
+SMOKE_SCHEDULE = ROOT / "ci" / "perf" / "ci_perf_resnet_smoke.csv"
+FULL_SCHEDULE = ROOT / "ci" / "perf" / "ci_perf_resnet.csv"
+SMOKE_REQUESTS = 64
+FULL_REQUESTS = 6300
+# the reference's gates (scripts/run_perf_smoke.sh: MAX_P95_MS, MIN_RPS)
+MAX_P95_MS = 500
+MIN_RPS = 10
+GEN_TOKENS, GEN_PROMPT, GEN_REQUESTS = 32, 64, 128
+BERT_TEXTS = ("The quick brown fox jumps over the lazy dog.",
+              "Serving a long BERT sequence through the port's bidirectional attention kernel.")
+# the subprocesses read no model hub: the BERT client's tokenizer falls back offline
+CHILD_ENV = {"HF_HUB_OFFLINE": "1", "TRANSFORMERS_OFFLINE": "1"}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def child_env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT), **CHILD_ENV)
+
+
+class ServerProcess:
+    """``python -m starpu_inference_server_tpu_torch.grpc.server --config
+    <yml>`` as its own process. The yml is a temp copy of ``base`` with
+    ``changes`` (dotted keys), a fresh port and ``metrics_port: 0``; the
+    server's log goes to a file beside it."""
+
+    def __init__(self, base: Path, workdir: Path, tag: str, changes: dict = None):
+        import yaml
+
+        raw = yaml.safe_load(base.read_text())
+        for dotted, value in (changes or {}).items():
+            node = raw
+            *parents, last = dotted.split(".")
+            for key in parents:
+                node = node.setdefault(key, {})
+            node[last] = value
+        self.address = f"127.0.0.1:{free_port()}"
+        raw["server"] = dict(raw.get("server") or {}, address=self.address)
+        raw["metrics_port"] = 0
+        self.name, self.tag = raw["name"], tag
+        self.config = workdir / f"{tag}.yml"
+        self.config.write_text(yaml.safe_dump(raw))
+        self.log = workdir / f"{tag}.log"
+        self.proc = None
+        self.start_s = None
+
+    def command(self) -> list:
+        return [sys.executable, "-m", "starpu_inference_server_tpu_torch.grpc.server",
+                "--config", str(self.config)]
+
+    def start(self) -> "ServerProcess":
+        self._wall0 = time.time()
+        with open(self.log, "w") as fh:
+            self.proc = subprocess.Popen(self.command(), cwd=ROOT, env=child_env(), stdout=fh,
+                                         stderr=subprocess.STDOUT)
+        return self
+
+    def wait_ready(self, timeout: float = 900) -> str:
+        marker = f"serving {self.name} on {self.address}"
+        deadline = time.monotonic() + timeout
+        while (m := re.search(rf"^\[(\d+):(\d+):([\d.]+)\] .*{re.escape(marker)}",
+                              self.log.read_text(), re.M)) is None:
+            require(self.proc.poll() is None,
+                    f"server {self.tag} exited with {self.proc.returncode} before serving")
+            require(time.monotonic() < deadline, f"server {self.tag} not serving in {timeout} s")
+            time.sleep(0.25)
+        # from the start of the process to its log line (local clock, as the log writes it)
+        t0 = time.localtime(self._wall0)
+        since_midnight = t0.tm_hour * 3600 + t0.tm_min * 60 + t0.tm_sec + self._wall0 % 1
+        served = int(m.group(1)) * 3600 + int(m.group(2)) * 60 + float(m.group(3))
+        self.start_s = (served - since_midnight) % 86400
+        print(f"server {self.tag} ({self.name}, pid {self.proc.pid}): started from the CLI and "
+              f"serving on {self.address} in {self.start_s:.1f} s")
+        return self.address
+
+    def stop(self) -> dict:
+        """SIGINT (the server's own shutdown), then its kernel launches
+        between warmup and shutdown, by kernel, from its log."""
+        import signal
+
+        self.proc.send_signal(signal.SIGINT)
+        rc = self.proc.wait(timeout=120)
+        require(rc == 0, f"server {self.tag} exited with {rc} at shutdown")
+        text = self.log.read_text()
+        counts = {}
+        for when in ("after warmup", "at shutdown"):
+            m = re.search(rf"kernel launches {when}: (\{{.*\}})", text)
+            require(m is not None, f"server {self.tag}: no 'kernel launches {when}' line")
+            counts[when] = json.loads(m.group(1))
+        before, after = counts["after warmup"], counts["at shutdown"]
+        return {k: v - before.get(k, 0) for k, v in after.items() if v > before.get(k, 0)}
+
+    def kill(self) -> None:
+        """Ends the process by its PID if it still runs."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+
+    def tail(self, lines: int = 40) -> str:
+        return "\n".join(self.log.read_text().splitlines()[-lines:]) if self.log.exists() else ""
+
+
+def show_logs(servers) -> None:
+    for server in servers:
+        print(f"server {server.tag} log (last lines):\n{server.tail()}", file=sys.stderr)
+
+
+def run_client(module: str, args: list, what: str, timeout: float = 600) -> str:
+    """``python -m starpu_inference_server_tpu_torch.clients.<module> args``
+    as its own process; fails the run when it exits non-zero."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"starpu_inference_server_tpu_torch.clients."
+                          f"{module}", *args], cwd=ROOT, env=child_env(), capture_output=True,
+                         text=True, timeout=timeout)
+    if out.returncode != 0:
+        print(out.stdout[-4000:], out.stderr[-4000:], sep="\n", file=sys.stderr)
+    require(out.returncode == 0, f"{what}: the client exited with {out.returncode}")
+    print(f"{what}: client process done in {time.perf_counter() - t0:.1f} s")
+    return out.stdout
+
+
+def replay(target: str, model: str, schedule: Path, summary: Path, what: str) -> dict:
+    """The port client with the flags of scripts/run_perf_smoke.sh."""
+    run_client("client", ["--target", target, "--model", model, "--input",
+                          "input:3x224x224:FP32", "--schedule", str(schedule),
+                          "--ready-timeout-s", "900", "--summary-json", str(summary),
+                          "--validate"], what, timeout=900)
+    return json.loads(summary.read_text())
+
+
+def _pcts(block: dict) -> str:
+    return ", ".join(f"{p} {block[p]:.1f}" for p in ("p50", "p95", "p100"))
+
+
+def batches_formed(target: str, model: str) -> dict:
+    """{batch size: [batches, mean compute ms]} from the server's
+    ModelStatistics (every batch since it started)."""
+    from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
+
+    status, details, resp = control_call(target, "ModelStatistics",
+                                         pb.ModelStatisticsRequest(name=model))
+    require(status == "OK", f"ModelStatistics: {status} {details}")
+    return {b.batch_size: [b.compute_infer.count,
+                           round(b.compute_infer.ns / max(1, b.compute_infer.count) / 1e6, 2)]
+            for b in resp.model_stats[0].batch_stats}
+
+
+def write_params_npz(tree, path: Path) -> int:
+    """The flat-key ``.npz`` that ``load_params`` reads ('a/b/c' keys;
+    list items under their index); returns its bytes."""
+    import numpy as np
+
+    flat = {}
+
+    def rec(node, prefix):
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for key, value in items:
+            name = f"{prefix}{key}"
+            if isinstance(value, (dict, list)):
+                rec(value, name + "/")
+            else:
+                flat[name] = np.asarray(value)
+
+    rec(tree, "")
+    np.savez(path, **flat)
+    return sum(a.nbytes for a in flat.values())
+
+
+def one_image_response(target: str, model: str, image) -> bytes:
+    """The raw output of one ModelInfer of ``image`` (sent alone)."""
+    responses, _, _ = infer_all(target, [make_request(model, {"input": image}, "one")])
+    return responses[0].raw_output_contents[0]
+
+
+def resnet152_checkpoint_phase(workdir: Path, card: str) -> dict:
+    """ResNet-152 int8 (ci/perf/resnet152_ci_perf.yml) served from a
+    checkpoint of its FP32 tree, under the reference's CI replay. The
+    card's machine has no tensorstore (PERF.md §6), so the checkpoint
+    is the flat-key ``.npz`` (written here: the package gains no writer);
+    the Orbax route is held by tests/test_torch_checkpoint.py."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.models.registry import get_family
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    cfg = load_config(str(PERF_CONFIG))
+    t0 = time.perf_counter()
+    tree = get_family(cfg.model.family, cfg.model.options).init_params(
+        np.random.default_rng(cfg.seed))
+    npz = workdir / "resnet152_fp32.npz"
+    nbytes = write_params_npz(tree, npz)
+    del tree
+    print(f"resnet152 checkpoint: the FP32 tree from seed {cfg.seed} ({nbytes / 1e6:.1f} MB) "
+          f"written as {npz.name} in {time.perf_counter() - t0:.1f} s")
+    ckpt = ServerProcess(PERF_CONFIG, workdir, "resnet152_checkpoint",
+                         {"model.params": str(npz)})
+    seeded = ServerProcess(PERF_CONFIG, workdir, "resnet152_seeded")
+    servers = [ckpt, seeded]
+    try:
+        for server in servers:
+            server.start()
+        for server in servers:
+            server.wait_ready()
+        smoke = replay(ckpt.address, cfg.name, SMOKE_SCHEDULE, workdir / "smoke.json",
+                       "resnet152 CI smoke replay")
+        req, val = smoke["requests"], smoke.get("validation", {})
+        print(f"resnet152 CI smoke replay ({SMOKE_SCHEDULE.name}) on {card}: requests "
+              f"{json.dumps(req)}, validation {json.dumps(val)}, {smoke['throughput_rps']:.1f} "
+              f"req/s; roundtrip ms {_pcts(smoke['latency_ms']['roundtrip'])}; server_overall "
+              f"ms {_pcts(smoke['latency_ms']['server_overall'])}; batches formed [count, "
+              f"mean compute ms] {json.dumps(batches_formed(ckpt.address, cfg.name))}")
+        require(req["sent"] == req["handled"] == SMOKE_REQUESTS and req["rejected"] == 0
+                and req["errors"] == 0, "resnet152 smoke replay: not every request handled")
+        require(val.get("checked") == SMOKE_REQUESTS and val.get("failures") == 0,
+                "resnet152 smoke replay: a response failed validation")
+        # the reference's gate, with run_perf_smoke.sh's flags; its latency and
+        # throughput thresholds were set for another machine, so its verdict
+        # is a reading for this card, not a pass condition of the run
+        gate = subprocess.run(
+            [sys.executable, "scripts/check_perf_summary.py", "--summary",
+             str(workdir / "smoke.json"), "--latency-metric", "server_overall",
+             "--max-latency-p95-ms", str(MAX_P95_MS), "--min-throughput-rps", str(MIN_RPS),
+             "--max-rejected", "0", "--expected-requests", str(SMOKE_REQUESTS)],
+            cwd=ROOT, capture_output=True, text=True, timeout=60)
+        verdict = (gate.stdout + gate.stderr).strip()
+        print(f"check_perf_summary.py on the smoke summary: exit code {gate.returncode}: "
+              f"{verdict}")
+        full = replay(ckpt.address, cfg.name, FULL_SCHEDULE, workdir / "full.json",
+                      "resnet152 CI full replay")
+        req, lat = full["requests"], full["latency_ms"]
+        p95 = lat["server_overall"]["p95"]
+        print(f"resnet152 CI full replay ({FULL_SCHEDULE.name}) on {card}: requests "
+              f"{json.dumps(req)}, validation {json.dumps(full.get('validation', {}))}, "
+              f"{full['throughput_rps']:.1f} req/s over {full['elapsed_s']:.2f} s; roundtrip ms "
+              f"{_pcts(lat['roundtrip'])}; server_overall ms {_pcts(lat['server_overall'])}; "
+              f"queue ms {_pcts(lat['queue'])}; the reference's gates: server_overall p95 "
+              f"{p95:.1f} <= {MAX_P95_MS} ms {'met' if p95 <= MAX_P95_MS else 'NOT met'}, "
+              f"{full['throughput_rps']:.1f} >= {MIN_RPS} req/s "
+              f"{'met' if full['throughput_rps'] >= MIN_RPS else 'NOT met'}, rejected "
+              f"{req['rejected']} (max_queue_size {cfg.max_queue_size})")
+        print(f"resnet152 CI full replay p50 ms by phase (the server's fields): "
+              f"{json.dumps({k: round(v['p50'], 1) for k, v in lat.items()})}; batches formed "
+              f"since the start [count, mean compute ms] "
+              f"{json.dumps(batches_formed(ckpt.address, cfg.name))}")
+        require(req["sent"] == FULL_REQUESTS and req["handled"] + req["rejected"] == req["sent"]
+                and req["errors"] == 0, "resnet152 full replay: requests not accounted")
+        require(full["validation"]["failures"] == 0,
+                "resnet152 full replay: a response failed validation")
+        image = np.random.default_rng(152).standard_normal((1, 3, 224, 224)).astype(np.float32)
+        same = one_image_response(ckpt.address, cfg.name, image) == one_image_response(
+            seeded.address, cfg.name, image)
+        print(f"resnet152: the checkpointed server's response to one image "
+              f"{'equals' if same else 'DIFFERS from'} the seeded server's, bit for bit")
+        require(same, "resnet152: the checkpointed server answers unlike the seeded one")
+        launches = ckpt.stop()
+        seeded.stop()
+    except BaseException:
+        show_logs(servers)
+        raise
+    finally:
+        for server in servers:
+            server.kill()
+    print(f"resnet152 server launches over both replays (its log): {json.dumps(launches)}")
+    require(launches.get("int8_matmul", 0) > 0, "resnet152: int8_matmul (fc) was not launched")
+    require("fused_stem" not in launches, "resnet152: fused_stem ran without stem_fused")
+    return {"launches": launches, "servers": servers, "smoke": smoke, "full": full,
+            "gate_rc": gate.returncode}
+
+
+def _generation(target: str, prompt, stream: bool):
+    """Tokens of one direct generation call (ModelStreamInfer or ModelInfer)."""
+    import grpc
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.grpc import kserve_v2_pb2 as pb
+
+    req = pb.ModelInferRequest(model_name="llama", id="direct")
+    t = req.inputs.add()
+    t.name, t.datatype = "input_ids", "INT64"
+    t.shape.extend([1, len(prompt)])
+    req.raw_input_contents.append(np.asarray(prompt, np.int64).tobytes())
+    req.parameters["max_new_tokens"].int64_param = GEN_TOKENS
+
+    async def go():
+        async with grpc.aio.insecure_channel(target) as channel:
+            if not stream:
+                call = channel.unary_unary(
+                    "/inference.GRPCInferenceService/ModelInfer",
+                    request_serializer=pb.ModelInferRequest.SerializeToString,
+                    response_deserializer=pb.ModelInferResponse.FromString)
+                resp = await call(req, timeout=600)
+                return np.frombuffer(resp.raw_output_contents[0], np.int32).tolist()
+            call = channel.stream_stream(
+                "/inference.GRPCInferenceService/ModelStreamInfer",
+                request_serializer=pb.ModelInferRequest.SerializeToString,
+                response_deserializer=pb.ModelStreamInferResponse.FromString)
+            tokens = []
+            async for msg in call(iter([req]), timeout=600):
+                require(not msg.error_message, f"stream error: {msg.error_message}")
+                tokens += np.frombuffer(msg.infer_response.raw_output_contents[0],
+                                        np.int32).tolist()
+            return tokens
+
+    return asyncio.run(go())
+
+
+def generation_client_phase(server: ServerProcess, workdir: Path, card: str) -> dict:
+    """configs/llama_decoder.yml (llama-1b int4, 128 slots) from the CLI,
+    driven by the port's GenerationClient as its own process: 128 requests
+    of 32 tokens at concurrency 128, unary first (it pays for the decode
+    graph's capture), then streaming (time to first token); then one
+    direct unary and one streaming call for each pooled prompt, equal."""
+    from starpu_inference_server_tpu_torch.clients.client import pooled_prompts
+
+    target = server.wait_ready()
+    runs = {}
+    for mode in ("unary", "stream"):
+        path = workdir / f"generate_{mode}.json"
+        run_client("client", ["--target", target, "--model", "llama", "--generate",
+                              str(GEN_TOKENS), "--prompt-len", str(GEN_PROMPT),
+                              "--request-number", str(GEN_REQUESTS), "--concurrency",
+                              str(GEN_REQUESTS), "--summary-json", str(path),
+                              *(["--stream"] if mode == "stream" else [])],
+                   f"generation client ({mode})")
+        s = runs[mode] = json.loads(path.read_text())
+        req, gen = s["requests"], s["generation"]
+        print(f"generation client ({mode}, {GEN_REQUESTS} requests of {GEN_TOKENS} tokens, "
+              f"prompts of {GEN_PROMPT}, concurrency {GEN_REQUESTS}) on {card}: requests "
+              f"{json.dumps(req)}; {gen['tokens_total']} tokens, {gen['tokens_per_s']:.1f} "
+              f"tok/s, {s['throughput_rps']:.2f} req/s over {s['elapsed_s']:.2f} s; roundtrip "
+              f"ms {_pcts(s['latency_ms']['roundtrip'])}"
+              + (f"; TTFT ms {_pcts(gen['ttft_ms'])}" if "ttft_ms" in gen else ""))
+        require(req["sent"] == req["handled"] == GEN_REQUESTS and req["rejected"] == 0
+                and req["errors"] == 0, f"generation client ({mode}): not every request handled")
+        require(gen["tokens_total"] == GEN_REQUESTS * GEN_TOKENS,
+                f"generation client ({mode}): {gen['tokens_total']} tokens")
+        require(("ttft_ms" in gen) == (mode == "stream"), f"generation ({mode}): TTFT field")
+    # the client's defaults: vocab 32000, seed 7, no shared prefix
+    for i, prompt in enumerate(pooled_prompts(GEN_PROMPT)):
+        unary, streamed = _generation(target, prompt, False), _generation(target, prompt, True)
+        require(len(unary) == GEN_TOKENS and streamed == unary,
+                f"pooled prompt {i}: the stream's tokens differ from the unary response's")
+    print(f"generation: for each of the client's {len(pooled_prompts(GEN_PROMPT))} pooled "
+          f"prompts, a direct stream's {GEN_TOKENS} tokens equal the unary response's")
+    return runs
+
+
+def bert_client_phase(server: ServerProcess, card: str) -> str:
+    """The BERT client (s = 512, two texts) against configs/bert_long.yml at
+    FP32, unquantized, seed 42, with ``--validate``: its reference model is
+    built on the card."""
+    target = server.wait_ready()
+    args = ["--target", target, "--model", server.name, "--seq-len", "512", "--validate"]
+    for text in BERT_TEXTS:
+        args += ["--text", text]
+    out = run_client("bert_client", args, "bert client")
+    print(f"bert client on {card}:\n" + "\n".join(f"  {line}" for line in out.splitlines()))
+    require("reference validation: OK" in out, "bert client: the reference validation failed")
+    return out
+
+
+def clients_path(card: str) -> dict:
+    """The group "clients and checkpoints": every server started from the
+    CLI as its own process (a fresh port, ``metrics_port: 0``), killed by
+    its PID in a ``finally``, its log printed if it fails; every client its
+    own process. Launches are read from each server's log."""
+    import tempfile
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        workdir = Path(tmp)
+        resnet = resnet152_checkpoint_phase(workdir, card)
+        llama = ServerProcess(CONFIG, workdir, "llama_decoder")
+        bert = ServerProcess(BERT_CONFIG, workdir, "bert_long_fp32",
+                             {"model.quantization": "none", "model.compute_dtype": "FP32",
+                              "seed": 42})
+        servers = [llama, bert]
+        try:
+            for server in servers:  # both start together; the BERT server waits its turn
+                server.start()
+            generation = generation_client_phase(llama, workdir, card)
+            gen_launches = llama.stop()
+            bert_client_phase(bert, card)
+            bert_launches = bert.stop()
+        except BaseException:
+            show_logs(servers)
+            raise
+        finally:
+            for server in servers:
+                server.kill()
+    print(f"llama_decoder server launches over both client runs and the direct calls (its "
+          f"log): {json.dumps(gen_launches)}")
+    for name in ("int4_matmul", "decode_attention", "causal_attention"):
+        require(gen_launches.get(name, 0) > 0, f"generation: {name} was not launched")
+    print(f"bert_long server launches (its log): {json.dumps(bert_launches)}")
+    require(bert_launches.get("bidirectional_attention", 0) > 0,
+            "bert client: bidirectional_attention was not launched at s = 512")
+    return {"resnet": resnet, "generation": generation, "gen_launches": gen_launches,
+            "bert_launches": bert_launches,
+            "start_s": {s.tag: round(s.start_s, 1) for s in resnet["servers"] + servers}}
+
+
 def _ptxas_kernels(report: str) -> list:
     """(mangled name, registers, spill store bytes) of each entry function
     in a ``ptxas -v`` report."""
@@ -3601,19 +4042,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_launches, moe = timed(phase_s, "moe_decoder", moe_path, counters, card, dev)
     logits_launches, _ = timed(phase_s, "serve_logits", serve_logits_path, counters, card)
+    torch.cuda.empty_cache()
+    clients = timed(phase_s, "clients and checkpoints", clients_path, card)
+    gen_launches = clients["gen_launches"]
     # launches on this slice's paths, by kernel (each path's own counted run)
     slice_launches = {
-        "int8_matmul": {"vit_l_16_serving": vit_launches["int8_matmul"],
+        "int8_matmul": {"resnet152_ci_replays": clients["resnet"]["launches"]["int8_matmul"],
+                        "vit_l_16_serving": vit_launches["int8_matmul"],
                         "per_vit_forward": vit_forward["int8_matmul"],
                         "resnet18_nhwc_serving": nhwc_launches["int8_matmul"],
                         "per_resnet18_nhwc_forward": nhwc_forward["int8_matmul"],
                         "moe_decoder_serving": moe_launches["int8_matmul"]},
-        "decode_attention": {"moe_decoder_serving": moe_launches["decode_attention"]},
+        "decode_attention": {"moe_decoder_serving": moe_launches["decode_attention"],
+                             "generation_client": gen_launches["decode_attention"]},
         "chunk_prefill_attention": {
             "moe_decoder_serving": moe_launches["chunk_prefill_attention"]},
         "causal_attention": {"moe_decoder_serving": moe_launches["causal_attention"],
-                             "serve_logits": logits_launches["causal_attention"]},
-        "int4_matmul": {"serve_logits": logits_launches["int4_matmul"]},
+                             "serve_logits": logits_launches["causal_attention"],
+                             "generation_client": gen_launches["causal_attention"]},
+        "int4_matmul": {"serve_logits": logits_launches["int4_matmul"],
+                        "generation_client": gen_launches["int4_matmul"]},
+        "bidirectional_attention": {
+            "bert_client": clients["bert_launches"]["bidirectional_attention"]},
     }
 
     kernels = []
@@ -3662,6 +4112,15 @@ def main() -> int:
           f"img/s, forward B=32 busy {nhwc_forward['busy_ms']} ms; moe_decoder admit "
           f"{moe['admit_s']:.3f} s of {moe['wall_s']:.3f} s, a step's device busy "
           f"{moe['step_busy_ms']} ms, expert dequantize {moe['dequantize_layer_ms']:.4f} ms a layer")
+    full, stream = clients["resnet"]["full"], clients["generation"]["stream"]
+    print(f"clients and checkpoints on {card}: server starts (s) "
+          f"{json.dumps(clients['start_s'])}; "
+          f"resnet152 CI full replay {full['throughput_rps']:.1f} req/s, rejected "
+          f"{full['requests']['rejected']}, server_overall p95 "
+          f"{full['latency_ms']['server_overall']['p95']:.1f} ms; check_perf_summary.py on the "
+          f"smoke exit code {clients['resnet']['gate_rc']}; generation TTFT p50 "
+          f"{stream['generation']['ttft_ms']['p50']:.1f} ms, "
+          f"{stream['generation']['tokens_per_s']:.1f} tok/s (stream)")
     print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)

@@ -5,6 +5,10 @@ Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 
     python -m starpu_inference_server_tpu_torch.grpc.server --config configs/resnet18_int8.yml
 
+(``--device cpu`` serves on the CPU). It logs ``serving <name> on
+<address>`` when it is ready, and the kernel launches of the process so
+far (``kernel launches ...: {json}``) once warmed up and at shutdown.
+
 Decoder families get the continuous-batching generation engine (with
 its draft model, prompt lookup, paged cache and prefix cache as the
 config's options ask, see ``serving/generation.py:build_generation_engine``);
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import signal
 import subprocess
 import sys
@@ -47,6 +52,7 @@ from ..models.registry import build_model, get_family
 from ..monitoring.congestion import CongestionMonitor
 from ..monitoring.metrics import MetricsRecorder
 from ..monitoring.observability import RuntimeObservability, create_observability
+from ..ops._build import launch_counters
 from ..serving.generation import build_generation_engine
 from ..serving.queue import InferenceQueue
 from ..serving.runner import TaskRunner
@@ -57,6 +63,12 @@ from .service import InferenceServicer, add_inference_service
 
 # scripts/plot_batch_summary.py of the checkout holding this package
 PLOT_SCRIPT = Path(__file__).resolve().parents[2] / "scripts" / "plot_batch_summary.py"
+
+
+def _log_launches(when: str) -> None:
+    """The kernel launches of this process so far, by kernel (those launched)."""
+    counts = {k: v for table in launch_counters() for k, v in table.items() if v}
+    get_logger().info("kernel launches %s: %s", when, json.dumps(counts, sort_keys=True))
 
 
 def _log_congestion(congested: bool, snap) -> None:
@@ -200,6 +212,7 @@ class InferenceServer:
         self.bound_port = server.add_insecure_port(self.cfg.server.address)
         await server.start()
         self._grpc_server = server
+        _log_launches("after warmup")
         log.info("serving %s on %s (port %d; metrics port %s)", self.cfg.name,
                  self.cfg.server.address, self.bound_port, self.metrics_port)
         if ready_event is not None:
@@ -242,6 +255,7 @@ class InferenceServer:
         else:
             log.info("shutdown complete: generated_tokens=%d steps=%d",
                      self.generation_engine.generated_tokens, self.generation_engine.steps)
+        _log_launches("at shutdown")
 
     def _close_metrics(self) -> None:
         """Stop the sampler thread and free the exposer's port."""
@@ -269,9 +283,10 @@ def main(argv=None) -> int:
         description="PyTorch/CUDA inference server (KServe v2 gRPC)"
     )
     parser.add_argument("--config", required=True, help="YAML config file")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
     cfg = load_config(args.config)
-    server = InferenceServer(cfg)
+    server = InferenceServer(cfg, device=args.device)
     asyncio.run(server.serve())
     return 0
 

@@ -226,18 +226,49 @@ def _conv2d_w8a8(wnode, x: torch.Tensor, stride: int, pads, groups: int) -> torc
     return y.reshape(b, ho, wo, out)
 
 
+# cuDNN picks its kernels by the batch size, and kernels picked for two
+# sizes sum in other orders (ResNet-152's answers change from N = 8, ResNet-18's
+# from N = 4: scripts/torch_batch_invariance_probe.py), so a served image's
+# answer would depend on its batch-mates. Every conv on the card runs on
+# chunks of this many images instead: one size and layout for any batch.
+CONV_ROWS = 8
+
+
+def _cudnn_conv(xc: torch.Tensor, wc: torch.Tensor, stride: int, pads, groups: int):
+    """NCHW conv of ``xc`` through cuDNN, ``CONV_ROWS`` images a call: the
+    batch (padded by ``pads`` = (top, bottom, left, right)) is copied into
+    a channels-last buffer of whole chunks (zero rows after it), each chunk
+    convolved alone, the zero rows' outputs dropped. Every image meets the same kernel, at
+    the same chunk offset alignment, whatever the batch size."""
+    pt, pb, pl, pr = pads
+    n = xc.shape[0]
+    if pt != pb or pl != pr:
+        xc, padding = F.pad(xc, (pl, pr, pt, pb)), 0
+    else:
+        padding = (pt, pl)
+    rows = -(-n // CONV_ROWS) * CONV_ROWS
+    chunks = torch.empty((rows, *xc.shape[1:]), dtype=xc.dtype, device=xc.device,
+                         memory_format=torch.channels_last)
+    chunks[:n].copy_(xc)
+    chunks[n:].zero_()
+    ys = [F.conv2d(c, wc, stride=stride, padding=padding, groups=groups)
+          for c in chunks.split(CONV_ROWS)]
+    return (ys[0] if len(ys) == 1 else torch.cat(ys))[:n]
+
+
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
            dtype=torch.bfloat16) -> torch.Tensor:
     """NHWC conv, ``p = {'w': [kh, kw, in/groups, out] dense or int8, 'b'?}``.
 
     Products of dtype-rounded operands accumulated in f32, as the JAX
     path's ``preferred_element_type=float32``; an int8 weight dequantizes
-    first (weight-only). On CUDA at bf16 the conv runs in bf16 through
-    cuDNN, which accumulates in f32 and rounds the output once, as the
-    JAX path does before its bias; elsewhere it runs in f32 on the
-    rounded operands. Under W8A8 an int8 (or int4-valued) weight takes the
-    exact s8 x s8 conv of :func:`_conv2d_w8a8`, whose per-tensor
-    activation scale spans the batch, in both packages."""
+    first (weight-only). On CUDA the conv runs in ``dtype`` through cuDNN
+    (at bf16 it accumulates in f32 and rounds the output once, as the JAX
+    path does before its bias), in chunks of :data:`CONV_ROWS` images (see
+    :func:`_cudnn_conv`); elsewhere it runs in f32 on the rounded
+    operands. Under W8A8 an int8 (or int4-valued) weight takes the exact
+    s8 x s8 conv of :func:`_conv2d_w8a8`, whose per-tensor activation
+    scale spans the batch, in both packages."""
     wnode = p["w"]
     if is_quantized_leaf(wnode) and _W8A8:
         kh, kw = wnode["w_q"].shape[:2]
@@ -249,14 +280,14 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
         (pt, pb), (pl, pr) = _spatial_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
         xc = x.permute(0, 3, 1, 2)
         wc = w.permute(3, 2, 0, 1)
-        if x.is_cuda and dtype == torch.bfloat16:
-            xc, wc = xc.to(dtype), wc.to(dtype)
+        if x.is_cuda:
+            y = _cudnn_conv(xc.to(dtype), wc.to(dtype), stride, (pt, pb, pl, pr), groups)
         else:
             xc, wc = xc.to(dtype).to(torch.float32), wc.to(torch.float32)
-        if pt == pb and pl == pr:
-            y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), groups=groups)
-        else:
-            y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, groups=groups)
+            if pt == pb and pl == pr:
+                y = F.conv2d(xc, wc, stride=stride, padding=(pt, pl), groups=groups)
+            else:
+                y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), wc, stride=stride, groups=groups)
         y = y.permute(0, 2, 3, 1).to(torch.float32)
     if "b" in p and p["b"] is not None:
         y = y + p["b"].to(torch.float32)

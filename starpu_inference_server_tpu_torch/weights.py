@@ -5,7 +5,10 @@ shape (nested dicts and lists; leaves numpy arrays, or anything
 ``np.asarray`` takes, including quantized leaves ``{'w_q', 'scale',
 'bits'}`` and packed ones ``{'w_p4', 'scale', 'bits'}``) into the port's
 tree of torch tensors on ``device``. Both packages then compute on the
-very same weights. Python scalars (``bits``) stay as they are.
+very same weights. Python scalars (``bits``) stay as they are; 0-d
+arrays become 0-d tensors, and ``ml_dtypes.bfloat16`` arrays (which an
+Orbax checkpoint's bf16 leaves restore to, and ``torch.from_numpy``
+refuses) become ``torch.bfloat16`` tensors of the same bits.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ def params_from_numpy(tree, device="cpu"):
             return node
         if isinstance(node, torch.Tensor):
             return node.to(dev)
-        arr = np.ascontiguousarray(np.asarray(node))
-        if not arr.flags.writeable:  # e.g. a view of a jax.Array
-            arr = arr.copy()
+        arr = np.asarray(node)
+        if not (arr.flags.c_contiguous and arr.flags.writeable):  # e.g. a jax.Array's view
+            arr = arr.copy(order="C")
+        if arr.dtype.name == "bfloat16":
+            return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(dev)
         return torch.from_numpy(arr).to(dev)
 
     return rec(tree)

@@ -1106,3 +1106,37 @@ def test_w8a8_conv_on_the_card_equals_the_cpu(dev, case):
         nn.set_w8a8(False)
     assert torch.equal(got.cpu(), want)
 
+
+
+def test_a_served_image_gets_its_batch_1_answer_at_every_bucket(dev):
+    """The batch engine's bf16 ResNet answers an image the same, bit for
+    bit, alone and inside padded batches of 2-32 rows, as the
+    schedule-replay client's ``--validate`` requires: every conv runs on
+    chunks of ``CONV_ROWS`` images (``ops/nn.py:_cudnn_conv``); one cuDNN
+    call over the batch changes kernels from N = 4 on these shapes."""
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.core.engine import ModelEngine
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.utils.config import parse_config
+
+    cfg = parse_config({
+        "name": "r", "model": {"family": "resnet18", "compute_dtype": "BF16",
+                               "quantization": "int8"},
+        "inputs": [{"name": "input", "dims": [3, 224, 224], "dtype": "FP32"}],
+        "outputs": [{"name": "output", "dims": [1000], "dtype": "FP32"}],
+        "pool_size": 1, "max_batch_size": 32, "batch_coalesce_timeout_ms": 0,
+        "batching_strategy": "disabled", "metrics_enabled": False,
+    })
+    engine = ModelEngine(cfg, build_model(cfg.model, seed=42, device=dev))
+    images = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (5, 3, 224, 224)).astype(np.float32)).to(torch.bfloat16)
+
+    def answer(batch):
+        return engine.fetch(engine.run_padded({"input": batch}))["output"]
+
+    alone = [answer(images[i:i + 1])[0] for i in range(5)]
+    for bucket in (2, 4, 8, 16, 32):
+        got = answer(images[torch.arange(bucket) % 5])
+        for row in range(bucket):
+            assert torch.equal(got[row], alone[row % 5]), (bucket, row)

@@ -85,6 +85,24 @@ def test_conv2d_matches_jax(stride, padding, groups, quant):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17])
+@pytest.mark.parametrize("stride,pads,groups", [(1, (1, 1, 1, 1), 1), (2, (2, 1, 2, 1), 1),
+                                                (2, (1, 1, 1, 1), 2)])
+def test_chunked_conv_equals_one_conv_over_the_batch(n, stride, pads, groups):
+    """``_cudnn_conv``, the card's route (``CONV_ROWS`` images a call, the
+    last chunk padded), gives the batch conv's values: no row lost, moved
+    or mixed with the padding. Run here on CPU tensors in float64."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((n, 4, 11, 11)))
+    w = torch.from_numpy(rng.standard_normal((6, 4 // groups, 3, 3)))
+    pt, pb, pl, pr = pads
+    want = torch.nn.functional.conv2d(torch.nn.functional.pad(x, (pl, pr, pt, pb)), w,
+                                      stride=stride, groups=groups)
+    got = tnn._cudnn_conv(x, w, stride, pads, groups)
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
 def test_pooling_and_batch_norm_match_jax():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 9, 10, 4)).astype(np.float32) - 2.0  # mostly negative

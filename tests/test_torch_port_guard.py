@@ -2,7 +2,10 @@
 
 - In a fresh interpreter, importing every module of
   ``starpu_inference_server_tpu_torch`` and ``chip_smoke`` leaves
-  ``jax`` and the JAX package out of ``sys.modules``; the engine path
+  ``jax`` and the JAX package out of ``sys.modules``, and the packages
+  the port imports only inside the functions that need them
+  (``tensorstore`` for Orbax checkpoints, ``transformers`` for the BERT
+  client's tokenizer) too; the engine path
   (config -> model -> generation engine or batch engine and runner, and
   chip_smoke) also stays clear of ``grpc`` and ``yaml``.
 - Every file in ``configs/`` parses to the same values in both packages,
@@ -73,7 +76,8 @@ def _leaked(code, banned):
 @pytest.mark.parametrize("which", ["all_modules", "engine_path"])
 def test_port_imports_no_jax(which):
     code = ALL_MODULES if which == "all_modules" else ENGINE_PATH
-    banned = ("jax", "jaxlib", "starpu_inference_server_tpu")
+    banned = ("jax", "jaxlib", "starpu_inference_server_tpu", "tensorstore", "orbax",
+              "transformers")
     if which == "engine_path":
         banned += ("grpc", "yaml")
     assert _leaked(code, banned) == "[]"
