@@ -6,7 +6,7 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then drives six groups of paths
+(one nvcc per source, all at once), then drives seven groups of paths
 and fails (exit 1) if any phase fails.
 
 The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
@@ -193,6 +193,42 @@ read from its server's log (the counts after warmup and at shutdown):
 19. configs/bert_long.yml at FP32, unquantized, seed 42: the BERT client at
     s = 512 with ``--validate`` against its reference model on the card;
     bidirectional_attention launched.
+
+Pipelined multi-device decoding, last (``pipelined_path``; the card's
+machine has one GPU, so every mesh runs as rank processes sharing it,
+over gloo):
+
+20. first, the kernels at the shapes these paths give them inside a
+    stage (``pipelined_kernel_rows``; entries of their ``per_shape``
+    lists, tagged with the path), each held against its plain version:
+    for llama_pipelined, int8_matmul on every llama-7b dense layer and
+    the lm head at M = 4 (a decode microgroup) and 16 (a prefill chunk;
+    the head over 16 slots) and the head at M = 1, decode_attention at
+    S = 4, T = 1024, 32 kv heads, rep 1 on a row-sliced view of a stage's
+    stacked cache, chunk_prefill_attention at C = 16, starts 0-48, on a
+    slot's row view; for the tiny worlds at FP32, pipe2_model2's
+    tensor-parallel shards (int8_matmul, decode_attention,
+    chunk_prefill_attention) and pipe2_lookup's window_decode_attention
+    (S = 2, W = 4);
+    step 0: ``scripts/torch_gloo_probe.py`` (which gloo operations two
+    ranks on one card run on CUDA tensors; nccl with two ranks on one
+    device must fail); three tiny worlds spawned by
+    ``parallel/launch.py:run_world`` (llama-tiny pipe=2 x model=2,
+    moe-tiny pipe=2 x expert=2, llama-tiny pipe=2 with prompt lookup;
+    registered widths, int8, FP32), each serving 6 greedy requests with
+    streams equal to the single-device engine of the same tree (one
+    microgroup's slots, ``prefill_chunk`` = bucket / stages), K2 and K4 on
+    every rank, K3 (K9 with prompt lookup) on every rank;
+    configs/llama_pipelined.yml from the CLI as 4 ranks (llama-7b at full
+    width, cut to ``PIPE_LAYERS`` layers; ``pipelined_server_run``, which
+    ``scripts/torch_pipelined_serve.py`` also runs): the port's generation client,
+    16 greedy requests of 32 tokens at concurrency 16, streaming then
+    unary, every stream equal to the in-process single-device engine of
+    the same tree (4 slots, ``prefill_chunk`` = 16), beside the config
+    served on one device from the same tree (tok/s, TTFT); every rank's
+    launches (K2, K3, K4 on each) and collectives from the server's
+    ``mesh statistics`` log lines; the backend printed; a tiny pipe=2
+    server from the CLI whose rank 1 is killed must exit non-zero.
 
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
@@ -1413,12 +1449,12 @@ class LocalServer:
     set to 0: with the config's ``metrics_enabled`` every server of the
     run serves ``/metrics`` on an ephemeral port, freed at its stop."""
 
-    def __init__(self, cfg):
+    def __init__(self, cfg, params=None):
         from starpu_inference_server_tpu_torch.grpc.server import InferenceServer
 
         cfg = dataclasses.replace(cfg, metrics_port=0, server=dataclasses.replace(
             cfg.server, address="127.0.0.1:0"))
-        self.server = InferenceServer(cfg, device="cuda")
+        self.server = InferenceServer(cfg, device="cuda", params=params)
         self.ready = threading.Event()
         self.loop = asyncio.new_event_loop()
         self.thread = threading.Thread(target=self._run, daemon=True)
@@ -2009,60 +2045,66 @@ def _step_ms(spec, per_shape, m, key="ms") -> float:
     return spec.layers * sum(at[n] for n in ("qkv", "o", "gate_up", "down")) + at["lm_head"]
 
 
+def k2_entry(g, dev, dtype, m, k, n, label, card) -> dict:
+    """int8_matmul at [m, k] x [k, n], x in ``dtype`` as its caller passes
+    it: held against its plain version (the products are exact, f32 sums
+    in another order: 1e-4 max|ref|), bit-equal over two calls, and timed
+    beside the plain version, the bf16 ``torch.matmul`` on the dequantized
+    weight and the bound, kernel and library each on cycled copies of the
+    weight (past the 50 MB L2)."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+
+    x = torch.randn(m, k, device=dev, generator=g).to(dtype)
+    copies = _copies(k * n)
+    wqs = [torch.randint(-128, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
+           for _ in range(copies)]
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
+    got = mk.int8_matmul(x, wqs[0], sc)
+    ref = mk.int8_matmul_plain(x, wqs[0], sc)
+    err = max_err(got, ref)
+    tol = 1e-4 * ref.abs().max().item()
+    same = bool(torch.equal(got, mk.int8_matmul(x, wqs[0], sc)))
+    plan = mk.matmul_plan("int8_matmul", m, n, k,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    shape = f"M={m} K={k} N={n}" + ("" if dtype == torch.bfloat16 else f" x {str(dtype)[6:]}")
+    print(f"kernel int8_matmul {shape} ({label}): max_abs_err={err:.3e} tol={tol:.3e} "
+          f"(1e-4 max|ref|); two calls bit-equal {same}; tile {mk.QMM_TILES[plan.variant]}, "
+          f"{plan.splits} splits, {plan.grid} blocks")
+    require(err <= tol, f"int8_matmul {label} M={m} disagrees with its plain version")
+    require(same, f"int8_matmul {label} M={m} gave other bits on a second call")
+    ms = _time_cycled(lambda i: mk.int8_matmul(x, wqs[i], sc), copies)
+    plain_ms = time_ms(lambda: mk.int8_matmul_plain(x, wqs[0], sc), iters=5)
+    xb = x.to(torch.bfloat16)
+    w_deqs = [(wqs[i % copies].float() * sc).to(torch.bfloat16)
+              for i in range(_copies(k * n * 2))]
+    lib_ms = _time_cycled(lambda i: torch.matmul(xb, w_deqs[i]), len(w_deqs))
+    b_ms, b_by = bound_ms(m * k * x.element_size() + k * n + n * 4 + m * n * 4, 2.0 * m * k * n)
+    print(f"time int8_matmul {shape} ({label}) on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms ({len(w_deqs)} dequantized "
+          f"weights cycled), bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape, splits=plan.splits, grid=plan.grid)
+
+
 def int8_kernel_phase(spec, dev, card=""):
     """int8_matmul (K2) at the shapes its paths give it: every dense layer
     of an int8 decode step at 16 slots (llama_speculative.yml's and
     llama_prompt_lookup.yml's plain and draft decode) and 64
     (llama_paged.yml), and the ResNet-18 fc at batch 1, 8 and 32 (K = 512,
-    N = 1000: the ragged N is masked in the kernel). Each is held against
-    its plain version (the products are exact, f32 sums in another order:
-    1e-4 max|ref|), bit-equal over two calls, and timed beside the plain
-    version, the bf16 ``torch.matmul`` on the dequantized weight and the
-    bound, kernel and library each on cycled copies of the weight (past
-    the 50 MB L2). The row reports gate_up at 64 slots."""
+    N = 1000: the ragged N is masked in the kernel), each through
+    ``k2_entry``. The row reports gate_up at 64 slots."""
     import torch
-
-    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
 
     g = torch.Generator(device=dev).manual_seed(4321)
     bf16 = torch.bfloat16
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = [(name, m, k, n) for m in (16, 64) for name, (k, n) in _dense_shapes(spec).items()]
     cases += [("fc", m, 512, 1000) for m in (1, 8, 32)]
-    per_shape = []
-    row = None
-    for name, m, k, n in cases:
-        x = torch.randn(m, k, device=dev, generator=g).to(bf16)
-        copies = _copies(k * n)
-        wqs = [torch.randint(-128, 128, (k, n), device=dev, generator=g, dtype=torch.int8)
-               for _ in range(copies)]
-        sc = torch.rand(1, n, device=dev, generator=g) * 0.01 + 1e-3
-        got = mk.int8_matmul(x, wqs[0], sc)
-        ref = mk.int8_matmul_plain(x, wqs[0], sc)
-        err = max_err(got, ref)
-        tol = 1e-4 * ref.abs().max().item()
-        same = bool(torch.equal(got, mk.int8_matmul(x, wqs[0], sc)))
-        plan = mk.matmul_plan("int8_matmul", m, n, k, sms)
-        shape = f"M={m} K={k} N={n}"
-        print(f"kernel int8_matmul {shape} ({name}): max_abs_err={err:.3e} tol={tol:.3e} "
-              f"(1e-4 max|ref|); two calls bit-equal {same}; tile {mk.QMM_TILES[plan.variant]}, "
-              f"{plan.splits} splits, {plan.grid} blocks")
-        require(err <= tol, f"int8_matmul {name} M={m} disagrees with its plain version")
-        require(same, f"int8_matmul {name} M={m} gave other bits on a second call")
-        ms = _time_cycled(lambda i: mk.int8_matmul(x, wqs[i], sc), copies)
-        plain_ms = time_ms(lambda: mk.int8_matmul_plain(x, wqs[0], sc), iters=5)
-        w_deqs = [(wqs[i % copies].float() * sc).to(bf16) for i in range(_copies(k * n * 2))]
-        lib_ms = _time_cycled(lambda i: torch.matmul(x, w_deqs[i]), len(w_deqs))
-        b_ms, b_by = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 4, 2.0 * m * k * n)
-        print(f"time int8_matmul {shape} ({name}) on {card}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.matmul bf16 {lib_ms:.4f} ms ({len(w_deqs)} dequantized "
-              f"weights cycled), bound {b_ms:.4f} ms ({b_by})")
-        entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms, shape=shape, splits=plan.splits, grid=plan.grid)
-        per_shape.append(dict(layer=name, m=m, **entry))
-        if name == "gate_up" and m == 64:
-            row = entry
-        del wqs, w_deqs
+    per_shape = [dict(layer=name, m=m, **k2_entry(g, dev, bf16, m, k, n, name, card))
+                 for name, m, k, n in cases]
+    row = next({k: v for k, v in e.items() if k not in ("layer", "m")} for e in per_shape
+               if e["layer"] == "gate_up" and e["m"] == 64)
     steps = {m: (_step_ms(spec, per_shape, m), _step_ms(spec, per_shape, m, "library_ms"))
              for m in (16, 64)}
     for m, (k_ms, l_ms) in steps.items():
@@ -3911,6 +3953,516 @@ def clients_path(card: str) -> dict:
             "start_s": {s.tag: round(s.start_s, 1) for s in resnet["servers"] + servers}}
 
 
+PIPE_CONFIG = ROOT / "configs" / "llama_pipelined.yml"
+PIPE_LAYERS = 8        # llama-7b cut from 32 layers to 8 (2 a stage) for the run's time limit
+PIPE_REQUESTS, PIPE_TOKENS, PIPE_PROMPT = 16, 32, 64
+PIPE_KERNELS = ("int8_matmul", "decode_attention", "chunk_prefill_attention",
+                "window_decode_attention")
+# llama-tiny / moe-tiny at their registered widths (head_dim 32), int8, FP32
+TINY_PIPE = {"num_slots": 4, "max_len": 256, "prefill_buckets": [64], "steps_per_sync": 4,
+             "pipe_microgroups": 2}
+PIPE_WORLDS = {
+    "pipe2_model2_llama": {"axes": {"pipe": 2, "model": 2}, "family": "llama-tiny"},
+    "pipe2_expert2_moe": {"axes": {"pipe": 2, "expert": 2}, "family": "moe-tiny"},
+    "pipe2_lookup_llama": {"axes": {"pipe": 2}, "family": "llama-tiny", "lookup": 2},
+}
+
+
+def _pipe_cache(g, dev, layers, slots, t, hkv, d):
+    """A stage's stacked int8 cache [L, S, T, Hkv, D] (K, V) and its f32
+    scales [L, S, T, Hkv], random: the attention kernels read views of it
+    as the stage programs do."""
+    import torch
+
+    kv = [torch.randint(-127, 128, (layers, slots, t, hkv, d), device=dev, generator=g,
+                        dtype=torch.int8) for _ in range(2)]
+    return (kv[0], kv[1], torch.rand(layers, slots, t, hkv, device=dev, generator=g) * 0.03 + 0.05,
+            torch.rand(layers, slots, t, hkv, device=dev, generator=g) / 127 + 1e-3)
+
+
+def _pipe_window_entry(g, dev, dtype, cache, groups, w, hq, rep, label, card):
+    """decode_attention (``w`` = 0) or window_decode_attention (``w`` > 0)
+    on the row-sliced views ``cache[li][rows]`` a stage passes them (one
+    per layer and microgroup, cycled when timed), G = S / ``groups``
+    slots of mixed lengths including 0 and the last position; held
+    against the plain version at the attention tolerance and timed beside
+    it, SDPA on the dequantized rows and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
+
+    kc, vc, ks, vs = cache
+    layers, slots, t, hkv, d = kc.shape
+    s = slots // groups
+    views = [tuple(a[li][mb * s:(mb + 1) * s] for a in cache)
+             for li in range(layers) for mb in range(groups)]
+    wn = max(w, 1)
+    lens = torch.randint(0, t - wn + 1, (s,), device=dev, generator=g, dtype=torch.int32)
+    lens[0], lens[-1] = 0, t - wn
+    if w:
+        q = torch.randn(s, w, hq, d, device=dev, generator=g).to(dtype)
+        kern, plain, name = da.window_decode_attention, da.window_decode_attention_plain, \
+            "window_decode_attention"
+    else:
+        q = torch.randn(s, hq, d, device=dev, generator=g).to(dtype)
+        kern, plain, name = da.decode_attention, da.decode_attention_plain, "decode_attention"
+    got = kern(q, *views[0], lens, rep)
+    shape = f"S={s} W={wn} T={t} Hkv={hkv} rep={rep} D={d} q {str(dtype)[6:]}"
+    err = attn_check(f"{name} {shape} ({label}, a view of the stacked cache)", got,
+                     plain(q, *views[0], lens, rep))
+    require(torch.equal(got, kern(q, *views[0], lens, rep)),
+            f"{name} {label} gave other bits on a second call")
+    ms = _time_cycled(lambda i: kern(q, *views[i], lens, rep), len(views))
+    plain_ms = _time_cycled(lambda i: plain(q, *views[i], lens, rep), len(views), iters=3)
+    last = lens.to(torch.int64)[:, None] + torch.arange(wn, device=dev)[None, :]
+    mask = torch.arange(t, device=dev)[None, None, :] <= last[:, :, None]       # [S, W, T]
+    deq = [((k.float() * a[..., None]).to(dtype).transpose(1, 2),
+            (v.float() * b[..., None]).to(dtype).transpose(1, 2))
+           for k, v, a, b in views[:min(len(views), _copies(2 * s * t * hkv * d * 2))]]
+    qt = (q if w else q[:, None]).transpose(1, 2)
+    lib_ms = _time_cycled(lambda i: F.scaled_dot_product_attention(
+        qt, *deq[i], attn_mask=mask[:, None], enable_gqa=True), len(deq))
+    live = (lens.to(torch.int64) + wn).sum().item()
+    attended = (last + 1).sum().item()
+    nbytes = 2 * s * wn * hq * d * q.element_size() + live * hkv * (2 * d + 8) + 4 * s
+    b_ms, b_by = bound_ms(nbytes, 4.0 * attended * hq * d)
+    print(f"time {name} {shape} ({label}) on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); {len(views)} views cycled")
+    return name, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      library_ms=lib_ms, shape=f"{shape} live={live}", path=label,
+                      copies=len(views))
+
+
+def _pipe_chunk_entries(g, dev, dtype, cache, bucket, c, hq, rep, label, card) -> list:
+    """chunk_prefill_attention at every chunk start of a ``bucket``-row
+    prompt, on the row view ``cache[li][slot]`` a stage
+    passes it (cycled over layers and slots when timed); held against the
+    plain version and timed beside it, SDPA on the dequantized past plus
+    the chunk, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+
+    kc, vc, ks, vs = cache
+    layers, slots, t, hkv, d = kc.shape
+    views = [tuple(a[li][slot] for a in cache) for li in range(layers) for slot in range(slots)]
+    out = []
+    for start in range(0, bucket, c):
+        q = (3 * torch.randn(c, hq, d, device=dev, generator=g)).to(dtype)
+        kcur = torch.randn(c, hkv, d, device=dev, generator=g).to(dtype)
+        vcur = torch.randn(c, hkv, d, device=dev, generator=g).to(dtype)
+
+        def args(i):
+            return (q, *views[i], kcur, vcur, start, rep)
+
+        got = pa.chunk_prefill_attention(*args(0), out_dtype=dtype)
+        shape = f"C={c} start={start} T={t} Hkv={hkv} rep={rep} D={d} q {str(dtype)[6:]}"
+        err = attn_check(f"chunk_prefill_attention {shape} ({label}, a row view of the stacked "
+                         "cache)", got, pa.chunk_prefill_attention_plain(*args(0), out_dtype=dtype))
+        require(torch.equal(got, pa.chunk_prefill_attention(*args(0), out_dtype=dtype)),
+                f"chunk_prefill_attention {label} start={start} gave other bits on a second call")
+        ms = _time_cycled(lambda i: pa.chunk_prefill_attention(*args(i), out_dtype=dtype),
+                          len(views))
+        plain_ms = time_ms(lambda: pa.chunk_prefill_attention_plain(*args(0), out_dtype=dtype),
+                           iters=5)
+        k_row, v_row, k_s, v_s = views[0]
+        kd = torch.cat([(k_row[:start].float() * k_s[:start, :, None]).to(dtype), kcur])
+        vd = torch.cat([(v_row[:start].float() * v_s[:start, :, None]).to(dtype), vcur])
+        mask = torch.arange(start + c, device=dev)[None, :] <= \
+            (start + torch.arange(c, device=dev))[:, None]
+        qt, kd, vd = q.transpose(0, 1)[None], kd.transpose(0, 1)[None], vd.transpose(0, 1)[None]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=mask,
+                                                                enable_gqa=True))
+        nbytes = 2 * c * hq * d * q.element_size() + start * hkv * (2 * d + 8) + \
+            2 * c * hkv * d * q.element_size()
+        b_ms, b_by = bound_ms(nbytes, 4.0 * hq * d * (c * start + c * (c + 1) / 2))
+        print(f"time chunk_prefill_attention {shape} ({label}) on {card}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        out.append(dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, shape=shape, path=label,
+                        copies=len(views)))
+    return out
+
+
+def pipelined_kernel_rows(dev, card) -> tuple:
+    """K2, K3, K4 and K9 at the shapes the pipelined paths give them inside
+    a stage, each held against its plain version and timed. Returns the
+    entries for the kernels' per_shape lists, tagged with their path, and
+    K2's ms in a llama_pipelined stage's decode step:
+
+    - llama_pipelined (llama-7b, BF16, 4 stages of ``PIPE_LAYERS`` / 4
+      layers, 16 slots in 4 microgroups, T = 1024, prompts of
+      ``PIPE_PROMPT`` in chunks of 16): K2 at M = 4 (a decode microgroup)
+      and 16 (a prefill chunk; the lm head over every slot) on each dense
+      layer and the lm head, and the lm head at M = 1 (a prefill's last
+      row); K3 at S = 4, Hkv = 32, rep 1 on ``cache[li][rows]``; K4 at C =
+      16 on ``cache[li][slot]`` at starts 0-48;
+    - the tiny worlds (llama-tiny at its registered widths, FP32, 4 slots
+      in 2 microgroups, T = 256, chunks of 32): pipe2_model2's
+      tensor-parallel shard (K2 on each dense shard at M = 2 and 32 and
+      the lm head's vocab shard at 4 and 1, K3 at 2 of 4 kv heads, K4);
+      pipe2_lookup's K9 at S = 2, W = 4 (speculate_k 3 + 1)."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import get_spec
+
+    g = torch.Generator(device=dev).manual_seed(1313)
+    out = {name: [] for name in PIPE_KERNELS}
+    stages = 4
+    tiny_bucket = TINY_PIPE["prefill_buckets"][0]
+    for family, dtype, tp, slots, groups, t, bucket, c, layers, label in (
+            ("llama-7b", torch.bfloat16, 1, 16, 4, 1024, PIPE_PROMPT, PIPE_PROMPT // stages,
+             PIPE_LAYERS // stages, "llama_pipelined"),
+            ("llama-tiny", torch.float32, 2, 4, 2, 256, tiny_bucket, tiny_bucket // 2, 2,
+             "pipe2_model2_llama")):
+        spec = get_spec(family, {})
+        hq, hkv, d = spec.q_heads // tp, spec.kv_heads // tp, spec.head_dim
+        h, inter, g_rows = spec.hidden, spec.intermediate // tp, slots // groups
+        dense = {"qkv": (h, (hq + 2 * hkv) * d), "o": (hq * d, h), "gate_up": (h, 2 * inter),
+                 "down": (inter, h)}
+        cases = [(n, m, *kn) for m in (g_rows, c) for n, kn in dense.items()]
+        cases += [("lm_head", m, h, spec.vocab // tp) for m in (slots, 1)]
+        if family == "llama-7b":
+            cases.append(("lm_head", g_rows, h, spec.vocab))
+        for name, m, k, n in cases:
+            out["int8_matmul"].append(dict(
+                k2_entry(g, dev, dtype, m, k, n, f"{label} {name}", card), layer=f"{label} {name}",
+                m=m, path=label))
+        cache = _pipe_cache(g, dev, layers, slots, t, hkv, d)
+        out["decode_attention"].append(
+            _pipe_window_entry(g, dev, dtype, cache, groups, 0, hq, hq // hkv, label, card)[1])
+        out["chunk_prefill_attention"] += _pipe_chunk_entries(g, dev, dtype, cache, bucket, c,
+                                                              hq, hq // hkv, label, card)
+        del cache
+    spec = get_spec("llama-tiny", {})
+    cache = _pipe_cache(g, dev, 2, 4, 256, spec.kv_heads, spec.head_dim)
+    out["window_decode_attention"].append(_pipe_window_entry(
+        g, dev, torch.float32, cache, 2, 4, spec.q_heads, spec.rep, "pipe2_lookup_llama",
+        card)[1])
+    # K2's device time in a llama_pipelined stage's decode step: its layers'
+    # four shapes in every microgroup, and stage 0's lm head over 16 slots
+    at = {e["layer"]: e["ms"] for e in out["int8_matmul"] if e["path"] == "llama_pipelined"
+          and e["m"] == 4}
+    head = next(e["ms"] for e in out["int8_matmul"]
+                if e["layer"] == "llama_pipelined lm_head" and e["m"] == 16)
+    step = (PIPE_LAYERS // stages) * 4 * sum(at[f"llama_pipelined {n}"]
+                                             for n in ("qkv", "o", "gate_up", "down"))
+    print(f"int8_matmul per llama_pipelined stage decode step ({PIPE_LAYERS // stages} layers x "
+          f"4 microgroups at M=4) on {card}: {step:.4f} ms, stage 0's lm head at M=16 "
+          f"{head:.4f} ms")
+    return out, {"layers": step, "lm_head": head}
+
+
+def pipe_world(rank, world, init_method, payload):
+    """One rank of a tiny pipelined engine on the card (``run_world``): the
+    same seeded int8 tree on every rank, cut to the rank's shard by the
+    engine; rank 0 serves the prompts greedily, gathers every rank's
+    kernel launches and collectives, then runs the single-device engine
+    of the same tree with one microgroup's slots and ``prefill_chunk`` =
+    bucket / stages. Returns both streams (rank 0) and the backend."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import get_spec, init_params
+    from starpu_inference_server_tpu_torch.ops.quant import maybe_quantize_tree
+    from starpu_inference_server_tpu_torch.parallel.launch import follow, join_mesh
+    from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationEngine,
+        GenerationRequest,
+    )
+    from starpu_inference_server_tpu_torch.weights import params_from_numpy
+
+    mesh = join_mesh(MeshAxes(**payload["axes"]), rank, world, init_method,
+                     payload.get("device", "cuda"), timeout_s=300.0)
+    spec = get_spec(payload["family"], {})
+    tree = maybe_quantize_tree(params_from_numpy(init_params(spec, np.random.default_rng(0)),
+                                                 mesh.device), 8)
+    lookup = {"prompt_lookup_ngram": payload["lookup"], "speculate_k": 3} \
+        if payload.get("lookup") else {}
+    opts = dict(TINY_PIPE)
+    microgroups = opts.pop("pipe_microgroups")
+    eng = GenerationEngine(spec, tree, dtype=torch.float32, mesh=mesh, family=payload["family"],
+                           pipe_microgroups=microgroups, **opts, **lookup)
+    if rank != 0:
+        follow(eng.pipe)
+        return {"backend": mesh.backend}
+
+    def run(engine):
+        reqs = [GenerationRequest(prompt_ids=np.asarray(p, np.int32), max_new_tokens=24)
+                for p in payload["prompts"]]
+        for r in reqs:
+            engine.submit(r)
+        engine.start()
+        try:
+            return [r.result(timeout=300.0) for r in reqs]
+        finally:
+            engine.stop()
+
+    try:
+        eng.pipe.reset_stats()
+        got = run(eng)
+        stats = eng.pipe.gather_stats()
+    finally:
+        eng.pipe.stop_followers()
+    del eng
+    bucket = opts["prefill_buckets"][0]
+    ref = GenerationEngine(spec, tree, dtype=torch.float32, family=payload["family"],
+                           device=mesh.device, **dict(
+                               opts, num_slots=opts["num_slots"] // microgroups,
+                               prefill_chunk=bucket // payload["axes"]["pipe"]), **lookup)
+    return {"backend": mesh.backend, "tokens": got, "ref": run(ref), "stats": stats}
+
+
+def step0_start(workdir: Path) -> tuple:
+    """scripts/torch_gloo_probe.py as its own process (two-rank worlds on
+    this card: which gloo operations take CUDA tensors, and nccl with two
+    ranks on one device)."""
+    out = workdir / "gloo_probe.json"
+    proc = subprocess.Popen([sys.executable, str(ROOT / "scripts" / "torch_gloo_probe.py"),
+                             "--out", str(out)], cwd=ROOT, env=child_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def step0_check(proc, out: Path, card: str) -> dict:
+    text, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0 and out.exists(), f"step 0 probe failed:\n{text[-2000:]}")
+    report = json.loads(out.read_text())
+    cases = report["cases"]
+    ok = {op: all(r.get("ok") for r in cases[op]) for op in cases if op not in ("nccl",
+                                                                               "timing")}
+    print(f"step 0 on {card}: torch.distributed.is_nccl_available() = "
+          f"{report['nccl_available']}; gloo on CUDA tensors, two ranks on one card: "
+          f"{json.dumps(ok)}")
+    print(f"step 0 timing (ms a call, host clock): {json.dumps(cases['timing'][0].get('timing'))}")
+    nccl = " ".join(str(r.get("error", r)) for r in cases["nccl"])
+    print(f"step 0: nccl with two ranks on cuda:0: {nccl[:300]}")
+    # parallel/collectives.py runs these on CUDA tensors and stages only the hops
+    for op in ("all_reduce", "broadcast", "all_gather"):
+        require(ok.get(op), f"step 0: gloo {op} on CUDA tensors failed on this card")
+    require(not any(r.get("ok") for r in cases["nccl"]),
+            "step 0: nccl ran two ranks on one device; the backend rule assumes it cannot")
+    return {"gloo_cuda": ok, "nccl_same_device": nccl[:200]}
+
+
+def _gen_client(target: str, model: str, stream: bool) -> tuple:
+    """The port's generation client in this process: PIPE_REQUESTS greedy
+    requests of PIPE_TOKENS at that concurrency. Returns (summary, tokens
+    by request id, the pooled prompts)."""
+    from starpu_inference_server_tpu_torch.clients.client import GenerationClient
+
+    async def go():
+        gen = GenerationClient(target, model, prompt_len=PIPE_PROMPT, max_new_tokens=PIPE_TOKENS)
+        elapsed = await gen.run(PIPE_REQUESTS, PIPE_REQUESTS, stream)
+        await gen.close()
+        return gen.summary(elapsed), gen.tokens_by_request, gen.prompts
+
+    return asyncio.run(go())
+
+
+def _mesh_stats(server: "ServerProcess") -> dict:
+    """A pipelined server's ``mesh statistics`` log lines (every rank's
+    kernel launches and collectives, rank 0's steps and loop timers)."""
+    text = server.log.read_text()
+    out = {}
+    for when in ("after warmup", "at shutdown"):
+        m = re.search(rf"mesh statistics {when}: (\{{.*\}})", text)
+        require(m is not None, f"server {server.tag}: no 'mesh statistics {when}' line")
+        out[when] = json.loads(m.group(1))
+    return out
+
+
+def _rank_launches(before: dict, after: dict) -> list:
+    """Per rank, the kernel launches between two mesh statistics lines."""
+    return [{k: v - b["launches"].get(k, 0) for k, v in a["launches"].items()
+             if v > b["launches"].get(k, 0)} for b, a in zip(before["ranks"], after["ranks"])]
+
+
+def pipelined_server_run(server: "ServerProcess", layers: int, card: str) -> dict:
+    """configs/llama_pipelined.yml cut to ``layers``, served by ``server``
+    (started from the CLI, still loading), against the single-device
+    engine of the same weights in this process: the config on one device
+    (16 slots; tok/s, TTFT) and the chunked engine (one microgroup's 4
+    slots, ``prefill_chunk`` = prompt / stages, so its kernel calls have a
+    stage's shapes) whose streams every pipelined stream must equal, then
+    the generation client on ``server``, streaming and unary. Stops the
+    server and reads its ``mesh statistics`` lines. Prints and returns
+    the numbers, every rank's launches and collectives over the client
+    runs, and the backend from the server's ``mesh backend:`` line."""
+    import dataclasses as dc
+
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import DeviceSettings, load_config
+
+    cfg = load_config(str(PIPE_CONFIG))
+    opts = dict(cfg.model.options, layers=layers)
+    single = dc.replace(cfg, devices=DeviceSettings(), metrics_port=0,
+                        model=dc.replace(cfg.model, options=opts))
+    t0 = time.perf_counter()
+    tree = build_model(single.model, seed=single.seed, device="cuda").params
+    tree_s = time.perf_counter() - t0
+    chunked = dc.replace(single, model=dc.replace(single.model, options=dict(
+        opts, num_slots=opts["num_slots"] // opts["pipe_microgroups"],
+        prefill_chunk=PIPE_PROMPT // cfg.devices.mesh.pipe)))
+    ref_engine = build_generation_engine(chunked, device="cuda", params=tree)
+    local = LocalServer(single, params=tree)
+    single_run, _, pool = _gen_client(local.start(), cfg.name, True)
+    local.stop()
+    ref_engine.start()
+    try:
+        ref = [ref_engine.generate(p, PIPE_TOKENS, timeout=600.0) for p in pool]
+    finally:
+        ref_engine.stop()
+    del ref_engine, local, tree
+    torch.cuda.empty_cache()
+    target = server.wait_ready(timeout=900)
+    runs = {}
+    for mode in ("stream", "unary"):
+        summary, tokens, _ = _gen_client(target, cfg.name, mode == "stream")
+        runs[mode] = summary
+        req = summary["requests"]
+        require(req["handled"] == PIPE_REQUESTS and req["errors"] == 0,
+                f"llama_pipelined ({mode}): {json.dumps(req)}")
+        for rid, toks in tokens.items():
+            require(toks == ref[rid % len(pool)],
+                    f"llama_pipelined ({mode}): request {rid}'s stream differs from the "
+                    "single-device engine's")
+    server_launches = server.stop()
+    stats = _mesh_stats(server)
+    backend = re.search(r"mesh backend: (\w+)", server.log.read_text())
+    require(backend is not None, "llama_pipelined: the server printed no backend line")
+    before, after = stats["after warmup"], stats["at shutdown"]
+    steps = after["steps"] - before["steps"]
+    timers = {k: after["loop_timers"][k] - before["loop_timers"][k]
+              for k in after["loop_timers"]}
+    # collectives over the client runs: calls and host ms, by rank (a
+    # follower's "broadcast/control" time is its wait for the next
+    # command, so the mesh axes' collectives alone are reported)
+    calls = [{k: v - b["collectives"]["calls"].get(k, 0) for k, v in a["collectives"]["calls"].items()}
+             for b, a in zip(before["ranks"], after["ranks"])]
+    coll = [{k: round(v - b["collectives"]["ms"].get(k, 0.0), 1)
+             for k, v in a["collectives"]["ms"].items() if not k.endswith("/control")}
+            for b, a in zip(before["ranks"], after["ranks"])]
+    per_rank = _rank_launches(before, after)
+    census = [collectives_by_axis({"calls": c}) for c in calls]
+    s, p = single_run["generation"], runs["stream"]["generation"]
+    print(f"mesh backend: {backend.group(1)}")
+    print(f"llama_pipelined ({cfg.model.family} x {layers} layers, 4 ranks on {card}, "
+          f"{backend.group(1)}): started in {server.start_s:.1f} s; {PIPE_REQUESTS} greedy "
+          f"requests of {PIPE_TOKENS} tokens (prompts of {PIPE_PROMPT}), streams equal to the "
+          f"single-device engine's; stream {p['tokens_per_s']:.1f} tok/s, TTFT ms "
+          f"{_pcts(p['ttft_ms'])}; unary {runs['unary']['generation']['tokens_per_s']:.1f} "
+          f"tok/s; single-device (16 slots, same tree, built in {tree_s:.1f} s) "
+          f"{s['tokens_per_s']:.1f} tok/s, TTFT ms {_pcts(s['ttft_ms'])}")
+    print(f"llama_pipelined: {steps} decode steps, rank 0's loop host seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in timers.items()})}, "
+          f"{1e3 * timers['step'] / max(steps, 1):.2f} ms a step (dispatch + consume)")
+    print(f"llama_pipelined collectives by rank over the client runs (census): "
+          f"{json.dumps(census)}; host ms in them: {json.dumps(coll)}")
+    print(f"llama_pipelined launches by rank over the client runs: {json.dumps(per_rank)}; "
+          f"rank 0's log: {json.dumps(server_launches)}")
+    return dict(backend=backend.group(1), per_rank=per_rank, steps=steps, timers=timers,
+                calls=calls, coll_ms=coll, pipelined=runs, single=single_run,
+                start_s=server.start_s)
+
+
+def pipelined_path(card: str) -> dict:
+    """configs/llama_pipelined.yml from the CLI as 4 rank processes sharing
+    this card (gloo; llama-7b at full width, cut to ``PIPE_LAYERS``
+    layers), against the single-device engine of the same weights in this
+    process (``pipelined_server_run``); the tiny pipe x model, pipe x
+    expert and prompt-lookup engines; a killed rank; step 0. Returns the
+    launches and numbers."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+
+    from starpu_inference_server_tpu_torch.parallel.launch import run_world
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    result = {}
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        workdir = Path(tmp)
+        probe = step0_start(workdir)
+        server = ServerProcess(PIPE_CONFIG, workdir, "llama_pipelined",
+                               {"model.options.layers": PIPE_LAYERS})
+        tiny_opts = dict(TINY_PIPE, layers=4)
+        killed = ServerProcess(PIPE_CONFIG, workdir, "pipe2_killed", {
+            "model.family": "llama-tiny", "model.compute_dtype": "FP32",
+            "model.options": tiny_opts, "devices.mesh": {"pipe": 2},
+            "inputs": [{"name": "input_ids", "dims": [64], "dtype": "INT64"}],
+            "outputs": [{"name": "logits", "dims": [64, 2048], "dtype": "FP32"}]})
+        servers = [server, killed]
+        try:
+            for srv in servers:
+                srv.start()
+            # the tiny worlds, one after another, while the server builds
+            rng = np.random.default_rng(11)
+            prompts = [rng.integers(1, 2048, (n,)).tolist() for n in (40, 64, 33, 57, 48, 61)]
+            prompts[2] = (prompts[2][:11] * 3)[:33]  # repetition for the lookup drafts
+            worlds = {}
+            for name, w in PIPE_WORLDS.items():
+                size = w["axes"].get("pipe", 1) * w["axes"].get("model", 1) * \
+                    w["axes"].get("expert", 1)
+                t1 = time.perf_counter()
+                ranks = run_world("chip_smoke:pipe_world", size, dict(w, prompts=prompts),
+                                  timeout_s=600.0, workdir=str(workdir / name))
+                r0 = ranks[0]
+                require(all(r["backend"] == "gloo" for r in ranks),
+                        f"{name}: backend {[r['backend'] for r in ranks]}")
+                require(r0["tokens"] == r0["ref"],
+                        f"{name}: pipelined streams differ from the single-device engine's")
+                launches = [st["launches"] for st in r0["stats"]]
+                kernels = ("window_decode_attention",) if w.get("lookup") else \
+                    ("int8_matmul", "decode_attention", "chunk_prefill_attention")
+                for kname in kernels + ("int8_matmul", "chunk_prefill_attention"):
+                    require(all(la.get(kname, 0) > 0 for la in launches),
+                            f"{name}: {kname} not launched on every rank: {launches}")
+                worlds[name] = {"launches": launches, "s": round(time.perf_counter() - t1, 1),
+                                "collectives": [st["collectives"] for st in r0["stats"]]}
+                print(f"{name} ({size} ranks on {card}, gloo, FP32 int8): streams of "
+                      f"{len(prompts)} greedy requests equal to the single-device engine's; "
+                      f"launches by rank {json.dumps(launches)}; "
+                      f"{worlds[name]['s']} s")
+            result["worlds"] = worlds
+            result.update(pipelined_server_run(server, PIPE_LAYERS, card))
+            for kname in PIPE_KERNELS[:3]:
+                require(all(la.get(kname, 0) > 0 for la in result["per_rank"]),
+                        f"llama_pipelined: {kname} not launched on every rank: "
+                        f"{result['per_rank']}")
+            require(result["backend"] == "gloo",
+                    f"llama_pipelined: backend {result['backend']} with 4 ranks on one card")
+            # a killed rank fails the server
+            killed.wait_ready(timeout=600)
+            pid = int(re.search(r"rank 1 pid (\d+)", killed.log.read_text()).group(1))
+            os.kill(pid, signal.SIGKILL)
+            t1 = time.perf_counter()
+            rc = killed.proc.wait(timeout=120)
+            require(rc != 0, "pipe2_killed: the server exited 0 after a rank was killed")
+            print(f"pipe2_killed: rank 1 (pid {pid}) killed; the server exited with {rc} in "
+                  f"{time.perf_counter() - t1:.1f} s")
+            result["step0"] = step0_check(*probe, card)
+        except BaseException:
+            show_logs(servers)
+            raise
+        finally:
+            for srv in servers:
+                srv.kill()
+            if probe[0].poll() is None:
+                probe[0].kill()
+    return result
+
+
 def _ptxas_kernels(report: str) -> list:
     """(mangled name, registers, spill store bytes) of each entry function
     in a ``ptxas -v`` report."""
@@ -3934,7 +4486,7 @@ def timed(phase_s: dict, name: str, fn, *args):
 def main() -> int:
     pkg = ROOT / "starpu_inference_server_tpu_torch"
     configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
-               PAGED_CONFIG, VIT_CONFIG, NHWC_CONFIG, MOE_CONFIG)
+               PAGED_CONFIG, VIT_CONFIG, NHWC_CONFIG, MOE_CONFIG, PIPE_CONFIG)
     if not pkg.is_dir() or not all(c.is_file() for c in configs):
         print("chip_smoke: FAIL: run from a checkout of the repository "
               "(starpu_inference_server_tpu_torch/ and configs/ not found)", file=sys.stderr)
@@ -4045,6 +4597,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     clients = timed(phase_s, "clients and checkpoints", clients_path, card)
     gen_launches = clients["gen_launches"]
+    torch.cuda.empty_cache()
+    pipe_rows, pipe_k2_step = timed(phase_s, "kernels (pipelined)", pipelined_kernel_rows, dev,
+                                    card)
+    for name, entries in pipe_rows.items():
+        rows[name]["per_shape"].extend(entries)
+    torch.cuda.empty_cache()
+    pipe = timed(phase_s, "pipelined (llama_pipelined, 4 ranks)", pipelined_path, card)
+    # launches on the pipelined paths, by rank: the llama_pipelined server
+    # over its client runs, and each tiny world's serving run
+    pipe_launches = {name: {"llama_pipelined_by_rank": [r.get(name, 0) for r in pipe["per_rank"]],
+                            **{f"{w}_by_rank": [la.get(name, 0) for la in v["launches"]]
+                               for w, v in pipe["worlds"].items()}}
+                     for name in PIPE_KERNELS}
     # launches on this slice's paths, by kernel (each path's own counted run)
     slice_launches = {
         "int8_matmul": {"resnet152_ci_replays": clients["resnet"]["launches"]["int8_matmul"],
@@ -4077,6 +4642,7 @@ def main() -> int:
         elif name == "int8_matmul":  # launches: the llama_paged burst (64 slots, the row's M)
             extra = {"launches_per_decode_step": extra_step[name],
                      "decode_step_ms": r["decode_step_ms"], "library": r["library"],
+                     "llama_pipelined_stage_step_ms": pipe_k2_step,
                      "launches_resnet_serving": resnet_launches[name],
                      "launches_per_resnet_forward": resnet_forward[name]}
         elif name in EXTRA_KERNELS + FLAT_KERNELS:
@@ -4098,6 +4664,8 @@ def main() -> int:
                 extra["graph_block_ms"] = r["graph_block_ms"]
         if name in slice_launches:
             extra["launches_on_this_slices_paths"] = slice_launches[name]
+        if name in pipe_launches:
+            extra["launches_on_the_pipelined_paths"] = pipe_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",

@@ -9,6 +9,17 @@ Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 <address>`` when it is ready, and the kernel launches of the process so
 far (``kernel launches ...: {json}``) once warmed up and at shutdown.
 
+A config whose ``devices.mesh`` has a ``pipe`` axis (a decoder,
+``configs/llama_pipelined.yml``) runs as one process per mesh position (``parallel/launch.py:serve_mesh``): rank 0
+builds the weights, sends every rank its shard and serves gRPC, the
+other ranks follow its commands; the backend is ``nccl`` when each rank
+has a GPU of its own and ``gloo`` when they share one or run on the CPU
+(``--device cpu``), and is printed as ``mesh backend: ...``. With
+``distributed.coordinator_address`` set the process joins that address
+as rank ``distributed.process_id`` instead of spawning. ``--timeout-s``
+bounds every collective: a rank that dies or hangs makes the server
+exit non-zero.
+
 Decoder families get the continuous-batching generation engine (with
 its draft model, prompt lookup, paged cache and prefix cache as the
 config's options ask, see ``serving/generation.py:build_generation_engine``);
@@ -71,6 +82,14 @@ def _log_launches(when: str) -> None:
     get_logger().info("kernel launches %s: %s", when, json.dumps(counts, sort_keys=True))
 
 
+def _log_mesh(engine, when: str) -> None:
+    """Every rank's kernel launches and collectives so far, and rank 0's
+    engine steps and loop timers (a pipelined server's statistics)."""
+    stats = {"ranks": engine.pipe.gather_stats(), "steps": engine.steps,
+             "loop_timers": engine.loop_timers}
+    get_logger().info("mesh statistics %s: %s", when, json.dumps(stats, sort_keys=True))
+
+
 def _log_congestion(congested: bool, snap) -> None:
     get_logger().info("congestion %s at tick %d (score %.2f, rho %.2f, fill %.2f, p95 %.1f ms)",
                       "entered" if congested else "cleared", snap.tick, snap.score,
@@ -83,8 +102,14 @@ class InferenceServer:
 
     def __init__(self, cfg: RuntimeConfig, device=None,
                  observability: Optional[RuntimeObservability] = None,
-                 expose_metrics: bool = True):
+                 expose_metrics: bool = True, mesh=None, params=None):
+        """``mesh``: rank 0's ``parallel.mesh.RankMesh`` of a mesh config
+        (``parallel/launch.py:rank_main`` passes it). ``params``: a decoder's
+        parameter tree already built on ``device`` (one tree may serve
+        several engines of a process); built from the config when None."""
         self.cfg = cfg
+        self.mesh = mesh
+        self._params = params
         set_global_verbosity(cfg.verbosity)
         self.observability = (observability if observability is not None
                               else create_observability(cfg, expose_metrics=expose_metrics))
@@ -126,7 +151,9 @@ class InferenceServer:
         serve_logits = bool(cfg.model.options.get("serve_logits", False))
         if definition.supports_generation and not serve_logits:
             self.generation_engine = build_generation_engine(cfg, device=device,
-                                                             metrics=self.recorder)
+                                                             params=self._params,
+                                                             metrics=self.recorder,
+                                                             mesh=self.mesh)
             self.device = self.generation_engine.device
         else:
             self.engine = ModelEngine(cfg, build_model(cfg.model, seed=cfg.seed, device=device))
@@ -203,6 +230,8 @@ class InferenceServer:
     async def serve(self, warmup: bool = True, ready_event=None) -> None:
         log = get_logger()
         self.start_pipeline(warmup=warmup)
+        if self.mesh is not None:  # before the port opens: the engine is idle
+            _log_mesh(self.generation_engine, "after warmup")
         max_bytes = self.cfg.resolved_max_message_bytes
         server = grpc.aio.server(options=[
             ("grpc.max_receive_message_length", max_bytes),
@@ -241,6 +270,8 @@ class InferenceServer:
             self.runner.stop(drain=True)
         else:
             self.generation_engine.stop()
+            if self.mesh is not None:
+                _log_mesh(self.generation_engine, "at shutdown")
         self.congestion.stop()
         if self.recorder is not None:
             self.recorder.server_health.set(0)
@@ -284,8 +315,14 @@ def main(argv=None) -> int:
     )
     parser.add_argument("--config", required=True, help="YAML config file")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--timeout-s", type=float, default=300.0,
+                        help="a mesh's collective timeout, seconds (default 300)")
     args = parser.parse_args(argv)
     cfg = load_config(args.config)
+    if cfg.devices.mesh.pipe > 1:
+        from ..parallel.launch import serve_mesh
+
+        return serve_mesh(args.config, cfg, args.device, args.timeout_s)
     server = InferenceServer(cfg, device=args.device)
     asyncio.run(server.serve())
     return 0

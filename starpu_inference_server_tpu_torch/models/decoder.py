@@ -91,8 +91,10 @@ class DecoderSpec:
 class KVCache:
     """INT8 KV cache, LAYERED: ``k``/``v`` are per-layer lists of int8
     [S, T, H_kv, D] (FLAT: [S, T, H_kv*D]), scales per-layer f32
-    [S, T, H_kv] (FLAT: [S, H_kv, T]), ``lengths`` int32 [S]. Updated in
-    place (the JAX package's donated buffers)."""
+    [S, T, H_kv] (FLAT: [S, H_kv, T]), ``lengths`` int32 [S]; or STACKED
+    (pipe mode): one int8 [L, S, T, H_kv, D] tensor per field, f32
+    [L, S, T, H_kv] scales. Updated in place (the JAX package's donated
+    buffers)."""
 
     k: List[torch.Tensor]
     v: List[torch.Tensor]
@@ -125,9 +127,11 @@ def _std_kv_view(spec: DecoderSpec, a: torch.Tensor) -> torch.Tensor:
 
 def init_cache(spec: DecoderSpec, num_slots: int, max_len: int, device="cpu",
                stacked: bool = False, flat: bool = False) -> KVCache:
-    """Zeroed per-layer cache tensors, standard or ``flat``. ``stacked``
-    (one [L, ...] tensor per field, the JAX package's pipe-mode layout)
-    waits for the multi-device slice; with ``flat`` it raises
+    """Zeroed cache tensors: per-layer lists, standard or ``flat``; or,
+    ``stacked``, one [L, ...] tensor per field (the pipe-mode layout whose
+    [L] axis is cut over the stages, ``parallel/pipeline_decode.py``).
+    Every function here reads ``cache.k[li]`` the same way in both (a
+    stacked field's row is a view). ``stacked`` with ``flat`` raises
     ``ValueError``, as in the JAX package."""
     if stacked:
         if flat:
@@ -137,8 +141,14 @@ def init_cache(spec: DecoderSpec, num_slots: int, max_len: int, device="cpu",
                 "the head axis over 'model', which the flat [T, H*D] "
                 "rows fold away"
             )
-        raise NotImplementedError("the stacked (pipe-mode) cache layout is not yet ported "
-                                  "(ROADMAP queue 1, multi-device)")
+        shape = (spec.layers, num_slots, max_len, spec.kv_heads, spec.head_dim)
+        return KVCache(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            lengths=torch.zeros((num_slots,), dtype=torch.int32, device=device),
+        )
     if flat:
         shape = (num_slots, max_len, spec.kv_heads * spec.head_dim)
         sshape = (num_slots, spec.kv_heads, max_len)

@@ -1,0 +1,447 @@
+"""Rank processes of a pipelined server: the stage worker, the commands
+rank 0 sends, the follower loop, and the spawning of a world.
+
+The JAX package runs a mesh as ONE program over many devices. Here each
+mesh position is a process and rank 0 drives: it runs the gRPC server
+and the ``GenerationEngine`` (admission, scheduling, sampling, streams)
+and, before each prefill, decode step or verify window, broadcasts a
+small command (:class:`PipeWorker`): the operation, its host ints, and
+the ids, active mask and slot lengths. Every rank then runs the same
+``pipelined_*`` program on its own stage; the other ranks sit in
+:func:`follow` until a stop command. Commands, weights and statistics
+travel on the mesh's CPU-side control group.
+
+A pipelined call that fails on any rank leaves the others inside the
+same program, so the world cannot go on: rank 0 calls
+``PipeWorker.on_fatal`` (the CLI's exits the process), a follower
+raises out of :func:`follow`, and the collectives' timeout
+(``initialize_distributed``) turns a hung rank into an error on the
+others. :func:`serve_mesh`, the server CLI's launcher, spawns one
+process per mesh position, forwards SIGINT / SIGTERM to rank 0, and when
+any rank exits with an error stops the rest and returns non-zero.
+
+:func:`run_world` runs a function on every rank of a fresh world (the
+tests and ``chip_smoke.py`` use it); the function is named
+``"module:function"`` and must live in a module that imports no JAX.
+"""
+
+from __future__ import annotations
+
+import importlib
+import os
+import pickle
+import signal
+import sys
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+
+from .mesh import MeshAxes, RankMesh
+
+OP_STOP, OP_PREFILL, OP_DECODE, OP_VERIFY, OP_STATS, OP_RESET = range(6)
+_HEADER = 8  # int64 words: op, payload length, up to six host ints
+
+
+class PipeWorker:
+    """One rank's pipelined decoder: its parameter shard, its shard of the
+    stacked KV cache (``cache``; lengths replicated) and the three stage
+    programs. On rank 0 :meth:`prefill`, :meth:`decode` and :meth:`verify`
+    broadcast their command first; the followers run the same programs
+    from :func:`follow`."""
+
+    def __init__(self, mesh: RankMesh, spec, params, num_slots: int, max_len: int, dtype,
+                 microgroups: int, chunks: int):
+        from .pipeline_decode import init_stage_cache
+
+        self.mesh = mesh
+        self.spec = spec
+        self.params = params
+        self.dtype = dtype
+        self.microgroups = microgroups
+        self.chunks = chunks
+        self.num_slots = num_slots
+        self.cache = init_stage_cache(spec, num_slots, max_len, mesh, mesh.device)
+        # rank 0: called with the exception when a driven call fails (the
+        # world is broken then); None re-raises only
+        self.on_fatal: Optional[Callable[[BaseException], None]] = None
+
+    # -- the programs (every rank) ----------------------------------------
+
+    def run_prefill(self, ids: torch.Tensor, length: int, slot: int):
+        from .pipeline_decode import pipelined_prefill
+
+        return pipelined_prefill(self.spec, self.params, self.cache, ids, length, slot,
+                                 self.mesh, self.dtype, num_chunks=self.chunks)[1]
+
+    def run_decode(self, ids: torch.Tensor, active: torch.Tensor):
+        from .pipeline_decode import pipelined_decode_step
+
+        return pipelined_decode_step(self.spec, self.params, self.cache, ids, active,
+                                     self.mesh, self.dtype, self.microgroups)[1]
+
+    def run_verify(self, ids: torch.Tensor, active: torch.Tensor):
+        from .pipeline_decode import pipelined_verify_step
+
+        return pipelined_verify_step(self.spec, self.params, self.cache, ids, active,
+                                     self.mesh, self.dtype, self.microgroups)[1]
+
+    # -- rank 0: command, then the program --------------------------------
+
+    def _driven(self, op: int, ints: Sequence[int], tensors: Sequence[torch.Tensor], run):
+        try:
+            self._command(op, ints, list(tensors) + [self.cache.lengths])
+            return run()
+        except BaseException as exc:
+            if self.on_fatal is not None and not isinstance(exc, KeyboardInterrupt):
+                self.on_fatal(exc)
+            raise
+
+    def prefill(self, ids: torch.Tensor, length: int, slot: int) -> torch.Tensor:
+        return self._driven(OP_PREFILL, (ids.shape[0], length, slot), (ids,),
+                            lambda: self.run_prefill(ids, length, slot))
+
+    def decode(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        return self._driven(OP_DECODE, (), (ids, active),
+                            lambda: self.run_decode(ids, active))
+
+    def verify(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        return self._driven(OP_VERIFY, (ids.shape[1],), (ids, active),
+                            lambda: self.run_verify(ids, active))
+
+    def stop_followers(self) -> None:
+        """Send the stop command: every follower leaves :func:`follow`."""
+        self._command(OP_STOP, (), ())
+
+    def gather_stats(self) -> List[dict]:
+        """Every rank's kernel launches and collective counts (rank order),
+        on rank 0; the followers answer from :func:`follow`."""
+        self._command(OP_STATS, (), ())
+        return self._stats_exchange()
+
+    def reset_stats(self) -> None:
+        """Zero every rank's kernel launch and collective counts."""
+        self._command(OP_RESET, (), ())
+        _reset_counts(self.mesh)
+
+    def _stats_exchange(self) -> Optional[List[dict]]:
+        import torch.distributed as dist
+
+        from ..ops._build import launch_counters
+
+        mine = {"rank": self.mesh.rank, "coords": dict(self.mesh.coords),
+                "launches": {k: v for t in launch_counters() for k, v in t.items() if v},
+                "collectives": self.mesh.stats.snapshot()}
+        out = [None] * self.mesh.world_size if self.mesh.rank == 0 else None
+        dist.gather_object(mine, out, dst=0, group=self.mesh.control)
+        return out
+
+    def _command(self, op: int, ints: Sequence[int], tensors: Sequence[torch.Tensor]) -> None:
+        from .collectives import broadcast
+
+        parts = [t.reshape(-1).to(torch.int32).cpu() for t in tensors]
+        payload = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int32)
+        header = torch.zeros(_HEADER, dtype=torch.int64)
+        header[0], header[1] = op, payload.numel()
+        header[2:2 + len(ints)] = torch.tensor(list(ints), dtype=torch.int64)
+        broadcast(self.mesh, header, group=self.mesh.control, axis="control")
+        if payload.numel():
+            broadcast(self.mesh, payload, group=self.mesh.control, axis="control")
+
+    # -- a follower ------------------------------------------------------
+
+    def receive(self):
+        """The next command: (op, host ints, int32 payload on the CPU)."""
+        from .collectives import broadcast
+
+        header = broadcast(self.mesh, torch.zeros(_HEADER, dtype=torch.int64),
+                           group=self.mesh.control, axis="control")
+        n = int(header[1])
+        payload = torch.zeros(n, dtype=torch.int32)
+        if n:
+            payload = broadcast(self.mesh, payload, group=self.mesh.control, axis="control")
+        return int(header[0]), [int(v) for v in header[2:]], payload
+
+    def execute(self, op: int, ints: List[int], payload: torch.Tensor) -> bool:
+        """Run one received command; False after the stop command."""
+        s = self.num_slots
+        dev = self.mesh.device
+        if op == OP_STOP:
+            return False
+        if op == OP_STATS:
+            self._stats_exchange()
+            return True
+        if op == OP_RESET:
+            _reset_counts(self.mesh)
+            return True
+        data = payload.to(dev)
+        self.cache.lengths.copy_(data[-s:])
+        if op == OP_PREFILL:
+            p, length, slot = ints[:3]
+            self.run_prefill(data[:p], length, slot)
+        elif op == OP_DECODE:
+            self.run_decode(data[:s], data[s:2 * s] > 0)
+        elif op == OP_VERIFY:
+            w = ints[0]
+            self.run_verify(data[:s * w].reshape(s, w), data[s * w:s * w + s] > 0)
+        else:
+            raise ValueError(f"unknown pipe command {op}")
+        return True
+
+
+def _reset_counts(mesh: RankMesh) -> None:
+    from ..ops._build import launch_counters
+
+    for table in launch_counters():
+        for name in table:
+            table[name] = 0
+    mesh.stats.reset()
+
+
+def follow(worker: PipeWorker) -> None:
+    """A follower's loop: run rank 0's commands until the stop command."""
+    while worker.execute(*worker.receive()):
+        pass
+
+
+# -- joining and spawning ------------------------------------------------------
+
+def join_mesh(axes: MeshAxes, rank: int, world: int, init_method: str, device_type: str,
+              device_ids: Sequence[int] = (), timeout_s: float = 300.0) -> RankMesh:
+    """Join the world as ``rank`` and build its :class:`RankMesh`. The
+    backend follows ``mesh.choose_backend``; rank ``r``'s device is
+    ``mesh.rank_device``'s."""
+    from .mesh import choose_backend, initialize_distributed, make_device_mesh, rank_device
+
+    if world != axes.size:
+        raise ValueError(f"a mesh of {axes.size} positions needs {axes.size} ranks, got {world}")
+    backend = choose_backend(world, device_type, device_ids)
+    device = rank_device(rank, device_type, device_ids)
+    initialize_distributed(init_method, world, rank, backend, device, timeout_s)
+    return make_device_mesh(axes, device)
+
+
+def _die_with_parent() -> None:
+    """Ask the kernel to kill this process when its parent dies (Linux
+    ``PR_SET_PDEATHSIG``), so a rank never outlives the launcher that
+    would stop it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL("libc.so.6", use_errno=True).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    except (OSError, AttributeError):
+        pass  # not Linux: the launcher's own stop is all there is
+
+
+def _import(target: str):
+    module, _, name = target.partition(":")
+    fn = importlib.import_module(module)
+    for part in name.split("."):
+        fn = getattr(fn, part)
+    return fn
+
+
+def _world_rank(target: str, rank: int, world: int, init_method: str, payload: Any,
+                result_path: str) -> None:
+    """Body of a :func:`run_world` process: ``target(rank, world,
+    init_method, payload)``, its return value (or its traceback) pickled
+    to ``result_path``."""
+    _die_with_parent()
+    torch.set_num_threads(1)
+    try:
+        result = {"ok": True, "value": _import(target)(rank, world, init_method, payload)}
+    except BaseException as exc:  # noqa: BLE001 - reported to the parent, then exit non-zero
+        result = {"ok": False, "error": f"{type(exc).__name__}: {exc}",
+                  "traceback": traceback.format_exc()}
+    with open(result_path, "wb") as fh:
+        pickle.dump(result, fh)
+    if not result["ok"]:
+        os._exit(1)
+
+
+def run_world(target: str, world: int, payload: Any = None, timeout_s: float = 300.0,
+              workdir: Optional[str] = None) -> List[Any]:
+    """Run ``target`` (``"module:function"``) on every rank of a new world
+    of ``world`` spawned processes, joined through a ``file://`` store in
+    ``workdir`` (a temporary directory by default). Returns each rank's
+    return value, in rank order; raises with the first failing rank's
+    traceback, or when the world outlives ``timeout_s`` (every process is
+    stopped first)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    own = workdir is None
+    workdir = workdir or tempfile.mkdtemp(prefix="world-")
+    os.makedirs(workdir, exist_ok=True)
+    init = f"file://{os.path.join(workdir, 'store')}"
+    paths = [os.path.join(workdir, f"rank{r}.pkl") for r in range(world)]
+    procs = [ctx.Process(target=_world_rank, args=(target, r, world, init, payload, paths[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    try:
+        while any(p.is_alive() for p in procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"world {target} did not finish in {timeout_s:g} s")
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break  # a rank failed: the others may wait on it forever
+            time.sleep(0.05)
+    finally:
+        _stop_all(procs)
+    loaded = {}
+    for r, path in enumerate(paths):
+        if os.path.exists(path):
+            with open(path, "rb") as fh:
+                loaded[r] = pickle.load(fh)
+    for r, res in sorted(loaded.items()):  # the failure itself before its casualties
+        if not res["ok"]:
+            raise RuntimeError(f"rank {r} of {target} failed: {res['error']}\n{res['traceback']}")
+    missing = [r for r in range(world) if r not in loaded]
+    if missing:
+        raise RuntimeError(f"rank {missing[0]} of {target} exited with "
+                           f"{procs[missing[0]].exitcode} and no result")
+    results = [loaded[r]["value"] for r in range(world)]
+    if own:
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    return results
+
+
+def _stop_all(procs, grace_s: float = 10.0) -> None:
+    for p in procs:
+        if p.is_alive():
+            p.terminate()
+    deadline = time.monotonic() + grace_s
+    for p in procs:
+        p.join(timeout=max(0.1, deadline - time.monotonic()))
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=5.0)
+
+
+# -- the server CLI ------------------------------------------------------------
+
+def rank_main(rank: int, world: int, init_method: str, config_path: str, device: str,
+              timeout_s: float, spawned: bool = True) -> None:
+    """One rank of a pipelined server (a :func:`serve_mesh` process, or the
+    process itself when ``distributed.coordinator_address`` is set): join
+    the mesh, build this rank's engine (rank 0 builds the seeded weights
+    once and sends each rank its shard), then serve (rank 0) or follow.
+    A ``spawned`` rank dies with its launcher."""
+    import asyncio
+
+    import torch.distributed as dist
+
+    from ..serving.generation import build_generation_engine
+    from ..utils.config import load_config
+    from ..utils.logger import get_logger
+
+    log = get_logger()
+    if spawned:
+        _die_with_parent()
+    if rank != 0:
+        signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0 decides when to stop
+    cfg = load_config(config_path)
+    m = cfg.devices.mesh
+    axes = MeshAxes(data=m.data, model=m.model, expert=m.expert, pipe=m.pipe)
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    t0 = time.perf_counter()
+    mesh = join_mesh(axes, rank, world, init_method, torch.device(device).type,
+                     cfg.devices.device_ids, timeout_s)
+    log.info("%s (joined in %.1f s)", mesh.describe(), time.perf_counter() - t0)
+    if rank == 0:
+        print(f"mesh backend: {mesh.backend}", flush=True)
+        from ..grpc.server import InferenceServer
+
+        server = InferenceServer(cfg, device=str(mesh.device), mesh=mesh)
+        worker = server.generation_engine.pipe
+
+        def fatal(exc: BaseException) -> None:
+            log.error("the mesh failed (%s: %s); exiting", type(exc).__name__, exc)
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(3)
+
+        worker.on_fatal = fatal
+        log.info("rank 0 ready in %.1f s", time.perf_counter() - t0)
+        asyncio.run(server.serve())
+        worker.stop_followers()
+    else:
+        engine = build_generation_engine(cfg, device=str(mesh.device), mesh=mesh)
+        log.info("rank %d ready in %.1f s", rank, time.perf_counter() - t0)
+        follow(engine.pipe)
+    dist.destroy_process_group()
+
+
+def serve_mesh(config_path: str, cfg, device: str, timeout_s: float = 300.0) -> int:
+    """The server CLI for a mesh config: one process per mesh position, or,
+    with ``distributed.coordinator_address``, this process as the rank
+    ``distributed.process_id`` of a world joined there (as the JAX
+    ``initialize_distributed`` joins a coordinator). Returns the exit code:
+    0 when rank 0 shut down cleanly and every rank ended, else 1."""
+    import multiprocessing as mp
+
+    from ..utils.logger import get_logger
+
+    log = get_logger()
+    world = cfg.devices.mesh.size
+    dcfg = cfg.distributed
+    if dcfg.coordinator_address:
+        n = dcfg.num_processes or world
+        if dcfg.process_id < 0:
+            raise ValueError("distributed.process_id must name this process's rank")
+        rank_main(dcfg.process_id, n, f"tcp://{dcfg.coordinator_address}", config_path,
+                  device, timeout_s, spawned=False)
+        return 0
+    if torch.device(device).type == "cuda":
+        from ..ops import _build
+
+        _build.build_all()  # once, before the ranks load the libraries
+    workdir = tempfile.mkdtemp(prefix="mesh-")
+    init = f"file://{os.path.join(workdir, 'store')}"
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main, args=(r, world, init, config_path, device, timeout_s),
+                         name=f"rank{r}") for r in range(world)]
+    for p in procs:
+        p.start()
+    for r, p in enumerate(procs):
+        log.info("rank %d pid %d", r, p.pid)
+
+    def forward(signum, _frame):
+        if procs[0].is_alive():
+            os.kill(procs[0].pid, signum)
+
+    old = {s: signal.signal(s, forward) for s in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        code = 0
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
+            if failed:
+                log.error("rank %d exited with %s; stopping the mesh", failed[0],
+                          procs[failed[0]].exitcode)
+                code = 1
+                break
+            if procs[0].exitcode == 0:  # rank 0 is done: the followers must end soon
+                deadline = time.monotonic() + 60.0
+                while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                    time.sleep(0.1)
+                break
+            time.sleep(0.1)
+        if any(p.is_alive() or p.exitcode != 0 for p in procs):
+            code = 1
+    finally:
+        _stop_all(procs)
+        for s, h in old.items():
+            signal.signal(s, h)
+        import shutil
+
+        shutil.rmtree(workdir, ignore_errors=True)
+    return code
+
+
+__all__ = ["PipeWorker", "follow", "join_mesh", "rank_main", "run_world", "serve_mesh"]

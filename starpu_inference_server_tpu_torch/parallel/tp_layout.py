@@ -1,0 +1,147 @@
+"""Block-aligned weight layouts for manual tensor parallelism inside the
+stage programs.
+
+Counterpart of ``starpu_inference_server_tpu/parallel/tp_layout.py``,
+the same functions on numpy arrays or torch tensors (either leaf type;
+the same indices): the decoder stores FUSED projections (qkv as one
+``[H, (Hq + 2 Hkv) D]`` matrix, gate+up as one ``[H, 2 I]``), and a rank
+of a ``model`` group holds one contiguous column slice of each, so the
+columns are permuted once at placement until rank ``d``'s slice is
+exactly ``[q_d | k_d | v_d]`` (resp. ``[gate_d | up_d]``).
+Per-output-channel scales permute alongside, so the shuffle commutes
+with quantization. Row-parallel weights (``attn.o``, ``mlp.down``) keep
+their rows; pairwise-packed int4 ones row-shard cleanly when every
+shard holds an even number of original rows, which
+:func:`repack_int4_rows` checks.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+
+from ..ops.quant import is_packed_int4_leaf, is_quantized_leaf
+
+
+def block_tp_permutation(group_sizes: Sequence[int], tp: int) -> np.ndarray:
+    """Index permutation turning a ``[g0 | g1 | ...]`` concatenated axis
+    into ``[g0_0 | g1_0 | ... | g0_1 | g1_1 | ...]`` so that contiguous
+    1/tp slices are block-aligned. ``new[j] = old[perm[j]]``."""
+    for n in group_sizes:
+        if n % tp != 0:
+            raise ValueError(
+                f"group size {n} not divisible by tensor-parallel size {tp}"
+            )
+    offsets = np.cumsum([0] + list(group_sizes))
+    chunks = []
+    for d in range(tp):
+        for g, n in enumerate(group_sizes):
+            local = n // tp
+            start = offsets[g] + d * local
+            chunks.append(np.arange(start, start + local))
+    return np.concatenate(chunks)
+
+
+def _take_last_axis(arr, perm: np.ndarray):
+    if isinstance(arr, np.ndarray):
+        return np.take(arr, perm, axis=arr.ndim - 1)
+    import torch
+
+    idx = torch.as_tensor(perm, dtype=torch.int64, device=arr.device)
+    return torch.index_select(arr, arr.dim() - 1, idx)
+
+
+def permute_out_columns(wnode, perm: np.ndarray):
+    """Permute a weight node's OUTPUT (last) axis: dense arrays and
+    quantized / packed dicts, whose per-output-channel scales permute
+    alongside."""
+    if is_packed_int4_leaf(wnode):
+        return {
+            "w_p4": _take_last_axis(wnode["w_p4"], perm),
+            "scale": _take_last_axis(wnode["scale"], perm),
+            "bits": wnode["bits"],
+        }
+    if is_quantized_leaf(wnode):
+        return {
+            "w_q": _take_last_axis(wnode["w_q"], perm),
+            "scale": _take_last_axis(wnode["scale"], perm),
+            "bits": wnode["bits"],
+        }
+    return _take_last_axis(wnode, perm)
+
+
+def repack_int4_rows(wnode, tp: int):
+    """Check that a PAIRWISE-packed int4 weight row-shards cleanly over
+    ``tp`` (every shard an even number of original rows: then a contiguous
+    packed-row shard is the pack of the original row shard) and pass it
+    through; dense and int8 nodes pass through unchanged."""
+    if not is_packed_int4_leaf(wnode):
+        return wnode
+    k = wnode["w_p4"].shape[0] * 2
+    if k % tp != 0 or (k // tp) % 2 != 0:
+        raise ValueError(
+            f"int4 row repack needs K ({k}) divisible by 2*tp ({2 * tp})"
+        )
+    return wnode
+
+
+def shuffle_decoder_layer_for_tp(spec, layer, tp: int):
+    """A copy of one decoder layer's params with the fused projections
+    column-shuffled (and packed int4 row-parallel weights checked) for
+    ``tp``-way manual tensor parallelism. ``spec`` is a DecoderSpec."""
+    if tp <= 1:
+        return layer
+    d = spec.head_dim
+    qkv_perm = block_tp_permutation(
+        [spec.q_heads * d, spec.kv_heads * d, spec.kv_heads * d], tp
+    )
+    out = {
+        "attn_norm": layer["attn_norm"],
+        "attn": {
+            "qkv": {"w": permute_out_columns(layer["attn"]["qkv"]["w"], qkv_perm)},
+            "o": {"w": repack_int4_rows(layer["attn"]["o"]["w"], tp)},
+        },
+        "mlp_norm": layer["mlp_norm"],
+    }
+    mlp = layer["mlp"]
+    gu_perm = block_tp_permutation([spec.intermediate] * 2, tp)
+    if "router" in mlp:
+        # stacked experts [E, in, out]: the gate|up interleave applies
+        # along the last axis of every expert; the router replicates
+        out["mlp"] = {
+            "router": mlp["router"],
+            "experts": {
+                "gate_up": {
+                    "w": permute_out_columns(mlp["experts"]["gate_up"]["w"], gu_perm)
+                },
+                "down": {"w": repack_int4_rows(mlp["experts"]["down"]["w"], tp)},
+            },
+        }
+    else:
+        out["mlp"] = {
+            "gate_up": {"w": permute_out_columns(mlp["gate_up"]["w"], gu_perm)},
+            "down": {"w": repack_int4_rows(mlp["down"]["w"], tp)},
+        }
+    return out
+
+
+def validate_decoder_tp(spec, tp: int) -> None:
+    """Divisibility contract for manual TP over decoder layers."""
+    if tp <= 1:
+        return
+    if spec.kv_heads % tp or spec.q_heads % tp:
+        raise ValueError(
+            f"tensor-parallel size {tp} must divide q_heads "
+            f"({spec.q_heads}) and kv_heads ({spec.kv_heads})"
+        )
+    if (spec.q_heads // tp) % (spec.kv_heads // tp):
+        raise ValueError(
+            f"per-device GQA ratio must stay integral: q_heads/tp="
+            f"{spec.q_heads // tp}, kv_heads/tp={spec.kv_heads // tp}"
+        )
+    if spec.intermediate % tp:
+        raise ValueError(
+            f"tensor-parallel size {tp} must divide intermediate "
+            f"({spec.intermediate})"
+        )

@@ -54,7 +54,18 @@ Differences from the JAX engine:
 - After a failure (a fetch past its deadline, an error in a step) the
   loop fails every open request and keeps running, where the JAX
   engine's loop thread ends.
-- Meshes are not ported yet (ROADMAP).
+- A mesh is a world of rank processes (``parallel/``). With a ``pipe``
+  axis the engine runs PIPELINED (``parallel/pipeline_decode.py``): each
+  rank holds its stage's layers and cache shard (``mesh`` is its
+  ``RankMesh``, ``params`` its shard or the whole tree), rank 0 runs
+  this engine's loop and drives every prefill, decode step and verify
+  window through ``parallel/launch.py:PipeWorker``, and the other ranks
+  follow. Its blocks run eagerly (no CUDA graph: the collectives run on
+  the host). The JAX engine's guards hold (no ``data`` axis, no
+  ``prefill_chunk``, buckets and slots divisible by the stages and
+  microgroups, no flat or paged cache); prompt lookup, which the JAX
+  engine refuses on any mesh, runs here, its history on rank 0. A mesh
+  without a pipe axis (GSPMD mode) is not ported yet.
 """
 
 from __future__ import annotations
@@ -331,6 +342,9 @@ class GenerationEngine:
         fetch_timeout_s: float = 120.0,
         device=None,
         metrics=None,
+        mesh=None,
+        family: str = "llama",
+        pipe_microgroups: int = 0,
     ):
         """``params`` / ``draft_params``: the port's parameter trees (torch
         tensors; see ``weights.params_from_numpy``). ``device`` defaults
@@ -341,7 +355,13 @@ class GenerationEngine:
         whose generation families the engine updates, at the JAX engine's
         points and only where the values are already on the host
         (admission, landing, consume, release): nothing inside a decode
-        block reads the device for them."""
+        block reads the device for them.
+
+        ``mesh``: this rank's ``parallel.mesh.RankMesh``. A ``pipe`` axis
+        selects pipelined decoding (the module docstring); ``family``
+        picks the partition rules and ``pipe_microgroups`` the decode
+        microgroups (0 = min(stages, num_slots)). ``device`` is then the
+        mesh's."""
         if kv_cache_layout not in ("standard", "flat"):
             raise ValueError(
                 f"kv_cache_layout must be 'standard' or 'flat', got {kv_cache_layout!r}"
@@ -353,6 +373,16 @@ class GenerationEngine:
                 "'flat' (the flat layout's standard layout already is "
                 "the compact layout) — enable one or the other"
             )
+        self.mesh = mesh
+        self._family = family
+        self.pipe = None  # the rank's PipeWorker in pipe mode
+        self._pipe_stages = 0
+        if mesh is not None:
+            self._pipe_stages, self._microgroups = check_pipe_mesh(
+                spec, mesh, flat=self.flat_cache, prefill_chunk=prefill_chunk,
+                prefill_buckets=prefill_buckets, num_slots=num_slots,
+                pipe_microgroups=pipe_microgroups, kv_page_size=kv_page_size)
+            device = mesh.device
         self.device = resolve_device(device)
         self.spec = spec
         self.dtype = dtype
@@ -403,6 +433,20 @@ class GenerationEngine:
             self._retained: set = set()
             self._prefill_fn, self._chunk_fn = paged_prefill, paged_prefill_chunk
             self._step_fn, self._verify_fn = paged_decode_step, paged_verify_step
+        elif self._pipe_stages:
+            from ..parallel.launch import PipeWorker
+
+            self.kv_pool_pages = 0
+            self.pipe = PipeWorker(mesh, spec, self.params, num_slots, max_len, dtype,
+                                   self._microgroups, self._pipe_stages)
+            # rank 0's shard of the stacked cache; its lengths drive every rank
+            self.cache = self.pipe.cache
+            pipe = self.pipe
+            self._prefill_fn = lambda sp, pr, c, ids, length, slot, dt: (
+                c, pipe.prefill(ids, length, slot))
+            self._step_fn = lambda sp, pr, c, ids, alive, dt: (c, pipe.decode(ids, alive))
+            self._verify_fn = lambda sp, pr, c, ids, alive, dt: (c, pipe.verify(ids, alive))
+            self._chunk_fn = None  # prefill_chunk is refused with a pipe
         else:
             self.kv_pool_pages = 0
             self.cache = init_cache(spec, num_slots, max_len, device=self.device,
@@ -433,7 +477,7 @@ class GenerationEngine:
                 raise ValueError(
                     f"draft vocab ({draft_spec.vocab}) must match target vocab ({spec.vocab})"
                 )
-            self._draft_params = self._place_params(draft_params)
+            self._draft_params = self._place_local(draft_params)
             self._draft_cache = init_cache(draft_spec, num_slots, max_len, device=self.device,
                                            flat=self.flat_cache)
         # prompt-lookup speculation: drafts from each slot's own token
@@ -475,7 +519,24 @@ class GenerationEngine:
     def _place_params(self, params):
         """Params on the engine's device; int4 leaves are packed pairwise
         where the int4 kernel route applies (on CUDA, or when kernels are
-        forced), as the JAX engine packs them on the TPU."""
+        forced), as the JAX engine packs them on the TPU. In pipe mode a
+        whole tree is cut to this rank's shard first (a shard, whose
+        ``layers`` are stacked already, is taken as it is), and the stacked
+        layers become a list of per-layer views."""
+        if not self._pipe_stages:
+            return self._place_local(params)
+        from ..parallel.pipeline import unstack_layers
+        from ..weights import rank_shard
+
+        if not isinstance(params["layers"], dict):
+            params = rank_shard(params, self.spec, self._family, self.mesh.coords,
+                                self.mesh.shape)
+        params = dict(params, layers=unstack_layers(params["layers"]))
+        return self._place_local(params)
+
+    def _place_local(self, params):
+        """A tree on the engine's device, int4 leaves packed where the int4
+        kernel route applies (the draft model's placement in every mode)."""
         from ..weights import params_from_numpy
 
         params = params_from_numpy(params, self.device)
@@ -1259,7 +1320,7 @@ class GenerationEngine:
             fn = self._prompt_lookup_block
         elif self._draft_params is not None:
             fn = self._speculative_block
-        elif snap["sample"] is None:
+        elif snap["sample"] is None and not self._pipe_stages:
             fn = self._greedy_block
         else:
             fn = self._decode_and_sample
@@ -1430,8 +1491,48 @@ class GenerationEngine:
         self._zero_lengths(slot)
 
 
-# options of the JAX engine that this port does not serve yet
-_UNPORTED_OPTIONS = {"pipe_microgroups": 0}
+def check_pipe_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
+                    prefill_buckets, num_slots: int, pipe_microgroups: int,
+                    kv_page_size: int) -> tuple:
+    """The JAX engine's mesh guards, on a ``RankMesh`` or its ``MeshAxes``
+    (the engine checks its rank's mesh; ``build_generation_engine`` checks
+    a config's before any weights are built). Returns pipe mode's stage
+    and decode-microgroup counts."""
+    from ..parallel.mesh import MODEL_AXIS, PIPE_AXIS
+    from ..parallel.pipeline_decode import _axis, _microgroups, validate_pipe_mesh
+    from ..parallel.tp_layout import validate_decoder_tp
+
+    if flat:
+        raise ValueError(
+            "kv_cache_layout='flat' is single-device only (mesh "
+            "decode paths keep the standard layout)"
+        )
+    if _axis(mesh, PIPE_AXIS) <= 1:
+        raise NotImplementedError(
+            "a mesh without a pipe axis (GSPMD mode: slot-sharded decoding over "
+            "'data', tensor parallelism without stages) is not yet ported"
+        )
+    stages = validate_pipe_mesh(mesh)
+    validate_decoder_tp(spec, _axis(mesh, MODEL_AXIS))
+    if prefill_chunk:
+        raise ValueError(
+            "prefill_chunk and pipelined decoding do not "
+            "compose: the pipelined prefill already chunks "
+            "the prompt over the stages (set prefill_chunk=0)"
+        )
+    for b in prefill_buckets or [32, 64, 128, 256]:
+        if b % stages != 0:
+            raise ValueError(
+                f"prefill bucket {b} not divisible by "
+                f"{stages} pipeline stages"
+            )
+    microgroups = _microgroups(stages, num_slots, pipe_microgroups, "decode")
+    if kv_page_size:
+        raise ValueError(
+            "paged KV cache does not compose with mesh decoding "
+            "yet (slot-sharded dense cache only)"
+        )
+    return stages, microgroups
 
 
 def build_draft(cfg, spec: DecoderSpec, device):
@@ -1461,18 +1562,23 @@ def build_draft(cfg, spec: DecoderSpec, device):
     return definition.spec, params
 
 
-def build_generation_engine(cfg, device=None, params=None, metrics=None) -> GenerationEngine:
+def build_generation_engine(cfg, device=None, params=None, metrics=None,
+                            mesh=None) -> GenerationEngine:
     """Config -> model -> engine, the part of the server that needs
     neither ``grpc`` nor ``yaml`` (``chip_smoke.py`` drives it directly).
     ``params``: the config's parameter tree already built on ``device``
     (one tree may serve several engines of a process); built from the
     config's seed when None. ``metrics``: the recorder whose generation
-    families the engine updates (None: none).
+    families the engine updates (None: none). ``mesh``: this rank's
+    ``parallel.mesh.RankMesh`` for a config whose ``devices.mesh`` has
+    more than one position (every rank calls this; without ``params``
+    rank 0 builds the weights once and each rank gets its shard,
+    ``weights.pipelined_params``, and the draft model lives on rank 0).
 
     Sets the process-wide W8A8 flag from the config, on or off, every
     time (W8A8 and W4A8 quantize the dense layers' activations). Raises
-    ``NotImplementedError`` for non-decoder families and for engine
-    options that are not ported yet; ``pin_cache_layouts`` is accepted
+    ``NotImplementedError`` for non-decoder families and for a mesh
+    without a pipe axis; ``pin_cache_layouts`` is accepted
     as a no-op (a TPU layout workaround) but refused with
     ``kv_cache_layout: flat``, as the JAX engine refuses it."""
     from ..models.registry import build_model, get_family
@@ -1482,37 +1588,13 @@ def build_generation_engine(cfg, device=None, params=None, metrics=None) -> Gene
     definition = get_family(cfg.model.family, opts)
     if not definition.supports_generation:
         raise NotImplementedError(f"{cfg.model.family!r} is not a decoder family")
-    for key, default in _UNPORTED_OPTIONS.items():
-        if opts.get(key, default) != default:
-            raise NotImplementedError(
-                f"model option {key}={opts[key]!r} is not yet ported to the "
-                "PyTorch engine (ROADMAP queue 1)"
-            )
     layout = str(opts.get("kv_cache_layout", "standard"))
-    if cfg.devices.mesh.size > 1:
-        if layout == "flat":
-            raise ValueError(
-                "kv_cache_layout='flat' is single-device only (mesh "
-                "decode paths keep the standard layout)"
-            )
-        raise NotImplementedError("device meshes are not yet ported (ROADMAP)")
-    nn.set_w8a8(cfg.model.quantization in (QuantMode.W8A8, QuantMode.W4A8))
-    dev = resolve_device(device)
-    if params is None:
-        params = build_model(cfg.model, seed=cfg.seed, device=dev).params
-    draft_spec, draft_params = build_draft(cfg, definition.spec, dev)
-    return GenerationEngine(
-        definition.spec,
-        params,
-        # as the JAX server: bf16 compute for BF16, f32 otherwise
-        dtype=torch.bfloat16 if cfg.model.compute_dtype == "BF16" else torch.float32,
+    engine_opts = dict(
         num_slots=int(opts.get("num_slots", 8)),
         max_len=int(opts.get("max_len", 512)),
         prefill_buckets=list(opts.get("prefill_buckets", [32, 64, 128, 256])),
         steps_per_sync=int(opts.get("steps_per_sync", 1)),
         prefill_chunk=int(opts.get("prefill_chunk", 0)),
-        draft_spec=draft_spec,
-        draft_params=draft_params,
         speculate_k=int(opts.get("speculate_k", 4)),
         prompt_lookup_ngram=int(opts.get("prompt_lookup_ngram", 0)),
         prefix_cache=bool(opts.get("prefix_cache", False)),
@@ -1524,6 +1606,46 @@ def build_generation_engine(cfg, device=None, params=None, metrics=None) -> Gene
         kv_cache_layout=layout,
         pin_cache_layouts=bool(opts.get("pin_cache_layouts", False)),
         fetch_timeout_s=float(opts.get("fetch_timeout_s", 120.0)),
+        # read as the JAX server reads it; inert without a pipe axis
+        pipe_microgroups=int(opts.get("pipe_microgroups", 0)),
+    )
+    axes = cfg.devices.mesh
+    if axes.size > 1 and mesh is None:
+        # the engine's guards on the config's mesh, before any rank or weight
+        from ..parallel.mesh import MeshAxes
+
+        check_pipe_mesh(definition.spec, MeshAxes(data=axes.data, model=axes.model,
+                                                  expert=axes.expert, pipe=axes.pipe),
+                        flat=layout == "flat", **{k: engine_opts[k] for k in (
+                            "prefill_chunk", "prefill_buckets", "num_slots",
+                            "pipe_microgroups", "kv_page_size")})
+        raise ValueError(
+            f"devices.mesh of size {axes.size} runs as that many rank "
+            "processes: start it from the server CLI (parallel/launch.py:serve_mesh) "
+            "or pass each rank's mesh"
+        )
+    if axes.size == 1 and mesh is not None:
+        raise ValueError("a mesh was passed for a config whose devices.mesh has one position")
+    nn.set_w8a8(cfg.model.quantization in (QuantMode.W8A8, QuantMode.W4A8))
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if params is None and mesh is not None:
+        from ..weights import pipelined_params
+
+        params = pipelined_params(cfg.model, cfg.seed, definition.spec, mesh)
+    elif params is None:
+        params = build_model(cfg.model, seed=cfg.seed, device=dev).params
+    draft_spec, draft_params = (None, None) if mesh is not None and mesh.rank != 0 else \
+        build_draft(cfg, definition.spec, dev)
+    return GenerationEngine(
+        definition.spec,
+        params,
+        # as the JAX server: bf16 compute for BF16, f32 otherwise
+        dtype=torch.bfloat16 if cfg.model.compute_dtype == "BF16" else torch.float32,
+        draft_spec=draft_spec,
+        draft_params=draft_params,
         device=dev,
         metrics=metrics,
+        mesh=mesh,
+        family=cfg.model.family,
+        **engine_opts,
     )

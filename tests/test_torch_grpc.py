@@ -208,16 +208,25 @@ def test_bad_requests_are_rejected(harness, case):
 def test_non_decoder_family_is_not_yet_ported():
     """Every model family of the JAX package is served now (ViT was the
     last non-decoder family); a name that neither package registers is
-    refused at the door, and ``pipe_microgroups``, which waits for the
-    multi-device slice, is refused as not yet ported."""
+    refused at the door, and ``pipe_microgroups`` is read as the JAX
+    server reads it: without a pipe axis it changes nothing (the engine
+    is the single-device one, as the JAX engine ignores it there)."""
     from starpu_inference_server_tpu.models import available_families as jax_families
     from starpu_inference_server_tpu_torch.models import available_families
 
     assert set(jax_families()) <= set(available_families())
     with pytest.raises(UnknownModelFamilyError, match="unknown model family"):
         InferenceServer(decoder_cfg(family="vit_h_14"), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        InferenceServer(decoder_cfg(pipe_microgroups=2), device="cpu")
+    tokens = []
+    for cfg in (decoder_cfg(pipe_microgroups=2), decoder_cfg()):
+        eng = InferenceServer(cfg, device="cpu").generation_engine
+        assert eng.pipe is None and eng.mesh is None and not eng._pipe_stages
+        eng.start()
+        try:
+            tokens.append(eng.generate(np.asarray(PROMPTS[0]), 4, timeout=60.0))
+        finally:
+            eng.stop()
+    assert tokens[0] == tokens[1]
 
 
 # -- the batch ModelInfer route -------------------------------------------------

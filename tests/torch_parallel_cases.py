@@ -1,0 +1,158 @@
+"""Rank bodies of the spawned-world tests of the port's parallel package.
+
+``parallel/launch.py:run_world`` runs :func:`world` on every rank of a
+fresh world of processes; a spawned process imports this module again,
+so it imports torch and the port only (never jax or the JAX package).
+Each case gets its inputs as numpy arrays from the parent test (which
+computes the JAX references) and returns numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from starpu_inference_server_tpu_torch.models.decoder import KVCache, get_spec, init_params
+from starpu_inference_server_tpu_torch.parallel.launch import follow, join_mesh
+from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes
+from starpu_inference_server_tpu_torch.parallel.pipeline_decode import shard_cache
+from starpu_inference_server_tpu_torch.weights import params_from_numpy, rank_shard
+
+
+def _setup(mesh, case):
+    spec = get_spec(case["family"], case["opts"])
+    tree = init_params(spec, np.random.default_rng(case["seed"]))
+    if case.get("quant"):
+        from starpu_inference_server_tpu_torch.ops.quant import maybe_quantize_tree
+
+        tree = maybe_quantize_tree(params_from_numpy(tree), case["quant"])
+    shard = rank_shard(tree, spec, case["family"], mesh.coords, mesh.shape)
+    return spec, params_from_numpy(shard)
+
+
+def _cache_shard(mesh, arrays):
+    """This rank's shard (owned copies) of a whole stacked cache given as
+    numpy (k, v, k_scale, v_scale, lengths)."""
+    k, v, ks, vs, lengths = (torch.from_numpy(np.array(a)) for a in arrays)
+    sh = shard_cache(KVCache(k=k, v=v, k_scale=ks, v_scale=vs, lengths=lengths),
+                     mesh.coords, mesh.shape)
+    return KVCache(k=sh.k.clone(), v=sh.v.clone(), k_scale=sh.k_scale.clone(),
+                   v_scale=sh.v_scale.clone(), lengths=lengths.clone())
+
+
+def _dtype(case):
+    return getattr(torch, case.get("dtype", "float32"))
+
+
+def _cache_out(cache):
+    return tuple(np.asarray(t) for t in (cache.k, cache.v, cache.k_scale, cache.v_scale,
+                                         cache.lengths))
+
+
+def case_prefill(mesh, case):
+    from starpu_inference_server_tpu_torch.parallel.pipeline_decode import (
+        init_stage_cache,
+        pipelined_prefill,
+    )
+
+    spec, params = _setup(mesh, case)
+    cache = init_stage_cache(spec, case["num_slots"], case["max_len"], mesh)
+    cache, logits = pipelined_prefill(spec, params, cache, torch.from_numpy(case["ids"]),
+                                      case["length"], case["slot"], mesh, torch.float32)
+    return {"logits": None if logits is None else logits.numpy(), "cache": _cache_out(cache)}
+
+
+def case_decode(mesh, case):
+    from starpu_inference_server_tpu_torch.parallel.pipeline_decode import (
+        pipelined_decode_step,
+        pipelined_verify_step,
+    )
+
+    spec, params = _setup(mesh, case)
+    cache = _cache_shard(mesh, case["cache"])
+    fn = pipelined_verify_step if case["ids"].ndim == 2 else pipelined_decode_step
+    mesh.stats.reset()
+    cache, logits = fn(spec, params, cache, torch.from_numpy(case["ids"]),
+                       torch.from_numpy(case["active"]), mesh, _dtype(case),
+                       num_microgroups=case.get("microgroups", 0))
+    return {"logits": None if logits is None else logits.numpy(), "cache": _cache_out(cache),
+            "census": mesh.stats.snapshot()}
+
+
+def case_logits(mesh, case):
+    from starpu_inference_server_tpu_torch.parallel.pipeline import pipelined_decoder_logits
+
+    spec = get_spec(case["family"], case["opts"])
+    tree = init_params(spec, np.random.default_rng(case["seed"]))
+    if case.get("quant"):
+        from starpu_inference_server_tpu_torch.ops.quant import maybe_quantize_tree
+
+        tree = maybe_quantize_tree(params_from_numpy(tree), case["quant"])
+    params = params_from_numpy(tree)
+    logits = pipelined_decoder_logits(spec, params, torch.from_numpy(case["ids"]), mesh,
+                                      case["microbatches"], _dtype(case))
+    return {"logits": logits.numpy()}
+
+
+def _affine(p, x):
+    return torch.tanh(x @ p["w"] + p["b"])
+
+
+def case_forward(mesh, case):
+    from starpu_inference_server_tpu_torch.parallel.pipeline import (
+        pipeline_forward,
+        stack_layers,
+    )
+
+    layers = [{"w": torch.from_numpy(w), "b": torch.from_numpy(b)} for w, b in case["layers"]]
+    out = pipeline_forward(mesh, _affine, stack_layers(layers), torch.from_numpy(case["x"]),
+                           case["microbatches"])
+    return {"out": out.numpy()}
+
+
+def case_engine(mesh, case):
+    """The pipelined engine on every rank: rank 0 serves the prompts
+    (greedy, queued before the loop starts), the others follow."""
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationEngine,
+        GenerationRequest,
+    )
+
+    spec = get_spec(case["family"], case["opts"])
+    tree = init_params(spec, np.random.default_rng(case["seed"]))
+    eng = GenerationEngine(spec, tree, dtype=torch.float32, mesh=mesh, family=case["family"],
+                           **case["engine"])
+    if mesh.rank != 0:
+        follow(eng.pipe)
+        return None
+    try:
+        reqs = [GenerationRequest(prompt_ids=np.asarray(p, np.int32),
+                                  max_new_tokens=case["max_new"]) for p in case["prompts"]]
+        for r in reqs:
+            eng.submit(r)
+        eng.start()
+        try:
+            tokens = [r.result(timeout=120.0) for r in reqs]
+        finally:
+            eng.stop()
+        stats = eng.pipe.gather_stats()
+    finally:
+        eng.pipe.stop_followers()
+    return {"tokens": tokens, "stats": stats}
+
+
+CASES = {"prefill": case_prefill, "decode": case_decode, "logits": case_logits,
+         "forward": case_forward, "engine": case_engine}
+
+
+def world(rank, world_size, init_method, payload):
+    """Join a mesh of ``payload['axes']`` (pipe, model, expert) on the CPU
+    and run every case of ``payload['cases']`` in order on this rank.
+    Returns {case name: result}."""
+    pipe, model, expert = payload["axes"]
+    mesh = join_mesh(MeshAxes(pipe=pipe, model=model, expert=expert), rank, world_size,
+                     init_method, "cpu", timeout_s=120.0)
+    out = {"coords": dict(mesh.coords)}
+    for case in payload["cases"]:
+        out[case["name"]] = CASES[case["kind"]](mesh, case)
+    return out
