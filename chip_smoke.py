@@ -181,8 +181,8 @@ read from its server's log (the counts after warmup and at shutdown):
     client replays ci/perf/ci_perf_resnet_smoke.csv with the flags of
     scripts/run_perf_smoke.sh (64 requests handled and validated), then
     scripts/check_perf_summary.py reads the summary (its verdict printed:
-    its thresholds were set for another machine), then the full
-    ci_perf_resnet.csv (6,300 requests: handled + rejected = sent); one
+    its thresholds were set for another machine; the full
+    ci_perf_resnet.csv is not replayed, for the run's time limit); one
     image's response equal, bit for bit, on both servers; int8_matmul (the
     fc) launched, fused_stem not;
 18. configs/llama_decoder.yml: the generation client, 128 requests of 32
@@ -222,13 +222,32 @@ over gloo):
     configs/llama_pipelined.yml from the CLI as 4 ranks (llama-7b at full
     width, cut to ``PIPE_LAYERS`` layers; ``pipelined_server_run``, which
     ``scripts/torch_pipelined_serve.py`` also runs): the port's generation client,
-    16 greedy requests of 32 tokens at concurrency 16, streaming then
-    unary, every stream equal to the in-process single-device engine of
+    16 greedy requests of 32 tokens at concurrency 16, streaming, every
+    stream equal to the in-process single-device engine of
     the same tree (4 slots, ``prefill_chunk`` = 16), beside the config
     served on one device from the same tree (tok/s, TTFT); every rank's
     launches (K2, K3, K4 on each) and collectives from the server's
     ``mesh statistics`` log lines; the backend printed; a tiny pipe=2
     server from the CLI whose rank 1 is killed must exit non-zero.
+
+The GSPMD group, after it (``gspmd_kernel_rows``, ``gspmd_path``; meshes
+without a pipe axis, every rank sharing the card over gloo):
+K1-K8 at the shapes a rank's shard gives them, each against its plain
+version, into the kernels' ``per_shape`` lists (K6 on a row-parallel
+layer: the ranks' exact integer sums, scaled, equal to the whole row);
+``llama_decoder.yml`` and ``bert_long.yml`` at data=2 x model=2 from the
+CLI as 4 ranks (the generation client's tok/s and TTFT, rank 0's decode
+step, every BERT response held against a batch-1 single-device apply,
+the census and launches by rank from the ``mesh statistics`` lines);
+and one world of 4 rank processes (``gspmd_world``) running eight meshes
+in turn, each against one device on rank 0: llama-1b streams at data=4
+(and a prefix-cache row copy across its data groups), the
+sequence-parallel forward at T = 2048, llama-1b logits at
+data=2 x model=2, int4 then W4A8, ResNet-18 at data=4 (bit-equal), ViT-L
+at model=4, moe-8x1b (``MOE_LAYERS`` layers) at expert=2 x model=2, and
+the pipe-mode ``serve_logits`` of llama_pipelined.yml (``PIPE_LAYERS``
+layers, 4 microbatches). Each cut of an earlier path's depth or requests
+for the run's time limit is printed as a ``time cut:`` line.
 
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
@@ -3202,7 +3221,7 @@ VIT_IMAGES = 64
 # layers in about a minute on the card's host, more than the run can spare;
 # every layer has the same shapes, so the per-layer and per-step numbers
 # scale with it
-MOE_LAYERS = 4
+MOE_LAYERS = 2  # moe-8x1b cut from 16 layers for the run's time limit
 LOGITS_REQUESTS = 4
 
 
@@ -3453,6 +3472,8 @@ def moe_path(counters, card, dev):
     require(cfg.devices.mesh.size == 1, "moe_decoder.yml's mesh is not one device")
     opts = dict(cfg.model.options, layers=MOE_LAYERS)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=opts))
+    print(f"time cut: moe_decoder at {MOE_LAYERS} of 16 layers (formerly 4), here and in the "
+          "GSPMD world")
     t0 = time.perf_counter()
     engine = build_generation_engine(cfg, device=dev)
     spec = engine.spec
@@ -3545,7 +3566,6 @@ PERF_CONFIG = ROOT / "ci" / "perf" / "resnet152_ci_perf.yml"
 SMOKE_SCHEDULE = ROOT / "ci" / "perf" / "ci_perf_resnet_smoke.csv"
 FULL_SCHEDULE = ROOT / "ci" / "perf" / "ci_perf_resnet.csv"
 SMOKE_REQUESTS = 64
-FULL_REQUESTS = 6300
 # the reference's gates (scripts/run_perf_smoke.sh: MAX_P95_MS, MIN_RPS)
 MAX_P95_MS = 500
 MIN_RPS = 10
@@ -3777,27 +3797,8 @@ def resnet152_checkpoint_phase(workdir: Path, card: str) -> dict:
         verdict = (gate.stdout + gate.stderr).strip()
         print(f"check_perf_summary.py on the smoke summary: exit code {gate.returncode}: "
               f"{verdict}")
-        full = replay(ckpt.address, cfg.name, FULL_SCHEDULE, workdir / "full.json",
-                      "resnet152 CI full replay")
-        req, lat = full["requests"], full["latency_ms"]
-        p95 = lat["server_overall"]["p95"]
-        print(f"resnet152 CI full replay ({FULL_SCHEDULE.name}) on {card}: requests "
-              f"{json.dumps(req)}, validation {json.dumps(full.get('validation', {}))}, "
-              f"{full['throughput_rps']:.1f} req/s over {full['elapsed_s']:.2f} s; roundtrip ms "
-              f"{_pcts(lat['roundtrip'])}; server_overall ms {_pcts(lat['server_overall'])}; "
-              f"queue ms {_pcts(lat['queue'])}; the reference's gates: server_overall p95 "
-              f"{p95:.1f} <= {MAX_P95_MS} ms {'met' if p95 <= MAX_P95_MS else 'NOT met'}, "
-              f"{full['throughput_rps']:.1f} >= {MIN_RPS} req/s "
-              f"{'met' if full['throughput_rps'] >= MIN_RPS else 'NOT met'}, rejected "
-              f"{req['rejected']} (max_queue_size {cfg.max_queue_size})")
-        print(f"resnet152 CI full replay p50 ms by phase (the server's fields): "
-              f"{json.dumps({k: round(v['p50'], 1) for k, v in lat.items()})}; batches formed "
-              f"since the start [count, mean compute ms] "
-              f"{json.dumps(batches_formed(ckpt.address, cfg.name))}")
-        require(req["sent"] == FULL_REQUESTS and req["handled"] + req["rejected"] == req["sent"]
-                and req["errors"] == 0, "resnet152 full replay: requests not accounted")
-        require(full["validation"]["failures"] == 0,
-                "resnet152 full replay: a response failed validation")
+        print(f"time cut: the CI full replay ({FULL_SCHEDULE.name}, 6300 requests over ~21 s) "
+              "is no longer run; the smoke replay and the gate stand")
         image = np.random.default_rng(152).standard_normal((1, 3, 224, 224)).astype(np.float32)
         same = one_image_response(ckpt.address, cfg.name, image) == one_image_response(
             seeded.address, cfg.name, image)
@@ -3815,8 +3816,7 @@ def resnet152_checkpoint_phase(workdir: Path, card: str) -> dict:
     print(f"resnet152 server launches over both replays (its log): {json.dumps(launches)}")
     require(launches.get("int8_matmul", 0) > 0, "resnet152: int8_matmul (fc) was not launched")
     require("fused_stem" not in launches, "resnet152: fused_stem ran without stem_fused")
-    return {"launches": launches, "servers": servers, "smoke": smoke, "full": full,
-            "gate_rc": gate.returncode}
+    return {"launches": launches, "servers": servers, "smoke": smoke, "gate_rc": gate.returncode}
 
 
 def _generation(target: str, prompt, stream: bool):
@@ -3954,7 +3954,7 @@ def clients_path(card: str) -> dict:
 
 
 PIPE_CONFIG = ROOT / "configs" / "llama_pipelined.yml"
-PIPE_LAYERS = 8        # llama-7b cut from 32 layers to 8 (2 a stage) for the run's time limit
+PIPE_LAYERS = 4        # llama-7b cut from 32 layers to 4 (1 a stage) for the run's time limit
 PIPE_REQUESTS, PIPE_TOKENS, PIPE_PROMPT = 16, 32, 64
 PIPE_KERNELS = ("int8_matmul", "decode_attention", "chunk_prefill_attention",
                 "window_decode_attention")
@@ -4324,7 +4324,7 @@ def pipelined_server_run(server: "ServerProcess", layers: int, card: str) -> dic
     torch.cuda.empty_cache()
     target = server.wait_ready(timeout=900)
     runs = {}
-    for mode in ("stream", "unary"):
+    for mode in ("stream",):
         summary, tokens, _ = _gen_client(target, cfg.name, mode == "stream")
         runs[mode] = summary
         req = summary["requests"]
@@ -4358,8 +4358,7 @@ def pipelined_server_run(server: "ServerProcess", layers: int, card: str) -> dic
           f"{backend.group(1)}): started in {server.start_s:.1f} s; {PIPE_REQUESTS} greedy "
           f"requests of {PIPE_TOKENS} tokens (prompts of {PIPE_PROMPT}), streams equal to the "
           f"single-device engine's; stream {p['tokens_per_s']:.1f} tok/s, TTFT ms "
-          f"{_pcts(p['ttft_ms'])}; unary {runs['unary']['generation']['tokens_per_s']:.1f} "
-          f"tok/s; single-device (16 slots, same tree, built in {tree_s:.1f} s) "
+          f"{_pcts(p['ttft_ms'])}; single-device (16 slots, same tree, built in {tree_s:.1f} s) "
           f"{s['tokens_per_s']:.1f} tok/s, TTFT ms {_pcts(s['ttft_ms'])}")
     print(f"llama_pipelined: {steps} decode steps, rank 0's loop host seconds "
           f"{json.dumps({k: round(v, 3) for k, v in timers.items()})}, "
@@ -4403,6 +4402,8 @@ def pipelined_path(card: str) -> dict:
             "inputs": [{"name": "input_ids", "dims": [64], "dtype": "INT64"}],
             "outputs": [{"name": "logits", "dims": [64, 2048], "dtype": "FP32"}]})
         servers = [server, killed]
+        print(f"time cut: llama_pipelined at {PIPE_LAYERS} of 32 layers (formerly 8), one "
+              "streaming client run (formerly also a unary one)")
         try:
             for srv in servers:
                 srv.start()
@@ -4461,6 +4462,911 @@ def pipelined_path(card: str) -> dict:
             if probe[0].poll() is None:
                 probe[0].kill()
     return result
+
+
+# -- the GSPMD group: meshes without a pipe axis --------------------------------
+
+GSPMD_MESH = {"data": 2, "model": 2}   # the CLI servers' mesh
+GSPMD_REQUESTS, GSPMD_TOKENS, GSPMD_PROMPT = 32, 32, 64
+GSPMD_BERT_REQUESTS = 64
+DATA4_REQUESTS, DATA4_LONG = 32, 300  # the data=4 world: 32 slots a group, 8 long prompts
+SEQ_T = 2048                            # the sequence-parallel forward's length
+# bf16 logits of a tensor-parallel (or sequence-parallel, pipelined) mesh
+# against one device: max |mesh - one device| <= this x max |one device|
+# (the sums and the attention's splits run in another order; set before
+# the first card reading from the pipe x model tiny worlds' 5.5e-2 at
+# logits of magnitude ~1)
+GSPMD_LOGITS_TOL = 5e-2
+GSPMD_KERNELS = ("int4_matmul", "decode_attention", "chunk_prefill_attention",
+                 "causal_attention", "int8_matmul", "bidirectional_attention", "fused_stem",
+                 "int4_matmul_w4a8")
+
+
+def _k1_entry(g, dev, m, k, n, label, card) -> dict:
+    """int4_matmul at [m, k] x [k, n] held against its plain version (1e-4
+    max|ref|), bit-equal over two calls, timed beside the plain version,
+    ``torch.matmul`` on the dequantized bf16 weight and the bound (weights
+    cycled past the L2)."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+    from starpu_inference_server_tpu_torch.ops.quant import pack_int4, unpack_int4
+
+    bf16 = torch.bfloat16
+    x = torch.randn(m, k, device=dev, generator=g).to(bf16)
+    copies = _copies(k * n // 2)
+    w4s = [pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g, dtype=torch.int8))
+           for _ in range(copies)]
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.02 + 1e-3
+    got = mk.int4_matmul(x, w4s[0], sc)
+    ref = mk.int4_matmul_plain(x, w4s[0], sc)
+    err, tol = max_err(got, ref), 1e-4 * ref.abs().max().item()
+    same = bool(torch.equal(got, mk.int4_matmul(x, w4s[0], sc)))
+    plan = mk.matmul_plan("int4_matmul", m, n, k,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    shape = f"M={m} K={k} N={n}"
+    require(err <= tol, f"int4_matmul {label} {shape} disagrees with its plain version")
+    require(same, f"int4_matmul {label} {shape} gave other bits on a second call")
+    ms = _time_cycled(lambda i: mk.int4_matmul(x, w4s[i], sc), copies)
+    plain_ms = time_ms(lambda: mk.int4_matmul_plain(x, w4s[0], sc), iters=5)
+    w_deqs = [(unpack_int4(w4s[i % copies]).float() * sc).to(bf16)
+              for i in range(_copies(k * n * 2))]
+    lib_ms = _time_cycled(lambda i: torch.matmul(x, w_deqs[i]), len(w_deqs))
+    b_ms, b_by = bound_ms(m * k * 2 + k * n // 2 + n * 4 + m * n * 4, 2.0 * m * k * n)
+    print(f"time int4_matmul {shape} ({label}) on {card}: max_abs_err={err:.3e} tol={tol:.3e}, "
+          f"two calls bit-equal, {plan.splits} splits; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch.matmul bf16 {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=shape, splits=plan.splits, layer=label, m=m)
+
+
+def _k6_entry(g, dev, m, k, n, label, card, row: bool) -> dict:
+    """int4_matmul_w4a8 at a rank's [m, k] x [k, n], bit-equal to its plain
+    version and over two calls, timed beside the plain version, the
+    library call and the bound (weights cycled past the L2). ``row``: a
+    row-parallel layer at model=2, where the kernel runs with unit scales
+    and the ranks' integer sums are summed exactly before the scales
+    (``ops/nn.py:dense``): the two halves' sums, scaled, must equal the
+    kernel on the whole row bit for bit."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import matmul_kernels as mk
+    from starpu_inference_server_tpu_torch.ops.quant import pack_int4, unpack_int4
+
+    bf16 = torch.bfloat16
+    x_q = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+    sx = torch.rand(m, 1, device=dev, generator=g) * 0.02 + 1e-3
+    copies = _copies(k * n // 2)
+    w4s = [pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g, dtype=torch.int8))
+           for _ in range(copies)]
+    sc = torch.rand(1, n, device=dev, generator=g) * 0.02 + 1e-3
+    if row:
+        sx_k, sc_k = torch.ones(m, 1, device=dev), torch.ones(1, n, device=dev)
+        other_x = torch.randint(-127, 128, (m, k), device=dev, generator=g, dtype=torch.int8)
+        other_w = pack_int4(torch.randint(-7, 8, (k, n), device=dev, generator=g,
+                                          dtype=torch.int8))
+        whole = mk.int4_matmul_w4a8(torch.cat([x_q, other_x], 1), sx,
+                                    torch.cat([w4s[0], other_w], 0), sc)
+        parts = (mk.int4_matmul_w4a8(x_q, sx_k, w4s[0], sc_k).double()
+                 + mk.int4_matmul_w4a8(other_x, sx_k, other_w, sc_k).double())
+        summed = bool(torch.equal(parts.float() * sx * sc, whole))
+        require(summed, f"int4_matmul_w4a8 {label}: the ranks' exact sums, scaled, differ from "
+                        "the kernel on the whole row")
+    else:
+        sx_k, sc_k = sx, sc
+    got = mk.int4_matmul_w4a8(x_q, sx_k, w4s[0], sc_k)
+    ref = mk.int4_matmul_w4a8_plain(x_q, sx_k, w4s[0], sc_k)
+    err = max_err(got, ref)
+    require(bool(torch.equal(got, ref)), f"int4_matmul_w4a8 {label} M={m} is not bit-equal to "
+                                         "its plain version")
+    require(bool(torch.equal(got, mk.int4_matmul_w4a8(x_q, sx_k, w4s[0], sc_k))),
+            f"int4_matmul_w4a8 {label} M={m} gave other bits on a second call")
+    plan = mk.matmul_plan("int4_matmul_w4a8", m, n, k,
+                          torch.cuda.get_device_properties(dev).multi_processor_count)
+    ms = _time_cycled(lambda i: mk.int4_matmul_w4a8(x_q, sx_k, w4s[i], sc_k), copies)
+    plain_ms = time_ms(lambda: mk.int4_matmul_w4a8_plain(x_q, sx_k, w4s[0], sc_k), iters=3)
+    if m > 16:
+        w8 = unpack_int4(w4s[0]).contiguous()
+        lib_ms = time_ms(lambda: torch._int_mm(x_q, w8))
+        library = "torch._int_mm on the unpacked int8 weight (no scales)"
+    else:
+        w8 = (unpack_int4(w4s[0]).float() * sc).to(bf16)
+        xb = (x_q.float() * sx).to(bf16)
+        lib_ms = time_ms(lambda: torch.matmul(xb, w8))
+        library = "torch.matmul bf16 on the pre-dequantized weight"
+    b_ms, b_by = bound_ms(m * k + m * 4 + k * n // 2 + n * 4 + m * n * 4, 2.0 * m * k * n,
+                          PEAK_INT8)
+    shape = f"M={m} K={k} N={n}"
+    print(f"time int4_matmul_w4a8 {shape} ({label}) on {card}: bit-equal to the plain version"
+          f"{', unit scales, exact sums over model = the whole row' if row else ''}; "
+          f"{plan.splits} splits; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, {library} "
+          f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, library=library, shape=shape, splits=plan.splits,
+                layer=label, m=m)
+
+
+def _k3_entry(g, dev, s, t, hq, hkv, d, label, card) -> dict:
+    """decode_attention at ``s`` slots of mixed lengths (0 and t - 1 among
+    them) against its plain version, bit-equal over two calls, timed on
+    cycled cache copies beside SDPA on the dequantized cache and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
+
+    bf16, rep = torch.bfloat16, hq // hkv
+    lens = torch.randint(0, t, (s,), device=dev, generator=g, dtype=torch.int32)
+    lens[0], lens[-1] = 0, t - 1
+    live = (lens.to(torch.int64) + 1).sum().item()
+    nbytes = 2 * s * hq * d * 2 + live * hkv * (2 * d + 8) + 4 * s
+    copies = _copies(nbytes)
+    q = torch.randn(s, hq, d, device=dev, generator=g).to(bf16)
+    caches = [(torch.randint(-127, 128, (s, t, hkv, d), device=dev, generator=g, dtype=torch.int8),
+               torch.randint(-127, 128, (s, t, hkv, d), device=dev, generator=g, dtype=torch.int8),
+               torch.rand(s, t, hkv, device=dev, generator=g) * 0.03 + 0.05,
+               torch.rand(s, t, hkv, device=dev, generator=g) / 127 + 1e-3)
+              for _ in range(copies)]
+    got = da.decode_attention(q, *caches[0], lens, rep)
+    splits = da.decode_split_plan(s, hkv, t, 1, rep, d).splits
+    err = attn_check(f"decode_attention S={s} Hq={hq} Hkv={hkv} T={t} ({label}, {splits} splits)",
+                     got, da.decode_attention_plain(q, *caches[0], lens, rep))
+    require(torch.equal(got, da.decode_attention(q, *caches[0], lens, rep)),
+            f"decode_attention ({label}) gave other bits on a second call")
+    ms = _time_cycled(lambda i: da.decode_attention(q, *caches[i], lens, rep), copies)
+    plain_ms = _time_cycled(lambda i: da.decode_attention_plain(q, *caches[i], lens, rep),
+                            copies, iters=3)
+    deq = [((kc.float() * ks[..., None]).to(bf16).transpose(1, 2),
+            (vc.float() * vs[..., None]).to(bf16).transpose(1, 2))
+           for kc, vc, ks, vs in caches[:_copies(2 * s * t * hkv * d * 2)]]
+    mask = (torch.arange(t, device=dev)[None, :] <= lens[:, None])[:, None, None, :]
+    lib_ms = _time_cycled(lambda i: F.scaled_dot_product_attention(
+        q[:, :, None, :], *deq[i], attn_mask=mask, enable_gqa=True), len(deq))
+    b_ms, b_by = bound_ms(nbytes, 4.0 * live * hq * d)
+    print(f"time decode_attention S={s} Hq={hq} ({label}) on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, shape=f"S={s} T={t} Hq={hq} Hkv={hkv} live={live}",
+                splits=splits, layer=label)
+
+
+def gspmd_kernel_rows(dev, card) -> dict:
+    """Every kernel of the GSPMD paths at the shapes those paths give it on
+    a rank, each held against its plain version and timed: K1 at the local
+    N of llama-1b's int4 layers at model=2 (decode M = 128 slots / data 2,
+    the 256-token chunk, the lm head's last row); K3 at those 64 slots and
+    16 of 32 query heads, and at data=4's 32 slots and all heads; K4 on a
+    256-token chunk and K5 on a 64-token prompt at 16 / 4 heads; K2 at
+    moe-8x1b's shard at expert=2 x model=2 (16 slots; a 64-token prompt)
+    and ViT-L's head (B = 32); K7 at bert_long's 6 of 12 heads on B = 16 /
+    data 2; K8 at resnet18_int8's B = 32 / data 4. Returns the entries for
+    the kernels' per_shape lists, tagged with their path."""
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.models.decoder import get_spec
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+    from starpu_inference_server_tpu_torch.ops import stem_kernel as sk
+
+    g = torch.Generator(device=dev).manual_seed(1414)
+    bf16 = torch.bfloat16
+    out = {name: [] for name in GSPMD_KERNELS}
+    spec = get_spec("llama-1b", {})
+    tp, d, h = 2, spec.head_dim, spec.hidden
+    hq, hkv, inter = spec.q_heads // tp, spec.kv_heads // tp, spec.intermediate // tp
+    label = "llama_decoder data=2 model=2"
+    dense = {"qkv": (h, (hq + 2 * hkv) * d), "o": (hq * d, h), "gate_up": (h, 2 * inter),
+             "down": (inter, h), "lm_head": (h, spec.vocab // tp)}
+    for name, m in [(n, 64) for n in dense] + [("gate_up", 256), ("lm_head", 1)]:
+        out["int4_matmul"].append(dict(_k1_entry(g, dev, m, *dense[name], f"{label} {name}", card),
+                                       path=label))
+    # K6: llama_w4a8.yml at data=2 x model=2 (8 of its 16 slots a group, a
+    # 64-token prompt): the row-parallel o and down, and gate_up at local N
+    w4 = "llama_w4a8 data=2 model=2"
+    for name, m in (("o", 8), ("down", 8), ("down", 64), ("gate_up", 8)):
+        out["int4_matmul_w4a8"].append(dict(_k6_entry(
+            g, dev, m, *dense[name], f"{w4} {name}", card, row=name in ("o", "down")), path=w4))
+    out["decode_attention"].append(dict(_k3_entry(g, dev, 64, 1024, hq, hkv, d, label, card),
+                                        path=label))
+    out["decode_attention"].append(dict(_k3_entry(
+        g, dev, 32, 1024, spec.q_heads, spec.kv_heads, d, "llama_decoder data=4", card),
+        path="llama_decoder data=4"))
+    # K4: a 256-token chunk at start 256 of a slot's 1024-row cache
+    c, t, start, rep = 256, 1024, 256, hq // hkv
+    k_row = torch.randint(-127, 128, (t, hkv, d), device=dev, generator=g, dtype=torch.int8)
+    v_row = torch.randint(-127, 128, (t, hkv, d), device=dev, generator=g, dtype=torch.int8)
+    ks = torch.rand(t, hkv, device=dev, generator=g) * 0.01 + 0.01
+    vs = torch.rand(t, hkv, device=dev, generator=g) / 127 + 1e-3
+    q = (3 * torch.randn(c, hq, d, device=dev, generator=g)).to(bf16)
+    kc = torch.randn(c, hkv, d, device=dev, generator=g).to(bf16)
+    vc = torch.randn(c, hkv, d, device=dev, generator=g).to(bf16)
+    args = (q, k_row, v_row, ks, vs, kc, vc, start, rep)
+    got = pa.chunk_prefill_attention(*args)
+    err = attn_check(f"chunk_prefill_attention C={c} start={start} Hq={hq} ({label})", got,
+                     pa.chunk_prefill_attention_plain(*args))
+    require(torch.equal(got, pa.chunk_prefill_attention(*args)),
+            "chunk_prefill_attention (GSPMD shard) gave other bits on a second call")
+    ms = time_ms(lambda: pa.chunk_prefill_attention(*args))
+    plain_ms = time_ms(lambda: pa.chunk_prefill_attention_plain(*args), iters=5)
+    kd = torch.cat([(k_row[:start].float() * ks[:start, :, None]).to(bf16), kc]).transpose(0, 1)
+    vd = torch.cat([(v_row[:start].float() * vs[:start, :, None]).to(bf16), vc]).transpose(0, 1)
+    mask = torch.arange(start + c, device=dev)[None, :] <= (start + torch.arange(c, device=dev))[:, None]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(0, 1)[None], kd[None], vd[None], attn_mask=mask, enable_gqa=True))
+    b_ms, b_by = bound_ms(2 * c * hq * d * 2 + start * hkv * (2 * d + 8) + 2 * c * hkv * d * 2,
+                          4.0 * hq * d * (c * start + c * (c + 1) / 2))
+    print(f"time chunk_prefill_attention C={c} start={start} Hq={hq} ({label}) on {card}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    out["chunk_prefill_attention"].append(dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"C={c} start={start} T={t} Hq={hq} Hkv={hkv}", path=label))
+    # K5: a 64-token prompt at the local heads
+    t = GSPMD_PROMPT
+    q = (3 * torch.randn(1, t, hq, d, device=dev, generator=g)).to(bf16)
+    k = torch.randn(1, t, hkv, d, device=dev, generator=g).to(bf16)
+    v = torch.randn(1, t, hkv, d, device=dev, generator=g).to(bf16)
+    got = pa.causal_attention(q, k, v, rep)
+    err = attn_check(f"causal_attention T={t} Hq={hq} ({label})", got,
+                     pa.causal_attention_plain(q, k, v, rep))
+    require(torch.equal(got, pa.causal_attention(q, k, v, rep)),
+            "causal_attention (GSPMD shard) gave other bits on a second call")
+    ms = time_ms(lambda: pa.causal_attention(q, k, v, rep))
+    plain_ms = time_ms(lambda: pa.causal_attention_plain(q, k, v, rep), iters=5)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                             enable_gqa=True))
+    b_ms, b_by = bound_ms(2 * t * hq * d * 2 + 2 * t * hkv * d * 2, 4.0 * hq * d * t * (t + 1) / 2)
+    print(f"time causal_attention T={t} Hq={hq} ({label}) on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    out["causal_attention"].append(dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"B=1 T={t} Hq={hq} Hkv={hkv}", path=label))
+    # K2: moe-8x1b at expert=2 x model=2 (its shard of the attention and the
+    # lm head, the replicated router; 16 slots and a 64-token prompt), the
+    # ViT-L head at B = 32 (replicated: model=4 leaves its shape whole)
+    moe = get_spec("moe-8x1b", {})
+    mq, mkv = moe.q_heads // 2, moe.kv_heads // 2
+    moe_dense = {"qkv": (moe.hidden, (mq + 2 * mkv) * d), "o": (mq * d, moe.hidden),
+                 "router": (moe.hidden, moe.num_experts), "lm_head": (moe.hidden, moe.vocab // 2)}
+    for m in (16, 64):
+        for name, (k, n) in moe_dense.items():
+            lab = f"moe_decoder expert=2 model=2 {name}"
+            out["int8_matmul"].append(dict(k2_entry(g, dev, bf16, m, k, n, lab, card), layer=lab,
+                                           m=m, path="moe_decoder expert=2 model=2"))
+    out["int8_matmul"].append(dict(k2_entry(g, dev, bf16, 32, 1024, 1000, "vit_l_16 head", card),
+                                   layer="vit_l_16 model=4 head", m=32, path="vit_l_16 model=4"))
+    # K7: bert_long at data=2 x model=2: B = 16 / 2 rows, 12 / 2 heads
+    b, t, hh = 8, 512, 6
+    q = (3 * torch.randn(b, t, hh, d, device=dev, generator=g)).to(bf16)
+    kk = torch.randn(b, t, hh, d, device=dev, generator=g).to(bf16)
+    v = torch.randn(b, t, hh, d, device=dev, generator=g).to(bf16)
+    bias = torch.zeros(b, t, device=dev)
+    bias[0, 100:], bias[1, 300:] = -1e9, -1e9
+    got = pa.bidirectional_attention(q, kk, v, bias)
+    err = attn_check(f"bidirectional_attention B={b} T={t} H={hh} (bert_long data=2 model=2)",
+                     got, pa.bidirectional_attention_plain(q, kk, v, bias))
+    require(torch.equal(got, pa.bidirectional_attention(q, kk, v, bias)),
+            "bidirectional_attention (GSPMD shard) gave other bits on a second call")
+    ms = time_ms(lambda: pa.bidirectional_attention(q, kk, v, bias))
+    plain_ms = time_ms(lambda: pa.bidirectional_attention_plain(q, kk, v, bias), iters=3)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, kk, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=bias[:, None, None, :].to(bf16)))
+    b_ms, b_by = bound_ms(4 * b * t * hh * d * 2 + b * t * 4, 4.0 * b * hh * t * t * d)
+    print(f"time bidirectional_attention B={b} H={hh} (bert_long data=2 model=2) on {card}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (float mask) {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    out["bidirectional_attention"].append(dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"B={b} T={t} H={hh} D={d}", path="bert_long data=2 model=2"))
+    # K8: resnet18_int8 at data=4: B = 32 / 4 on a rank
+    bsz = 8
+    zp = torch.zeros(bsz, 118, 118, 12, device=dev)
+    zp[:, 3:115, 3:115] = torch.randn(bsz, 112, 112, 12, device=dev, generator=g)
+    zp = zp.to(bf16)
+    w = (torch.randn(192, 64, device=dev, generator=g) * 0.1).to(bf16)
+    scale = torch.rand(64, device=dev, generator=g) + 0.5
+    shift = torch.randn(64, device=dev, generator=g) * 0.1
+    got = sk.fused_stem(zp, w, scale, shift)
+    err = attn_check(f"fused_stem B={bsz} (resnet18_int8 data=4)", got,
+                     sk.fused_stem_plain(zp, w, scale, shift))
+    require(torch.equal(got, sk.fused_stem(zp, w, scale, shift)),
+            "fused_stem (GSPMD rows) gave other bits on a second call")
+    ms = time_ms(lambda: sk.fused_stem(zp, w, scale, shift))
+    plain_ms = time_ms(lambda: sk.fused_stem_plain(zp, w, scale, shift), iters=5)
+    zb = zp.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    wk = w.reshape(4, 4, 12, 64).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    sc4, sh4 = scale.reshape(1, -1, 1, 1).to(bf16), shift.reshape(1, -1, 1, 1).to(bf16)
+    lib_ms = time_ms(lambda: F.max_pool2d(torch.relu(F.conv2d(zb, wk)[:, :, :113, :113] * sc4
+                                                     + sh4), kernel_size=3, stride=2))
+    b_ms, b_by = bound_ms(bsz * 118 * 118 * 12 * 2 + 192 * 64 * 2 + 2 * 64 * 4
+                          + bsz * 56 * 56 * 64 * 2, 2.0 * bsz * 112 * 112 * 192 * 64)
+    print(f"time fused_stem B={bsz} (resnet18_int8 data=4) on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sequence (channels_last cuDNN) {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    out["fused_stem"].append(dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        shape=f"B={bsz} zp [118,118,12] -> [56,56,64]", path="resnet18_int8 data=4",
+        library="sequence, not one call: conv2d + affine + relu + max_pool2d (channels_last)"))
+    return out
+
+
+def _on_mesh(cfg, **axes):
+    """``cfg`` with ``devices.mesh`` set to ``axes`` (and the metrics port free)."""
+    import dataclasses as dc
+
+    from starpu_inference_server_tpu_torch.utils.config import MeshSettings
+
+    return dc.replace(cfg, metrics_port=0, devices=dc.replace(cfg.devices, mesh=MeshSettings(
+        **axes)))
+
+
+def _with_options(cfg, **options):
+    import dataclasses as dc
+
+    return dc.replace(cfg, model=dc.replace(cfg.model, options=dict(cfg.model.options,
+                                                                      **options)))
+
+
+def _logits_close(what: str, got, ref) -> dict:
+    """Held at GSPMD_LOGITS_TOL: max |got - ref| against max |ref|; prints
+    both errors and the argmax agreement."""
+    import torch
+
+    g, r = got.float().cpu(), ref.float().cpu()
+    worst = (g - r).abs().max().item() / r.abs().max().item()
+    agree = (g.argmax(-1) == r.argmax(-1)).float().mean().item()
+    print(f"{what}: max |mesh - one device| / max |one device| {worst:.3e} (limit "
+          f"{GSPMD_LOGITS_TOL}), mean rel err {rel_err(g, r):.3e}, argmax agreement {agree:.3f}")
+    require(bool(torch.isfinite(g).all()), f"{what}: non-finite logits")
+    require(worst <= GSPMD_LOGITS_TOL, f"{what}: logits beyond the limit")
+    return {"max_rel": worst, "mean_rel": rel_err(g, r), "argmax_agree": agree}
+
+
+def _phase_stats(worker):
+    """Every rank's launches (and collectives' calls) since ``reset_stats``."""
+    stats = worker.gather_stats()
+    return [{"launches": s["launches"], "census": s["collectives"]["calls"]} for s in stats]
+
+
+def _require_on_every_rank(stats, kernels, what, on_card: bool = True):
+    """Each of ``kernels`` launched on every rank (``stats`` by rank). Off
+    the card (a CPU rehearsal) the plain versions count nothing: printed."""
+    for name in kernels:
+        counts = [s["launches"].get(name, 0) for s in stats]
+        if not on_card:
+            print(f"{what}: {name} launches by rank {counts} (not on a card)")
+            continue
+        require(all(c > 0 for c in counts), f"{what}: {name} not launched on every rank: {counts}")
+
+
+def _decoder_logits_check(eng, ref_eng, prompts, slots, what):
+    """Rank 0 of a GSPMD-mode engine: a prefill of each of ``prompts`` into
+    its slot of ``slots`` (spread over the data groups) and one decode step
+    over them, against the single-device engine ``ref_eng``'s prefills
+    (its slots 0, 1, ...) and decode step on the same tree. The argmax
+    agreement of the prefills is the share of first tokens equal. Returns
+    the two comparisons."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import decode_step, prefill
+
+    dev = eng.device
+    ids = [torch.from_numpy(np.asarray(p, np.int32)).to(dev) for p in prompts]
+    got = torch.stack([eng.worker.prefill(i, len(i), s) for i, s in zip(ids, slots)])
+    ref_slots = list(range(len(slots)))
+    ref = torch.stack([prefill(ref_eng.spec, ref_eng.params, ref_eng.cache, i, len(i), s,
+                               ref_eng.dtype)[1] for i, s in zip(ids, ref_slots)])
+    out = {"prefill": _logits_close(f"{what} first prefill", got, ref)}
+    nxt = ref.argmax(-1).to(torch.int32)
+    ids_m = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
+    act_m = torch.zeros(eng.num_slots, dtype=torch.bool, device=dev)
+    ids_m[slots], act_m[slots] = nxt, True
+    ids_r = torch.zeros(ref_eng.num_slots, dtype=torch.int32, device=dev)
+    act_r = torch.zeros(ref_eng.num_slots, dtype=torch.bool, device=dev)
+    ids_r[ref_slots], act_r[ref_slots] = nxt, True
+    got = eng.worker.decode(ids_m, act_m)[slots]
+    ref = decode_step(ref_eng.spec, ref_eng.params, ref_eng.cache, ids_r, act_r,
+                      ref_eng.dtype)[1][ref_slots]
+    out["step"] = _logits_close(f"{what} first decode step", got, ref)
+    return out
+
+
+def gspmd_world(rank, world, init_method, payload):
+    """The rank worlds of the GSPMD group: one world of four ranks sharing
+    the card (gloo), one mesh after another, each held against one device
+    on rank 0:
+
+    1. llama_decoder.yml at data=4 (llama-1b int4, 128 slots, 32 a rank):
+       ``DATA4_REQUESTS`` greedy requests of 32 tokens (prompts of 64, eight
+       of ``DATA4_LONG``: chunked prefill), every stream equal to the
+       single-device engine that runs 32 slots;
+    2. ``sequence_parallel_decoder_logits`` on that tree at T = ``SEQ_T``
+       over the 4 ranks, against ``forward_logits`` on one device;
+    3. the same tree at data=2 x model=2: 32 first prefills (16 slots of
+       each data group) and a decode step against one device; then
+       llama_w4a8.yml on it (W4A8: K6, 8 prompts in 4 slots of each group);
+    4. resnet18_int8.yml with ``stem_fused`` at data=4 through
+       ``ModelEngine`` (B = 32), bit-equal to one device;
+    5. vit_l_16.yml at model=4 through ``ModelEngine`` (B = 32);
+    6. moe_decoder.yml cut to ``MOE_LAYERS`` layers at expert=2 x model=2:
+       the first prefill and decode step against one device;
+    7. llama_pipelined.yml cut to ``PIPE_LAYERS`` layers with
+       ``serve_logits`` through ``ModelEngine``'s pipe mode (4
+       microbatches), against ``forward_logits`` on one device.
+
+    Every phase's launches and collectives are read from every rank.
+    ``payload`` may name another ``device`` and other config files (keys
+    ``llama``, ``w4a8``, ``resnet``, ``vit``, ``moe``, ``pipe``). Returns rank 0's
+    results."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.core.engine import ModelEngine
+    from starpu_inference_server_tpu_torch.models.decoder import forward_logits
+    from starpu_inference_server_tpu_torch.models.registry import build_model, get_family
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.parallel.launch import (
+        follow,
+        follower_engine,
+        join_mesh,
+    )
+    from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes, make_device_mesh
+    from starpu_inference_server_tpu_torch.parallel.ring_attention import (
+        sequence_parallel_decoder_logits,
+    )
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationRequest,
+        build_generation_engine,
+    )
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+    from starpu_inference_server_tpu_torch.weights import receive_shard, scatter_shards
+
+    paths = {"llama": CONFIG, "w4a8": W4A8_CONFIG, "resnet": RESNET_CONFIG, "vit": VIT_CONFIG,
+             "moe": MOE_CONFIG, "pipe": PIPE_CONFIG}
+    paths = {k: str(payload.get(k, v)) for k, v in paths.items()}
+    mesh = join_mesh(MeshAxes(data=4), rank, world, init_method, payload.get("device", "cuda"),
+                     timeout_s=900.0)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    res = {"backend": mesh.backend, "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        res["seconds"][name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    def shard_of(tree, cfg, m):
+        spec = get_family(cfg.model.family, cfg.model.options).spec
+        return scatter_shards(tree, spec, cfg.model.family, m) if rank == 0 else receive_shard(m)
+
+    def batch_engine(cfg, m):
+        """(rank 0's engine and whole model) or (None, None) after following."""
+        if rank != 0:
+            follow(follower_engine(cfg, m).worker)
+            return None, None
+        model = build_model(cfg.model, seed=cfg.seed, device=dev)
+        return ModelEngine(cfg, model, mesh=m), model
+
+    # 1. llama_decoder at data=4
+    base = load_config(paths["llama"])
+    cfg = _on_mesh(base, data=4)
+    vocab = get_family(base.model.family, base.model.options).spec.vocab
+    tree = build_model(cfg.model, seed=cfg.seed, device=dev).params if rank == 0 else None
+    eng = build_generation_engine(cfg, mesh=mesh, params=shard_of(tree, cfg, mesh))
+    if rank != 0:
+        follow(eng.worker)
+    else:
+        ref = build_generation_engine(_with_options(base, num_slots=base.model.options[
+            "num_slots"] // 4), device=dev, params=tree)
+        rng = np.random.default_rng(14)
+        # the long prompts last: the short ones are admitted together, six
+        # into each data group (the least-loaded group's lowest free slot),
+        # then the long ones chunk, two in each group
+        prompts = [rng.integers(1, vocab, (DATA4_LONG if i >= DATA4_REQUESTS - 8 else
+                                           GSPMD_PROMPT,)) for i in range(DATA4_REQUESTS)]
+
+        def run(engine):
+            reqs = [GenerationRequest(prompt_ids=p.astype(np.int32), max_new_tokens=GSPMD_TOKENS)
+                    for p in prompts]
+            for r in reqs:
+                engine.submit(r)
+            t1 = time.perf_counter()
+            engine.start()
+            try:
+                return [r.result(timeout=600.0) for r in reqs], time.perf_counter() - t1
+            finally:
+                engine.stop()
+
+        try:
+            eng.worker.reset_stats()
+            got, wall = run(eng)
+            stats = _phase_stats(eng.worker)
+            steps, step_s = eng.steps, eng.loop_timers["step"]
+            want, ref_wall = run(ref)
+            require(got == want, "llama_decoder data=4: a stream differs from the single-device "
+                                 "engine's (32 slots)")
+            _require_on_every_rank(stats, ("int4_matmul", "decode_attention", "causal_attention",
+                                           "chunk_prefill_attention"),
+                                   "llama_decoder data=4", on_card)
+            res["data4"] = {"launches": [s["launches"] for s in stats],
+                            "census": [s["census"] for s in stats], "wall_s": wall,
+                            "ref_wall_s": ref_wall, "steps": steps,
+                            "step_ms": 1e3 * step_s / max(steps, 1)}
+            # a dense prefix-cache hit's row copy across data groups: slot 0
+            # (group 0) prefilled, copied over the last slot (group 3), one
+            # decode step on both
+            w, last = eng.worker, eng.num_slots - 1
+            w.prefill(torch.from_numpy(prompts[0].astype(np.int32)).to(dev), GSPMD_PROMPT, 0)
+            w.copy_rows(0, last)
+            w.cache.lengths[last] = GSPMD_PROMPT
+            ids = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
+            act = torch.zeros(eng.num_slots, dtype=torch.bool, device=dev)
+            ids[[0, last]], act[[0, last]] = 5, True
+            pair = w.decode(ids, act)[[0, last]]
+            res["data4"]["copy"] = dict(_logits_close(
+                "llama_decoder data=4 prefix rows copied from group 0 to group 3", pair[1:],
+                pair[:1]), bit_equal=bool(torch.equal(pair[0], pair[1])))
+        finally:
+            eng.worker.stop_followers()
+    lap("llama_decoder data=4")
+
+    # 2. sequence parallelism over the same 4 ranks, on the engine's tree
+    ids = torch.from_numpy(np.random.default_rng(15).integers(1, vocab, (1, SEQ_T))).to(dev)
+    mesh.stats.reset()
+    got = sequence_parallel_decoder_logits(eng.spec, eng.params, ids, mesh, torch.bfloat16)
+    census = mesh.stats.snapshot()["calls"]
+    if rank == 0:
+        want = forward_logits(eng.spec, eng.params, ids, torch.bfloat16)
+        res["seqpar"] = dict(_logits_close(f"sequence_parallel_decoder_logits T={SEQ_T} "
+                                           "(4 ranks)", got[0], want[0]), census=census)
+        del want
+    del got, eng
+    torch.cuda.empty_cache()
+    lap("sequence parallel")
+
+    # 3. the same tree at data=2 x model=2
+    dm = make_device_mesh(MeshAxes(**GSPMD_MESH), dev)
+    cfg = _on_mesh(base, **GSPMD_MESH)
+    eng = build_generation_engine(cfg, mesh=dm, params=shard_of(tree, cfg, dm))
+    if rank != 0:
+        follow(eng.worker)
+    else:
+        try:
+            eng.worker.reset_stats()
+            half = eng.num_slots // 2
+            # 32 prompts of GSPMD_PROMPT: 16 slots of each data group
+            short = list(np.random.default_rng(141).integers(1, vocab, (32, GSPMD_PROMPT)))
+            res["dm"] = _decoder_logits_check(eng, ref, short,
+                                              list(range(16)) + list(range(half, half + 16)),
+                                              "llama_decoder data=2 model=2")
+            res["dm"]["stats"] = _phase_stats(eng.worker)
+            _require_on_every_rank(res["dm"]["stats"], ("int4_matmul", "decode_attention",
+                                                        "causal_attention"),
+                                   "llama_decoder data=2 model=2", on_card)
+        finally:
+            eng.worker.stop_followers()
+        del ref
+    del eng
+    torch.cuda.empty_cache()
+    lap("llama_decoder data=2 model=2")
+
+    # 3b. llama_w4a8.yml on the same int4 tree at data=2 x model=2: K6 on
+    # every rank, the row-parallel o and down through its exact sums
+    w4_base = load_config(paths["w4a8"])
+    require((w4_base.model.family, w4_base.seed) == (base.model.family, base.seed),
+            "llama_w4a8.yml and llama_decoder.yml no longer share one int4 tree")
+    cfg = _on_mesh(w4_base, **GSPMD_MESH)
+    eng = build_generation_engine(cfg, mesh=dm, params=shard_of(tree, cfg, dm))
+    if rank != 0:
+        follow(eng.worker)
+    else:
+        try:
+            require(nn.w8a8_enabled(), "the W4A8 mesh engine did not turn the W8A8 flag on")
+            ref = build_generation_engine(_with_options(w4_base, num_slots=eng.num_slots // 2),
+                                          device=dev, params=tree)
+            eng.worker.reset_stats()
+            half = eng.num_slots // 2
+            res["w4a8"] = _decoder_logits_check(eng, ref, prompts[:8],
+                                                list(range(4)) + list(range(half, half + 4)),
+                                                "llama_w4a8 data=2 model=2")
+            res["w4a8"]["stats"] = _phase_stats(eng.worker)
+            _require_on_every_rank(res["w4a8"]["stats"], ("int4_matmul_w4a8", "decode_attention",
+                                                          "causal_attention"),
+                                   "llama_w4a8 data=2 model=2", on_card)
+            del ref
+        finally:
+            eng.worker.stop_followers()
+    nn.set_w8a8(False)
+    del eng, tree
+    torch.cuda.empty_cache()
+    lap("llama_w4a8 data=2 model=2")
+
+    # 4. resnet18_int8 (fused stem) at data=4 through ModelEngine
+    cfg = _on_mesh(_with_options(load_config(paths["resnet"]), stem_fused=True), data=4)
+    engine, model = batch_engine(cfg, mesh)
+    if rank == 0:
+        try:
+            x = torch.randn(32, *cfg.inputs[0].dims, generator=torch.Generator().manual_seed(16))
+            x = x.to(torch.bfloat16)
+            engine.worker.reset_stats()
+            got = engine.fetch(engine.run_padded({"input": x}))["output"]
+            stats = _phase_stats(engine.worker)
+            with torch.inference_mode():
+                want = model.apply({"input": x.to(dev)})["output"].float().cpu()
+            same = bool(torch.equal(got.float(), want))
+            print(f"resnet18_int8 data=4 (B=32, stem_fused): bit-equal to one device {same}, "
+                  f"max abs diff {max_err(got, want):.3e}")
+            require(same, "resnet18_int8 data=4: outputs differ from one device's")
+            _require_on_every_rank(stats, ("fused_stem",), "resnet18_int8 data=4", on_card)
+            res["resnet"] = {"bit_equal": same, "stats": stats}
+        finally:
+            engine.worker.stop_followers()
+    del engine, model
+    torch.cuda.empty_cache()
+    lap("resnet18_int8 data=4")
+
+    # 5. vit_l_16 at model=4 through ModelEngine
+    m4 = make_device_mesh(MeshAxes(model=4), dev)
+    cfg = _on_mesh(load_config(paths["vit"]), model=4)
+    nn.set_w8a8(False)
+    engine, model = batch_engine(cfg, m4)
+    if rank == 0:
+        try:
+            image = cfg.inputs[0].dims
+            x = torch.randn(32, *image, generator=torch.Generator().manual_seed(17))
+            x = x.to(torch.bfloat16)
+            engine.worker.reset_stats()
+            got = engine.fetch(engine.run_padded({"input": x}))["output"]
+            stats = _phase_stats(engine.worker)
+            with torch.inference_mode():
+                want = model.apply({"input": x.to(dev)})["output"].float().cpu()
+            err = rel_err(got, want)
+            agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+            print(f"vit_l_16 model=4 (B=32): mean rel err vs one device {err:.3e} (tol "
+                  f"{VIT_SERVE_TOL}), argmax agreement {agree:.3f}")
+            require(err <= VIT_SERVE_TOL, "vit_l_16 model=4 disagrees with one device")
+            _require_on_every_rank(stats, ("int8_matmul",), "vit_l_16 model=4", on_card)
+            res["vit"] = {"rel_err": err, "argmax_agree": agree, "stats": stats}
+        finally:
+            engine.worker.stop_followers()
+    del engine, model
+    torch.cuda.empty_cache()
+    lap("vit_l_16 model=4")
+
+    # 6. moe_decoder at expert=2 x model=2, cut to MOE_LAYERS layers
+    em = make_device_mesh(MeshAxes(expert=2, model=2), dev)
+    base = _with_options(load_config(paths["moe"]), layers=MOE_LAYERS)
+    cfg = _on_mesh(base, expert=2, model=2)
+    tree = build_model(cfg.model, seed=cfg.seed, device=dev).params if rank == 0 else None
+    eng = build_generation_engine(cfg, mesh=em, params=shard_of(tree, cfg, em))
+    if rank != 0:
+        follow(eng.worker)
+    else:
+        try:
+            ref = build_generation_engine(base, device=dev, params=tree)
+            eng.worker.reset_stats()
+            res["moe"] = _decoder_logits_check(
+                eng, ref, prompts[:8], list(range(8)),
+                f"moe_decoder expert=2 model=2 (cut to {MOE_LAYERS} of 16 layers)")
+            res["moe"]["stats"] = _phase_stats(eng.worker)
+            _require_on_every_rank(res["moe"]["stats"], ("int8_matmul", "decode_attention",
+                                                         "causal_attention"),
+                                   "moe_decoder expert=2 model=2", on_card)
+            del ref
+        finally:
+            eng.worker.stop_followers()
+    del eng, tree
+    torch.cuda.empty_cache()
+    lap("moe_decoder expert=2 model=2")
+
+    # 7. llama_pipelined serve_logits: ModelEngine's pipe mode
+    p4 = make_device_mesh(MeshAxes(pipe=4), dev)
+    cfg = _with_options(load_config(paths["pipe"]), layers=PIPE_LAYERS, serve_logits=True)
+    cfg = dc.replace(cfg, metrics_port=0, devices=dc.replace(cfg.devices, mesh=dc.replace(
+        cfg.devices.mesh, microbatches=4)))
+    engine, model = batch_engine(cfg, p4)
+    if rank == 0:
+        try:
+            ids = torch.from_numpy(np.random.default_rng(18).integers(
+                1, model.definition.spec.vocab, (4, *cfg.inputs[0].dims)))
+            engine.worker.reset_stats()
+            got = engine.fetch(engine.run_padded({"input_ids": ids}))["logits"]
+            stats = _phase_stats(engine.worker)
+            with torch.inference_mode():
+                want = forward_logits(model.definition.spec, model.params, ids.to(dev),
+                                      model.compute_dtype).cpu()
+            res["pipe"] = dict(_logits_close(
+                f"llama_pipelined serve_logits pipe=4 (llama-7b cut to {PIPE_LAYERS} of 32 "
+                "layers, 4 microbatches)", got, want), stats=stats)
+        finally:
+            engine.worker.stop_followers()
+    del engine, model
+    torch.cuda.empty_cache()
+    lap("llama_pipelined serve_logits pipe=4")
+    return res if rank == 0 else {"backend": mesh.backend}
+
+
+def _gspmd_client(target: str, model: str) -> tuple:
+    """The port's generation client in this process: GSPMD_REQUESTS greedy
+    requests of GSPMD_TOKENS, prompts of GSPMD_PROMPT, streaming."""
+    from starpu_inference_server_tpu_torch.clients.client import GenerationClient
+
+    async def go():
+        gen = GenerationClient(target, model, prompt_len=GSPMD_PROMPT,
+                               max_new_tokens=GSPMD_TOKENS)
+        elapsed = await gen.run(GSPMD_REQUESTS, GSPMD_REQUESTS, True)
+        await gen.close()
+        return gen.summary(elapsed), gen.tokens_by_request, gen.prompts
+
+    return asyncio.run(go())
+
+
+def _mesh_window(server: "ServerProcess") -> dict:
+    """A mesh server's statistics between warmup and shutdown: every rank's
+    launches and collectives' calls and host ms, rank 0's steps and loop
+    timers (generation)."""
+    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
+
+    stats = _mesh_stats(server)
+    before, after = stats["after warmup"], stats["at shutdown"]
+    calls = [{k: v - b["collectives"]["calls"].get(k, 0)
+              for k, v in a["collectives"]["calls"].items()}
+             for b, a in zip(before["ranks"], after["ranks"])]
+    out = {"launches": _rank_launches(before, after),
+           "census": [collectives_by_axis({"calls": c}) for c in calls]}
+    if "steps" in after:
+        out["steps"] = after["steps"] - before["steps"]
+        out["step_ms"] = 1e3 * (after["loop_timers"]["step"] - before["loop_timers"]["step"]) \
+            / max(out["steps"], 1)
+    return out
+
+
+def gspmd_server_run(server: "ServerProcess", card: str) -> dict:
+    """configs/llama_decoder.yml at data=2 x model=2 served by ``server``
+    (started from the CLI): the port's generation client, streaming; every
+    request handled with all its tokens. Stops the server and reads its
+    mesh statistics. Prints and returns tok/s, TTFT, rank 0's decode-step
+    host ms, the census by rank and the launches by rank (K1, K3 and K5 on
+    every rank; with the streams and the client's pooled prompts)."""
+    target = server.wait_ready(timeout=900)
+    summary, tokens, pool = _gspmd_client(target, server.name)
+    req, gen = summary["requests"], summary["generation"]
+    require(req["handled"] == GSPMD_REQUESTS and req["errors"] == 0,
+            f"llama_decoder data=2 model=2: {json.dumps(req)}")
+    require(all(len(t) == GSPMD_TOKENS for t in tokens.values()),
+            "llama_decoder data=2 model=2: a stream is short")
+    server.stop()
+    window = _mesh_window(server)
+    backend = re.search(r"mesh backend: (\w+)", server.log.read_text())
+    require(backend is not None, "llama_decoder data=2 model=2: no backend line")
+    # every data group decodes its slots each step; a prefill runs on the
+    # group whose slot the request got (the least-loaded group's)
+    _require_on_every_rank([{"launches": la} for la in window["launches"]],
+                           ("int4_matmul", "decode_attention", "causal_attention"),
+                           "llama_decoder data=2 model=2 (CLI)")
+    print(f"llama_decoder data=2 model=2 (llama-1b int4, 128 slots, 4 ranks on {card}, "
+          f"{backend.group(1)}): started in {server.start_s:.1f} s; {GSPMD_REQUESTS} greedy "
+          f"requests of {GSPMD_TOKENS} tokens (prompts of {GSPMD_PROMPT}), streaming: "
+          f"{gen['tokens_per_s']:.1f} tok/s, TTFT ms {_pcts(gen['ttft_ms'])}; rank 0's decode "
+          f"step {window['step_ms']:.2f} ms (host clock, dispatch + consume, {window['steps']} "
+          f"steps)")
+    print(f"llama_decoder data=2 model=2 census by rank (op, axis): {json.dumps(window['census'])}")
+    print(f"llama_decoder data=2 model=2 launches by rank: {json.dumps(window['launches'])}")
+    return dict(window, backend=backend.group(1), summary=summary, start_s=server.start_s,
+                tokens=tokens, prompts=pool)
+
+
+def gspmd_bert_run(server: "ServerProcess", card: str, device: str = "cuda") -> dict:
+    """configs/bert_long.yml (W8A8, s = 512) at data=2 x model=2 served by
+    ``server`` (started from the CLI): GSPMD_BERT_REQUESTS concurrent
+    requests through the BERT client's ``infer``, each held against a
+    batch-1 apply of the single-device model (same seed) within BERT_TOL.
+    Stops the server; K7's launches by rank."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.clients import bert_client
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.ops import nn
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    target = server.wait_ready(timeout=900)
+    words = "the quick brown fox jumps over the lazy dog while servers answer".split()
+    rng = np.random.default_rng(19)
+    texts = [" ".join(rng.choice(words, int(rng.integers(5, 400)))) for _ in
+             range(GSPMD_BERT_REQUESTS)]
+    ids, mask = bert_client.tokenize(texts, 512)
+
+    async def go():
+        return await asyncio.gather(*(bert_client.infer(target, server.name, ids[i:i + 1],
+                                                        mask[i:i + 1], timeout=600.0)
+                                      for i in range(len(texts))))
+
+    t1 = time.perf_counter()
+    resps = asyncio.run(go())
+    wall = time.perf_counter() - t1
+    server.stop()
+    window = _mesh_window(server)
+    cfg = load_config(str(BERT_CONFIG))
+    nn.set_w8a8(True)
+    try:
+        model = build_model(cfg.model, seed=cfg.seed, device=device)
+        worst = 0.0
+        for i, resp in enumerate(resps):
+            got = torch.from_numpy(np.frombuffer(resp.raw_output_contents[0], np.float32)
+                                   .reshape(1, 512, -1).copy())
+            with torch.inference_mode():
+                want = model.apply({"input_ids": torch.from_numpy(ids[i:i + 1]).to(device),
+                                    "attention_mask": torch.from_numpy(mask[i:i + 1]).to(device)}
+                                   )["last_hidden_state"].float().cpu()
+            require(bool(torch.isfinite(got).all()),
+                    "bert_long data=2 model=2: a response is not finite")
+            worst = max(worst, rel_err(got, want))
+    finally:
+        nn.set_w8a8(False)
+    _require_on_every_rank([{"launches": la} for la in window["launches"]],
+                           ("bidirectional_attention",), "bert_long data=2 model=2 (CLI)")
+    print(f"bert_long data=2 model=2 (W8A8, 4 ranks on {card}): started in {server.start_s:.1f} "
+          f"s; {len(resps)} concurrent requests through the BERT client in {wall:.2f} s "
+          f"({len(resps) / wall:.1f} seq/s); worst mean rel err vs a batch-1 single-device "
+          f"apply {worst:.3e} (tol {BERT_TOL}); K7 launches by rank "
+          f"{[la.get('bidirectional_attention', 0) for la in window['launches']]}; census by "
+          f"rank {json.dumps(window['census'])}")
+    require(worst <= BERT_TOL, "bert_long data=2 model=2: a response disagrees with one device")
+    return dict(window, worst=worst, wall_s=wall, start_s=server.start_s)
+
+
+def gspmd_path(card: str) -> dict:
+    """The GSPMD group: llama_decoder.yml and bert_long.yml at data=2 x
+    model=2 from the CLI (4 rank processes each, sharing this card over
+    gloo), started first, and the rank worlds of ``gspmd_world`` while they
+    build. Returns the numbers and every phase's launches by rank."""
+    import tempfile
+
+    from starpu_inference_server_tpu_torch.parallel.launch import run_world
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        workdir = Path(tmp)
+        llama = ServerProcess(CONFIG, workdir, "llama_gspmd", {"devices.mesh": GSPMD_MESH})
+        bert = ServerProcess(BERT_CONFIG, workdir, "bert_gspmd", {"devices.mesh": GSPMD_MESH})
+        servers = [llama, bert]
+        try:
+            for srv in servers:
+                srv.start()
+            t1 = time.perf_counter()
+            world = run_world("chip_smoke:gspmd_world", 4, {}, timeout_s=900.0,
+                              workdir=str(workdir / "gspmd_world"))[0]
+            require(world["backend"] == "gloo", f"gspmd world backend {world['backend']}")
+            print(f"gspmd rank worlds (4 ranks on {card}, gloo) in "
+                  f"{time.perf_counter() - t1:.1f} s, by phase {json.dumps(world['seconds'])}")
+            d4 = world["data4"]
+            print(f"llama_decoder data=4: {DATA4_REQUESTS} greedy streams of {GSPMD_TOKENS} tokens "
+                  f"equal to the single-device engine's (32 slots); mesh {d4['wall_s']:.1f} s "
+                  f"({d4['steps']} steps, rank 0's step {d4['step_ms']:.2f} ms host), one device "
+                  f"{d4['ref_wall_s']:.1f} s; launches by rank {json.dumps(d4['launches'])}")
+            print(f"llama_decoder data=2 model=2 (rank world) launches by rank "
+                  f"{json.dumps([s['launches'] for s in world['dm']['stats']])}; census "
+                  f"{json.dumps([s['census'] for s in world['dm']['stats']])}")
+            print(f"sequence parallel census (rank 0): {json.dumps(world['seqpar']['census'])}")
+            for name in ("w4a8", "resnet", "vit", "moe", "pipe"):
+                print(f"{name} (rank world) launches by rank "
+                      f"{json.dumps([s['launches'] for s in world[name]['stats']])}")
+            served = gspmd_server_run(llama, card)
+            bert_run = gspmd_bert_run(bert, card)
+        except BaseException:
+            show_logs(servers)
+            raise
+        finally:
+            for srv in servers:
+                srv.kill()
+    return {"world": world, "llama": served, "bert": bert_run}
 
 
 def _ptxas_kernels(report: str) -> list:
@@ -4604,6 +5510,28 @@ def main() -> int:
         rows[name]["per_shape"].extend(entries)
     torch.cuda.empty_cache()
     pipe = timed(phase_s, "pipelined (llama_pipelined, 4 ranks)", pipelined_path, card)
+    torch.cuda.empty_cache()
+    for name, entries in timed(phase_s, "kernels (gspmd)", gspmd_kernel_rows, dev, card).items():
+        rows[name].setdefault("per_shape", []).extend(entries)
+    torch.cuda.empty_cache()
+    gspmd = timed(phase_s, "gspmd (data, expert, model meshes; 4 ranks)", gspmd_path, card)
+    # launches on the GSPMD paths, by rank: the two CLI servers over their
+    # client runs, and each phase of the rank worlds
+    gw = gspmd["world"]
+    gspmd_runs = {"llama_decoder_cli_data2_model2": gspmd["llama"]["launches"],
+                  "bert_long_cli_data2_model2": gspmd["bert"]["launches"],
+                  "llama_decoder_data4": gw["data4"]["launches"],
+                  "llama_decoder_data2_model2": [s["launches"] for s in gw["dm"]["stats"]],
+                  "llama_w4a8_data2_model2": [s["launches"] for s in gw["w4a8"]["stats"]],
+                  "resnet18_int8_data4": [s["launches"] for s in gw["resnet"]["stats"]],
+                  "vit_l_16_model4": [s["launches"] for s in gw["vit"]["stats"]],
+                  "moe_decoder_expert2_model2": [s["launches"] for s in gw["moe"]["stats"]],
+                  "llama_pipelined_serve_logits_pipe4": [s["launches"]
+                                                         for s in gw["pipe"]["stats"]]}
+    gspmd_launches = {name: {f"{run}_by_rank": [la.get(name, 0) for la in ranks]
+                             for run, ranks in gspmd_runs.items()
+                             if any(la.get(name, 0) for la in ranks)}
+                      for name in GSPMD_KERNELS}
     # launches on the pipelined paths, by rank: the llama_pipelined server
     # over its client runs, and each tiny world's serving run
     pipe_launches = {name: {"llama_pipelined_by_rank": [r.get(name, 0) for r in pipe["per_rank"]],
@@ -4666,6 +5594,8 @@ def main() -> int:
             extra["launches_on_this_slices_paths"] = slice_launches[name]
         if name in pipe_launches:
             extra["launches_on_the_pipelined_paths"] = pipe_launches[name]
+        if name in gspmd_launches:
+            extra["launches_on_the_gspmd_paths"] = gspmd_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",
@@ -4680,15 +5610,24 @@ def main() -> int:
           f"img/s, forward B=32 busy {nhwc_forward['busy_ms']} ms; moe_decoder admit "
           f"{moe['admit_s']:.3f} s of {moe['wall_s']:.3f} s, a step's device busy "
           f"{moe['step_busy_ms']} ms, expert dequantize {moe['dequantize_layer_ms']:.4f} ms a layer")
-    full, stream = clients["resnet"]["full"], clients["generation"]["stream"]
+    smoke, stream = clients["resnet"]["smoke"], clients["generation"]["stream"]
     print(f"clients and checkpoints on {card}: server starts (s) "
           f"{json.dumps(clients['start_s'])}; "
-          f"resnet152 CI full replay {full['throughput_rps']:.1f} req/s, rejected "
-          f"{full['requests']['rejected']}, server_overall p95 "
-          f"{full['latency_ms']['server_overall']['p95']:.1f} ms; check_perf_summary.py on the "
+          f"resnet152 CI smoke replay {smoke['throughput_rps']:.1f} req/s, server_overall p95 "
+          f"{smoke['latency_ms']['server_overall']['p95']:.1f} ms; check_perf_summary.py on the "
           f"smoke exit code {clients['resnet']['gate_rc']}; generation TTFT p50 "
           f"{stream['generation']['ttft_ms']['p50']:.1f} ms, "
           f"{stream['generation']['tokens_per_s']:.1f} tok/s (stream)")
+    gl, gb = gspmd["llama"], gspmd["bert"]
+    print(f"gspmd paths on {card}: llama_decoder data=2 model=2 from the CLI "
+          f"{gl['summary']['generation']['tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{gl['summary']['generation']['ttft_ms']['p50']:.1f} ms, rank 0's decode step "
+          f"{gl['step_ms']:.2f} ms; bert_long data=2 model=2 "
+          f"{GSPMD_BERT_REQUESTS / gb['wall_s']:.1f} seq/s; data=4 streams equal; logits vs one "
+          f"device (max rel): data=2 model=2 prefill {gw['dm']['prefill']['max_rel']:.3e} step "
+          f"{gw['dm']['step']['max_rel']:.3e}, moe {gw['moe']['step']['max_rel']:.3e}, "
+          f"sequence parallel {gw['seqpar']['max_rel']:.3e}, pipe serve_logits "
+          f"{gw['pipe']['max_rel']:.3e}; vit mean rel {gw['vit']['rel_err']:.3e}")
     print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)

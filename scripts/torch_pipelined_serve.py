@@ -1,17 +1,28 @@
-"""configs/llama_pipelined.yml served from the CLI on the visible cards,
-against the single-device engine of the same weights.
+"""A mesh config served from the CLI on the visible cards, against the
+single-device engine of the same weights.
 
     python scripts/torch_pipelined_serve.py [--layers 8]
+    python scripts/torch_pipelined_serve.py --gspmd
 
-Starts ``python -m starpu_inference_server_tpu_torch.grpc.server --config
-<the yml, cut to --layers>`` (4 rank processes: ``nccl`` when 4 cards are
-visible, each rank on its own, ``gloo`` when they share one) and runs
-``chip_smoke.py``'s ``pipelined_server_run`` on it: the port's generation
-client (16 greedy requests of 32 tokens, prompts of 64, streaming then
-unary), every stream equal to the single-device engine's of the same
-tree in this process, tok/s and TTFT of both, rank 0's decode-step host
-ms, each rank's collectives (census and host ms) and kernel launches,
-and the server's backend line. Exits 1 on any mismatch.
+Default: ``configs/llama_pipelined.yml`` cut to ``--layers``. Starts
+``python -m starpu_inference_server_tpu_torch.grpc.server --config <the
+yml>`` (4 rank processes: ``nccl`` when 4 cards are visible, each rank on
+its own, ``gloo`` when they share one) and runs ``chip_smoke.py``'s
+``pipelined_server_run`` on it: the port's generation client (16 greedy
+requests of 32 tokens, prompts of 64, streaming then unary), every stream
+equal to the single-device engine's of the same tree in this process,
+tok/s and TTFT of both, rank 0's decode-step host ms, each rank's
+collectives (census and host ms) and kernel launches, and the server's
+backend line. Exits 1 on any mismatch.
+
+``--gspmd``: ``configs/llama_decoder.yml`` (llama-1b int4, 128 slots) at
+``devices.mesh: {data: 2, model: 2}`` instead, through ``chip_smoke.py``'s
+``gspmd_server_run`` (32 greedy requests of 32 tokens, prompts of 64,
+streaming: tok/s, TTFT, rank 0's decode-step host ms, the census and the
+launches by rank); then the single-device engine of the same tree in
+this process generates every request's stream, and the streams equal to
+the mesh's are counted (the tensor-parallel sums run in another order,
+so bf16 streams may part; printed, not required).
 """
 
 from __future__ import annotations
@@ -26,9 +37,34 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 
+def gspmd_streams(run: dict) -> dict:
+    """The single-device engine of llama_decoder.yml's tree (seeded as the
+    server's) on every request of ``run``: how many streams equal the
+    mesh's, and how many first tokens."""
+    import chip_smoke as cs
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    engine = build_generation_engine(load_config(str(cs.CONFIG)), device="cuda")
+    engine.start()
+    try:
+        pool = run["prompts"]
+        ref = [engine.generate(p, cs.GSPMD_TOKENS, timeout=600.0) for p in pool]
+    finally:
+        engine.stop()
+    pairs = [(toks, ref[rid % len(pool)]) for rid, toks in run["tokens"].items()]
+    out = {"streams": len(pairs), "equal": sum(a == b for a, b in pairs),
+           "first_token_equal": sum(a[:1] == b[:1] for a, b in pairs)}
+    print(f"llama_decoder data=2 model=2 against one device: {out['equal']} of {out['streams']} "
+          f"streams equal, {out['first_token_equal']} first tokens equal")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--layers", type=int, default=8)
+    parser.add_argument("--gspmd", action="store_true",
+                        help="llama_decoder.yml at data=2 x model=2 instead")
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
@@ -47,11 +83,19 @@ def main() -> int:
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        server = cs.ServerProcess(cs.PIPE_CONFIG, Path(tmp), "llama_pipelined",
-                                  {"model.options.layers": args.layers})
+        if args.gspmd:
+            server = cs.ServerProcess(cs.CONFIG, Path(tmp), "llama_gspmd",
+                                      {"devices.mesh": cs.GSPMD_MESH})
+        else:
+            server = cs.ServerProcess(cs.PIPE_CONFIG, Path(tmp), "llama_pipelined",
+                                      {"model.options.layers": args.layers})
         try:
             server.start()
-            run = cs.pipelined_server_run(server, args.layers, cs.card_line())
+            if args.gspmd:
+                run = cs.gspmd_server_run(server, cs.card_line())
+                run["streams"] = gspmd_streams(run)
+            else:
+                run = cs.pipelined_server_run(server, args.layers, cs.card_line())
         except BaseException as exc:
             cs.show_logs([server])
             if not isinstance(exc, cs.SmokeFailure):
@@ -60,7 +104,8 @@ def main() -> int:
             return 1
         finally:
             server.kill()
-    print(json.dumps({"ok": True, "backend": run["backend"]}))
+    print(json.dumps({"ok": True, "backend": run["backend"],
+                      **({"streams": run["streams"]} if args.gspmd else {})}))
     return 0
 
 

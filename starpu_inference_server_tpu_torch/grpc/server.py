@@ -9,10 +9,15 @@ Counterpart of ``starpu_inference_server_tpu/grpc/server.py``. Run it with
 <address>`` when it is ready, and the kernel launches of the process so
 far (``kernel launches ...: {json}``) once warmed up and at shutdown.
 
-A config whose ``devices.mesh`` has a ``pipe`` axis (a decoder,
-``configs/llama_pipelined.yml``) runs as one process per mesh position (``parallel/launch.py:serve_mesh``): rank 0
-builds the weights, sends every rank its shard and serves gRPC, the
-other ranks follow its commands; the backend is ``nccl`` when each rank
+A config whose ``devices.mesh`` has more than one position runs as one
+process per mesh position (``parallel/launch.py:serve_mesh``): with a
+``pipe`` axis the pipelined decoder (``configs/llama_pipelined.yml``) or
+the GPipe batch forward, without one GSPMD mode (slot-sharded generation
+over ``data``, tensor- and expert-parallel weights; the batch pipeline on
+a data- and tensor-parallel ``ModelEngine``). Rank 0 builds the weights,
+sends every rank its shard and serves gRPC (the whole batch pipeline,
+queue -> collector -> lanes -> engine, runs there), the other ranks
+follow its commands; the backend is ``nccl`` when each rank
 has a GPU of its own and ``gloo`` when they share one or run on the CPU
 (``--device cpu``), and is printed as ``mesh backend: ...``. With
 ``distributed.coordinator_address`` set the process joins that address
@@ -82,11 +87,16 @@ def _log_launches(when: str) -> None:
     get_logger().info("kernel launches %s: %s", when, json.dumps(counts, sort_keys=True))
 
 
-def _log_mesh(engine, when: str) -> None:
-    """Every rank's kernel launches and collectives so far, and rank 0's
-    engine steps and loop timers (a pipelined server's statistics)."""
-    stats = {"ranks": engine.pipe.gather_stats(), "steps": engine.steps,
-             "loop_timers": engine.loop_timers}
+def _log_mesh(server, when: str) -> None:
+    """Every rank's kernel launches and collectives so far, and a
+    generation engine's steps and loop timers (a mesh server's
+    statistics)."""
+    from ..parallel.launch import mesh_worker
+
+    stats = {"ranks": mesh_worker(server).gather_stats()}
+    eng = server.generation_engine
+    if eng is not None:
+        stats.update(steps=eng.steps, loop_timers=eng.loop_timers)
     get_logger().info("mesh statistics %s: %s", when, json.dumps(stats, sort_keys=True))
 
 
@@ -156,7 +166,8 @@ class InferenceServer:
                                                              mesh=self.mesh)
             self.device = self.generation_engine.device
         else:
-            self.engine = ModelEngine(cfg, build_model(cfg.model, seed=cfg.seed, device=device))
+            self.engine = ModelEngine(cfg, build_model(cfg.model, seed=cfg.seed, device=device),
+                                      mesh=self.mesh)
             self.runner = TaskRunner(cfg, self.engine, self.queue,
                                      observability=self.observability,
                                      congestion_monitor=self.congestion)
@@ -231,7 +242,7 @@ class InferenceServer:
         log = get_logger()
         self.start_pipeline(warmup=warmup)
         if self.mesh is not None:  # before the port opens: the engine is idle
-            _log_mesh(self.generation_engine, "after warmup")
+            _log_mesh(self, "after warmup")
         max_bytes = self.cfg.resolved_max_message_bytes
         server = grpc.aio.server(options=[
             ("grpc.max_receive_message_length", max_bytes),
@@ -270,8 +281,8 @@ class InferenceServer:
             self.runner.stop(drain=True)
         else:
             self.generation_engine.stop()
-            if self.mesh is not None:
-                _log_mesh(self.generation_engine, "at shutdown")
+        if self.mesh is not None:
+            _log_mesh(self, "at shutdown")
         self.congestion.stop()
         if self.recorder is not None:
             self.recorder.server_health.set(0)
@@ -319,7 +330,7 @@ def main(argv=None) -> int:
                         help="a mesh's collective timeout, seconds (default 300)")
     args = parser.parse_args(argv)
     cfg = load_config(args.config)
-    if cfg.devices.mesh.pipe > 1:
+    if cfg.devices.mesh.size > 1:
         from ..parallel.launch import serve_mesh
 
         return serve_mesh(args.config, cfg, args.device, args.timeout_s)

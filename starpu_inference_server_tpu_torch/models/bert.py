@@ -60,12 +60,12 @@ def _layer_init(rng, hidden, intermediate) -> Dict[str, Any]:
     }
 
 
-def _layer_apply(p, x, mask, heads, dtype):
-    attn_out = nn.multi_head_attention(p["attn"], x, mask, heads, dtype)
+def _layer_apply(p, x, mask, heads, dtype, mesh=None):
+    attn_out = nn.multi_head_attention(p["attn"], x, mask, heads, dtype, mesh=mesh)
     x = nn.layer_norm(p["attn_ln"], x + attn_out, eps=1e-12)
     h = nn.dense(p["ffn"]["fc1"], x, dtype)
     h = nn.gelu(h)
-    h = nn.dense(p["ffn"]["fc2"], h, dtype)
+    h = nn.dense(p["ffn"]["fc2"], h, dtype, mesh=mesh)
     return nn.layer_norm(p["ffn_ln"], x + h, eps=1e-12)
 
 
@@ -90,7 +90,11 @@ def _build_bert(variant: str, options) -> ModelDefinition:
             "layers": [_layer_init(rng, hidden, intermediate) for _ in range(layers)],
         }
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
+        """``mesh``: tensor-parallel over ``model`` (the rank's shard by the
+        transformer rules: feature-sharded embeddings gathered before the
+        first layer norm, q/k/v and fc1 column-parallel on local heads, o
+        and fc2 row-parallel) on the rank's rows of the batch."""
         ids = inputs["input_ids"].to(torch.int64)
         mask = inputs.get("attention_mask")
         b, s = ids.shape
@@ -99,9 +103,9 @@ def _build_bert(variant: str, options) -> ModelDefinition:
         positions = torch.arange(s, device=ids.device)
         x = x + nn.embedding(emb["position"], positions, dtype)[None, :, :]
         x = x + nn.embedding(emb["token_type"], torch.zeros_like(ids), dtype)
-        x = nn.layer_norm(emb["ln"], x, eps=1e-12)
+        x = nn.layer_norm(emb["ln"], nn.gather_features(x, mesh), eps=1e-12)
         for layer in params["layers"]:
-            x = _layer_apply(layer, x, mask, heads, dtype)
+            x = _layer_apply(layer, x, mask, heads, dtype, mesh)
         return {"last_hidden_state": x.to(torch.float32)}
 
     return ModelDefinition(

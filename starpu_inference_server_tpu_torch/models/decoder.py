@@ -252,19 +252,28 @@ def init_params(spec: DecoderSpec, rng: np.random.Generator):
 
 # -- building blocks -------------------------------------------------------
 
-def _project_qkv(spec: DecoderSpec, layer, h, dtype):
+def local_heads(spec: DecoderSpec, mesh=None):
+    """(q heads, kv heads) a rank computes: all of them, or on a mesh its
+    ``1 / model`` block (the fused projections are block-aligned by
+    ``parallel/tp_layout.py``)."""
+    tp = mesh.size("model") if mesh is not None else 1
+    return spec.q_heads // tp, spec.kv_heads // tp
+
+
+def _project_qkv(spec: DecoderSpec, layer, h, dtype, mesh=None):
     fused = nn.dense(layer["attn"]["qkv"], h, dtype)
-    dq = spec.q_heads * spec.head_dim
-    dkv = spec.kv_heads * spec.head_dim
+    qh, kvh = local_heads(spec, mesh)
+    dq = qh * spec.head_dim
+    dkv = kvh * spec.head_dim
     return fused[..., :dq], fused[..., dq:dq + dkv], fused[..., dq + dkv:]
 
 
-def _fused_mlp(layer, x, dtype):
+def _fused_mlp(layer, x, dtype, mesh=None):
     fused = nn.dense(layer["mlp"]["gate_up"], x, dtype)
     inter = fused.shape[-1] // 2
     gate, up = fused[..., :inter], fused[..., inter:]
     act = F.silu(gate.to(torch.float32)).to(dtype) * up
-    return nn.dense(layer["mlp"]["down"], act, dtype)
+    return nn.dense(layer["mlp"]["down"], act, dtype, mesh=mesh)
 
 
 def _top_k_ranks(probs: torch.Tensor) -> torch.Tensor:
@@ -320,11 +329,29 @@ def _moe_mlp(spec: DecoderSpec, layer, x, dtype):
     return y.reshape(*lead, x.shape[-1]).to(dtype)
 
 
-def _mlp_block(spec: DecoderSpec, layer, x, dtype):
-    """Dense or routed MLP, decided by the param tree (a ``router``)."""
+def _mlp_block(spec: DecoderSpec, layer, x, dtype, mesh=None):
+    """Dense or routed MLP, decided by the param tree (a ``router``). On a
+    mesh the MoE runs the rank's experts and columns, one sum over
+    (``expert``, ``model``) completing it (``parallel/stage_body.py``)."""
     if "router" in layer["mlp"]:
+        if mesh is not None:
+            from ..parallel.stage_body import tp_moe_mlp
+
+            return tp_moe_mlp(mesh, spec, layer, x, dtype)
         return _moe_mlp(spec, layer, x, dtype)
-    return _fused_mlp(layer, x, dtype)
+    return _fused_mlp(layer, x, dtype, mesh)
+
+
+def _embed(params, ids: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+    """Token embeddings; on a mesh the table's feature dim is sharded over
+    ``model`` and the rows are gathered whole."""
+    return nn.gather_features(nn.embedding(params["embed"], ids, dtype), mesh)
+
+
+def _lm_head(params, x: torch.Tensor, dtype, mesh=None) -> torch.Tensor:
+    """The lm head at the compute dtype; on a mesh the rank's vocab slice,
+    gathered over ``model`` into the whole vocab."""
+    return nn.gather_features(nn.dense(params["lm_head"], x, dtype), mesh)
 
 
 def rms_norm(p, x, eps=1e-5):
@@ -399,20 +426,25 @@ def _use_fused_prefill_attention(spec: DecoderSpec, seq: int, ref: torch.Tensor,
 
 # -- full (teacher-forcing) forward ----------------------------------------
 
-def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype) -> torch.Tensor:
-    """Causal forward over a [B, T] batch, returns [B, T, vocab] f32 logits."""
+def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype,
+                   mesh=None) -> torch.Tensor:
+    """Causal forward over a [B, T] batch, returns [B, T, vocab] f32 logits.
+    ``mesh``: GSPMD mode, ``params`` the rank's shard (decoder rules, fused
+    projections block-aligned) and ``ids`` its rows; the attention runs on
+    the rank's local heads and the logits come back whole."""
     b, t = ids.shape
     dev = ids.device
+    qh, kvh = local_heads(spec, mesh)
     positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(b, t)
-    x = nn.embedding(params["embed"], ids, dtype)
+    x = _embed(params, ids, dtype, mesh)
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()[None, None]
     rep = spec.rep
     for layer in params["layers"]:
         h = rms_norm(layer["attn_norm"], x)
-        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
-        q = rope(qf.reshape(b, t, spec.q_heads, spec.head_dim), positions)
-        k = rope(kf.reshape(b, t, spec.kv_heads, spec.head_dim), positions)
-        v = vf.reshape(b, t, spec.kv_heads, spec.head_dim)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
+        q = rope(qf.reshape(b, t, qh, spec.head_dim), positions)
+        k = rope(kf.reshape(b, t, kvh, spec.head_dim), positions)
+        v = vf.reshape(b, t, kvh, spec.head_dim)
         if _use_fused_prefill_attention(spec, t, ids):
             from ..ops.prefill_attention import causal_attention
 
@@ -424,34 +456,37 @@ def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype) -> torch
             logits = torch.where(causal, logits, torch.full_like(logits, -1e9))
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
-        attn = attn.reshape(b, t, spec.q_heads * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+        attn = attn.reshape(b, t, qh * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _mlp_block(spec, layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype, mesh)
     x = rms_norm(params["final_norm"], x)
-    return nn.dense(params["lm_head"], x, dtype).to(torch.float32)
+    return _lm_head(params, x, dtype, mesh).to(torch.float32)
 
 
 # -- prefill: write a prompt into one cache slot ---------------------------
 
 def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
-            length: int, slot: int, dtype):
+            length: int, slot: int, dtype, mesh=None):
     """``ids`` int [P] padded prompt, ``length`` true prompt length,
     ``slot`` target slot (host ints). Writes the prompt's int8 KV into
-    slot rows [0, P) and returns (cache, last_logits f32 [vocab])."""
+    slot rows [0, P) and returns (cache, last_logits f32 [vocab]).
+    ``mesh``: GSPMD mode (``forward_logits``); the cache holds the rank's
+    kv heads."""
     p = ids.shape[0]
     dev = ids.device
+    qh, kvh = local_heads(spec, mesh)
     positions = torch.arange(p, dtype=torch.int32, device=dev)
-    x = nn.embedding(params["embed"], ids[None, :], dtype)  # [1, P, D]
+    x = _embed(params, ids[None, :], dtype, mesh)  # [1, P, D]
     valid = positions < length
     causal = (torch.ones((p, p), dtype=torch.bool, device=dev).tril() & valid[None, :])[None, None]
     rep = spec.rep
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
-        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
-        q = rope(qf.reshape(1, p, spec.q_heads, spec.head_dim), positions[None])
-        k = rope(kf.reshape(1, p, spec.kv_heads, spec.head_dim), positions[None])
-        v = vf.reshape(1, p, spec.kv_heads, spec.head_dim)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
+        q = rope(qf.reshape(1, p, qh, spec.head_dim), positions[None])
+        k = rope(kf.reshape(1, p, kvh, spec.head_dim), positions[None])
+        v = vf.reshape(1, p, kvh, spec.head_dim)
         kq, kscale = _quantize_kv(k[0])
         vq, vscale = _quantize_kv(v[0])
         # in-place write of slot rows [0, P); rows past ``length`` hold
@@ -470,32 +505,34 @@ def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             logits = torch.where(causal, logits, torch.full_like(logits, -1e9))
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
-        attn = attn.reshape(1, p, spec.q_heads * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+        attn = attn.reshape(1, p, qh * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _mlp_block(spec, layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype, mesh)
     cache.lengths[slot] = length
     x = rms_norm(params["final_norm"], x)
     last = x[0, length - 1]
-    logits = nn.dense(params["lm_head"], last[None, :], dtype)[0]
+    logits = _lm_head(params, last[None, :], dtype, mesh)[0]
     return cache, logits.to(torch.float32)
 
 
 # -- chunked prefill: write one prompt chunk into a cache slot --------------
 
 def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
-                  start: int, valid: int, slot: int, dtype):
+                  start: int, valid: int, slot: int, dtype, mesh=None):
     """Process ``C`` prompt tokens at absolute positions start..start+C-1
     and write their int8 KV into slot rows [start, start+C). Returns
     (cache, logits f32 [vocab]) for chunk row ``valid-1``. Keys before
     ``start`` are read back from the int8 cache (decode numerics); the
     in-chunk keys stay at compute precision, causally masked. ``start``,
-    ``valid`` and ``slot`` are host ints (the engine tracks them)."""
+    ``valid`` and ``slot`` are host ints (the engine tracks them).
+    ``mesh``: GSPMD mode, as ``prefill``."""
     c = ids.shape[0]
     dev = ids.device
+    qh, kvh = local_heads(spec, mesh)
     t_max = cache.max_len
     positions = start + torch.arange(c, dtype=torch.int32, device=dev)
-    x = nn.embedding(params["embed"], ids[None, :], dtype)
+    x = _embed(params, ids[None, :], dtype, mesh)
     key_pos = torch.arange(t_max, device=dev)
     past_mask = (key_pos[None, :] < start)[None, None]
     cur_mask = torch.ones((c, c), dtype=torch.bool, device=dev).tril()[None, None]
@@ -504,10 +541,10 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     fit = min(c, t_max - start)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
-        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
-        q = rope(qf.reshape(1, c, spec.q_heads, spec.head_dim), positions[None])
-        k = rope(kf.reshape(1, c, spec.kv_heads, spec.head_dim), positions[None])
-        v = vf.reshape(1, c, spec.kv_heads, spec.head_dim)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
+        q = rope(qf.reshape(1, c, qh, spec.head_dim), positions[None])
+        k = rope(kf.reshape(1, c, kvh, spec.head_dim), positions[None])
+        v = vf.reshape(1, c, kvh, spec.head_dim)
         kq, kscale = _quantize_kv(k[0])
         vq, vscale = _quantize_kv(v[0])
         # a chunk that starts at a prefix-cache hit may run past t_max:
@@ -527,7 +564,7 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             attn = chunk_prefill_attention(
                 q[0], row_ck, row_cv, row_cks, row_cvs, k[0], v[0], start,
                 rep=rep, out_dtype=dtype,
-            ).reshape(1, c, spec.q_heads * spec.head_dim)
+            ).reshape(1, c, qh * spec.head_dim)
         else:
             row_k = _dequantize_kv(row_ck, row_cks, dtype).repeat_interleave(rep, dim=1)[None]
             row_v = _dequantize_kv(row_cv, row_cvs, dtype).repeat_interleave(rep, dim=1)[None]
@@ -541,28 +578,30 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             p_past, p_cur = probs[..., :t_max], probs[..., t_max:]
             attn = torch.einsum("bhqk,bkhd->bqhd", p_past, _f32(row_v))
             attn = attn + torch.einsum("bhqk,bkhd->bqhd", p_cur, _f32(vc))
-            attn = attn.reshape(1, c, spec.q_heads * spec.head_dim)
-        x = x + nn.dense(layer["attn"]["o"], attn.to(dtype), dtype)
+            attn = attn.reshape(1, c, qh * spec.head_dim)
+        x = x + nn.dense(layer["attn"]["o"], attn.to(dtype), dtype, mesh=mesh)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _mlp_block(spec, layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype, mesh)
     cache.lengths[slot] = start + valid
     x = rms_norm(params["final_norm"], x)
     last = x[0, valid - 1]
-    logits = nn.dense(params["lm_head"], last[None, :], dtype)[0]
+    logits = _lm_head(params, last[None, :], dtype, mesh)[0]
     return cache, logits.to(torch.float32)
 
 
 # -- decode: advance every active slot one token ---------------------------
 
 def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
-                active: torch.Tensor, dtype):
+                active: torch.Tensor, dtype, mesh=None):
     """``ids`` int [S] current token per slot, ``active`` bool [S].
     Returns (cache, logits f32 [S, vocab]); inactive slots are computed
-    and masked (the continuous-batching contract)."""
+    and masked (the continuous-batching contract). ``mesh``: GSPMD mode
+    (``prefill``); the slots are the rank's data block."""
     s = ids.shape[0]
     dev = ids.device
+    qh, kvh = local_heads(spec, mesh)
     positions = cache.lengths.clone()  # the new token goes at ``length``
-    x = nn.embedding(params["embed"], ids[:, None], dtype)  # [S, 1, D]
+    x = _embed(params, ids[:, None], dtype, mesh)  # [S, 1, D]
     t_max = cache.max_len
     key_pos = torch.arange(t_max, device=dev)[None, :]
     mask = (key_pos <= positions.to(torch.int64)[:, None])[:, None, None, :]  # [S,1,1,T]
@@ -575,10 +614,10 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     fused = _use_fused_decode_attention(spec, t_max, ids)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
-        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
-        q = rope(qf.reshape(s, 1, spec.q_heads, spec.head_dim), positions[:, None])
-        k = rope(kf.reshape(s, 1, spec.kv_heads, spec.head_dim), positions[:, None])
-        v = vf.reshape(s, 1, spec.kv_heads, spec.head_dim)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
+        q = rope(qf.reshape(s, 1, qh, spec.head_dim), positions[:, None])
+        k = rope(kf.reshape(s, 1, kvh, spec.head_dim), positions[:, None])
+        v = vf.reshape(s, 1, kvh, spec.head_dim)
         kq, kscale = _quantize_kv(k[:, 0])
         vq, vscale = _quantize_kv(v[:, 0])
         _write_kv(cache, li, slot_idx, write_pos, kq, vq, kscale, vscale)
@@ -588,7 +627,7 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             attn = decode_attention(
                 q[:, 0], cache.k[li], cache.v[li], cache.k_scale[li],
                 cache.v_scale[li], positions, rep=rep,
-            ).reshape(s, 1, spec.q_heads * spec.head_dim).to(dtype)
+            ).reshape(s, 1, qh * spec.head_dim).to(dtype)
         else:
             k_all, v_all = _dequantized_layer(spec, cache, li, dtype)
             k_all = k_all.repeat_interleave(rep, dim=2)
@@ -597,12 +636,12 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("shqk,skhd->sqhd", probs, _f32(v_all)).reshape(
-                s, 1, spec.q_heads * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+                s, 1, qh * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _mlp_block(spec, layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype, mesh)
     x = rms_norm(params["final_norm"], x)
-    logits = nn.dense(params["lm_head"], x[:, 0], dtype).to(torch.float32)
+    logits = _lm_head(params, x[:, 0], dtype, mesh).to(torch.float32)
     cache.lengths.copy_(torch.where(active, positions + 1, positions))
     return cache, logits
 
@@ -610,7 +649,7 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
 # -- verify: score a window of draft tokens against the model --------------
 
 def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
-                active: torch.Tensor, dtype):
+                active: torch.Tensor, dtype, mesh=None):
     """Speculative-decoding verification: advance every active slot ``W``
     tokens in one call. ``ids`` int [S, W] (row i's token sits at
     ``lengths + i``), ``active`` bool [S]. Returns (cache, logits f32
@@ -621,12 +660,13 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     round-trips the int8 cache, so the numbers are those of ``W``
     sequential ``decode_step``s. ``lengths`` is NOT advanced: the caller
     commits the accepted prefix. Inactive slots park their writes at
-    ``t_max-1``, as in ``decode_step``."""
+    ``t_max-1``, as in ``decode_step``. ``mesh``: GSPMD mode, as there."""
     s, w = ids.shape
     dev = ids.device
+    qh, kvh = local_heads(spec, mesh)
     start = cache.lengths.clone()
     positions = start[:, None] + torch.arange(w, dtype=torch.int32, device=dev)[None, :]
-    x = nn.embedding(params["embed"], ids, dtype)  # [S, W, D]
+    x = _embed(params, ids, dtype, mesh)  # [S, W, D]
     t_max = cache.max_len
     key_pos = torch.arange(t_max, device=dev)
     # query row i attends positions <= lengths + i
@@ -642,10 +682,10 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     fused = _use_fused_decode_attention(spec, t_max, ids)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
-        qf, kf, vf = _project_qkv(spec, layer, h, dtype)
-        q = rope(qf.reshape(s, w, spec.q_heads, spec.head_dim), positions)
-        k = rope(kf.reshape(s, w, spec.kv_heads, spec.head_dim), positions)
-        v = vf.reshape(s, w, spec.kv_heads, spec.head_dim)
+        qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
+        q = rope(qf.reshape(s, w, qh, spec.head_dim), positions)
+        k = rope(kf.reshape(s, w, kvh, spec.head_dim), positions)
+        v = vf.reshape(s, w, kvh, spec.head_dim)
         kq, kscale = _quantize_kv(k)  # [S, W, H, D], [S, W, H]
         vq, vscale = _quantize_kv(v)
         _write_kv(cache, li, slot_idx, write_pos, kq, vq, kscale, vscale)
@@ -655,7 +695,7 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             attn = window_decode_attention(
                 q, cache.k[li], cache.v[li], cache.k_scale[li], cache.v_scale[li], start,
                 rep=rep,
-            ).reshape(s, w, spec.q_heads * spec.head_dim).to(dtype)
+            ).reshape(s, w, qh * spec.head_dim).to(dtype)
         else:
             k_all, v_all = _dequantized_layer(spec, cache, li, dtype)
             k_all = k_all.repeat_interleave(rep, dim=2)
@@ -664,12 +704,12 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             logits = torch.where(mask, logits, torch.full_like(logits, -1e9))
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("shwk,skhd->swhd", probs, _f32(v_all)).reshape(
-                s, w, spec.q_heads * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype)
+                s, w, qh * spec.head_dim).to(dtype)
+        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
         h = rms_norm(layer["mlp_norm"], x)
-        x = x + _mlp_block(spec, layer, h, dtype)
+        x = x + _mlp_block(spec, layer, h, dtype, mesh)
     x = rms_norm(params["final_norm"], x)
-    logits = nn.dense(params["lm_head"], x.reshape(s * w, -1), dtype)
+    logits = _lm_head(params, x.reshape(s * w, -1), dtype, mesh)
     return cache, logits.reshape(s, w, spec.vocab).to(torch.float32)
 
 
@@ -726,9 +766,22 @@ def _build_decoder(variant: str, options) -> ModelDefinition:
             params = rig_copy_model(spec, params, copy_cycle)
         return params
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
         ids = inputs["input_ids"].to(torch.int64)
-        return {"logits": forward_logits(spec, params, ids, dtype)}
+        return {"logits": forward_logits(spec, params, ids, dtype, mesh)}
+
+    def pipeline_apply(shard, inputs, mesh, num_microbatches, dtype):
+        from ..parallel.pipeline import pipelined_decoder_logits
+
+        ids = inputs["input_ids"].to(torch.int64)
+        return {"logits": pipelined_decoder_logits(spec, shard, ids, mesh, num_microbatches,
+                                                   dtype, sharded=True)}
+
+    def tp_layer_shuffle(layer, tp):
+        from ..parallel.tp_layout import shuffle_decoder_layer_for_tp, validate_decoder_tp
+
+        validate_decoder_tp(spec, tp)
+        return shuffle_decoder_layer_for_tp(spec, layer, tp)
 
     return ModelDefinition(
         family=variant,
@@ -738,6 +791,8 @@ def _build_decoder(variant: str, options) -> ModelDefinition:
         output_specs=(TensorSpec("logits", (seq_len, spec.vocab), "FP32"),),
         supports_generation=True,
         spec=spec,
+        pipeline_apply=pipeline_apply,
+        tp_layer_shuffle=tp_layer_shuffle,
     )
 
 

@@ -27,7 +27,7 @@ def _spec_from_options(options, default_dims=(8,), dtype="FP32"):
 def build_identity(options) -> ModelDefinition:
     in_specs, out_specs = _spec_from_options(options)
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
         return {"output": inputs["input"]}
 
     return ModelDefinition("identity", lambda rng: {}, apply, in_specs, out_specs)
@@ -37,7 +37,7 @@ def build_identity(options) -> ModelDefinition:
 def build_add_one(options) -> ModelDefinition:
     in_specs, out_specs = _spec_from_options(options)
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
         return {"output": inputs["input"] + 1}
 
     return ModelDefinition("add_one", lambda rng: {}, apply, in_specs, out_specs)
@@ -58,7 +58,7 @@ def build_matmul(options) -> ModelDefinition:
             }
         }
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
         return {"output": nn.dense(params["fc"], inputs["input"], dtype).to(torch.float32)}
 
     return ModelDefinition("matmul", init_params, apply, in_specs, out_specs)

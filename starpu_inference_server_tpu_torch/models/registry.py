@@ -31,7 +31,11 @@ QUANT_BITS = {QuantMode.NONE: None, QuantMode.INT8: 8, QuantMode.INT4: 4,
 class ModelDefinition:
     family: str
     init_params: InitFn           # numpy tree, same RNG order as the JAX package
-    apply: Callable               # (params, {name: tensor}, dtype) -> {name: tensor}
+    # (params, {name: tensor}, dtype, mesh=None) -> {name: tensor}. With a
+    # mesh (a parallel.mesh.RankMesh, GSPMD mode) ``params`` is the rank's
+    # shard by the family's partition rules, the inputs are the rank's rows
+    # of the batch, and the body calls the collectives GSPMD would insert
+    apply: Callable
     input_specs: Tuple[TensorSpec, ...]
     output_specs: Tuple[TensorSpec, ...]
     supports_generation: bool = False
@@ -39,6 +43,15 @@ class ModelDefinition:
     # params -> params with constants derived once at build time
     # (ResNet: the folded stem weights); None keeps the tree as it is
     prepare: Optional[Callable[[Any], Any]] = None
+    # pipeline-parallel forward: (shard, inputs, mesh, num_microbatches,
+    # dtype) -> outputs over the mesh 'pipe' axis, ``shard`` the rank's
+    # cut of ``parallel.pipeline.prepare_pipelined_params``. Families
+    # without it refuse a pipe axis in the batch engine
+    pipeline_apply: Optional[Callable] = None
+    # (layer_params, tp) -> layer_params: the block-alignment permutation
+    # of fused projections for ``tp``-way tensor parallelism
+    # (parallel/tp_layout.py), applied to every layer before the cut
+    tp_layer_shuffle: Optional[Callable] = None
 
 
 _REGISTRY: Dict[str, Callable[[Mapping[str, Any]], ModelDefinition]] = {}
@@ -81,8 +94,10 @@ class BuiltModel:
     quant: QuantMode
     device: torch.device
 
-    def apply(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        return self.definition.apply(self.params, inputs, self.compute_dtype)
+    def apply(self, inputs: Dict[str, torch.Tensor], mesh=None) -> Dict[str, torch.Tensor]:
+        if mesh is None:
+            return self.definition.apply(self.params, inputs, self.compute_dtype)
+        return self.definition.apply(self.params, inputs, self.compute_dtype, mesh=mesh)
 
 
 def resolve_device(device=None) -> torch.device:

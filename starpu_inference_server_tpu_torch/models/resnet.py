@@ -106,28 +106,31 @@ def _init_bottleneck_block(rng, cin, planes, stride, groups, width_per_group):
     return block
 
 
-def _apply_basic_block(p, x, stride, dtype):
+def _apply_basic_block(p, x, stride, dtype, mesh=None):
     identity = x
-    out = nn.conv2d(p["conv1"], x, stride=stride, padding=1, dtype=dtype)
+    out = nn.conv2d(p["conv1"], x, stride=stride, padding=1, dtype=dtype, mesh=mesh)
     out = torch.relu(nn.batch_norm_inference(p["bn1"], out))
-    out = nn.conv2d(p["conv2"], out, stride=1, padding=1, dtype=dtype)
+    out = nn.conv2d(p["conv2"], out, stride=1, padding=1, dtype=dtype, mesh=mesh)
     out = nn.batch_norm_inference(p["bn2"], out)
     if "downsample" in p:
-        identity = nn.conv2d(p["downsample"]["conv"], x, stride=stride, padding=0, dtype=dtype)
+        identity = nn.conv2d(p["downsample"]["conv"], x, stride=stride, padding=0,
+                             dtype=dtype, mesh=mesh)
         identity = nn.batch_norm_inference(p["downsample"]["bn"], identity)
     return torch.relu(out + identity)
 
 
-def _apply_bottleneck_block(p, x, stride, groups, dtype):
+def _apply_bottleneck_block(p, x, stride, groups, dtype, mesh=None):
     identity = x
-    out = nn.conv2d(p["conv1"], x, stride=1, padding=0, dtype=dtype)
+    out = nn.conv2d(p["conv1"], x, stride=1, padding=0, dtype=dtype, mesh=mesh)
     out = torch.relu(nn.batch_norm_inference(p["bn1"], out))
-    out = nn.conv2d(p["conv2"], out, stride=stride, padding=1, groups=groups, dtype=dtype)
+    out = nn.conv2d(p["conv2"], out, stride=stride, padding=1, groups=groups, dtype=dtype,
+                    mesh=mesh)
     out = torch.relu(nn.batch_norm_inference(p["bn2"], out))
-    out = nn.conv2d(p["conv3"], out, stride=1, padding=0, dtype=dtype)
+    out = nn.conv2d(p["conv3"], out, stride=1, padding=0, dtype=dtype, mesh=mesh)
     out = nn.batch_norm_inference(p["bn3"], out)
     if "downsample" in p:
-        identity = nn.conv2d(p["downsample"]["conv"], x, stride=stride, padding=0, dtype=dtype)
+        identity = nn.conv2d(p["downsample"]["conv"], x, stride=stride, padding=0,
+                             dtype=dtype, mesh=mesh)
         identity = nn.batch_norm_inference(p["downsample"]["bn"], identity)
     return torch.relu(out + identity)
 
@@ -182,12 +185,13 @@ def _prepare_stem(params, fused: bool):
     return dict(params, stem=stem)
 
 
-def _stem_space_to_depth(stem, x, dtype, layout: str = "NCHW"):
+def _stem_space_to_depth(stem, x, dtype, layout: str = "NCHW", mesh=None):
     """The 7x7/s2 stem conv recomputed as a 4x4/s1 conv on the
     space-to-depth input with the folded kernel, padding (2, 1): the
     same products per output."""
     z = _s2d_rearrange(x, layout)
-    return nn.conv2d(stem["s2d_conv"], z, stride=1, padding=[(2, 1), (2, 1)], dtype=dtype)
+    return nn.conv2d(stem["s2d_conv"], z, stride=1, padding=[(2, 1), (2, 1)], dtype=dtype,
+                     mesh=mesh)
 
 
 def _stem_fused(stem, x, dtype, layout: str = "NCHW"):
@@ -231,18 +235,21 @@ def _build_resnet(variant: str, options) -> ModelDefinition:
         params["fc"] = _fc_init(rng, 512 * expansion, num_classes)
         return params
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
+        """``mesh``: data-parallel on a mesh (the rank's rows; only a W8A8
+        conv's batch-wide activation scale reaches across ranks)."""
         x = inputs["input"]
         # the kernel gate of the JAX package (models/resnet.py:219-230)
         if stem_s2d and stem_fused and image == 224 and nn.use_kernels(x):
             x = _stem_fused(params["stem"], x, dtype, layout)
         else:
             if stem_s2d:
-                x = _stem_space_to_depth(params["stem"], x.to(dtype), dtype, layout)
+                x = _stem_space_to_depth(params["stem"], x.to(dtype), dtype, layout, mesh)
             else:
                 if layout == "NCHW":
                     x = x.permute(0, 2, 3, 1)
-                x = nn.conv2d(params["conv1"], x.to(dtype), stride=2, padding=3, dtype=dtype)
+                x = nn.conv2d(params["conv1"], x.to(dtype), stride=2, padding=3, dtype=dtype,
+                              mesh=mesh)
             x = torch.relu(nn.batch_norm_inference(params["bn1"], x))
             x = nn.max_pool(x, window=3, stride=2, padding=[(1, 1), (1, 1)])
         for stage, depth in enumerate(depths, start=1):
@@ -250,9 +257,9 @@ def _build_resnet(variant: str, options) -> ModelDefinition:
                 stride = 2 if (stage > 1 and i == 0) else 1
                 p = params[f"layer{stage}"][i]
                 if kind == "basic":
-                    x = _apply_basic_block(p, x, stride, dtype)
+                    x = _apply_basic_block(p, x, stride, dtype, mesh)
                 else:
-                    x = _apply_bottleneck_block(p, x, stride, groups, dtype)
+                    x = _apply_bottleneck_block(p, x, stride, groups, dtype, mesh)
         x = nn.global_avg_pool(x)
         logits = nn.dense(params["fc"], x, dtype)
         return {"output": logits.to(torch.float32)}

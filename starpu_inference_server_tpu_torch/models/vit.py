@@ -65,14 +65,24 @@ def _encoder_block_init(rng, dim, mlp_dim) -> Dict[str, Any]:
     }
 
 
-def _encoder_block_apply(p, x, heads, dtype):
+def _encoder_block_apply(p, x, heads, dtype, mesh=None):
     h = nn.layer_norm(p["ln1"], x)
-    x = x + nn.multi_head_attention(p["attn"], h, None, heads, dtype)
+    x = x + nn.multi_head_attention(p["attn"], h, None, heads, dtype, mesh=mesh)
     h = nn.layer_norm(p["ln2"], x)
     h = nn.dense(p["mlp"]["fc1"], h, dtype)
     h = nn.gelu(h)
-    h = nn.dense(p["mlp"]["fc2"], h, dtype)
+    h = nn.dense(p["mlp"]["fc2"], h, dtype, mesh=mesh)
     return x + h
+
+
+def _channel_block(t: torch.Tensor, mesh, channels: int) -> torch.Tensor:
+    """The rank's ``channels`` of a replicated [..., dim] leaf (the patch
+    conv's bias, the class token) where the patch channels shard over
+    ``model``; the leaf itself without a mesh."""
+    if mesh is None or t.shape[-1] == channels:
+        return t
+    off = mesh.coord("model") * channels
+    return t[..., off:off + channels]
 
 
 def _build_vit(variant: str, options) -> ModelDefinition:
@@ -97,16 +107,24 @@ def _build_vit(variant: str, options) -> ModelDefinition:
             "head": _linear_init(rng, dim, num_classes),
         }
 
-    def apply(params, inputs, dtype):
+    def apply(params, inputs, dtype, mesh=None):
+        """``mesh``: tensor-parallel over ``model`` on the rank's rows: the
+        patch conv's output channels and ``pos_embed`` are the rank's (the
+        activation gathered before the first layer norm), the blocks run
+        local heads with row-parallel o and fc2, the head replicates."""
         x = inputs["input"].permute(0, 2, 3, 1).to(dtype)  # NCHW wire -> NHWC
-        x = nn.conv2d(params["patch_embed"], x, stride=PATCH, padding="VALID", dtype=dtype)
+        pos = params["pos_embed"]
+        local = pos.shape[-1]
+        patch = dict(params["patch_embed"],
+                     b=_channel_block(params["patch_embed"]["b"], mesh, local))
+        x = nn.conv2d(patch, x, stride=PATCH, padding="VALID", dtype=dtype, mesh=mesh)
         b = x.shape[0]
-        x = x.reshape(b, num_patches, dim)
-        cls = params["cls_token"].to(dtype).expand(b, 1, dim)
+        x = x.reshape(b, num_patches, local)
+        cls = _channel_block(params["cls_token"], mesh, local).to(dtype).expand(b, 1, local)
         x = torch.cat([cls, x], dim=1)
-        x = x + params["pos_embed"].to(dtype)
+        x = nn.gather_features(x + pos.to(dtype), mesh)
         for blk in params["blocks"]:
-            x = _encoder_block_apply(blk, x, heads, dtype)
+            x = _encoder_block_apply(blk, x, heads, dtype, mesh)
         x = nn.layer_norm(params["ln_final"], x)
         logits = nn.dense(params["head"], x[:, 0, :], dtype)
         return {"output": logits.to(torch.float32)}

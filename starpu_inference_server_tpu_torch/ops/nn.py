@@ -12,6 +12,25 @@ when the tensors are on CUDA. ``set_use_kernels(True)`` forces them on
 CPU as well, where every kernel wrapper runs its plain version (the
 tests compare that route with the JAX package's interpret-mode
 kernels); ``set_use_kernels(False)`` turns them off on the card too.
+
+On a mesh (GSPMD mode, ``parallel/``) a rank holds its shard of every
+weight and computes on it; the ``mesh`` arguments make the collectives
+that XLA inserts under GSPMD explicit. Without a mesh every call is
+unchanged:
+
+- ``dense(..., mesh=)`` is a ROW-parallel layer (o, fc2, down): its
+  input is the rank's shard of the contraction dim and the partial
+  products are summed over ``model`` before the bias. Under W8A8 the
+  per-row activation scale comes from the abs-max of the WHOLE row (an
+  all-reduce MAX over ``model``) and the s32 partial sums are summed
+  exactly, so the result is the single-device layer's (under W4A8 the
+  partial sums come from the W4A8 kernel at unit scales);
+- ``multi_head_attention(..., mesh=)`` attends over the rank's
+  ``heads / model`` local heads and projects through the row-parallel o;
+- ``gather_features`` is the all-gather of a feature-sharded activation
+  (embeddings, ViT's patch channels);
+- ``conv2d(..., mesh=)``: a W8A8 conv's per-tensor activation scale
+  spans the whole batch, so its abs-max is all-reduced over ``data``.
 """
 
 from __future__ import annotations
@@ -88,17 +107,49 @@ def _int_mm_s32(x_q: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
     return y[:, :n] if np_ else y
 
 
-def _int_dot(x_q: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
+def _int_dot(x_q: torch.Tensor, w_int: torch.Tensor, mesh=None) -> torch.Tensor:
     """Exact s8 x s8 contraction (XLA's preferred_element_type=int32) as
     f32: on CUDA above 16 rows the s32 product of :func:`_int_mm_s32`,
     elsewhere float64, where every partial sum is exact. Both give the
-    same integers, rounded once to f32 as XLA's int32 -> f32 cast does."""
+    same integers, rounded once to f32 as XLA's int32 -> f32 cast does.
+    With ``mesh`` (a row-parallel layer) the ranks' integer partial sums
+    are summed over ``model`` first (:func:`_sum_integers`)."""
     if x_q.is_cuda and x_q.shape[0] > 16:
-        return _int_mm_s32(x_q, w_int).to(torch.float32)
-    return (x_q.to(torch.float64) @ w_int.to(torch.float64)).to(torch.float32)
+        y = _int_mm_s32(x_q, w_int)
+    else:
+        y = x_q.to(torch.float64) @ w_int.to(torch.float64)
+    return _sum_integers(y, mesh)
 
 
-def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True) -> torch.Tensor:
+def _sum_integers(y: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Integer partial sums (each exact in its dtype) summed over
+    ``model`` in float64, exactly, then rounded once to f32: the
+    single-device contraction's value whatever the split of K."""
+    if mesh is not None:
+        from ..parallel.collectives import psum
+        from ..parallel.mesh import MODEL_AXIS
+
+        y = psum(mesh, y.to(torch.float64), MODEL_AXIS)
+    return y.to(torch.float32)
+
+
+def _quantize_rows(x2: torch.Tensor, mesh=None):
+    """Per-row int8 activations (``quantize_activations``); with ``mesh``
+    the row's abs-max is taken over every ``model`` shard of it (an
+    all-reduce MAX), as XLA reduces it under GSPMD."""
+    if mesh is None:
+        return quantize_activations(x2)
+    from ..parallel.collectives import pmax
+    from ..parallel.mesh import MODEL_AXIS
+
+    xf = x2.to(torch.float32)
+    absmax = pmax(mesh, xf.abs().amax(dim=-1, keepdim=True), MODEL_AXIS)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True,
+          mesh=None) -> torch.Tensor:
     """y = x @ w + b with ``p = {'w': [in, out] dense or quantized, 'b'?}``.
 
     Dispatch, in the JAX package's order (``ops/nn.py:85-160``):
@@ -111,18 +162,34 @@ def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True) -> t
 
     ``act_quant=False`` keeps this call weight-only under W8A8 (the JAX
     package's attention projections).
+
+    ``mesh``: this is a row-parallel layer on a mesh (the module
+    docstring): the products are summed over ``model`` before the bias,
+    exactly under W8A8. The W4A8 kernel then runs on the rank's rows with
+    unit scales, so its f32 output is the rank's integer partial sum
+    (exact below 2**24, which holds for K / model < 16,513: |x_q w| <=
+    127 * 8 a term), and the scales follow the exact sum, in the kernel's
+    order ``(acc * x_scale) * scale``.
     """
     w = p["w"]
+    row = mesh if mesh is not None and mesh.size("model") > 1 else None  # sums over model
     lead = x.shape[:-1]
     rows = 1
     for d in lead:
         rows *= d
     kern = use_kernels(x)
     use_w8a8 = _W8A8 and act_quant
+    exact = False  # the partial sums were summed exactly over the mesh
     if is_packed_int4_leaf(w) and kern and use_w8a8:
         x2 = x.reshape(rows, x.shape[-1])
-        x_q, sx = quantize_activations(x2)
-        y = mk.int4_matmul_w4a8(x_q, sx, w["w_p4"], w["scale"])
+        x_q, sx = _quantize_rows(x2, row)
+        if row is None:
+            y = mk.int4_matmul_w4a8(x_q, sx, w["w_p4"], w["scale"])
+        else:
+            ones = torch.ones((), dtype=torch.float32, device=x_q.device)
+            acc = mk.int4_matmul_w4a8(x_q, ones.expand(rows), w["w_p4"],
+                                      ones.expand(w["scale"].numel()))
+            y, exact = _sum_integers(acc, row) * sx * w["scale"].reshape(1, -1), True
         y = y.reshape(*lead, -1)
     elif is_packed_int4_leaf(w) and kern:
         x2 = x.reshape(rows, x.shape[-1])
@@ -130,23 +197,28 @@ def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True) -> t
         y = y.reshape(*lead, -1)
     elif is_packed_int4_leaf(w) and use_w8a8:
         x2 = x.reshape(rows, x.shape[-1])
-        x_q, sx = quantize_activations(x2)
-        y = _int_dot(x_q, unpack_int4(w["w_p4"])) * sx * w["scale"].reshape(1, -1)
-        y = y.reshape(*lead, -1)
+        x_q, sx = _quantize_rows(x2, row)
+        y = _int_dot(x_q, unpack_int4(w["w_p4"]), row) * sx * w["scale"].reshape(1, -1)
+        y, exact = y.reshape(*lead, -1), True
     elif is_quantized_leaf(w) and kern and rows <= 64:
         x2 = x.reshape(rows, x.shape[-1])
         y = mk.int8_matmul(x2.to(dtype), w["w_q"], w["scale"])
         y = y.reshape(*lead, -1)
     elif is_quantized_leaf(w) and use_w8a8:
         x2 = x.reshape(rows, x.shape[-1])
-        x_q, sx = quantize_activations(x2)
-        y = _int_dot(x_q, w["w_q"]) * sx * w["scale"].reshape(1, -1)
-        y = y.reshape(*lead, -1)
+        x_q, sx = _quantize_rows(x2, row)
+        y = _int_dot(x_q, w["w_q"], row) * sx * w["scale"].reshape(1, -1)
+        y, exact = y.reshape(*lead, -1), True
     else:
         # products of dtype-rounded operands, accumulated in f32 (the
         # JAX path's preferred_element_type=float32)
         wm = resolve_weight(w, dtype)
         y = torch.matmul(x.to(dtype).to(torch.float32), wm.to(torch.float32))
+    if row is not None and not exact:
+        from ..parallel.collectives import psum
+        from ..parallel.mesh import MODEL_AXIS
+
+        y = psum(row, y, MODEL_AXIS)  # the f32 partial products, before the bias
     if "b" in p and p["b"] is not None:
         y = y + p["b"].to(torch.float32)
     return y.to(dtype)
@@ -201,18 +273,26 @@ def _patches(x: torch.Tensor, kh: int, kw: int, stride: int, pads) -> torch.Tens
     return torch.stack(taps, dim=3)
 
 
-def _conv2d_w8a8(wnode, x: torch.Tensor, stride: int, pads, groups: int) -> torch.Tensor:
+def _conv2d_w8a8(wnode, x: torch.Tensor, stride: int, pads, groups: int,
+                 mesh=None) -> torch.Tensor:
     """The W8A8 conv of the JAX package (``ops/nn.py:183-198``): ONE
     per-tensor activation scale over the whole batch (absmax / 127, 1 for
     an all-zero input), ``x_q = clip(round(x / sx), -127, 127)``, an exact
     s8 x s8 -> s32 conv (im2col and :func:`_int_dot`, group by group),
     then ``f32(y) * sx * scale[O]`` in that order. An f32 conv of the
     int8 values would not be exact: a 3x3x512 window reaches 127^2 x 4608,
-    past 2^24. Returns f32 [B, Ho, Wo, O]."""
+    past 2^24. With ``mesh`` (a batch sharded over ``data``) the abs-max is
+    all-reduced over ``data``: the scale spans the whole batch, as under
+    GSPMD. Returns f32 [B, Ho, Wo, O]."""
     w_q = wnode["w_q"]
     kh, kw, cin_g, out = w_q.shape
     xf = x.to(torch.float32)
     absmax = xf.abs().amax()
+    if mesh is not None:
+        from ..parallel.collectives import pmax
+        from ..parallel.mesh import DATA_AXIS
+
+        absmax = pmax(mesh, absmax, DATA_AXIS)
     sx = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     x_q = torch.clamp(torch.round(xf / sx), -127, 127).to(torch.int8)
     cols = _patches(x_q, kh, kw, stride, pads)  # [B, Ho, Wo, kh kw, C]
@@ -257,7 +337,7 @@ def _cudnn_conv(xc: torch.Tensor, wc: torch.Tensor, stride: int, pads, groups: i
 
 
 def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
-           dtype=torch.bfloat16) -> torch.Tensor:
+           dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """NHWC conv, ``p = {'w': [kh, kw, in/groups, out] dense or int8, 'b'?}``.
 
     Products of dtype-rounded operands accumulated in f32, as the JAX
@@ -268,12 +348,13 @@ def conv2d(p, x: torch.Tensor, stride: int = 1, padding="SAME", groups: int = 1,
     :func:`_cudnn_conv`); elsewhere it runs in f32 on the rounded
     operands. Under W8A8 an int8 (or int4-valued) weight takes the exact
     s8 x s8 conv of :func:`_conv2d_w8a8`, whose per-tensor activation
-    scale spans the batch, in both packages."""
+    scale spans the batch, in both packages (the whole batch over a
+    ``mesh``'s ``data`` axis)."""
     wnode = p["w"]
     if is_quantized_leaf(wnode) and _W8A8:
         kh, kw = wnode["w_q"].shape[:2]
         pads = _spatial_pads(padding, x.shape[1], x.shape[2], kh, kw, stride)
-        y = _conv2d_w8a8(wnode, x, stride, pads, groups)
+        y = _conv2d_w8a8(wnode, x, stride, pads, groups, mesh)
     else:
         w = resolve_weight(wnode, dtype)
         kh, kw = w.shape[0], w.shape[1]
@@ -359,16 +440,31 @@ def _attention(q, k, v, mask, num_heads: int, dtype) -> torch.Tensor:
 
 
 def multi_head_attention(p, x: torch.Tensor, mask: Optional[torch.Tensor], num_heads: int,
-                         dtype=torch.bfloat16) -> torch.Tensor:
+                         dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """Post-LN transformer MHA block body: q/k/v projections, attention,
     output projection; ``p = {'q', 'k', 'v', 'o'}``, each a dense layer.
     The projections run weight-only (``act_quant=False``) under W8A8, as
-    in the JAX package."""
+    in the JAX package. On a ``mesh`` q/k/v are the rank's column shards
+    (its ``num_heads / model`` heads), the attention runs on those local
+    heads and o is row-parallel."""
+    heads = num_heads // (mesh.size("model") if mesh is not None else 1)
     q = dense(p["q"], x, dtype, act_quant=False)
     k = dense(p["k"], x, dtype, act_quant=False)
     v = dense(p["v"], x, dtype, act_quant=False)
-    out = _attention(q, k, v, mask, num_heads, dtype)
-    return dense(p["o"], out, dtype, act_quant=False)
+    out = _attention(q, k, v, mask, heads, dtype)
+    return dense(p["o"], out, dtype, act_quant=False, mesh=mesh)
+
+
+def gather_features(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """A feature-sharded activation (its last dim over ``model``) made
+    whole on every rank: the all-gather GSPMD inserts after a
+    feature-sharded embedding or conv. The identity without a mesh."""
+    if mesh is None:
+        return x
+    from ..parallel.collectives import all_gather
+    from ..parallel.mesh import MODEL_AXIS
+
+    return all_gather(mesh, x, MODEL_AXIS, dim=-1)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: int, padding="SAME") -> torch.Tensor:

@@ -1,19 +1,34 @@
-"""Rank processes of a pipelined server: the stage worker, the commands
-rank 0 sends, the follower loop, and the spawning of a world.
+"""Rank processes of a mesh server: the workers, the commands rank 0
+sends, the follower loop, and the spawning of a world.
 
 The JAX package runs a mesh as ONE program over many devices. Here each
 mesh position is a process and rank 0 drives: it runs the gRPC server
-and the ``GenerationEngine`` (admission, scheduling, sampling, streams)
-and, before each prefill, decode step or verify window, broadcasts a
-small command (:class:`PipeWorker`): the operation, its host ints, and
-the ids, active mask and slot lengths. Every rank then runs the same
-``pipelined_*`` program on its own stage; the other ranks sit in
-:func:`follow` until a stop command. Commands, weights and statistics
-travel on the mesh's CPU-side control group.
+and the engine (admission, scheduling, sampling, streams; or the batch
+pipeline) and, before each piece of device work, broadcasts a small
+command through its worker (:class:`MeshWorker`): the operation, its host
+ints and its int32 payload. Every rank then runs the same program on its
+own shard; the other ranks sit in :func:`follow` until a stop command.
+Commands, weights and statistics travel on the mesh's CPU-side control
+group. The workers:
 
-A pipelined call that fails on any rank leaves the others inside the
-same program, so the world cannot go on: rank 0 calls
-``PipeWorker.on_fatal`` (the CLI's exits the process), a follower
+- :class:`PipeWorker`, pipe mode (a ``pipe`` axis): the ``pipelined_*``
+  stage programs of ``pipeline_decode.py``;
+- :class:`GspmdWorker`, GSPMD-mode generation (no ``pipe`` axis): the
+  slots sharded over ``data`` (each data group holds ``S / data`` slots
+  of the cache, its kv heads over ``model``), the weights tensor- and
+  expert-parallel; a prefill runs on the data group that owns the slot,
+  a decode step or verify window on every group's own slots, and the
+  logits come back whole to rank 0 (an all-gather over ``data``); a
+  prefix-cache hit's row copy may cross groups;
+- :class:`BatchWorker`, the batch engine (``core/engine.py``) on any
+  mesh: rank 0's padded batch scattered over ``data`` (whole to every
+  rank in pipe mode, where the JAX forward replicates it), the family's
+  ``apply`` (or ``pipeline_apply``) on the rank's shard, the outputs
+  gathered over ``data``; and the hot reload of every rank's shard.
+
+A call that fails on any rank leaves the others inside the same
+program, so the world cannot go on: rank 0 calls
+``MeshWorker.on_fatal`` (the CLI's exits the process), a follower
 raises out of :func:`follow`, and the collectives' timeout
 (``initialize_distributed``) turns a hung rank into an error on the
 others. :func:`serve_mesh`, the server CLI's launcher, spawns one
@@ -33,98 +48,62 @@ import pickle
 import signal
 import sys
 import tempfile
+import threading
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from .mesh import MeshAxes, RankMesh
+from .mesh import DATA_AXIS, MeshAxes, RankMesh
 
-OP_STOP, OP_PREFILL, OP_DECODE, OP_VERIFY, OP_STATS, OP_RESET = range(6)
+(OP_STOP, OP_PREFILL, OP_DECODE, OP_VERIFY, OP_STATS, OP_RESET, OP_CHUNK, OP_FORWARD,
+ OP_RELOAD, OP_COPY) = range(10)
 _HEADER = 8  # int64 words: op, payload length, up to six host ints
 
 
-class PipeWorker:
-    """One rank's pipelined decoder: its parameter shard, its shard of the
-    stacked KV cache (``cache``; lengths replicated) and the three stage
-    programs. On rank 0 :meth:`prefill`, :meth:`decode` and :meth:`verify`
-    broadcast their command first; the followers run the same programs
-    from :func:`follow`."""
+class MeshWorker:
+    """Rank 0's command channel and every rank's side of it: rank 0's
+    driven calls broadcast a command, then run the program; a follower
+    receives the command (:meth:`receive`) and runs the same program
+    (:meth:`execute`, through the subclass's :meth:`run_command`). One
+    command and its program at a time: several threads of rank 0 (the
+    batch engine's lanes) take turns on the mesh."""
 
-    def __init__(self, mesh: RankMesh, spec, params, num_slots: int, max_len: int, dtype,
-                 microgroups: int, chunks: int):
-        from .pipeline_decode import init_stage_cache
-
+    def __init__(self, mesh: RankMesh):
         self.mesh = mesh
-        self.spec = spec
-        self.params = params
-        self.dtype = dtype
-        self.microgroups = microgroups
-        self.chunks = chunks
-        self.num_slots = num_slots
-        self.cache = init_stage_cache(spec, num_slots, max_len, mesh, mesh.device)
         # rank 0: called with the exception when a driven call fails (the
         # world is broken then); None re-raises only
         self.on_fatal: Optional[Callable[[BaseException], None]] = None
-
-    # -- the programs (every rank) ----------------------------------------
-
-    def run_prefill(self, ids: torch.Tensor, length: int, slot: int):
-        from .pipeline_decode import pipelined_prefill
-
-        return pipelined_prefill(self.spec, self.params, self.cache, ids, length, slot,
-                                 self.mesh, self.dtype, num_chunks=self.chunks)[1]
-
-    def run_decode(self, ids: torch.Tensor, active: torch.Tensor):
-        from .pipeline_decode import pipelined_decode_step
-
-        return pipelined_decode_step(self.spec, self.params, self.cache, ids, active,
-                                     self.mesh, self.dtype, self.microgroups)[1]
-
-    def run_verify(self, ids: torch.Tensor, active: torch.Tensor):
-        from .pipeline_decode import pipelined_verify_step
-
-        return pipelined_verify_step(self.spec, self.params, self.cache, ids, active,
-                                     self.mesh, self.dtype, self.microgroups)[1]
-
-    # -- rank 0: command, then the program --------------------------------
+        self._turn = threading.Lock()
 
     def _driven(self, op: int, ints: Sequence[int], tensors: Sequence[torch.Tensor], run):
-        try:
-            self._command(op, ints, list(tensors) + [self.cache.lengths])
-            return run()
-        except BaseException as exc:
-            if self.on_fatal is not None and not isinstance(exc, KeyboardInterrupt):
-                self.on_fatal(exc)
-            raise
-
-    def prefill(self, ids: torch.Tensor, length: int, slot: int) -> torch.Tensor:
-        return self._driven(OP_PREFILL, (ids.shape[0], length, slot), (ids,),
-                            lambda: self.run_prefill(ids, length, slot))
-
-    def decode(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-        return self._driven(OP_DECODE, (), (ids, active),
-                            lambda: self.run_decode(ids, active))
-
-    def verify(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
-        return self._driven(OP_VERIFY, (ids.shape[1],), (ids, active),
-                            lambda: self.run_verify(ids, active))
+        with self._turn:
+            try:
+                self._command(op, ints, tensors)
+                return run()
+            except BaseException as exc:
+                if self.on_fatal is not None and not isinstance(exc, KeyboardInterrupt):
+                    self.on_fatal(exc)
+                raise
 
     def stop_followers(self) -> None:
         """Send the stop command: every follower leaves :func:`follow`."""
-        self._command(OP_STOP, (), ())
+        with self._turn:
+            self._command(OP_STOP, (), ())
 
     def gather_stats(self) -> List[dict]:
         """Every rank's kernel launches and collective counts (rank order),
         on rank 0; the followers answer from :func:`follow`."""
-        self._command(OP_STATS, (), ())
-        return self._stats_exchange()
+        with self._turn:
+            self._command(OP_STATS, (), ())
+            return self._stats_exchange()
 
     def reset_stats(self) -> None:
         """Zero every rank's kernel launch and collective counts."""
-        self._command(OP_RESET, (), ())
-        _reset_counts(self.mesh)
+        with self._turn:
+            self._command(OP_RESET, (), ())
+            _reset_counts(self.mesh)
 
     def _stats_exchange(self) -> Optional[List[dict]]:
         import torch.distributed as dist
@@ -150,8 +129,6 @@ class PipeWorker:
         if payload.numel():
             broadcast(self.mesh, payload, group=self.mesh.control, axis="control")
 
-    # -- a follower ------------------------------------------------------
-
     def receive(self):
         """The next command: (op, host ints, int32 payload on the CPU)."""
         from .collectives import broadcast
@@ -166,29 +143,317 @@ class PipeWorker:
 
     def execute(self, op: int, ints: List[int], payload: torch.Tensor) -> bool:
         """Run one received command; False after the stop command."""
-        s = self.num_slots
-        dev = self.mesh.device
         if op == OP_STOP:
             return False
         if op == OP_STATS:
             self._stats_exchange()
-            return True
-        if op == OP_RESET:
+        elif op == OP_RESET:
             _reset_counts(self.mesh)
-            return True
-        data = payload.to(dev)
+        else:
+            self.run_command(op, ints, payload)
+        return True
+
+    def run_command(self, op: int, ints: List[int], payload: torch.Tensor) -> None:
+        raise ValueError(f"unknown command {op} for {type(self).__name__}")
+
+
+class _DecoderWorker(MeshWorker):
+    """A decoder's worker: rank 0's :meth:`prefill`, :meth:`decode` and
+    :meth:`verify` send their command (ids, active mask and every slot's
+    length) and run the subclass's ``run_*`` program; a follower runs the
+    same program on the command's payload."""
+
+    def prefill(self, ids: torch.Tensor, length: int, slot: int) -> torch.Tensor:
+        return self._driven(OP_PREFILL, (ids.shape[0], length, slot),
+                            (ids, self.cache.lengths),
+                            lambda: self.run_prefill(ids, length, slot))
+
+    def decode(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        return self._driven(OP_DECODE, (), (ids, active, self.cache.lengths),
+                            lambda: self.run_decode(ids, active))
+
+    def verify(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        return self._driven(OP_VERIFY, (ids.shape[1],), (ids, active, self.cache.lengths),
+                            lambda: self.run_verify(ids, active))
+
+    def run_command(self, op: int, ints: List[int], payload: torch.Tensor) -> None:
+        """A follower's side: the payload is the command's ids (and active
+        mask), then the ``num_slots`` slot lengths, which replace the
+        rank's own before the program runs."""
+        s = self.num_slots
+        data = payload.to(self.mesh.device)
         self.cache.lengths.copy_(data[-s:])
         if op == OP_PREFILL:
             p, length, slot = ints[:3]
             self.run_prefill(data[:p], length, slot)
+        elif op == OP_CHUNK:
+            c, start, valid, slot = ints[:4]
+            self.run_chunk(data[:c], start, valid, slot)
         elif op == OP_DECODE:
             self.run_decode(data[:s], data[s:2 * s] > 0)
         elif op == OP_VERIFY:
             w = ints[0]
             self.run_verify(data[:s * w].reshape(s, w), data[s * w:s * w + s] > 0)
+        elif op == OP_COPY:
+            self.run_copy(*ints[:2])
         else:
-            raise ValueError(f"unknown pipe command {op}")
-        return True
+            super().run_command(op, ints, payload)
+
+
+class PipeWorker(_DecoderWorker):
+    """One rank's pipelined decoder: its parameter shard, its shard of the
+    stacked KV cache (``cache``; lengths replicated) and the three stage
+    programs. On rank 0 :meth:`prefill`, :meth:`decode` and :meth:`verify`
+    broadcast their command first; the followers run the same programs
+    from :func:`follow`."""
+
+    def __init__(self, mesh: RankMesh, spec, params, num_slots: int, max_len: int, dtype,
+                 microgroups: int, chunks: int):
+        from .pipeline_decode import init_stage_cache
+
+        super().__init__(mesh)
+        self.spec = spec
+        self.params = params
+        self.dtype = dtype
+        self.microgroups = microgroups
+        self.chunks = chunks
+        self.num_slots = num_slots
+        self.cache = init_stage_cache(spec, num_slots, max_len, mesh, mesh.device)
+
+    # -- the programs (every rank) ----------------------------------------
+
+    def run_prefill(self, ids: torch.Tensor, length: int, slot: int):
+        from .pipeline_decode import pipelined_prefill
+
+        return pipelined_prefill(self.spec, self.params, self.cache, ids, length, slot,
+                                 self.mesh, self.dtype, num_chunks=self.chunks)[1]
+
+    def run_decode(self, ids: torch.Tensor, active: torch.Tensor):
+        from .pipeline_decode import pipelined_decode_step
+
+        return pipelined_decode_step(self.spec, self.params, self.cache, ids, active,
+                                     self.mesh, self.dtype, self.microgroups)[1]
+
+    def run_verify(self, ids: torch.Tensor, active: torch.Tensor):
+        from .pipeline_decode import pipelined_verify_step
+
+        return pipelined_verify_step(self.spec, self.params, self.cache, ids, active,
+                                     self.mesh, self.dtype, self.microgroups)[1]
+
+
+
+class GspmdWorker(_DecoderWorker):
+    """One rank's GSPMD-mode decoder: its parameter shard (decoder rules,
+    fused projections block-aligned), the cache of its data group's
+    ``num_slots / data`` slots at its ``kv_heads / model`` heads, and the
+    slot lengths of ALL slots (``cache.lengths``, replicated by every
+    command; the engine on rank 0 reads and writes them). The programs are
+    ``models/decoder.py``'s with ``mesh``: on rank 0 :meth:`prefill`,
+    :meth:`prefill_chunk`, :meth:`decode` and :meth:`verify` broadcast
+    their command first and return whole logits; the followers run the
+    same programs from :func:`follow`."""
+
+    def __init__(self, mesh: RankMesh, spec, params, num_slots: int, max_len: int, dtype):
+        import dataclasses
+
+        from ..models.decoder import KVCache, init_cache, local_heads
+
+        super().__init__(mesh)
+        self.spec = spec
+        self.params = params
+        self.dtype = dtype
+        self.num_slots = num_slots
+        self.per = num_slots // mesh.size(DATA_AXIS)  # check_mesh: divisible
+        self.group = mesh.coord(DATA_AXIS)
+        lo = self.group * self.per
+        _, kvh = local_heads(spec, mesh)
+        shard = init_cache(dataclasses.replace(spec, kv_heads=kvh), self.per, max_len,
+                           device=mesh.device)
+        lengths = torch.zeros((num_slots,), dtype=torch.int32, device=mesh.device)
+        # the engine's view: the rank's cache rows, every slot's length
+        self.cache = KVCache(k=shard.k, v=shard.v, k_scale=shard.k_scale,
+                             v_scale=shard.v_scale, lengths=lengths)
+        # the programs' view: the group's slots (its lengths a view of them)
+        self.local = KVCache(k=shard.k, v=shard.v, k_scale=shard.k_scale,
+                             v_scale=shard.v_scale, lengths=lengths[lo:lo + self.per])
+
+    # -- the programs (every rank) ----------------------------------------
+
+    def _mine(self, t: torch.Tensor) -> torch.Tensor:
+        lo = self.group * self.per
+        return t[lo:lo + self.per]
+
+    def _owned(self, slot: int, run) -> torch.Tensor:
+        """``run(local slot)`` on the data group that owns ``slot``, the
+        [V] logits it returns brought to every rank of every group (the
+        other groups contribute zeros)."""
+        from .collectives import gather_rows
+
+        group, local = divmod(slot, self.per)
+        out = torch.zeros((1, self.spec.vocab), dtype=torch.float32, device=self.mesh.device)
+        if group == self.group:
+            out = run(local)[None]
+        return gather_rows(self.mesh, out)[group]
+
+    def run_prefill(self, ids: torch.Tensor, length: int, slot: int) -> torch.Tensor:
+        from ..models.decoder import prefill
+
+        out = self._owned(slot, lambda local: prefill(
+            self.spec, self.params, self.local, ids, length, local, self.dtype, self.mesh)[1])
+        self.cache.lengths[slot] = length
+        return out
+
+    def run_chunk(self, ids: torch.Tensor, start: int, valid: int, slot: int) -> torch.Tensor:
+        from ..models.decoder import prefill_chunk
+
+        out = self._owned(slot, lambda local: prefill_chunk(
+            self.spec, self.params, self.local, ids, start, valid, local, self.dtype,
+            self.mesh)[1])
+        self.cache.lengths[slot] = start + valid
+        return out
+
+    def run_decode(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        from ..models.decoder import decode_step
+        from .collectives import gather_rows
+
+        before = self.cache.lengths.clone()
+        logits = decode_step(self.spec, self.params, self.local, self._mine(ids),
+                             self._mine(active), self.dtype, self.mesh)[1]
+        self.cache.lengths.copy_(torch.where(active, before + 1, before))
+        return gather_rows(self.mesh, logits)
+
+    def run_verify(self, ids: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        from ..models.decoder import verify_step
+        from .collectives import gather_rows
+
+        logits = verify_step(self.spec, self.params, self.local, self._mine(ids),
+                             self._mine(active), self.dtype, self.mesh)[1]
+        return gather_rows(self.mesh, logits)
+
+    def run_copy(self, src: int, dst: int) -> None:
+        """Slot ``src``'s cache rows (every layer, the rank's kv heads) over
+        slot ``dst``'s, the device side of a dense prefix-cache hit: within
+        one data group a copy on its ranks; across groups each leaf's row
+        reaches every group by an all-gather over ``data`` (zeros from the
+        groups that do not own ``src``) and the group that owns ``dst``
+        writes it."""
+        from .collectives import gather_rows
+
+        (g_src, src), (g_dst, dst) = divmod(src, self.per), divmod(dst, self.per)
+        c = self.local
+        for leaves in (c.k, c.v, c.k_scale, c.v_scale):
+            for a in leaves:
+                if g_src == g_dst:
+                    if self.group == g_src:
+                        a[dst] = a[src]
+                    continue
+                row = a[src] if self.group == g_src else torch.zeros_like(a[src])
+                rows = gather_rows(self.mesh, row[None])
+                if self.group == g_dst:
+                    a[dst] = rows[g_src]
+
+    # -- rank 0: command, then the program (prefill, decode, verify: the base's)
+
+    def copy_rows(self, src: int, dst: int) -> None:
+        self._driven(OP_COPY, (src, dst), (self.cache.lengths,),
+                     lambda: self.run_copy(src, dst))
+
+    def prefill_chunk(self, ids: torch.Tensor, start: int, valid: int,
+                      slot: int) -> torch.Tensor:
+        return self._driven(OP_CHUNK, (ids.shape[0], start, valid, slot),
+                            (ids, self.cache.lengths),
+                            lambda: self.run_chunk(ids, start, valid, slot))
+
+
+class BatchWorker(MeshWorker):
+    """One rank's batch engine on a mesh: its shard of a ``BuiltModel``
+    (``model.params``) and the forward of one padded batch. GSPMD mode:
+    rank 0's batch is scattered over ``data``, every rank runs the family's
+    ``apply`` with the mesh on its rows and shard, and the outputs are
+    gathered over ``data``. Pipe mode (``pipelined``): every rank gets the
+    whole batch and runs the family's ``pipeline_apply`` over
+    ``microbatches``. Rank 0's :meth:`forward` returns the whole outputs on
+    its device. :meth:`reload` swaps every rank's shard between commands."""
+
+    def __init__(self, mesh: RankMesh, model, specs, pipelined: bool = False,
+                 microbatches: int = 1, place: Optional[Callable] = None):
+        super().__init__(mesh)
+        self.model = model
+        self.specs = list(specs)  # the staging specs: name, dims, wire dtype
+        self.pipelined = pipelined
+        self.microbatches = microbatches
+        self.place = place or (lambda params: params)
+
+    def _inputs(self, rows: int, host: Optional[Dict[str, torch.Tensor]]):
+        from ..utils.dtypes import torch_dtype
+        from .collectives import broadcast, scatter_rows
+
+        out = {}
+        for spec in self.specs:
+            shape, dt = (rows, *spec.dims), torch_dtype(spec.dtype)
+            x = host[spec.name].to(dt) if host is not None else None
+            if self.pipelined:  # the JAX pipelined forward replicates the batch
+                buf = x.contiguous() if x is not None else torch.empty(shape, dtype=dt)
+                out[spec.name] = broadcast(self.mesh, buf, group=self.mesh.control,
+                                           axis="world")
+            else:
+                out[spec.name] = scatter_rows(self.mesh, x, shape, dt)
+        return {k: v.to(self.mesh.device, non_blocking=True) for k, v in out.items()}
+
+    def run_forward(self, rows: int, host: Optional[Dict[str, torch.Tensor]] = None):
+        from .collectives import gather_rows
+
+        model = self.model  # one read: a reload swaps the whole model
+        inputs = self._inputs(rows, host)
+        with torch.inference_mode():
+            if self.pipelined:
+                return model.definition.pipeline_apply(model.params, inputs, self.mesh,
+                                                       self.microbatches, model.compute_dtype)
+            out = model.apply(inputs, mesh=self.mesh)
+            return {k: gather_rows(self.mesh, v) for k, v in out.items()}
+
+    def forward(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        rows = next(iter(host.values())).shape[0]
+        return self._driven(OP_FORWARD, (rows,), (), lambda: self.run_forward(rows, host))
+
+    def reload(self, shards, mine) -> None:
+        """Rank 0, between two forwards: send every other rank its shard
+        (``shards``, rank order, from ``weights.cut_shards``) and swap in
+        ``mine``, rank 0's shard placed and checked already."""
+        from ..weights import send_shards
+
+        def swap():
+            send_shards(shards, self.mesh)
+            self._swap(mine)
+
+        self._driven(OP_RELOAD, (), (), swap)
+
+    def _swap(self, params) -> None:
+        import dataclasses
+
+        self.model = dataclasses.replace(self.model, params=params)
+
+    def run_command(self, op: int, ints: List[int], payload: torch.Tensor) -> None:
+        if op == OP_FORWARD:
+            self.run_forward(ints[0])
+        elif op == OP_RELOAD:
+            from ..weights import receive_shard
+
+            self._swap(self.place(receive_shard(self.mesh)))
+        else:
+            super().run_command(op, ints, payload)
+
+
+def mesh_worker(server_or_engine):
+    """The :class:`MeshWorker` of an ``InferenceServer``, a generation
+    engine or a batch engine on a mesh (None without a mesh)."""
+    obj = server_or_engine
+    for name in ("generation_engine", "engine"):
+        inner = getattr(obj, name, None)
+        if inner is not None:
+            obj = inner
+            break
+    return getattr(obj, "worker", None)
 
 
 def _reset_counts(mesh: RankMesh) -> None:
@@ -200,7 +465,7 @@ def _reset_counts(mesh: RankMesh) -> None:
     mesh.stats.reset()
 
 
-def follow(worker: PipeWorker) -> None:
+def follow(worker: MeshWorker) -> None:
     """A follower's loop: run rank 0's commands until the stop command."""
     while worker.execute(*worker.receive()):
         pass
@@ -277,6 +542,9 @@ def run_world(target: str, world: int, payload: Any = None, timeout_s: float = 3
     os.makedirs(workdir, exist_ok=True)
     init = f"file://{os.path.join(workdir, 'store')}"
     paths = [os.path.join(workdir, f"rank{r}.pkl") for r in range(world)]
+    for path in paths + [os.path.join(workdir, "store")]:  # an earlier world's
+        if os.path.exists(path):
+            os.remove(path)
     procs = [ctx.Process(target=_world_rank, args=(target, r, world, init, payload, paths[r]))
              for r in range(world)]
     for p in procs:
@@ -325,9 +593,29 @@ def _stop_all(procs, grace_s: float = 10.0) -> None:
 
 # -- the server CLI ------------------------------------------------------------
 
+def follower_engine(cfg, mesh: RankMesh):
+    """A follower rank's engine for ``cfg``: the generation engine of a
+    decoder, else the batch engine of a shell model whose shard comes
+    from rank 0. Rank 0 builds its own through ``InferenceServer``."""
+    from ..models.registry import get_family
+    from ..serving.generation import build_generation_engine
+
+    definition = get_family(cfg.model.family, cfg.model.options)
+    if definition.supports_generation and not cfg.model.options.get("serve_logits", False):
+        return build_generation_engine(cfg, device=str(mesh.device), mesh=mesh)
+    from ..core.engine import ModelEngine
+    from ..models.registry import BuiltModel
+    from ..utils.dtypes import torch_dtype
+
+    shell = BuiltModel(definition=definition, params=None,
+                       compute_dtype=torch_dtype(cfg.model.compute_dtype),
+                       quant=cfg.model.quantization, device=mesh.device)
+    return ModelEngine(cfg, shell, mesh=mesh)
+
+
 def rank_main(rank: int, world: int, init_method: str, config_path: str, device: str,
               timeout_s: float, spawned: bool = True) -> None:
-    """One rank of a pipelined server (a :func:`serve_mesh` process, or the
+    """One rank of a mesh server (a :func:`serve_mesh` process, or the
     process itself when ``distributed.coordinator_address`` is set): join
     the mesh, build this rank's engine (rank 0 builds the seeded weights
     once and sends each rank its shard), then serve (rank 0) or follow.
@@ -336,7 +624,6 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
 
     import torch.distributed as dist
 
-    from ..serving.generation import build_generation_engine
     from ..utils.config import load_config
     from ..utils.logger import get_logger
 
@@ -359,7 +646,7 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
         from ..grpc.server import InferenceServer
 
         server = InferenceServer(cfg, device=str(mesh.device), mesh=mesh)
-        worker = server.generation_engine.pipe
+        worker = mesh_worker(server)
 
         def fatal(exc: BaseException) -> None:
             log.error("the mesh failed (%s: %s); exiting", type(exc).__name__, exc)
@@ -372,9 +659,9 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
         asyncio.run(server.serve())
         worker.stop_followers()
     else:
-        engine = build_generation_engine(cfg, device=str(mesh.device), mesh=mesh)
+        engine = follower_engine(cfg, mesh)
         log.info("rank %d ready in %.1f s", rank, time.perf_counter() - t0)
-        follow(engine.pipe)
+        follow(mesh_worker(engine))
     dist.destroy_process_group()
 
 
@@ -444,4 +731,6 @@ def serve_mesh(config_path: str, cfg, device: str, timeout_s: float = 300.0) -> 
     return code
 
 
-__all__ = ["PipeWorker", "follow", "join_mesh", "rank_main", "run_world", "serve_mesh"]
+__all__ = ["BatchWorker", "GspmdWorker", "MeshWorker", "PipeWorker", "follow",
+           "follower_engine", "join_mesh", "mesh_worker", "rank_main", "run_world",
+           "serve_mesh"]

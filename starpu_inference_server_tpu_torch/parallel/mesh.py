@@ -158,8 +158,8 @@ class RankMesh:
                 if self.rank in members:
                     self.groups[(EXPERT_AXIS, MODEL_AXIS)] = group
         # ranks along the pipe axis through this rank, by stage
-        c = self.coords
-        self.pipe_ranks = ranks[c[DATA_AXIS], :, c[EXPERT_AXIS], c[MODEL_AXIS]].tolist()
+        self._ranks = ranks
+        self.pipe_ranks = self.axis_ranks(PIPE_AXIS)
         # CPU-side control group (commands, weights, statistics): gloo over
         # the world; under nccl a gloo group of its own
         self.control = None if self.backend == "gloo" else dist.new_group(backend="gloo")
@@ -168,6 +168,17 @@ class RankMesh:
 
     def size(self, axis: str) -> int:
         return self.shape[axis]
+
+    def world_coords(self, axis: str) -> list:
+        """Every world rank's coordinate on ``axis``, in rank order."""
+        i = AXES.index(axis)
+        return [int(np.unravel_index(r, self.axes.shape)[i]) for r in range(self.world_size)]
+
+    def axis_ranks(self, axis: str) -> list:
+        """The world ranks along ``axis`` through this rank, by their
+        coordinate on it."""
+        index = tuple(slice(None) if a == axis else self.coords[a] for a in AXES)
+        return self._ranks[index].tolist()
 
     def coord(self, axis: str) -> int:
         return self.coords[axis]

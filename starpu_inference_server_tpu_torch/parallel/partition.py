@@ -189,3 +189,41 @@ def shard_stacked_layers(stacked: Any, coords: Dict[str, int], sizes: Dict[str, 
         stacked, lambda path, leaf: _shard_leaf(leaf, stacked_layer_spec(path, leaf, rules),
                                                 coords, sizes, trim=False),
         prefix="layers")
+
+
+def batch_sharding(mesh, rows: int) -> slice:
+    """The rank's rows of a batch whose leading dim is sharded over
+    ``data`` (the JAX ``batch_sharding``'s placement): contiguous blocks
+    in coordinate order."""
+    from .collectives import row_block
+
+    return row_block(mesh, rows)
+
+
+def sharded_forward(model, mesh, rules: Rules = None):
+    """(this rank's shard, forward) for a ``BuiltModel`` holding the whole
+    tree, over ``mesh`` (the JAX ``sharded_forward``, with ranks in place
+    of devices; every rank of the world calls it). The shard is
+    ``weights.rank_shard``'s (the family's rules and layer shuffle), or
+    ``shard_params``'s by ``rules`` when given.
+    ``forward(inputs)`` takes the WHOLE batch on every rank (a leading
+    dim divisible by the data size), runs the family's ``apply`` with the
+    mesh on the rank's rows and shard, and returns the whole outputs on
+    every rank (gathered over ``data``)."""
+    from ..weights import rank_shard
+    from .collectives import gather_rows
+
+    definition = model.definition
+    if rules is None:
+        shard = rank_shard(model.params, definition.spec, definition.family, mesh.coords,
+                           mesh.shape)
+    else:
+        shard = shard_params(model.params, mesh.coords, mesh.shape, rules)
+
+    def forward(inputs):
+        rows = batch_sharding(mesh, next(iter(inputs.values())).shape[0])
+        local = {name: t[rows].to(mesh.device) for name, t in inputs.items()}
+        out = definition.apply(shard, local, model.compute_dtype, mesh=mesh)
+        return {name: gather_rows(mesh, t) for name, t in out.items()}
+
+    return shard, forward

@@ -95,6 +95,7 @@ def pipeline_forward(
     x: torch.Tensor,
     num_microbatches: int,
     rules: Rules = None,
+    local: bool = False,
 ) -> torch.Tensor:
     """Run ``x`` through the stacked layers, pipelined over ``pipe``.
 
@@ -102,23 +103,27 @@ def pipeline_forward(
     is the whole stacked tree (leaves [L, ...], L divisible by the stage
     count); this rank cuts its own slice, and with ``rules`` its
     ``model`` / ``expert`` shard of every layer (``layer_fn`` then owes the
-    collectives, ``parallel/stage_body.py``). ``x`` [B, ...] is the same on
-    every rank, B divisible by ``num_microbatches``. Returns [B, ...] on
-    every rank."""
+    collectives, ``parallel/stage_body.py``). ``local``: ``stacked_params``
+    is already this rank's cut (``prepare_pipelined_params``). ``x`` [B, ...]
+    is the same on every rank, B divisible by ``num_microbatches``.
+    Returns [B, ...] on every rank."""
     stages = mesh.stages
     batch = x.shape[0]
     if batch % num_microbatches != 0:
         raise ValueError(
             f"batch {batch} not divisible by num_microbatches {num_microbatches}"
         )
-    n_layers = num_stacked(stacked_params)
-    if n_layers % stages != 0:
-        raise ValueError(f"{n_layers} layers not divisible by {stages} pipeline stages")
-    coords, sizes = mesh.coords, mesh.shape
-    if rules is None:
-        rules = []
-        sizes = {PIPE_AXIS: stages}
-    local = unstack_layers(shard_stacked_layers(stacked_params, coords, sizes, rules))
+    if local:
+        mine = unstack_layers(stacked_params)
+    else:
+        n_layers = num_stacked(stacked_params)
+        if n_layers % stages != 0:
+            raise ValueError(f"{n_layers} layers not divisible by {stages} pipeline stages")
+        coords, sizes = mesh.coords, mesh.shape
+        if rules is None:
+            rules = []
+            sizes = {PIPE_AXIS: stages}
+        mine = unstack_layers(shard_stacked_layers(stacked_params, coords, sizes, rules))
     m = num_microbatches
     mb = batch // m
     x_mb = x.reshape(m, mb, *x.shape[1:])
@@ -128,7 +133,7 @@ def pipeline_forward(
     for t in range(m + stages - 1):
         if 0 <= t - stage < m:  # this stage's microbatch t - stage
             y = x_mb[t - stage] if stage == 0 else buf
-            for layer in local:
+            for layer in mine:
                 y = layer_fn(layer, y)
             if stage == stages - 1:
                 outputs[t - stage] = y
@@ -141,13 +146,18 @@ def pipeline_forward(
 
 
 def pipelined_decoder_logits(spec, params, ids: torch.Tensor, mesh: RankMesh,
-                             num_microbatches: int = 4, dtype=torch.float32) -> torch.Tensor:
+                             num_microbatches: int = 4, dtype=torch.float32,
+                             sharded: bool = False) -> torch.Tensor:
     """Teacher-forcing decoder forward with the layer stack pipelined over
     ``pipe`` and tensor / expert parallelism inside the stages (the JAX
     function's contract): ``params`` is the whole tree, its ``layers`` a
     plain list (shuffled here for ``model`` > 1) or already stacked and
     shuffled. The embedding, final norm and lm head run on every rank on
-    the whole weights. Returns [B, T, vocab] f32 logits on every rank."""
+    the whole weights. ``sharded``: ``params`` is instead this rank's cut
+    (:func:`prepare_pipelined_params`, the batch engine's placement):
+    its stage's stacked layers, the embedding and lm head sharded over
+    ``model`` and gathered whole. Returns [B, T, vocab] f32 logits on
+    every rank."""
     from ..models.decoder import rms_norm, rope
     from ..ops import nn
     from .partition import _DECODER_RULES
@@ -184,7 +194,8 @@ def pipelined_decoder_logits(spec, params, ids: torch.Tensor, mesh: RankMesh,
         h = rms_norm(layer["mlp_norm"], x)
         return x + tp_mlp_block(mesh, spec, layer, h, dtype)
 
-    x = nn.embedding(params["embed"], ids, dtype)
+    gather = mesh if sharded else None
+    x = nn.gather_features(nn.embedding(params["embed"], ids, dtype), gather)
     layers = params["layers"]
     if isinstance(layers, dict):
         stacked = layers
@@ -192,9 +203,10 @@ def pipelined_decoder_logits(spec, params, ids: torch.Tensor, mesh: RankMesh,
         if tp > 1:
             layers = [shuffle_decoder_layer_for_tp(spec, layer, tp) for layer in layers]
         stacked = stack_layers(layers)
-    x = pipeline_forward(mesh, layer_fn, stacked, x, num_microbatches, rules=_DECODER_RULES)
+    x = pipeline_forward(mesh, layer_fn, stacked, x, num_microbatches, rules=_DECODER_RULES,
+                         local=sharded)
     x = rms_norm(params["final_norm"], x)
-    return nn.dense(params["lm_head"], x, dtype).to(torch.float32)
+    return nn.gather_features(nn.dense(params["lm_head"], x, dtype), gather).to(torch.float32)
 
 
 def prepare_pipelined_params(params, coords, sizes, rules: Rules, layer_shuffle=None):

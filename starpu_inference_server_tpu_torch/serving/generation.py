@@ -64,8 +64,25 @@ Differences from the JAX engine:
   the host). The JAX engine's guards hold (no ``data`` axis, no
   ``prefill_chunk``, buckets and slots divisible by the stages and
   microgroups, no flat or paged cache); prompt lookup, which the JAX
-  engine refuses on any mesh, runs here, its history on rank 0. A mesh
-  without a pipe axis (GSPMD mode) is not ported yet.
+  engine refuses on any mesh, runs here, its history on rank 0.
+- A mesh without a pipe axis runs in GSPMD mode
+  (``parallel/launch.py:GspmdWorker``): the KV slots are sharded over
+  ``data`` (each data group holds ``num_slots / data`` of them) and, in
+  the cache, the kv heads over ``model``, where the JAX engine shards the
+  slots only (the same values in another memory layout); the weights are
+  tensor- and expert-parallel by the family's rules with the fused
+  projections block-aligned. A prefill or prefill chunk runs on the data
+  group that owns the slot; every decode step and verify window runs on
+  every group's slots, and the whole logits reach rank 0, which runs
+  this engine's loop and samples. Its blocks run eagerly. The JAX
+  engine's guards hold: ``num_slots`` divisible by ``data``, no flat or
+  paged cache, no prompt lookup; a draft model lives on rank 0, its
+  verify windows on the mesh. A new request takes the lowest free slot
+  of the data group with the fewest slots taken (the JAX engine takes
+  the lowest free slot: there every group computes every prefill), so
+  prefills spread over the groups. A dense prefix-cache hit copies the
+  source slot's rows on the mesh, across data groups where it must
+  (``GspmdWorker.copy_rows``).
 """
 
 from __future__ import annotations
@@ -376,12 +393,14 @@ class GenerationEngine:
         self.mesh = mesh
         self._family = family
         self.pipe = None  # the rank's PipeWorker in pipe mode
+        self.worker = None  # the rank's mesh worker (pipe or GSPMD mode)
         self._pipe_stages = 0
         if mesh is not None:
-            self._pipe_stages, self._microgroups = check_pipe_mesh(
+            self._pipe_stages, self._microgroups = check_mesh(
                 spec, mesh, flat=self.flat_cache, prefill_chunk=prefill_chunk,
                 prefill_buckets=prefill_buckets, num_slots=num_slots,
-                pipe_microgroups=pipe_microgroups, kv_page_size=kv_page_size)
+                pipe_microgroups=pipe_microgroups, kv_page_size=kv_page_size,
+                prompt_lookup_ngram=prompt_lookup_ngram)
             device = mesh.device
         self.device = resolve_device(device)
         self.spec = spec
@@ -437,8 +456,8 @@ class GenerationEngine:
             from ..parallel.launch import PipeWorker
 
             self.kv_pool_pages = 0
-            self.pipe = PipeWorker(mesh, spec, self.params, num_slots, max_len, dtype,
-                                   self._microgroups, self._pipe_stages)
+            self.pipe = self.worker = PipeWorker(mesh, spec, self.params, num_slots, max_len,
+                                                 dtype, self._microgroups, self._pipe_stages)
             # rank 0's shard of the stacked cache; its lengths drive every rank
             self.cache = self.pipe.cache
             pipe = self.pipe
@@ -447,6 +466,20 @@ class GenerationEngine:
             self._step_fn = lambda sp, pr, c, ids, alive, dt: (c, pipe.decode(ids, alive))
             self._verify_fn = lambda sp, pr, c, ids, alive, dt: (c, pipe.verify(ids, alive))
             self._chunk_fn = None  # prefill_chunk is refused with a pipe
+        elif mesh is not None:
+            from ..parallel.launch import GspmdWorker
+
+            self.kv_pool_pages = 0
+            self.worker = GspmdWorker(mesh, spec, self.params, num_slots, max_len, dtype)
+            # rank 0's cache rows, every slot's length: the lengths drive every rank
+            self.cache = self.worker.cache
+            w = self.worker
+            self._prefill_fn = lambda sp, pr, c, ids, length, slot, dt: (
+                c, w.prefill(ids, length, slot))
+            self._chunk_fn = lambda sp, pr, c, ids, start, valid, slot, dt: (
+                c, w.prefill_chunk(ids, start, valid, slot))
+            self._step_fn = lambda sp, pr, c, ids, alive, dt: (c, w.decode(ids, alive))
+            self._verify_fn = lambda sp, pr, c, ids, alive, dt: (c, w.verify(ids, alive))
         else:
             self.kv_pool_pages = 0
             self.cache = init_cache(spec, num_slots, max_len, device=self.device,
@@ -522,11 +555,15 @@ class GenerationEngine:
         forced), as the JAX engine packs them on the TPU. In pipe mode a
         whole tree is cut to this rank's shard first (a shard, whose
         ``layers`` are stacked already, is taken as it is), and the stacked
-        layers become a list of per-layer views."""
+        layers become a list of per-layer views. In GSPMD mode ``params``
+        is this rank's shard (``weights.rank_shard``)."""
+        from ..weights import rank_shard
+
+        if self.mesh is None:
+            return self._place_local(params)
         if not self._pipe_stages:
             return self._place_local(params)
         from ..parallel.pipeline import unstack_layers
-        from ..weights import rank_shard
 
         if not isinstance(params["layers"], dict):
             params = rank_shard(params, self.spec, self._family, self.mesh.coords,
@@ -910,15 +947,25 @@ class GenerationEngine:
         finally:
             self._flush_prefill_batch(batch)
 
+    def _free_slot(self) -> Optional[int]:
+        """The slot the next request takes (under the lock), None if none
+        is free: the lowest free slot; in GSPMD mode the lowest free slot
+        of the data group with the fewest slots taken (active or
+        reserved), since a prefill runs on the group that owns the slot."""
+        free = [i for i, s in enumerate(self._slots) if s is None and i not in self._reserved]
+        if not free or self.worker is None or self._pipe_stages:
+            return free[0] if free else None
+        per = self.worker.per
+        taken = [per] * (self.num_slots // per)
+        for i in free:
+            taken[i // per] -= 1
+        return min(free, key=lambda i: (taken[i // per], i))
+
     def _admit_pending_inner(self, batch: List[tuple]) -> bool:
         admitted = False
         while True:
             with self._lock:
-                free = next(
-                    (i for i, s in enumerate(self._slots)
-                     if s is None and i not in self._reserved),
-                    None,
-                )
+                free = self._free_slot()
                 if free is None or not self._pending:
                     return admitted
                 request = self._pending.popleft()
@@ -963,7 +1010,9 @@ class GenerationEngine:
             try:
                 if hit is not None:
                     src, l_star = hit
-                    if src != free and not self.kv_page_size:
+                    if src != free and self.worker is not None:
+                        self.worker.copy_rows(src, free)  # GSPMD mode: every rank's rows
+                    elif src != free and not self.kv_page_size:
                         _copy_slot_rows(self.cache, src, free)
                     if src != free and self._draft_params is not None:
                         _copy_slot_rows(self._draft_cache, src, free)  # dense in every mode
@@ -1320,7 +1369,7 @@ class GenerationEngine:
             fn = self._prompt_lookup_block
         elif self._draft_params is not None:
             fn = self._speculative_block
-        elif snap["sample"] is None and not self._pipe_stages:
+        elif snap["sample"] is None and self.mesh is None:
             fn = self._greedy_block
         else:
             fn = self._decode_and_sample
@@ -1491,14 +1540,14 @@ class GenerationEngine:
         self._zero_lengths(slot)
 
 
-def check_pipe_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
-                    prefill_buckets, num_slots: int, pipe_microgroups: int,
-                    kv_page_size: int) -> tuple:
+def check_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
+               prefill_buckets, num_slots: int, pipe_microgroups: int,
+               kv_page_size: int, prompt_lookup_ngram: int = 0) -> tuple:
     """The JAX engine's mesh guards, on a ``RankMesh`` or its ``MeshAxes``
     (the engine checks its rank's mesh; ``build_generation_engine`` checks
-    a config's before any weights are built). Returns pipe mode's stage
-    and decode-microgroup counts."""
-    from ..parallel.mesh import MODEL_AXIS, PIPE_AXIS
+    a config's before any weights are built), for both modes. Returns pipe
+    mode's stage and decode-microgroup counts ((0, 0) in GSPMD mode)."""
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS
     from ..parallel.pipeline_decode import _axis, _microgroups, validate_pipe_mesh
     from ..parallel.tp_layout import validate_decoder_tp
 
@@ -1508,10 +1557,24 @@ def check_pipe_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
             "decode paths keep the standard layout)"
         )
     if _axis(mesh, PIPE_AXIS) <= 1:
-        raise NotImplementedError(
-            "a mesh without a pipe axis (GSPMD mode: slot-sharded decoding over "
-            "'data', tensor parallelism without stages) is not yet ported"
-        )
+        data = _axis(mesh, DATA_AXIS)
+        if num_slots % data != 0:
+            raise ValueError(
+                f"num_slots ({num_slots}) must be divisible by the "
+                f"mesh data axis ({data}) to shard the KV slots"
+            )
+        validate_decoder_tp(spec, _axis(mesh, MODEL_AXIS))
+        if kv_page_size:
+            raise ValueError(
+                "paged KV cache does not compose with mesh decoding "
+                "yet (slot-sharded dense cache only)"
+            )
+        if prompt_lookup_ngram:
+            raise ValueError(
+                "prompt_lookup_ngram does not compose with mesh "
+                "decoding yet (history buffer is unsharded)"
+            )
+        return 0, 0
     stages = validate_pipe_mesh(mesh)
     validate_decoder_tp(spec, _axis(mesh, MODEL_AXIS))
     if prefill_chunk:
@@ -1573,12 +1636,12 @@ def build_generation_engine(cfg, device=None, params=None, metrics=None,
     ``parallel.mesh.RankMesh`` for a config whose ``devices.mesh`` has
     more than one position (every rank calls this; without ``params``
     rank 0 builds the weights once and each rank gets its shard,
-    ``weights.pipelined_params``, and the draft model lives on rank 0).
+    ``weights.mesh_params``, and the draft model lives on rank 0).
 
     Sets the process-wide W8A8 flag from the config, on or off, every
     time (W8A8 and W4A8 quantize the dense layers' activations). Raises
-    ``NotImplementedError`` for non-decoder families and for a mesh
-    without a pipe axis; ``pin_cache_layouts`` is accepted
+    ``NotImplementedError`` for non-decoder families, and ``ValueError``
+    for a config mesh without rank meshes; ``pin_cache_layouts`` is accepted
     as a no-op (a TPU layout workaround) but refused with
     ``kv_cache_layout: flat``, as the JAX engine refuses it."""
     from ..models.registry import build_model, get_family
@@ -1614,11 +1677,11 @@ def build_generation_engine(cfg, device=None, params=None, metrics=None,
         # the engine's guards on the config's mesh, before any rank or weight
         from ..parallel.mesh import MeshAxes
 
-        check_pipe_mesh(definition.spec, MeshAxes(data=axes.data, model=axes.model,
-                                                  expert=axes.expert, pipe=axes.pipe),
-                        flat=layout == "flat", **{k: engine_opts[k] for k in (
-                            "prefill_chunk", "prefill_buckets", "num_slots",
-                            "pipe_microgroups", "kv_page_size")})
+        check_mesh(definition.spec, MeshAxes(data=axes.data, model=axes.model,
+                                             expert=axes.expert, pipe=axes.pipe),
+                   flat=layout == "flat", **{k: engine_opts[k] for k in (
+                       "prefill_chunk", "prefill_buckets", "num_slots",
+                       "pipe_microgroups", "kv_page_size", "prompt_lookup_ngram")})
         raise ValueError(
             f"devices.mesh of size {axes.size} runs as that many rank "
             "processes: start it from the server CLI (parallel/launch.py:serve_mesh) "
@@ -1629,9 +1692,9 @@ def build_generation_engine(cfg, device=None, params=None, metrics=None,
     nn.set_w8a8(cfg.model.quantization in (QuantMode.W8A8, QuantMode.W4A8))
     dev = mesh.device if mesh is not None else resolve_device(device)
     if params is None and mesh is not None:
-        from ..weights import pipelined_params
+        from ..weights import mesh_params
 
-        params = pipelined_params(cfg.model, cfg.seed, definition.spec, mesh)
+        params = mesh_params(cfg.model, cfg.seed, definition.spec, mesh)
     elif params is None:
         params = build_model(cfg.model, seed=cfg.seed, device=dev).params
     draft_spec, draft_params = (None, None) if mesh is not None and mesh.rank != 0 else \

@@ -127,7 +127,9 @@ class ExecutionLane:
             self._complete(master, None, CancelledError("cancelled"), self)
             return
 
-        bucket = master.bucket_size or self._cfg.bucket_for(master.batch_size())
+        # a mesh engine rounds the bucket up to its batch granularity
+        bucket = self._engine.effective_bucket(
+            master.bucket_size or self._cfg.bucket_for(master.batch_size()))
         slot = self._slot_pool.acquire()
         if slot is None:
             raise RuntimeError("slot pool closed")

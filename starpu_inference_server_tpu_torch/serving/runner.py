@@ -55,7 +55,7 @@ class TaskRunner:
         self.inflight = InflightTracker(cfg.max_inflight_tasks)
         self.slot_pool = SlotPool(
             engine.staging_specs(),
-            cfg.max_batch_size,
+            engine.effective_bucket(cfg.max_batch_size),
             cfg.pool_size,
             pin_memory=engine.device.type == "cuda",
         )

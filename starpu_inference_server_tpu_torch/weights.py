@@ -10,9 +10,12 @@ arrays become 0-d tensors, and ``ml_dtypes.bfloat16`` arrays (which an
 Orbax checkpoint's bf16 leaves restore to, and ``torch.from_numpy``
 refuses) become ``torch.bfloat16`` tensors of the same bits.
 
-For a pipelined mesh, :func:`rank_shard` cuts a whole tree to one mesh
-position's shard and :func:`pipelined_params` gives every rank its own:
-rank 0 builds the tree once and sends each rank its shard.
+On a mesh, :func:`rank_shard` cuts a whole tree to one mesh position's
+shard (pipe mode: stacked stages; GSPMD mode: the family's partition
+rules on the unstacked tree) and :func:`mesh_params` gives every rank its
+own: rank 0 builds the tree once and sends each rank its shard
+(:func:`scatter_shards`, :func:`receive_shard`; the batch engine's hot
+reload sends new shards the same way).
 """
 
 from __future__ import annotations
@@ -44,25 +47,37 @@ def params_from_numpy(tree, device="cpu"):
 
 
 def rank_shard(tree, spec, family: str, coords, sizes):
-    """The shard of a whole decoder tree (numpy or torch leaves) that the
-    mesh position ``coords`` holds for pipelined serving: every layer
-    column-shuffled for ``sizes['model']``-way tensor parallelism first,
-    then this stage's layers stacked and every leaf cut by the family's
-    partition rules (``parallel/pipeline.py:prepare_pipelined_params``).
-    The same block as the JAX leaf's ``addressable_shards`` there."""
-    from .parallel.mesh import MODEL_AXIS
-    from .parallel.partition import partition_rules_for
+    """The shard of a whole tree (numpy or torch leaves) of ``family``
+    (``spec``: its DecoderSpec, None for other families) that the mesh
+    position ``coords`` holds. With ``sizes['model']`` > 1 every layer is
+    first column-shuffled by the family's ``tp_layer_shuffle`` hook
+    (decoders' fused projections, ``parallel/tp_layout.py``). Pipe mode
+    (``sizes['pipe']`` > 1): this stage's layers stacked and every leaf
+    cut by the family's partition rules
+    (``parallel/pipeline.py:prepare_pipelined_params``); GSPMD mode: the
+    tree cut by the rules as it is (``parallel/partition.py:shard_params``).
+    The same block as the JAX leaf's ``addressable_shards`` there, but for
+    the block-aligned fused projections (GSPMD's split is contiguous)."""
+    import dataclasses
+
+    from .models.registry import get_family
+    from .parallel.mesh import MODEL_AXIS, PIPE_AXIS
+    from .parallel.partition import partition_rules_for, shard_params
     from .parallel.pipeline import prepare_pipelined_params
-    from .parallel.tp_layout import shuffle_decoder_layer_for_tp, validate_decoder_tp
 
+    options = dataclasses.asdict(spec) if spec is not None else {}
+    hook = get_family(family, options).tp_layer_shuffle
     tp = sizes.get(MODEL_AXIS, 1)
-    validate_decoder_tp(spec, tp)
-    shuffle = (lambda layer: shuffle_decoder_layer_for_tp(spec, layer, tp)) if tp > 1 else None
-    return prepare_pipelined_params(tree, coords, sizes, partition_rules_for(family),
-                                    layer_shuffle=shuffle)
+    shuffle = (lambda layer: hook(layer, tp)) if tp > 1 and hook is not None else None
+    rules = partition_rules_for(family)
+    if sizes.get(PIPE_AXIS, 1) > 1:
+        return prepare_pipelined_params(tree, coords, sizes, rules, layer_shuffle=shuffle)
+    if shuffle is not None:
+        tree = dict(tree, layers=[shuffle(layer) for layer in tree["layers"]])
+    return shard_params(tree, coords, sizes, rules)
 
 
-def _owned(tree, device):
+def own_shard(tree, device):
     """Every tensor leaf as a compact tensor of its own on ``device`` (a
     view would keep, or pickle, its whole base)."""
     def rec(node):
@@ -77,31 +92,55 @@ def _owned(tree, device):
     return rec(tree)
 
 
-def pipelined_params(settings, seed: int, spec, mesh):
-    """This rank's shard of the configured decoder's parameters, on its
-    device. Rank 0 builds the whole tree once (``models.registry.build_model``:
-    seeded or loaded, quantized as configured, on its device), cuts every
-    rank's shard (:func:`rank_shard`) and sends it over the mesh's control
-    group; the other ranks receive theirs. No other rank draws weights."""
-    import torch.distributed as dist
-
-    from .models.registry import build_model
-
-    sizes = dict(mesh.shape)
-    if mesh.rank != 0:
-        box = [None]
-        dist.recv_object_list(box, src=0, group=mesh.control)
-        return _owned(box[0], mesh.device)
-    tree = build_model(settings, seed=seed, device=mesh.device).params
+def cut_shards(tree, spec, family: str, mesh) -> list:
+    """Every rank's shard of ``tree`` (:func:`rank_shard`), in rank order,
+    where the tree lies."""
     from .parallel.mesh import AXES
 
+    sizes = dict(mesh.shape)
     ranks = np.arange(mesh.world_size).reshape(mesh.axes.shape)
-    own = None
-    for r in range(mesh.world_size):
-        coords = {a: int(c) for a, c in zip(AXES, np.argwhere(ranks == r)[0])}
-        shard = rank_shard(tree, spec, settings.family, coords, sizes)
-        if r == 0:
-            own = _owned(shard, mesh.device)
-        else:
-            dist.send_object_list([_owned(shard, "cpu")], dst=r, group=mesh.control)
-    return own
+    return [rank_shard(tree, spec, family,
+                       {a: int(c) for a, c in zip(AXES, np.argwhere(ranks == r)[0])}, sizes)
+            for r in range(mesh.world_size)]
+
+
+def send_shards(shards, mesh) -> None:
+    """Rank 0: send every other rank its shard of ``shards`` (rank order)
+    over the mesh's control group; they call :func:`receive_shard`."""
+    import torch.distributed as dist
+
+    for r in range(1, mesh.world_size):
+        dist.send_object_list([own_shard(shards[r], "cpu")], dst=r, group=mesh.control)
+
+
+def scatter_shards(tree, spec, family: str, mesh):
+    """Rank 0: cut every rank's shard of ``tree`` and send it
+    (:func:`cut_shards`, :func:`send_shards`); returns rank 0's own, on
+    its device."""
+    shards = cut_shards(tree, spec, family, mesh)
+    send_shards(shards, mesh)
+    return own_shard(shards[0], mesh.device)
+
+
+def receive_shard(mesh):
+    """A rank other than 0: its shard from :func:`scatter_shards`, on its
+    device."""
+    import torch.distributed as dist
+
+    box = [None]
+    dist.recv_object_list(box, src=0, group=mesh.control)
+    return own_shard(box[0], mesh.device)
+
+
+def mesh_params(settings, seed: int, spec, mesh):
+    """This rank's shard of the configured model's parameters, on its
+    device. Rank 0 builds the whole tree once (``models.registry.build_model``:
+    seeded or loaded, quantized as configured, on its device) and sends
+    every rank its shard; the other ranks receive theirs. No other rank
+    draws weights."""
+    from .models.registry import build_model
+
+    if mesh.rank != 0:
+        return receive_shard(mesh)
+    tree = build_model(settings, seed=seed, device=mesh.device).params
+    return scatter_shards(tree, spec, settings.family, mesh)

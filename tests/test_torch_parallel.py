@@ -269,8 +269,8 @@ def test_pipelined_engine_guards():
     with pytest.raises(ValueError, match="'data' mesh axis"):
         GenerationEngine(spec, None, mesh=tmesh.MeshAxes(pipe=2, data=2),
                          prefill_buckets=[8], device="cpu")
-    with pytest.raises(NotImplementedError, match="GSPMD"):
-        GenerationEngine(spec, None, mesh=tmesh.MeshAxes(model=2), device="cpu")
+    with pytest.raises(ValueError, match="divisible by the mesh data axis"):
+        GenerationEngine(spec, None, mesh=tmesh.MeshAxes(data=2), num_slots=3, device="cpu")
 
 
 def _mesh_cfg(mesh, **options):
@@ -296,7 +296,7 @@ def test_build_generation_engine_checks_a_config_mesh_before_its_ranks():
     refused."""
     from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
 
-    with pytest.raises(NotImplementedError, match="GSPMD"):
+    with pytest.raises(ValueError, match="start it from the server CLI"):
         build_generation_engine(_mesh_cfg({"data": 2}), device="cpu")
     with pytest.raises(ValueError, match="'data' mesh axis"):
         build_generation_engine(_mesh_cfg({"pipe": 2, "data": 2}), device="cpu")

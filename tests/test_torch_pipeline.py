@@ -42,6 +42,7 @@ from starpu_inference_server_tpu_torch.utils import config as port_config
 from starpu_inference_server_tpu_torch.utils import exceptions as port_exceptions
 from starpu_inference_server_tpu_torch.utils.clock import now_s
 from starpu_inference_server_tpu_torch.utils.config import SchedulerPolicy, TensorSpec
+from starpu_inference_server_tpu_torch.utils.exceptions import DeviceError
 
 PORT = types.SimpleNamespace(
     name="port", job=port_job, queue=port_queue, strategies=port_strategies,
@@ -542,9 +543,9 @@ def test_cancelled_job_completes_once_with_an_error(runner):
 
 
 def test_engine_requires_one_device_and_stages_bf16():
-    cfg = cfg_for("fixed", devices={"mesh": {"data": 2}})
+    cfg = cfg_for("fixed", devices={"mesh": {"pipe": 2}})
     model = build_model(cfg.model, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(DeviceError, match="has no pipeline_apply"):
         ModelEngine(cfg, model)
     cfg = cfg_for("fixed", model={"family": "add_one", "compute_dtype": "BF16",
                                   "options": {"dims": [4]}})
