@@ -185,10 +185,12 @@ read from its server's log (the counts after warmup and at shutdown):
     ci_perf_resnet.csv is not replayed, for the run's time limit); one
     image's response equal, bit for bit, on both servers; int8_matmul (the
     fc) launched, fused_stem not;
-18. configs/llama_decoder.yml: the generation client, 128 requests of 32
-    tokens at concurrency 128, unary (which pays for the decode graph's
-    capture), then streaming (time to first token); a direct stream equal
-    to the unary response for each of the client's pooled prompts;
+18. configs/llama_decoder.yml: the generation client, unary first (32
+    requests of 32 tokens at concurrency 32, cut from 128 for the run's
+    time limit; it pays for the decode graph's capture), then streaming
+    (128 requests at concurrency 128, time to first token); a direct
+    stream equal to a direct unary response for each of the client's
+    pooled prompts;
     int4_matmul, decode_attention and causal_attention launched;
 19. configs/bert_long.yml at FP32, unquantized, seed 42: the BERT client at
     s = 512 with ``--validate`` against its reference model on the card;
@@ -209,7 +211,10 @@ over gloo):
     slot's row view; for the tiny worlds at FP32, pipe2_model2's
     tensor-parallel shards (int8_matmul, decode_attention,
     chunk_prefill_attention) and pipe2_lookup's window_decode_attention
-    (S = 2, W = 4);
+    (S = 2, W = 4); for the multi-host group's pipe world, llama-7b's
+    model=2 shards at pipe=2 (int8_matmul on every dense shard at M = 4
+    and 32 and the lm head's vocab shard at M = 16, 1 and 4,
+    decode_attention at 16 kv heads, chunk_prefill_attention at C = 32);
     step 0: ``scripts/torch_gloo_probe.py`` (which gloo operations two
     ranks on one card run on CUDA tensors; nccl with two ranks on one
     device must fail); three tiny worlds spawned by
@@ -248,6 +253,26 @@ at model=4, moe-8x1b (``MOE_LAYERS`` layers) at expert=2 x model=2, and
 the pipe-mode ``serve_logits`` of llama_pipelined.yml (``PIPE_LAYERS``
 layers, 4 microbatches). Each cut of an earlier path's depth or requests
 for the run's time limit is printed as a ``time cut:`` line.
+
+The multi-host group, last (``multihost_path``): launchers, the JAX
+package's ``jax.distributed`` processes, each spawning its local ranks,
+two of two ranks sharing the card over gloo and joined at
+``127.0.0.1:<free port>``. ``llama_decoder.yml`` at data=2 x model=2 as
+two CLI launchers (``distributed: {coordinator_address, num_processes:
+2, process_id: 0|1}``; ``data`` crosses them, ``model`` stays inside):
+the GSPMD group's 32 streamed requests, K1, K3 and K5 on every rank of
+both, every all-reduce over ``model``, the start and the weights sent to
+launcher 1, tok/s, TTFT and rank 0's step beside the GSPMD group's
+one-launcher run, and the streams equal to it counted (not required);
+launcher 1 exits 0 after launcher 0's SIGINT. ``multihost_world``
+through ``run_launcher`` over 2 launchers and over 1 of 4 ranks, side by
+side: llama-1b int4 (full width, ``MH_LAYERS`` layers) at data=2 x
+model=2, ``MH_PROMPTS`` prefills and ``MH_STEPS`` decode steps whose
+logits must be bit-equal; llama_pipelined.yml (``PIPE_LAYERS`` layers) at
+pipe=2 x model=2, a stage a launcher, ``MH_REQUESTS`` greedy streams that
+must be equal, only the ``pipe`` hops crossing, K2, K3, K4 in both
+stages. A llama-tiny pair at data=2 x model=2 whose rank 3 is killed:
+both launchers exit non-zero within ``--timeout-s``.
 
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
@@ -3221,7 +3246,7 @@ VIT_IMAGES = 64
 # layers in about a minute on the card's host, more than the run can spare;
 # every layer has the same shapes, so the per-layer and per-step numbers
 # scale with it
-MOE_LAYERS = 2  # moe-8x1b cut from 16 layers for the run's time limit
+MOE_LAYERS = 1  # moe-8x1b cut from 16 layers for the run's time limit
 LOGITS_REQUESTS = 4
 
 
@@ -3472,8 +3497,8 @@ def moe_path(counters, card, dev):
     require(cfg.devices.mesh.size == 1, "moe_decoder.yml's mesh is not one device")
     opts = dict(cfg.model.options, layers=MOE_LAYERS)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, options=opts))
-    print(f"time cut: moe_decoder at {MOE_LAYERS} of 16 layers (formerly 4), here and in the "
-          "GSPMD world")
+    print(f"time cut: moe_decoder at {MOE_LAYERS} of 16 layers (formerly 4, then 2), here and "
+          "in the GSPMD world")
     t0 = time.perf_counter()
     engine = build_generation_engine(cfg, device=dev)
     spec = engine.spec
@@ -3570,6 +3595,7 @@ SMOKE_REQUESTS = 64
 MAX_P95_MS = 500
 MIN_RPS = 10
 GEN_TOKENS, GEN_PROMPT, GEN_REQUESTS = 32, 64, 128
+GEN_UNARY_REQUESTS = 32  # the unary client run's, cut from 128 for the run's time limit
 BERT_TEXTS = ("The quick brown fox jumps over the lazy dog.",
               "Serving a long BERT sequence through the port's bidirectional attention kernel.")
 # the subprocesses read no model hub: the BERT client's tokenizer falls back offline
@@ -3592,11 +3618,12 @@ def child_env() -> dict:
 
 class ServerProcess:
     """``python -m starpu_inference_server_tpu_torch.grpc.server --config
-    <yml>`` as its own process. The yml is a temp copy of ``base`` with
-    ``changes`` (dotted keys), a fresh port and ``metrics_port: 0``; the
-    server's log goes to a file beside it."""
+    <yml> [args]`` as its own process. The yml is a temp copy of ``base``
+    with ``changes`` (dotted keys), a fresh port and ``metrics_port: 0``;
+    the server's log goes to a file beside it."""
 
-    def __init__(self, base: Path, workdir: Path, tag: str, changes: dict = None):
+    def __init__(self, base: Path, workdir: Path, tag: str, changes: dict = None,
+                 args: list = ()):
         import yaml
 
         raw = yaml.safe_load(base.read_text())
@@ -3615,10 +3642,11 @@ class ServerProcess:
         self.log = workdir / f"{tag}.log"
         self.proc = None
         self.start_s = None
+        self.args = list(args)  # more CLI arguments (``--timeout-s``)
 
     def command(self) -> list:
         return [sys.executable, "-m", "starpu_inference_server_tpu_torch.grpc.server",
-                "--config", str(self.config)]
+                "--config", str(self.config), *self.args]
 
     def start(self) -> "ServerProcess":
         self._wall0 = time.time()
@@ -3858,33 +3886,36 @@ def _generation(target: str, prompt, stream: bool):
 
 def generation_client_phase(server: ServerProcess, workdir: Path, card: str) -> dict:
     """configs/llama_decoder.yml (llama-1b int4, 128 slots) from the CLI,
-    driven by the port's GenerationClient as its own process: 128 requests
-    of 32 tokens at concurrency 128, unary first (it pays for the decode
-    graph's capture), then streaming (time to first token); then one
-    direct unary and one streaming call for each pooled prompt, equal."""
+    driven by the port's GenerationClient as its own process: unary first
+    (``GEN_UNARY_REQUESTS`` requests of 32 tokens at that concurrency; it
+    pays for the decode graph's capture), then streaming (128 at
+    concurrency 128, time to first token); then one direct unary and one
+    streaming call for each pooled prompt, equal."""
     from starpu_inference_server_tpu_torch.clients.client import pooled_prompts
 
     target = server.wait_ready()
     runs = {}
-    for mode in ("unary", "stream"):
+    print(f"time cut: the generation client's unary run at {GEN_UNARY_REQUESTS} requests "
+          f"(formerly {GEN_REQUESTS}); the streaming run keeps {GEN_REQUESTS}")
+    for mode, n in (("unary", GEN_UNARY_REQUESTS), ("stream", GEN_REQUESTS)):
         path = workdir / f"generate_{mode}.json"
         run_client("client", ["--target", target, "--model", "llama", "--generate",
                               str(GEN_TOKENS), "--prompt-len", str(GEN_PROMPT),
-                              "--request-number", str(GEN_REQUESTS), "--concurrency",
-                              str(GEN_REQUESTS), "--summary-json", str(path),
+                              "--request-number", str(n), "--concurrency", str(n),
+                              "--summary-json", str(path),
                               *(["--stream"] if mode == "stream" else [])],
                    f"generation client ({mode})")
         s = runs[mode] = json.loads(path.read_text())
         req, gen = s["requests"], s["generation"]
-        print(f"generation client ({mode}, {GEN_REQUESTS} requests of {GEN_TOKENS} tokens, "
-              f"prompts of {GEN_PROMPT}, concurrency {GEN_REQUESTS}) on {card}: requests "
-              f"{json.dumps(req)}; {gen['tokens_total']} tokens, {gen['tokens_per_s']:.1f} "
-              f"tok/s, {s['throughput_rps']:.2f} req/s over {s['elapsed_s']:.2f} s; roundtrip "
-              f"ms {_pcts(s['latency_ms']['roundtrip'])}"
+        print(f"generation client ({mode}, {n} requests of {GEN_TOKENS} tokens, prompts of "
+              f"{GEN_PROMPT}, concurrency {n}) on {card}: requests {json.dumps(req)}; "
+              f"{gen['tokens_total']} tokens, {gen['tokens_per_s']:.1f} tok/s, "
+              f"{s['throughput_rps']:.2f} req/s over {s['elapsed_s']:.2f} s; roundtrip ms "
+              f"{_pcts(s['latency_ms']['roundtrip'])}"
               + (f"; TTFT ms {_pcts(gen['ttft_ms'])}" if "ttft_ms" in gen else ""))
-        require(req["sent"] == req["handled"] == GEN_REQUESTS and req["rejected"] == 0
+        require(req["sent"] == req["handled"] == n and req["rejected"] == 0
                 and req["errors"] == 0, f"generation client ({mode}): not every request handled")
-        require(gen["tokens_total"] == GEN_REQUESTS * GEN_TOKENS,
+        require(gen["tokens_total"] == n * GEN_TOKENS,
                 f"generation client ({mode}): {gen['tokens_total']} tokens")
         require(("ttft_ms" in gen) == (mode == "stream"), f"generation ({mode}): TTFT field")
     # the client's defaults: vocab 32000, seed 7, no shared prefix
@@ -4103,7 +4134,15 @@ def pipelined_kernel_rows(dev, card) -> tuple:
       in 2 microgroups, T = 256, chunks of 32): pipe2_model2's
       tensor-parallel shard (K2 on each dense shard at M = 2 and 32 and
       the lm head's vocab shard at 4 and 1, K3 at 2 of 4 kv heads, K4);
-      pipe2_lookup's K9 at S = 2, W = 4 (speculate_k 3 + 1)."""
+      pipe2_lookup's K9 at S = 2, W = 4 (speculate_k 3 + 1);
+    - the multi-host group's pipe world (llama_pipelined at pipe=2 x
+      model=2, a stage a launcher: BF16, 2 stages of ``PIPE_LAYERS`` / 2
+      layers, 16 slots in 4 microgroups, T = 1024, prompts of
+      ``PIPE_PROMPT`` in chunks of 32): a rank's tensor-parallel shard,
+      K2 on each dense shard at M = 4 (a decode microgroup) and 32 (a
+      prefill chunk) and the lm head's vocab shard at M = 16 (the head over
+      every slot), 1 (a prefill's last row) and 4; K3 at S = 4, 16 of 32
+      kv heads, rep 1; K4 at C = 32 on 16 heads, starts 0 and 32."""
     import torch
 
     from starpu_inference_server_tpu_torch.models.decoder import get_spec
@@ -4116,7 +4155,9 @@ def pipelined_kernel_rows(dev, card) -> tuple:
             ("llama-7b", torch.bfloat16, 1, 16, 4, 1024, PIPE_PROMPT, PIPE_PROMPT // stages,
              PIPE_LAYERS // stages, "llama_pipelined"),
             ("llama-tiny", torch.float32, 2, 4, 2, 256, tiny_bucket, tiny_bucket // 2, 2,
-             "pipe2_model2_llama")):
+             "pipe2_model2_llama"),
+            ("llama-7b", torch.bfloat16, 2, 16, 4, 1024, PIPE_PROMPT, PIPE_PROMPT // 2,
+             PIPE_LAYERS // 2, "multihost_pipe2_model2")):
         spec = get_spec(family, {})
         hq, hkv, d = spec.q_heads // tp, spec.kv_heads // tp, spec.head_dim
         h, inter, g_rows = spec.hidden, spec.intermediate // tp, slots // groups
@@ -4125,7 +4166,7 @@ def pipelined_kernel_rows(dev, card) -> tuple:
         cases = [(n, m, *kn) for m in (g_rows, c) for n, kn in dense.items()]
         cases += [("lm_head", m, h, spec.vocab // tp) for m in (slots, 1)]
         if family == "llama-7b":
-            cases.append(("lm_head", g_rows, h, spec.vocab))
+            cases.append(("lm_head", g_rows, h, spec.vocab // tp))
         for name, m, k, n in cases:
             out["int8_matmul"].append(dict(
                 k2_entry(g, dev, dtype, m, k, n, f"{label} {name}", card), layer=f"{label} {name}",
@@ -5226,7 +5267,8 @@ def _mesh_window(server: "ServerProcess") -> dict:
     return out
 
 
-def gspmd_server_run(server: "ServerProcess", card: str) -> dict:
+def gspmd_server_run(server: "ServerProcess", card: str,
+                     what: str = "llama_decoder data=2 model=2") -> dict:
     """configs/llama_decoder.yml at data=2 x model=2 served by ``server``
     (started from the CLI): the port's generation client, streaming; every
     request handled with all its tokens. Stops the server and reads its
@@ -5237,26 +5279,26 @@ def gspmd_server_run(server: "ServerProcess", card: str) -> dict:
     summary, tokens, pool = _gspmd_client(target, server.name)
     req, gen = summary["requests"], summary["generation"]
     require(req["handled"] == GSPMD_REQUESTS and req["errors"] == 0,
-            f"llama_decoder data=2 model=2: {json.dumps(req)}")
+            f"{what}: {json.dumps(req)}")
     require(all(len(t) == GSPMD_TOKENS for t in tokens.values()),
-            "llama_decoder data=2 model=2: a stream is short")
+            f"{what}: a stream is short")
     server.stop()
     window = _mesh_window(server)
     backend = re.search(r"mesh backend: (\w+)", server.log.read_text())
-    require(backend is not None, "llama_decoder data=2 model=2: no backend line")
+    require(backend is not None, f"{what}: no backend line")
     # every data group decodes its slots each step; a prefill runs on the
     # group whose slot the request got (the least-loaded group's)
     _require_on_every_rank([{"launches": la} for la in window["launches"]],
                            ("int4_matmul", "decode_attention", "causal_attention"),
-                           "llama_decoder data=2 model=2 (CLI)")
-    print(f"llama_decoder data=2 model=2 (llama-1b int4, 128 slots, 4 ranks on {card}, "
+                           f"{what} (CLI)")
+    print(f"{what} (llama-1b int4, 128 slots, 4 ranks on {card}, "
           f"{backend.group(1)}): started in {server.start_s:.1f} s; {GSPMD_REQUESTS} greedy "
           f"requests of {GSPMD_TOKENS} tokens (prompts of {GSPMD_PROMPT}), streaming: "
           f"{gen['tokens_per_s']:.1f} tok/s, TTFT ms {_pcts(gen['ttft_ms'])}; rank 0's decode "
           f"step {window['step_ms']:.2f} ms (host clock, dispatch + consume, {window['steps']} "
           f"steps)")
-    print(f"llama_decoder data=2 model=2 census by rank (op, axis): {json.dumps(window['census'])}")
-    print(f"llama_decoder data=2 model=2 launches by rank: {json.dumps(window['launches'])}")
+    print(f"{what} census by rank (op, axis): {json.dumps(window['census'])}")
+    print(f"{what} launches by rank: {json.dumps(window['launches'])}")
     return dict(window, backend=backend.group(1), summary=summary, start_s=server.start_s,
                 tokens=tokens, prompts=pool)
 
@@ -5367,6 +5409,332 @@ def gspmd_path(card: str) -> dict:
             for srv in servers:
                 srv.kill()
     return {"world": world, "llama": served, "bert": bert_run}
+
+
+# -- the multi-host group: launchers of local ranks joining one coordinator ---
+
+MH_LAYERS = 4             # llama-1b cut from 16 layers to 4 in the rank worlds (full width)
+MH_PROMPTS, MH_STEPS = 8, 4  # the data=2 x model=2 world's prefills and decode steps
+MH_REQUESTS, MH_TOKENS = 8, 16  # the pipe=2 x model=2 world's greedy requests
+MH_KILL_TIMEOUT_S = 60    # the killed pair's --timeout-s
+MH_KERNELS = ("int4_matmul", "int8_matmul", "decode_attention", "chunk_prefill_attention",
+              "causal_attention")
+
+
+def launcher_pair(base: Path, workdir: Path, tag: str, changes: dict, args: list = (),
+                  device_ids: list = None) -> list:
+    """Two ``ServerProcess`` launchers of ``base`` with ``changes``, joining
+    at a fresh local coordinator as ``distributed.process_id`` 0 and 1 of
+    ``num_processes: 2``; ``device_ids``: each launcher's cards (default:
+    the visible ones)."""
+    coordinator = f"127.0.0.1:{free_port()}"
+    pair = []
+    for i in range(2):
+        mine = dict(changes, distributed={"coordinator_address": coordinator,
+                                          "num_processes": 2, "process_id": i})
+        if device_ids is not None:
+            mine["devices.device_ids"] = device_ids[i]
+        pair.append(ServerProcess(base, workdir, f"{tag}{i}", mine, args=args))
+    return pair
+
+
+def _crossing_census(stats: list, what: str) -> list:
+    """Each rank's collectives over the axes crossing its launchers
+    (``parallel/census.py:crossing_calls``)."""
+    from starpu_inference_server_tpu_torch.parallel.census import (
+        collectives_by_axis,
+        crossing_calls,
+    )
+
+    out = [crossing_calls(collectives_by_axis({"calls": s["census"]}), s["crossing"])
+           for s in stats]
+    print(f"{what}: collectives crossing launchers by rank {json.dumps(out)}")
+    return out
+
+
+def multihost_world(rank, world, init_method, payload, launchers=1):
+    """The rank worlds of the multi-host group, run by ``run_world`` with 2
+    launchers of 2 ranks (and again with 1 launcher of 4, the reference),
+    all sharing the card over gloo:
+
+    1. llama_decoder.yml (llama-1b int4, full width, cut to ``MH_LAYERS``
+       layers) at data=2 x model=2: ``MH_PROMPTS`` prefills of 64 tokens
+       into slots of both data groups, then ``MH_STEPS`` greedy decode steps
+       over them; rank 0 returns every logits row;
+    2. llama_pipelined.yml (llama-7b int8, ``PIPE_LAYERS`` layers) at pipe=2
+       x model=2, stage 0 in launcher 0 and stage 1 in launcher 1:
+       ``MH_REQUESTS`` greedy requests of ``MH_TOKENS`` tokens through the
+       pipe-mode engine; rank 0 returns the streams.
+
+    Every phase's launches, collectives and crossing axes are read from
+    every rank. ``payload`` may name another ``device`` and config files
+    (keys ``llama``, ``pipe``)."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.parallel.launch import follow, join_mesh
+    from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes, make_device_mesh
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationRequest,
+        build_generation_engine,
+    )
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    mesh = join_mesh(MeshAxes(**GSPMD_MESH), rank, world, init_method,
+                     payload.get("device", "cuda"), timeout_s=600.0, launchers=launchers)
+    dev = mesh.device
+    res = {"backend": mesh.backend, "seconds": {}}
+
+    def stats_of(worker):
+        """Every rank's launches, collectives' calls, launcher, coordinates
+        and crossing axes since ``reset_stats``."""
+        return [{"launches": s["launches"], "census": s["collectives"]["calls"],
+                 "launcher": s["launcher"], "coords": s["coords"], "crossing": s["crossing"]}
+                for s in worker.gather_stats()]
+
+    # 1. llama-1b int4 at data=2 x model=2: prefills and decode steps by hand
+    t0 = time.perf_counter()
+    cfg = _with_options(_on_mesh(load_config(str(payload.get("llama", CONFIG))), **GSPMD_MESH),
+                        layers=MH_LAYERS)
+    eng = build_generation_engine(cfg, mesh=mesh)
+    if rank != 0:
+        follow(eng.worker)
+    else:
+        try:
+            w = eng.worker
+            w.reset_stats()
+            half = eng.num_slots // 2
+            slots = list(range(MH_PROMPTS // 2)) + list(range(half, half + MH_PROMPTS // 2))
+            rng = np.random.default_rng(151)
+            prompts = [torch.from_numpy(rng.integers(1, eng.spec.vocab, (GSPMD_PROMPT,))
+                                        .astype(np.int32)).to(dev) for _ in slots]
+            rows = [torch.stack([w.prefill(p, len(p), s) for p, s in zip(prompts, slots)])]
+            ids = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
+            active = torch.zeros(eng.num_slots, dtype=torch.bool, device=dev)
+            active[slots] = True
+            for _ in range(MH_STEPS):
+                ids[slots] = rows[-1].argmax(-1).to(torch.int32)
+                rows.append(w.decode(ids, active)[slots])
+            res["dm"] = {"logits": torch.stack(rows).float().cpu(), "stats": stats_of(w)}
+        finally:
+            eng.worker.stop_followers()
+    del eng
+    torch.cuda.empty_cache()
+    res["seconds"]["llama_decoder data=2 model=2"] = round(time.perf_counter() - t0, 1)
+
+    # 2. llama_pipelined at pipe=2 x model=2: one stage a launcher
+    t0 = time.perf_counter()
+    pm = make_device_mesh(MeshAxes(pipe=2, model=2), dev, mesh.local, mesh.timeout_s)
+    pcfg = _with_options(_on_mesh(load_config(str(payload.get("pipe", PIPE_CONFIG))), pipe=2,
+                                  model=2), layers=PIPE_LAYERS)
+    eng = build_generation_engine(pcfg, mesh=pm)
+    if rank != 0:
+        follow(eng.worker)
+    else:
+        try:
+            eng.worker.reset_stats()
+            rng = np.random.default_rng(152)
+            reqs = [GenerationRequest(prompt_ids=rng.integers(1, eng.spec.vocab, (PIPE_PROMPT,))
+                                      .astype(np.int32), max_new_tokens=MH_TOKENS)
+                    for _ in range(MH_REQUESTS)]
+            for r in reqs:
+                eng.submit(r)
+            eng.start()
+            try:
+                tokens = [r.result(timeout=600.0) for r in reqs]
+            finally:
+                eng.stop()
+            res["pipe"] = {"tokens": tokens, "stats": stats_of(eng.worker)}
+        finally:
+            eng.worker.stop_followers()
+    del eng
+    res["seconds"]["llama_pipelined pipe=2 model=2"] = round(time.perf_counter() - t0, 1)
+    return res if rank == 0 else {"backend": mesh.backend}
+
+
+def multihost_worlds(workdir: Path, card: str, payload: dict = None) -> dict:
+    """``multihost_world`` over 2 launchers of 2 ranks, then over 1
+    launcher of 4: the data=2 x model=2 logits bit-equal, the pipelined
+    streams equal; K1, K3, K5 (data=2 x model=2) and K2, K3, K4 (pipe) on
+    every rank of both launchers; every all-reduce over ``model``, and only
+    ``data`` (then ``pipe``) crossing the launchers."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.parallel.launch import run_world
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    payload = payload or {}
+    on_card = payload.get("device", "cuda") == "cuda"
+
+    def world(n):
+        t1 = time.perf_counter()
+        ranks = run_world("chip_smoke:multihost_world", 4, payload, timeout_s=900.0,
+                          workdir=str(workdir / f"multihost_world{n}"), launchers=n)
+        return ranks, round(time.perf_counter() - t1, 1)
+
+    runs = {}
+    with ThreadPoolExecutor(2) as pool:  # both worlds at once, sharing the card
+        futures = {n: pool.submit(world, n) for n in (2, 1)}
+        for n, future in futures.items():
+            ranks, wall = future.result()
+            require(all(r["backend"] == "gloo" for r in ranks),
+                    f"multihost world ({n} launchers): backends {[r['backend'] for r in ranks]}")
+            runs[n] = dict(ranks[0], wall_s=wall)
+            print(f"multihost rank world, {n} launcher(s) of {4 // n} ranks on {card} (gloo, "
+                  f"both worlds at once): {wall} s, by phase {json.dumps(runs[n]['seconds'])}")
+    two, one = runs[2], runs[1]
+    dm, pipe = two["dm"], two["pipe"]
+    # 1. data=2 x model=2: bit-equal logits, data crossing, all-reduces inside a launcher
+    require(torch.equal(dm["logits"], one["dm"]["logits"]),
+            "multihost data=2 model=2: logits over 2 launchers differ from 1 launcher's")
+    require(bool(torch.isfinite(dm["logits"]).all()), "multihost data=2 model=2: non-finite")
+    require([s["launcher"] for s in dm["stats"]] == [0, 0, 1, 1],
+            f"multihost data=2 model=2: launchers by rank {[s['launcher'] for s in dm['stats']]}")
+    require(all(s["crossing"] == ["data"] for s in dm["stats"]),
+            f"multihost data=2 model=2: crossing axes {[s['crossing'] for s in dm['stats']]}")
+    dm_cross = _crossing_census(dm["stats"], "multihost data=2 model=2")
+    for s, c in zip(dm["stats"], dm_cross):
+        reduce_axes = {k.split("/")[1] for k in s["census"] if k.startswith("all-reduce/")}
+        require(reduce_axes == {"model"}, f"multihost data=2 model=2: all-reduces over "
+                                          f"{sorted(reduce_axes)}")
+        require(set(c) == {"all-gather"}, f"multihost data=2 model=2: crossing {c}")
+    _require_on_every_rank(dm["stats"], ("int4_matmul", "decode_attention", "causal_attention"),
+                           "multihost data=2 model=2", on_card)
+    print(f"multihost data=2 model=2 (llama-1b int4 x {MH_LAYERS} layers, 2 launchers): "
+          f"{MH_PROMPTS} prefills and {MH_STEPS} decode steps, logits {tuple(dm['logits'].shape)} "
+          f"bit-equal to 1 launcher's; crossing axes data; census by rank "
+          f"{json.dumps([s['census'] for s in dm['stats']])}; launches by rank "
+          f"{json.dumps([s['launches'] for s in dm['stats']])}")
+    # 2. pipe=2 x model=2: equal streams, only the pipe hops crossing
+    require(pipe["tokens"] == one["pipe"]["tokens"],
+            "multihost pipe=2 model=2: streams over 2 launchers differ from 1 launcher's")
+    require(all(len(t) == MH_TOKENS for t in pipe["tokens"]), "multihost pipe: a short stream")
+    require([(s["coords"]["pipe"], s["launcher"]) for s in pipe["stats"]] ==
+            [(0, 0), (0, 0), (1, 1), (1, 1)],
+            f"multihost pipe=2 model=2: (stage, launcher) by rank "
+            f"{[(s['coords']['pipe'], s['launcher']) for s in pipe['stats']]}")
+    require(all(s["crossing"] == ["pipe"] for s in pipe["stats"]),
+            f"multihost pipe=2 model=2: crossing axes {[s['crossing'] for s in pipe['stats']]}")
+    pipe_cross = _crossing_census(pipe["stats"], "multihost pipe=2 model=2")
+    require(all(set(c) == {"collective-permute"} for c in pipe_cross),
+            f"multihost pipe=2 model=2: crossing collectives {pipe_cross}")
+    _require_on_every_rank(pipe["stats"], ("int8_matmul", "decode_attention",
+                                           "chunk_prefill_attention"),
+                           "multihost pipe=2 model=2", on_card)
+    print(f"multihost pipe=2 model=2 (llama-7b int8 x {PIPE_LAYERS} layers, stage 0 in launcher "
+          f"0, stage 1 in launcher 1): {MH_REQUESTS} greedy streams of {MH_TOKENS} equal to 1 "
+          f"launcher's; census by rank {json.dumps([s['census'] for s in pipe['stats']])}; "
+          f"launches by rank {json.dumps([s['launches'] for s in pipe['stats']])}")
+    return {"dm": dm["stats"], "pipe": pipe["stats"], "walls": {n: r["wall_s"]
+                                                                for n, r in runs.items()}}
+
+
+def multihost_server_run(launchers: list, card: str, one: dict = None) -> dict:
+    """llama_decoder.yml at data=2 x model=2 served by two CLI launchers
+    (``launchers``, started): ``gspmd_server_run`` through launcher 0, then
+    launcher 1 must exit 0 after launcher 0's SIGINT. Prints the axes
+    crossing launchers, each rank's collectives over them (every
+    all-reduce over ``model``), the weights rank 0 sent to the other
+    launcher and their seconds, and tok/s, TTFT p50, rank 0's step and the
+    streams equal to ``one`` (the one-launcher CLI run's, ``gspmd_path``;
+    None: no comparison)."""
+    what = "llama_decoder data=2 model=2, 2 launchers"
+    run = gspmd_server_run(launchers[0], card, what)
+    rc = launchers[1].proc.wait(timeout=120)
+    require(rc == 0, f"{what}: launcher 1 exited with {rc} after launcher 0's shutdown")
+    text = launchers[0].log.read_text()
+    crossing = re.search(r"axes crossing them: (\[.*\])", text)
+    require(crossing is not None and json.loads(crossing.group(1)) == ["data"],
+            f"{what}: crossing axes {crossing and crossing.group(1)}")
+    weights = re.search(r"weights sent: (\{.*\})", text)
+    require(weights is not None, f"{what}: no 'weights sent' line")
+    weights = json.loads(weights.group(1))
+    stats = [{"census": {f"{op}/{axis}": n for op, by in c.items() for axis, n in by.items()},
+              "crossing": ["data"]} for c in run["census"]]
+    crossing_by_rank = _crossing_census(stats, what)
+    for c, x in zip(run["census"], crossing_by_rank):
+        require(set(c.get("all-reduce", {})) == {"model"}, f"{what}: all-reduces {c}")
+        require(set(x) <= {"all-gather"}, f"{what}: crossing collectives {x}")
+    g = run["summary"]["generation"]
+    print(f"{what} on {card}: started in {run['start_s']:.1f} s; weights sent by rank 0 "
+          f"{weights['mb']:.1f} MB in {weights['s']:.2f} s, to launcher 1 "
+          f"{weights['other_launchers']['mb']:.1f} MB in {weights['other_launchers']['s']:.2f} "
+          f"s; {g['tokens_per_s']:.1f} tok/s, TTFT p50 {g['ttft_ms']['p50']:.1f} ms, rank 0's "
+          f"decode step {run['step_ms']:.2f} ms")
+    equal = None
+    if one is not None:
+        equal = sum(toks == one["tokens"].get(rid) for rid, toks in run["tokens"].items())
+        o = one["summary"]["generation"]
+        print(f"{what}, the 1-launcher CLI run beside it: started in {one['start_s']:.1f} s; "
+              f"{o['tokens_per_s']:.1f} tok/s, TTFT p50 {o['ttft_ms']['p50']:.1f} ms, rank 0's "
+              f"decode step {one['step_ms']:.2f} ms; {equal} of {len(run['tokens'])} streams "
+              "equal (reported, not required: bf16 ties)")
+    return dict(run, weights=weights, streams_equal=equal, crossing=crossing_by_rank)
+
+
+def multihost_killed(pair: list, card: str) -> dict:
+    """Two launchers of llama-tiny at data=2 x model=2 (two ranks each, over
+    gloo: a launcher of one rank would count the shared card as its own
+    and choose nccl), serving: launcher 1's rank 3 is killed, and both
+    launchers must exit non-zero within ``MH_KILL_TIMEOUT_S``."""
+    import os
+    import signal
+
+    pair[0].wait_ready(timeout=600)
+    pid = int(re.search(r"rank 3 pid (\d+)", pair[1].log.read_text()).group(1))
+    os.kill(pid, signal.SIGKILL)
+    t1 = time.perf_counter()
+    codes = [srv.proc.wait(timeout=MH_KILL_TIMEOUT_S + 60) for srv in pair]
+    took = time.perf_counter() - t1
+    require(all(c != 0 for c in codes), f"multihost killed rank: launcher exit codes {codes}")
+    require(took <= MH_KILL_TIMEOUT_S, f"multihost killed rank: the launchers took {took:.1f} s")
+    print(f"multihost killed rank (llama-tiny data=2 x model=2, 2 launchers of 2 ranks on "
+          f"{card}, --timeout-s {MH_KILL_TIMEOUT_S}): launcher 1's rank 3 (pid {pid}) killed; the "
+          f"launchers exited with {codes} in {took:.1f} s")
+    return {"codes": codes, "s": took}
+
+
+def multihost_path(card: str, one: dict) -> dict:
+    """The multi-host group: llama_decoder.yml at data=2 x model=2 from the
+    CLI as two launchers of two ranks joined at a local coordinator and a
+    killed pair of llama-tiny launchers, started first, and the rank
+    worlds over 2 launchers and over 1 (side by side) while they build;
+    ``one``: the
+    one-launcher CLI run of ``gspmd_path``. Returns the numbers and the
+    launches by rank."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        workdir = Path(tmp)
+        served = launcher_pair(CONFIG, workdir, "llama_multihost", {"devices.mesh": GSPMD_MESH})
+        tiny = {"model.family": "llama-tiny", "model.compute_dtype": "FP32",
+                "model.options": {k: v for k, v in dict(TINY_PIPE, layers=2).items()
+                                  if k != "pipe_microgroups"},
+                "devices.mesh": GSPMD_MESH,
+                "inputs": [{"name": "input_ids", "dims": [64], "dtype": "INT64"}],
+                "outputs": [{"name": "logits", "dims": [64, 2048], "dtype": "FP32"}]}
+        killed = launcher_pair(CONFIG, workdir, "multihost_killed", tiny,
+                               args=["--timeout-s", str(MH_KILL_TIMEOUT_S)])
+        servers = served + killed
+        try:
+            for srv in servers:
+                srv.start()
+            with ThreadPoolExecutor(1) as pool:  # the kill as soon as its pair serves
+                kill = pool.submit(multihost_killed, killed, card)
+                worlds = multihost_worlds(workdir, card)
+                run = multihost_server_run(served, card, one)
+                kill = kill.result()
+        except BaseException:
+            show_logs(servers)
+            raise
+        finally:
+            for srv in servers:
+                srv.kill()
+    return {"worlds": worlds, "llama": run, "killed": kill}
 
 
 def _ptxas_kernels(report: str) -> list:
@@ -5515,6 +5883,20 @@ def main() -> int:
         rows[name].setdefault("per_shape", []).extend(entries)
     torch.cuda.empty_cache()
     gspmd = timed(phase_s, "gspmd (data, expert, model meshes; 4 ranks)", gspmd_path, card)
+    torch.cuda.empty_cache()
+    multihost = timed(phase_s, "multihost (2 launchers of 2 ranks)", multihost_path, card,
+                      gspmd["llama"])
+    # launches on the multi-host paths, by rank: the two CLI launchers over
+    # their client run, and each phase of the 2-launcher rank world
+    mw = multihost["worlds"]
+    multihost_runs = {"llama_decoder_cli_2_launchers": multihost["llama"]["launches"],
+                      "llama_decoder_data2_model2_2_launchers": [s["launches"] for s in mw["dm"]],
+                      "llama_pipelined_pipe2_model2_2_launchers": [s["launches"]
+                                                                   for s in mw["pipe"]]}
+    multihost_launches = {name: {f"{run}_by_rank": [la.get(name, 0) for la in ranks]
+                                 for run, ranks in multihost_runs.items()
+                                 if any(la.get(name, 0) for la in ranks)}
+                          for name in MH_KERNELS}
     # launches on the GSPMD paths, by rank: the two CLI servers over their
     # client runs, and each phase of the rank worlds
     gw = gspmd["world"]
@@ -5596,6 +5978,8 @@ def main() -> int:
             extra["launches_on_the_pipelined_paths"] = pipe_launches[name]
         if name in gspmd_launches:
             extra["launches_on_the_gspmd_paths"] = gspmd_launches[name]
+        if name in multihost_launches:
+            extra["launches_on_the_multihost_paths"] = multihost_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",
@@ -5628,6 +6012,16 @@ def main() -> int:
           f"{gw['dm']['step']['max_rel']:.3e}, moe {gw['moe']['step']['max_rel']:.3e}, "
           f"sequence parallel {gw['seqpar']['max_rel']:.3e}, pipe serve_logits "
           f"{gw['pipe']['max_rel']:.3e}; vit mean rel {gw['vit']['rel_err']:.3e}")
+    ml = multihost["llama"]
+    print(f"multihost paths on {card}: llama_decoder data=2 model=2 from 2 CLI launchers "
+          f"{ml['summary']['generation']['tokens_per_s']:.1f} tok/s, TTFT p50 "
+          f"{ml['summary']['generation']['ttft_ms']['p50']:.1f} ms, rank 0's decode step "
+          f"{ml['step_ms']:.2f} ms, started in {ml['start_s']:.1f} s, weights to launcher 1 "
+          f"{ml['weights']['other_launchers']['mb']:.1f} MB in "
+          f"{ml['weights']['other_launchers']['s']:.2f} s, {ml['streams_equal']} of "
+          f"{GSPMD_REQUESTS} streams equal to 1 launcher's; rank worlds bit-equal / equal to 1 "
+          f"launcher's ({json.dumps(mw['walls'])} s); killed rank: exits "
+          f"{multihost['killed']['codes']} in {multihost['killed']['s']:.1f} s")
     print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)

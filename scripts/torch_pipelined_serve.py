@@ -2,7 +2,7 @@
 single-device engine of the same weights.
 
     python scripts/torch_pipelined_serve.py [--layers 8]
-    python scripts/torch_pipelined_serve.py --gspmd
+    python scripts/torch_pipelined_serve.py --gspmd [--launchers 2]
 
 Default: ``configs/llama_pipelined.yml`` cut to ``--layers``. Starts
 ``python -m starpu_inference_server_tpu_torch.grpc.server --config <the
@@ -23,6 +23,15 @@ launches by rank); then the single-device engine of the same tree in
 this process generates every request's stream, and the streams equal to
 the mesh's are counted (the tensor-parallel sums run in another order,
 so bf16 streams may part; printed, not required).
+
+``--gspmd --launchers 2``: the same server as two CLI launchers of two
+ranks each joined at a local coordinator (``distributed:
+{coordinator_address, num_processes: 2, process_id: 0|1}``), each with
+half of the visible cards as its ``devices.device_ids`` (four cards:
+``nccl``, a rank a card; one card: ``gloo``), through ``chip_smoke.py``'s
+``multihost_server_run`` (the axes crossing launchers, each rank's
+collectives over them, the weights sent to launcher 1 and their
+seconds); launcher 1 must exit 0 after launcher 0's shutdown.
 """
 
 from __future__ import annotations
@@ -65,7 +74,11 @@ def main() -> int:
     parser.add_argument("--layers", type=int, default=8)
     parser.add_argument("--gspmd", action="store_true",
                         help="llama_decoder.yml at data=2 x model=2 instead")
+    parser.add_argument("--launchers", type=int, default=1, choices=(1, 2),
+                        help="with --gspmd: serve as this many CLI launchers")
     args = parser.parse_args()
+    if args.launchers > 1 and not args.gspmd:
+        parser.error("--launchers 2 needs --gspmd")
     sys.path.insert(0, str(ROOT))
     import torch
 
@@ -83,27 +96,38 @@ def main() -> int:
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
-        if args.gspmd:
-            server = cs.ServerProcess(cs.CONFIG, Path(tmp), "llama_gspmd",
-                                      {"devices.mesh": cs.GSPMD_MESH})
+        if args.launchers > 1:
+            cards = torch.cuda.device_count()
+            halves = [list(range(cards // 2)), list(range(cards // 2, cards))] \
+                if cards >= 2 else None
+            servers = cs.launcher_pair(cs.CONFIG, Path(tmp), "llama_multihost",
+                                       {"devices.mesh": cs.GSPMD_MESH}, device_ids=halves)
+        elif args.gspmd:
+            servers = [cs.ServerProcess(cs.CONFIG, Path(tmp), "llama_gspmd",
+                                        {"devices.mesh": cs.GSPMD_MESH})]
         else:
-            server = cs.ServerProcess(cs.PIPE_CONFIG, Path(tmp), "llama_pipelined",
-                                      {"model.options.layers": args.layers})
+            servers = [cs.ServerProcess(cs.PIPE_CONFIG, Path(tmp), "llama_pipelined",
+                                        {"model.options.layers": args.layers})]
         try:
-            server.start()
-            if args.gspmd:
-                run = cs.gspmd_server_run(server, cs.card_line())
+            for server in servers:
+                server.start()
+            if args.launchers > 1:
+                run = cs.multihost_server_run(servers, cs.card_line())
+                run["streams"] = gspmd_streams(run)
+            elif args.gspmd:
+                run = cs.gspmd_server_run(servers[0], cs.card_line())
                 run["streams"] = gspmd_streams(run)
             else:
-                run = cs.pipelined_server_run(server, args.layers, cs.card_line())
+                run = cs.pipelined_server_run(servers[0], args.layers, cs.card_line())
         except BaseException as exc:
-            cs.show_logs([server])
+            cs.show_logs(servers)
             if not isinstance(exc, cs.SmokeFailure):
                 raise
             print(f"torch_pipelined_serve: FAIL: {exc}", file=sys.stderr)
             return 1
         finally:
-            server.kill()
+            for server in servers:
+                server.kill()
     print(json.dumps({"ok": True, "backend": run["backend"],
                       **({"streams": run["streams"]} if args.gspmd else {})}))
     return 0

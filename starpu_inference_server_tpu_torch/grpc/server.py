@@ -20,10 +20,17 @@ queue -> collector -> lanes -> engine, runs there), the other ranks
 follow its commands; the backend is ``nccl`` when each rank
 has a GPU of its own and ``gloo`` when they share one or run on the CPU
 (``--device cpu``), and is printed as ``mesh backend: ...``. With
-``distributed.coordinator_address`` set the process joins that address
-as rank ``distributed.process_id`` instead of spawning. ``--timeout-s``
-bounds every collective: a rank that dies or hangs makes the server
-exit non-zero.
+``distributed.coordinator_address`` set the process is one of
+``distributed.num_processes`` launchers (the JAX server's
+``jax.distributed`` processes, one a host): launcher
+``distributed.process_id`` spawns its ``mesh.size / num_processes``
+consecutive ranks, which join that address (launcher 0's first rank
+hosts the store, serves and drives them all); ``process_id: -1`` and
+``num_processes: 0`` are read from ``OMPI_COMM_WORLD_RANK`` /
+``OMPI_COMM_WORLD_SIZE`` or ``SLURM_PROCID`` / ``SLURM_NTASKS``.
+``--timeout-s`` bounds every collective: a rank or launcher that dies or
+hangs makes every launcher exit non-zero; SIGINT / SIGTERM to launcher 0
+stop them all with 0.
 
 Decoder families get the continuous-batching generation engine (with
 its draft model, prompt lookup, paged cache and prefix cache as the

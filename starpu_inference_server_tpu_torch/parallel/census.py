@@ -12,6 +12,13 @@ L/S layers a stage shows M hops on ``pipe`` and two sums on ``model``
 per layer and microgroup (one per row-parallel projection) on every
 rank of a ``model`` group. Rank 0's commands (the ``control`` label)
 are not collectives of the program and are left out.
+
+Across launchers (``parallel/mesh.py``), :func:`crossing_calls` keeps the
+calls over the axes whose groups hold ranks of more than one launcher
+(``RankMesh.crossing``, in every rank's statistics): the JAX census's
+question of which collectives ride the host boundary. On the two-tier
+shape (data=2 across two launchers x model=4 inside each) that is the
+``data`` all-gathers only, and every all-reduce is over ``model``.
 """
 
 from __future__ import annotations
@@ -34,3 +41,15 @@ def collectives_by_axis(stats: Union[CollectiveStats, dict]) -> Dict[str, Dict[s
             continue
         census.setdefault(op, {})[axis] = n
     return census
+
+
+def crossing_calls(census: Dict[str, Dict[str, int]], crossing) -> Dict[str, Dict[str, int]]:
+    """The part of a :func:`collectives_by_axis` census over the axis labels
+    of ``crossing`` (``RankMesh.crossing``: the collectives that cross
+    launchers)."""
+    out: Dict[str, Dict[str, int]] = {}
+    for op, by_axis in census.items():
+        kept = {axis: n for axis, n in by_axis.items() if axis in crossing}
+        if kept:
+            out[op] = kept
+    return out

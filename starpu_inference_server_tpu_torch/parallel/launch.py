@@ -31,18 +31,33 @@ program, so the world cannot go on: rank 0 calls
 ``MeshWorker.on_fatal`` (the CLI's exits the process), a follower
 raises out of :func:`follow`, and the collectives' timeout
 (``initialize_distributed``) turns a hung rank into an error on the
-others. :func:`serve_mesh`, the server CLI's launcher, spawns one
-process per mesh position, forwards SIGINT / SIGTERM to rank 0, and when
-any rank exits with an error stops the rest and returns non-zero.
+others. On an idle server rank 0 sends a no-op command whenever the
+mesh has been quiet for a quarter of that timeout
+(:meth:`MeshWorker.keep_alive`), so waiting for the next command never
+expires while rank 0 lives.
 
-:func:`run_world` runs a function on every rank of a fresh world (the
-tests and ``chip_smoke.py`` use it); the function is named
-``"module:function"`` and must live in a module that imports no JAX.
+Launchers (the JAX package's ``jax.distributed`` processes):
+:func:`run_launcher` spawns a launcher's local ranks (``parallel/mesh.py``
+lays them out), which join the world at one address; global rank 0
+(launcher 0's first) hosts the rendezvous store, serves and drives. It
+forwards SIGINT / SIGTERM to rank 0 on launcher 0, stops its ranks on
+another launcher, and when any of its ranks exits with an error stops the
+rest and returns non-zero; a dead rank or launcher elsewhere reaches it
+through its ranks' collectives' timeout. :func:`serve_mesh`, the server
+CLI, is one launcher: all of the mesh, or with
+``distributed.coordinator_address`` launcher ``process_id`` of
+``num_processes``.
+
+:func:`run_world` runs a function on every rank of a fresh world, started
+by one or several launchers (the tests and ``chip_smoke.py`` use it); the
+function is named ``"module:function"`` and must live in a module that
+imports no JAX.
 """
 
 from __future__ import annotations
 
 import importlib
+import json
 import os
 import pickle
 import signal
@@ -58,7 +73,7 @@ import torch
 from .mesh import DATA_AXIS, MeshAxes, RankMesh
 
 (OP_STOP, OP_PREFILL, OP_DECODE, OP_VERIFY, OP_STATS, OP_RESET, OP_CHUNK, OP_FORWARD,
- OP_RELOAD, OP_COPY) = range(10)
+ OP_RELOAD, OP_COPY, OP_PING) = range(11)
 _HEADER = 8  # int64 words: op, payload length, up to six host ints
 
 
@@ -76,6 +91,8 @@ class MeshWorker:
         # world is broken then); None re-raises only
         self.on_fatal: Optional[Callable[[BaseException], None]] = None
         self._turn = threading.Lock()
+        self._last = time.monotonic()  # rank 0: when the last command went out
+        self._stopped = threading.Event()
 
     def _driven(self, op: int, ints: Sequence[int], tensors: Sequence[torch.Tensor], run):
         with self._turn:
@@ -90,7 +107,34 @@ class MeshWorker:
     def stop_followers(self) -> None:
         """Send the stop command: every follower leaves :func:`follow`."""
         with self._turn:
+            self._stopped.set()
             self._command(OP_STOP, (), ())
+
+    def keep_alive(self) -> threading.Thread:
+        """Rank 0: a daemon thread that sends a no-op command whenever no
+        command went out for a quarter of the collectives' timeout, until
+        :meth:`stop_followers`. The followers wait for each command at most
+        that timeout, so an idle server's mesh stays up, and a dead
+        follower fails the next no-op (``on_fatal``)."""
+        period = self.mesh.timeout_s / 4
+
+        def beat():
+            while not self._stopped.wait(period / 4):
+                if time.monotonic() - self._last < period:
+                    continue
+                with self._turn:
+                    if self._stopped.is_set():
+                        return
+                    try:
+                        self._command(OP_PING, (), ())
+                    except BaseException as exc:
+                        if self.on_fatal is not None:
+                            self.on_fatal(exc)
+                        raise
+
+        thread = threading.Thread(target=beat, name="mesh-keep-alive", daemon=True)
+        thread.start()
+        return thread
 
     def gather_stats(self) -> List[dict]:
         """Every rank's kernel launches and collective counts (rank order),
@@ -111,6 +155,7 @@ class MeshWorker:
         from ..ops._build import launch_counters
 
         mine = {"rank": self.mesh.rank, "coords": dict(self.mesh.coords),
+                "launcher": self.mesh.launcher, "crossing": list(self.mesh.crossing),
                 "launches": {k: v for t in launch_counters() for k, v in t.items() if v},
                 "collectives": self.mesh.stats.snapshot()}
         out = [None] * self.mesh.world_size if self.mesh.rank == 0 else None
@@ -125,6 +170,7 @@ class MeshWorker:
         header = torch.zeros(_HEADER, dtype=torch.int64)
         header[0], header[1] = op, payload.numel()
         header[2:2 + len(ints)] = torch.tensor(list(ints), dtype=torch.int64)
+        self._last = time.monotonic()
         broadcast(self.mesh, header, group=self.mesh.control, axis="control")
         if payload.numel():
             broadcast(self.mesh, payload, group=self.mesh.control, axis="control")
@@ -145,7 +191,9 @@ class MeshWorker:
         """Run one received command; False after the stop command."""
         if op == OP_STOP:
             return False
-        if op == OP_STATS:
+        if op == OP_PING:
+            pass
+        elif op == OP_STATS:
             self._stats_exchange()
         elif op == OP_RESET:
             _reset_counts(self.mesh)
@@ -471,21 +519,31 @@ def follow(worker: MeshWorker) -> None:
         pass
 
 
-# -- joining and spawning ------------------------------------------------------
+# -- joining and launching -----------------------------------------------------
 
 def join_mesh(axes: MeshAxes, rank: int, world: int, init_method: str, device_type: str,
-              device_ids: Sequence[int] = (), timeout_s: float = 300.0) -> RankMesh:
-    """Join the world as ``rank`` and build its :class:`RankMesh`. The
-    backend follows ``mesh.choose_backend``; rank ``r``'s device is
-    ``mesh.rank_device``'s."""
-    from .mesh import choose_backend, initialize_distributed, make_device_mesh, rank_device
+              device_ids: Sequence[int] = (), timeout_s: float = 300.0,
+              launchers: int = 1) -> RankMesh:
+    """Join the world as global ``rank`` of a mesh started by ``launchers``
+    launchers and build its :class:`RankMesh`. The backend follows
+    ``mesh.choose_backend`` on the launcher's local ranks (every launcher
+    must choose the same); the device is ``mesh.rank_device``'s for the
+    local rank."""
+    from .mesh import (
+        choose_backend,
+        initialize_distributed,
+        local_size,
+        make_device_mesh,
+        rank_device,
+    )
 
     if world != axes.size:
         raise ValueError(f"a mesh of {axes.size} positions needs {axes.size} ranks, got {world}")
-    backend = choose_backend(world, device_type, device_ids)
-    device = rank_device(rank, device_type, device_ids)
-    initialize_distributed(init_method, world, rank, backend, device, timeout_s)
-    return make_device_mesh(axes, device)
+    local = local_size(world, launchers)
+    backend = choose_backend(local, device_type, device_ids)
+    device = rank_device(rank % local, device_type, device_ids)
+    initialize_distributed(init_method, world, rank, backend, device, timeout_s, local)
+    return make_device_mesh(axes, device, local, timeout_s)
 
 
 def _die_with_parent() -> None:
@@ -508,15 +566,86 @@ def _import(target: str):
     return fn
 
 
+def run_launcher(body: Callable, args_of: Callable[[int], tuple], world: int,
+                 launchers: int = 1, index: int = 0, signals: bool = True,
+                 deadline: Optional[float] = None, grace_s: float = 60.0) -> int:
+    """Launcher ``index`` of ``launchers`` (the JAX package's process):
+    spawn its local ranks, global ranks ``index * L`` to ``index * L + L -
+    1`` (``L = world / launchers``), each running ``body(*args_of(rank))``,
+    and wait for them. Returns 0 when every local rank ended with 0
+    (launcher 0: once rank 0 has, its other ranks within ``grace_s``), else
+    1; every rank is stopped on the way out. With ``signals``, SIGINT and
+    SIGTERM to launcher 0 go to rank 0 (the server's own shutdown, which
+    stops every rank of every launcher); another launcher stops its ranks
+    and fails, and the mesh fails through its collectives' timeout.
+    ``deadline`` (``time.monotonic``): a TimeoutError past it."""
+    import multiprocessing as mp
+
+    from ..utils.logger import get_logger
+    from .mesh import local_size
+
+    log = get_logger()
+    local = local_size(world, launchers)
+    if not 0 <= index < launchers:
+        raise ValueError(f"process_id {index} is not one of the {launchers} launchers")
+    ranks = [index * local + i for i in range(local)]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=body, args=args_of(r), name=f"rank{r}") for r in ranks]
+    for p in procs:
+        p.start()
+    for r, p in zip(ranks, procs):
+        log.info("rank %d pid %d", r, p.pid)
+    stopped = []
+
+    def on_signal(signum, _frame):
+        if index == 0:
+            if procs[0].is_alive():
+                os.kill(procs[0].pid, signum)
+        else:
+            stopped.append(signum)
+
+    old = {s: signal.signal(s, on_signal) for s in (signal.SIGINT, signal.SIGTERM)} \
+        if signals else {}
+    try:
+        code = 0
+        while any(p.is_alive() for p in procs):
+            failed = [r for r, p in zip(ranks, procs) if p.exitcode not in (None, 0)]
+            if stopped or failed:
+                if stopped:
+                    log.error("launcher %d got signal %d; stopping its ranks", index, stopped[0])
+                else:
+                    log.error("rank %d exited with %s; stopping the mesh", failed[0],
+                              procs[ranks.index(failed[0])].exitcode)
+                code = 1
+                break
+            if deadline is not None and time.monotonic() > deadline:
+                raise TimeoutError(f"launcher {index}'s ranks did not finish in time")
+            if index == 0 and procs[0].exitcode == 0:  # rank 0 is done: the rest end soon
+                end = min(time.monotonic() + grace_s, deadline or float("inf"))
+                while any(p.is_alive() for p in procs) and time.monotonic() < end:
+                    time.sleep(0.1)
+                break
+            time.sleep(0.1)
+        if any(p.is_alive() or p.exitcode != 0 for p in procs):
+            code = 1
+    finally:
+        _stop_all(procs)
+        for s, h in old.items():
+            signal.signal(s, h)
+    return code
+
+
 def _world_rank(target: str, rank: int, world: int, init_method: str, payload: Any,
-                result_path: str) -> None:
-    """Body of a :func:`run_world` process: ``target(rank, world,
-    init_method, payload)``, its return value (or its traceback) pickled
-    to ``result_path``."""
+                result_path: str, launchers: int = 1) -> None:
+    """Body of a :func:`run_world` rank: ``target(rank, world,
+    init_method, payload)`` (with ``launchers=`` when there are several),
+    its return value (or its traceback) pickled to ``result_path``."""
     _die_with_parent()
     torch.set_num_threads(1)
     try:
-        result = {"ok": True, "value": _import(target)(rank, world, init_method, payload)}
+        extra = {"launchers": launchers} if launchers > 1 else {}
+        result = {"ok": True,
+                  "value": _import(target)(rank, world, init_method, payload, **extra)}
     except BaseException as exc:  # noqa: BLE001 - reported to the parent, then exit non-zero
         result = {"ok": False, "error": f"{type(exc).__name__}: {exc}",
                   "traceback": traceback.format_exc()}
@@ -526,39 +655,44 @@ def _world_rank(target: str, rank: int, world: int, init_method: str, payload: A
         os._exit(1)
 
 
-def run_world(target: str, world: int, payload: Any = None, timeout_s: float = 300.0,
-              workdir: Optional[str] = None) -> List[Any]:
-    """Run ``target`` (``"module:function"``) on every rank of a new world
-    of ``world`` spawned processes, joined through a ``file://`` store in
-    ``workdir`` (a temporary directory by default). Returns each rank's
-    return value, in rank order; raises with the first failing rank's
-    traceback, or when the world outlives ``timeout_s`` (every process is
-    stopped first)."""
-    import multiprocessing as mp
+def _world_launcher(target: str, world: int, launchers: int, index: int, init_method: str,
+                    payload: Any, paths: List[str]) -> None:
+    """Body of one of :func:`run_world`'s launcher processes."""
+    _die_with_parent()
+    sys.exit(run_launcher(_world_rank, lambda r: (target, r, world, init_method, payload,
+                                                  paths[r], launchers),
+                          world, launchers, index))
 
-    ctx = mp.get_context("spawn")
+
+def run_world(target: str, world: int, payload: Any = None, timeout_s: float = 300.0,
+              workdir: Optional[str] = None, launchers: int = 1) -> List[Any]:
+    """Run ``target`` (``"module:function"``) on every rank of a new world
+    of ``world`` processes, spawned by ``launchers`` launcher processes
+    (:func:`run_launcher`, the server CLI's) of ``world / launchers`` ranks
+    each, all joined through a ``file://`` store in ``workdir`` (a
+    temporary directory by default); ``target`` gets ``launchers=`` when
+    there are several. Returns each rank's return value, in rank order;
+    raises with the first failing rank's traceback, or when the world
+    outlives ``timeout_s`` (every process is stopped first)."""
+    from .mesh import local_size
+
+    local_size(world, launchers)
     own = workdir is None
     workdir = workdir or tempfile.mkdtemp(prefix="world-")
     os.makedirs(workdir, exist_ok=True)
-    init = f"file://{os.path.join(workdir, 'store')}"
     paths = [os.path.join(workdir, f"rank{r}.pkl") for r in range(world)]
-    for path in paths + [os.path.join(workdir, "store")]:  # an earlier world's
+    store = os.path.join(workdir, "store")
+    for path in paths + [store]:  # an earlier world's
         if os.path.exists(path):
             os.remove(path)
-    procs = [ctx.Process(target=_world_rank, args=(target, r, world, init, payload, paths[r]))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + timeout_s
-    try:
-        while any(p.is_alive() for p in procs):
-            if time.monotonic() > deadline:
-                raise TimeoutError(f"world {target} did not finish in {timeout_s:g} s")
-            if any(p.exitcode not in (None, 0) for p in procs):
-                break  # a rank failed: the others may wait on it forever
-            time.sleep(0.05)
-    finally:
-        _stop_all(procs)
+    init = f"file://{store}"
+    try:  # the launchers are this process's ranks, as a launcher's ranks are its own
+        code = run_launcher(_world_launcher, lambda i: (target, world, launchers, i, init,
+                                                        payload, paths),
+                            launchers, signals=False, deadline=time.monotonic() + timeout_s,
+                            grace_s=timeout_s)
+    except TimeoutError:
+        raise TimeoutError(f"world {target} did not finish in {timeout_s:g} s") from None
     loaded = {}
     for r, path in enumerate(paths):
         if os.path.exists(path):
@@ -569,8 +703,8 @@ def run_world(target: str, world: int, payload: Any = None, timeout_s: float = 3
             raise RuntimeError(f"rank {r} of {target} failed: {res['error']}\n{res['traceback']}")
     missing = [r for r in range(world) if r not in loaded]
     if missing:
-        raise RuntimeError(f"rank {missing[0]} of {target} exited with "
-                           f"{procs[missing[0]].exitcode} and no result")
+        raise RuntimeError(f"rank {missing[0]} of {target} exited with no result (launchers' "
+                           f"exit code {code})")
     results = [loaded[r]["value"] for r in range(world)]
     if own:
         import shutil
@@ -614,12 +748,11 @@ def follower_engine(cfg, mesh: RankMesh):
 
 
 def rank_main(rank: int, world: int, init_method: str, config_path: str, device: str,
-              timeout_s: float, spawned: bool = True) -> None:
-    """One rank of a mesh server (a :func:`serve_mesh` process, or the
-    process itself when ``distributed.coordinator_address`` is set): join
-    the mesh, build this rank's engine (rank 0 builds the seeded weights
-    once and sends each rank its shard), then serve (rank 0) or follow.
-    A ``spawned`` rank dies with its launcher."""
+              timeout_s: float, launchers: int = 1) -> None:
+    """One rank of a mesh server (a :func:`serve_mesh` launcher's process):
+    join the mesh, build this rank's engine (rank 0 builds the seeded
+    weights once and sends each rank its shard), then serve (rank 0, which
+    keeps the idle mesh alive) or follow. Dies with its launcher."""
     import asyncio
 
     import torch.distributed as dist
@@ -628,8 +761,7 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
     from ..utils.logger import get_logger
 
     log = get_logger()
-    if spawned:
-        _die_with_parent()
+    _die_with_parent()
     if rank != 0:
         signal.signal(signal.SIGINT, signal.SIG_IGN)  # rank 0 decides when to stop
     cfg = load_config(config_path)
@@ -639,10 +771,12 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     t0 = time.perf_counter()
     mesh = join_mesh(axes, rank, world, init_method, torch.device(device).type,
-                     cfg.devices.device_ids, timeout_s)
+                     cfg.devices.device_ids, timeout_s, launchers)
     log.info("%s (joined in %.1f s)", mesh.describe(), time.perf_counter() - t0)
     if rank == 0:
         print(f"mesh backend: {mesh.backend}", flush=True)
+        print(f"mesh launchers: {mesh.launchers} of {mesh.local} ranks; axes crossing them: "
+              f"{json.dumps(mesh.crossing)}", flush=True)
         from ..grpc.server import InferenceServer
 
         server = InferenceServer(cfg, device=str(mesh.device), mesh=mesh)
@@ -655,6 +789,7 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
             os._exit(3)
 
         worker.on_fatal = fatal
+        worker.keep_alive()
         log.info("rank 0 ready in %.1f s", time.perf_counter() - t0)
         asyncio.run(server.serve())
         worker.stop_followers()
@@ -666,71 +801,44 @@ def rank_main(rank: int, world: int, init_method: str, config_path: str, device:
 
 
 def serve_mesh(config_path: str, cfg, device: str, timeout_s: float = 300.0) -> int:
-    """The server CLI for a mesh config: one process per mesh position, or,
-    with ``distributed.coordinator_address``, this process as the rank
-    ``distributed.process_id`` of a world joined there (as the JAX
-    ``initialize_distributed`` joins a coordinator). Returns the exit code:
-    0 when rank 0 shut down cleanly and every rank ended, else 1."""
-    import multiprocessing as mp
+    """The server CLI for a mesh config: one launcher (:func:`run_launcher`)
+    of every mesh position, or with ``distributed.coordinator_address``
+    launcher ``process_id`` of ``num_processes`` (each a host's process,
+    as the JAX server's ``jax.distributed.initialize``; unset values come
+    from the SLURM or Open MPI environment, ``utils.config.resolve_distributed``),
+    its ranks joining that address. Returns the exit code: 0 when its
+    ranks ended after rank 0's clean shutdown, else 1."""
+    import shutil
 
+    from ..utils.config import resolve_distributed
     from ..utils.logger import get_logger
+    from .mesh import local_size
 
-    log = get_logger()
     world = cfg.devices.mesh.size
-    dcfg = cfg.distributed
+    dcfg = resolve_distributed(cfg.distributed)
+    workdir = None
     if dcfg.coordinator_address:
-        n = dcfg.num_processes or world
-        if dcfg.process_id < 0:
-            raise ValueError("distributed.process_id must name this process's rank")
-        rank_main(dcfg.process_id, n, f"tcp://{dcfg.coordinator_address}", config_path,
-                  device, timeout_s, spawned=False)
-        return 0
+        launchers, index = dcfg.num_processes, dcfg.process_id
+        init = f"tcp://{dcfg.coordinator_address}"
+    else:
+        launchers, index = 1, 0
+        workdir = tempfile.mkdtemp(prefix="mesh-")
+        init = f"file://{os.path.join(workdir, 'store')}"
+    local = local_size(world, launchers)
+    get_logger().info("launcher %d of %d: ranks %d-%d of %d, joining at %s", index, launchers,
+                      index * local, index * local + local - 1, world, init)
     if torch.device(device).type == "cuda":
         from ..ops import _build
 
         _build.build_all()  # once, before the ranks load the libraries
-    workdir = tempfile.mkdtemp(prefix="mesh-")
-    init = f"file://{os.path.join(workdir, 'store')}"
-    ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=rank_main, args=(r, world, init, config_path, device, timeout_s),
-                         name=f"rank{r}") for r in range(world)]
-    for p in procs:
-        p.start()
-    for r, p in enumerate(procs):
-        log.info("rank %d pid %d", r, p.pid)
-
-    def forward(signum, _frame):
-        if procs[0].is_alive():
-            os.kill(procs[0].pid, signum)
-
-    old = {s: signal.signal(s, forward) for s in (signal.SIGINT, signal.SIGTERM)}
     try:
-        code = 0
-        while any(p.is_alive() for p in procs):
-            failed = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)]
-            if failed:
-                log.error("rank %d exited with %s; stopping the mesh", failed[0],
-                          procs[failed[0]].exitcode)
-                code = 1
-                break
-            if procs[0].exitcode == 0:  # rank 0 is done: the followers must end soon
-                deadline = time.monotonic() + 60.0
-                while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
-                    time.sleep(0.1)
-                break
-            time.sleep(0.1)
-        if any(p.is_alive() or p.exitcode != 0 for p in procs):
-            code = 1
+        return run_launcher(rank_main, lambda r: (r, world, init, config_path, device, timeout_s,
+                                                  launchers), world, launchers, index)
     finally:
-        _stop_all(procs)
-        for s, h in old.items():
-            signal.signal(s, h)
-        import shutil
-
-        shutil.rmtree(workdir, ignore_errors=True)
-    return code
+        if workdir is not None:
+            shutil.rmtree(workdir, ignore_errors=True)
 
 
 __all__ = ["BatchWorker", "GspmdWorker", "MeshWorker", "PipeWorker", "follow",
-           "follower_engine", "join_mesh", "mesh_worker", "rank_main", "run_world",
-           "serve_mesh"]
+           "follower_engine", "join_mesh", "mesh_worker", "rank_main",
+           "run_launcher", "run_world", "serve_mesh"]

@@ -10,11 +10,22 @@ position is a process (a rank of ``torch.distributed``), and a
 process group per axis; :class:`RankMesh` adds this rank's coordinates,
 its device and the groups the stage bodies reduce over.
 
-Backend rule (:func:`choose_backend`): ``nccl`` when every rank has a
-GPU of its own, ``gloo`` when ranks share a card or run on the CPU. A
-backend that fails to start or to communicate is an error; nothing
-switches to the other one. NCCL refuses two ranks on one device, so
-``nccl`` with ranks sharing a card is refused here with its reason.
+Launchers (the JAX package's ``jax.distributed`` processes): a world
+of ``W`` ranks is started by ``num_processes`` launchers, each owning
+``L = W / num_processes`` consecutive global ranks, ``process_id * L +
+local rank`` (:func:`local_size`). That is ``jax.devices()``'s order (by
+process) reshaped row-major over (data, pipe, expert, model), so the
+innermost axes stay inside a launcher and the outer ones cross
+(:func:`crossing_axes`). A rank's device comes from its local rank.
+
+Backend rule (:func:`choose_backend`): ``nccl`` when every launcher has a
+GPU per local rank, ``gloo`` when ranks share a card or run on the CPU.
+The launchers must agree: each rank posts its launcher's choice to the
+rendezvous store before ``init_process_group`` (:func:`agree_backend`),
+and a disagreement is an error naming both. A backend that fails to
+start or to communicate is an error; nothing switches to the other one.
+NCCL refuses two ranks on one device, so ``nccl`` with ranks sharing a
+card is refused here with its reason.
 """
 
 from __future__ import annotations
@@ -65,23 +76,92 @@ def device_grid(axes: MeshAxes, devices: Sequence) -> np.ndarray:
     return grid.reshape(axes.shape)
 
 
-def choose_backend(world_size: int, device_type: str, device_ids: Sequence[int] = ()) -> str:
-    """``nccl`` when each of the ``world_size`` ranks gets a GPU of its own
-    (``device_ids``, default the visible cards), ``gloo`` when ranks share
-    a card or run on the CPU."""
+def local_size(world_size: int, num_processes: int) -> int:
+    """Ranks a launcher owns: ``world_size / num_processes``; an error
+    naming both when ``num_processes`` does not divide the mesh."""
+    if num_processes < 1 or world_size % num_processes:
+        raise ValueError(f"a mesh of {world_size} positions cannot be split over "
+                         f"num_processes={num_processes} launchers: each launcher owns the "
+                         "same number of consecutive ranks")
+    return world_size // num_processes
+
+
+def crossing_axes(axes: MeshAxes, local: int) -> list:
+    """The axis labels (``AXES`` order, then ``expert+model``) whose groups
+    hold ranks of more than one launcher, when a launcher owns ``local``
+    consecutive ranks (the JAX mesh axes that cross processes)."""
+    launcher = np.arange(axes.size).reshape(axes.shape) // local
+    out = []
+    for i, axis in enumerate(AXES):
+        rows = np.moveaxis(launcher, i, -1).reshape(-1, axes.shape[i])
+        if (rows.min(-1) != rows.max(-1)).any():
+            out.append(axis)
+    pairs = launcher.reshape(axes.data * axes.pipe, -1)
+    if axes.expert * axes.model > 1 and (pairs.min(-1) != pairs.max(-1)).any():
+        out.append(f"{EXPERT_AXIS}+{MODEL_AXIS}")
+    return out
+
+
+def choose_backend(local_ranks: int, device_type: str, device_ids: Sequence[int] = ()) -> str:
+    """``nccl`` when each of a launcher's ``local_ranks`` ranks gets a GPU
+    of its own (``device_ids``, default the visible cards), ``gloo`` when
+    ranks share a card or run on the CPU."""
     if device_type != "cuda":
         return "gloo"
     cards = len(device_ids) if device_ids else torch.cuda.device_count()
-    return "nccl" if cards >= world_size else "gloo"
+    return "nccl" if cards >= local_ranks else "gloo"
 
 
-def rank_device(rank: int, device_type: str, device_ids: Sequence[int] = ()) -> torch.device:
-    """Rank ``r`` runs on ``cuda:{device_ids[r % len(device_ids)]}`` (all
-    visible cards when none are named), or on the CPU."""
+def rank_device(local_rank: int, device_type: str, device_ids: Sequence[int] = ()) -> torch.device:
+    """Local rank ``i`` of a launcher runs on
+    ``cuda:{device_ids[i % len(device_ids)]}`` (the launcher's visible cards
+    when none are named), or on the CPU."""
     if device_type != "cuda":
         return torch.device("cpu")
     ids = list(device_ids) or list(range(max(1, torch.cuda.device_count())))
-    return torch.device("cuda", ids[rank % len(ids)])
+    return torch.device("cuda", ids[local_rank % len(ids)])
+
+
+def rendezvous_store(init_method: str, world_size: int, rank: int, timeout_s: float):
+    """The store of ``init_method``: ``tcp://host:port`` (a ``TCPStore``
+    that global rank 0 hosts; a rank that starts first waits for it up to
+    ``timeout_s``) or ``file://path`` (a ``FileStore``)."""
+    import torch.distributed as dist
+
+    timeout = datetime.timedelta(seconds=timeout_s)
+    scheme, _, where = init_method.partition("://")
+    if scheme == "tcp":
+        host, _, port = where.rpartition(":")
+        return dist.TCPStore(host.strip("[]"), int(port), world_size, is_master=rank == 0,
+                             timeout=timeout, wait_for_workers=False)
+    if scheme == "file":
+        store = dist.FileStore(where, world_size)
+        store.set_timeout(timeout)
+        return store
+    raise ValueError(f"init method {init_method!r}: expected tcp://host:port or file://path")
+
+
+def agree_backend(store, rank: int, world_size: int, launcher: int, backend: str,
+                  card: str = "-") -> None:
+    """Post this rank's backend (its launcher's choice) and its card (the
+    GPU's UUID, ``-`` on the CPU) to ``store`` and read every rank's; an
+    error naming both choices when two launchers differ, and under
+    ``nccl`` one naming two ranks that share a card (launchers on one host
+    that each count its cards as theirs). Every rank waits for the
+    others' posts (the store's timeout)."""
+    store.set(f"backend/{rank}", f"{backend} {launcher} {card}")
+    cards = {}
+    for r in range(world_size):
+        theirs, other, their_card = store.get(f"backend/{r}").decode().split()
+        if theirs != backend:
+            raise ValueError(f"the launchers disagree on the backend: launcher {launcher} chose "
+                             f"{backend}, launcher {other} chose {theirs} (nccl needs a GPU per "
+                             "local rank on every launcher)")
+        if backend == "nccl" and their_card in cards:
+            raise ValueError(f"nccl needs a GPU per rank: ranks {cards[their_card]} and {r} "
+                             f"(launcher {other}) share card {their_card}; give launchers on one "
+                             "host disjoint devices.device_ids")
+        cards[their_card] = r
 
 
 def initialize_distributed(
@@ -91,29 +171,36 @@ def initialize_distributed(
     backend: str,
     device: torch.device,
     timeout_s: float = 300.0,
+    local_ranks: Optional[int] = None,
 ) -> None:
     """Join the world (``torch.distributed.init_process_group``) as
     ``rank`` of ``world_size`` at ``init_method`` (``tcp://host:port`` or
-    ``file://path``). Refuses ``nccl`` for ranks that share a device:
-    NCCL rejects duplicate GPUs, and no other backend is tried instead.
-    ``timeout_s`` bounds every collective, so a dead or hung rank makes
-    the others fail instead of waiting forever."""
+    ``file://path``), after every launcher agreed on ``backend``
+    (:func:`agree_backend`). ``local_ranks``: ranks of this rank's
+    launcher (default the world). Refuses ``nccl`` for ranks that share a
+    device: NCCL rejects duplicate GPUs, and no other backend is tried
+    instead. ``timeout_s`` bounds the rendezvous and every collective, so
+    a dead or hung rank makes the others fail instead of waiting forever."""
     import torch.distributed as dist
 
+    local = local_ranks or world_size
     if backend == "nccl":
         if device.type != "cuda":
             raise ValueError("the nccl backend needs every rank on a GPU")
-        if world_size > torch.cuda.device_count():
+        if local > torch.cuda.device_count():
             raise ValueError(
-                f"nccl needs a GPU per rank: {world_size} ranks, "
+                f"nccl needs a GPU per rank: {local} ranks on this launcher, "
                 f"{torch.cuda.device_count()} visible GPUs (NCCL refuses two "
                 "ranks on one device; use gloo, which the backend rule picks "
                 "when ranks share a card)"
             )
     if device.type == "cuda":
         torch.cuda.set_device(device)
+    store = rendezvous_store(init_method, world_size, rank, timeout_s)
+    card = str(torch.cuda.get_device_properties(device).uuid) if device.type == "cuda" else "-"
+    agree_backend(store, rank, world_size, rank // local, backend, card)
     dist.init_process_group(
-        backend, init_method=init_method, world_size=world_size, rank=rank,
+        backend, store=store, world_size=world_size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout_s),
     )
 
@@ -121,12 +208,16 @@ def initialize_distributed(
 class RankMesh:
     """This rank's view of the mesh: axis sizes, its coordinates, its
     device, the per-axis process groups of ``init_device_mesh`` and the
-    (expert, model) group the MoE combine sums over.
+    (expert, model) group the MoE combine sums over; the launchers
+    (``local`` consecutive ranks each): this rank's (``launcher``), every
+    rank's (:meth:`process_index`) and the axes whose groups cross them
+    (``crossing``).
 
     Every rank must construct it (group creation is collective), after
     :func:`initialize_distributed`, with the same ``axes``."""
 
-    def __init__(self, axes: MeshAxes, device: torch.device):
+    def __init__(self, axes: MeshAxes, device: torch.device, local: Optional[int] = None,
+                 timeout_s: float = 300.0):
         import torch.distributed as dist
         from torch.distributed.device_mesh import init_device_mesh
 
@@ -142,6 +233,11 @@ class RankMesh:
         self.backend = dist.get_backend()
         self.rank = dist.get_rank()
         self.world_size = world
+        self.local = local or world
+        self.launchers = world // self.local
+        self.launcher = self.rank // self.local
+        self.crossing = crossing_axes(axes, self.local)
+        self.timeout_s = timeout_s  # the collectives' timeout
         mesh_type = "cuda" if self.backend == "nccl" else "cpu"
         self.device_mesh = init_device_mesh(mesh_type, axes.shape, mesh_dim_names=AXES)
         coord = np.unravel_index(self.rank, axes.shape)
@@ -183,6 +279,10 @@ class RankMesh:
     def coord(self, axis: str) -> int:
         return self.coords[axis]
 
+    def process_index(self, rank: int) -> int:
+        """The launcher of world rank ``rank`` (JAX ``Device.process_index``)."""
+        return rank // self.local
+
     @property
     def stage(self) -> int:
         return self.coords[PIPE_AXIS]
@@ -197,13 +297,17 @@ class RankMesh:
         return self.backend == "gloo" and self.device.type == "cuda"
 
     def describe(self) -> str:
-        return (f"rank {self.rank}/{self.world_size} {self.backend} on {self.device} at "
+        return (f"rank {self.rank}/{self.world_size} {self.backend} on {self.device} "
+                f"(launcher {self.launcher}/{self.launchers}) at "
                 + " ".join(f"{a}={self.coords[a]}/{self.shape[a]}" for a in AXES))
 
 
-def make_device_mesh(axes: MeshAxes, device: Optional[torch.device] = None) -> RankMesh:
+def make_device_mesh(axes: MeshAxes, device: Optional[torch.device] = None,
+                     local: Optional[int] = None, timeout_s: float = 300.0) -> RankMesh:
     """Build this rank's :class:`RankMesh` over the initialized world
     (``torch.distributed``, its backend); the counterpart of the JAX
     function, with ranks in place of devices. ``device`` defaults to the
-    CPU."""
-    return RankMesh(axes, torch.device(device) if device is not None else torch.device("cpu"))
+    CPU; ``local``: ranks a launcher owns (default the world: one
+    launcher)."""
+    return RankMesh(axes, torch.device(device) if device is not None else torch.device("cpu"),
+                    local, timeout_s)

@@ -159,14 +159,52 @@ class CongestionSettings:
 
 @dataclasses.dataclass(frozen=True)
 class DistributedSettings:
-    """Multi-host bring-up (parsed; multi-device serving is not yet
-    ported). Empty
-    coordinator = single host. No reference counterpart (the reference
-    is single-node; SURVEY.md section 5.8)."""
+    """Multi-host bring-up: with a coordinator, ``num_processes``
+    launchers (the JAX package's ``jax.distributed`` processes), this one
+    ``process_id``, join at ``coordinator_address``
+    (``parallel/launch.py:serve_mesh``; :func:`resolve_distributed` fills
+    the auto-detected values). Empty coordinator = single host. No
+    reference counterpart (the reference is single-node; SURVEY.md
+    section 5.8)."""
 
     coordinator_address: str = ""
     num_processes: int = 0   # 0 = auto-detect
     process_id: int = -1     # -1 = auto-detect
+
+
+# (rank, size) variables of the cluster environments jax.distributed reads,
+# in its order: Open MPI, then SLURM
+CLUSTER_VARIABLES = (("OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"),
+                     ("SLURM_PROCID", "SLURM_NTASKS"))
+
+
+def resolve_distributed(settings: DistributedSettings,
+                        environ: Mapping[str, str] = None) -> DistributedSettings:
+    """``settings`` with ``process_id: -1`` and ``num_processes: 0`` read
+    from the environment (``os.environ`` by default), as
+    ``jax.distributed.initialize`` reads them: ``OMPI_COMM_WORLD_RANK`` /
+    ``OMPI_COMM_WORLD_SIZE``, else ``SLURM_PROCID`` / ``SLURM_NTASKS``.
+    Without a coordinator nothing is resolved (no coordinator is
+    auto-detected). Raises InvalidConfigValueError naming the variables when a value
+    is unset and neither set is present, and when ``process_id`` is not
+    below ``num_processes``."""
+    if not settings.coordinator_address:
+        return settings
+    env = os.environ if environ is None else environ
+    pid, n = settings.process_id, settings.num_processes
+    if pid < 0 or n <= 0:
+        found = next(((env[r], env[w]) for r, w in CLUSTER_VARIABLES if r in env and w in env),
+                     None)
+        if found is None:
+            names = " or ".join(f"{r} / {w}" for r, w in CLUSTER_VARIABLES)
+            raise InvalidConfigValueError(
+                f"distributed: process_id {pid} and num_processes {n} are to be auto-detected, "
+                f"but neither {names} is set")
+        pid = int(found[0]) if pid < 0 else pid
+        n = int(found[1]) if n <= 0 else n
+    if not 0 <= pid < n:
+        raise InvalidConfigValueError(f"distributed: process_id {pid} is not below num_processes {n}")
+    return dataclasses.replace(settings, num_processes=n, process_id=pid)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -106,11 +106,36 @@ def cut_shards(tree, spec, family: str, mesh) -> list:
 
 def send_shards(shards, mesh) -> None:
     """Rank 0: send every other rank its shard of ``shards`` (rank order)
-    over the mesh's control group; they call :func:`receive_shard`."""
+    over the mesh's control group; they call :func:`receive_shard`. Logs
+    ``weights sent: {json}``: the shards, MB and host seconds, in all and
+    to the ranks of other launchers."""
+    import json
+    import time
+
     import torch.distributed as dist
 
+    from .utils.logger import get_logger
+
+    sent = {"shards": 0, "mb": 0.0, "s": 0.0, "other_launchers": {"shards": 0, "mb": 0.0, "s": 0.0}}
     for r in range(1, mesh.world_size):
-        dist.send_object_list([own_shard(shards[r], "cpu")], dst=r, group=mesh.control)
+        t0 = time.perf_counter()
+        shard = own_shard(shards[r], "cpu")
+        dist.send_object_list([shard], dst=r, group=mesh.control)
+        seconds, mb = time.perf_counter() - t0, _tree_bytes(shard) / 1e6
+        remote = mesh.process_index(r) != mesh.launcher
+        for part in (sent, sent["other_launchers"]) if remote else (sent,):
+            part["shards"] += 1
+            part["s"] += seconds
+            part["mb"] += mb
+    get_logger().info("weights sent: %s", json.dumps(sent, sort_keys=True))
+
+
+def _tree_bytes(node) -> int:
+    if isinstance(node, dict):
+        return sum(_tree_bytes(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return sum(_tree_bytes(v) for v in node)
+    return node.nbytes if isinstance(node, torch.Tensor) else 0
 
 
 def scatter_shards(tree, spec, family: str, mesh):

@@ -334,13 +334,15 @@ CASES = {"forward": case_forward, "row_dense": case_row_dense,
          "seqpar": case_seqpar}
 
 
-def world(rank, world_size, init_method, payload):
-    """Join a CPU mesh of ``payload['axes']`` (a dict of axis sizes) and
-    run every case of ``payload['cases']`` in order on this rank. Returns
-    {case name: result}."""
+def world(rank, world_size, init_method, payload, launchers=1):
+    """Join a CPU mesh of ``payload['axes']`` (a dict of axis sizes),
+    started by ``launchers`` launchers, and run every case of
+    ``payload['cases']`` in order on this rank. Returns {case name:
+    result}, with the rank's coordinates, launcher and the axes crossing
+    launchers."""
     mesh = join_mesh(MeshAxes(**payload["axes"]), rank, world_size, init_method, "cpu",
-                     timeout_s=120.0)
-    out = {"coords": dict(mesh.coords)}
+                     timeout_s=120.0, launchers=launchers)
+    out = {"coords": dict(mesh.coords), "launcher": mesh.launcher, "crossing": mesh.crossing}
     for case in payload["cases"]:
         out[case["name"]] = CASES[case["kind"]](mesh, case)
     return out

@@ -79,6 +79,36 @@ def case_decode(mesh, case):
             "census": mesh.stats.snapshot()}
 
 
+def case_prefill_decode(mesh, case):
+    """A pipelined prefill of ``ids`` into slot 0, then one pipelined decode
+    step of its greedy token (broadcast from rank 0, the same on every
+    rank) with only slot 0 active: the first token, the step's logits
+    (stage 0) and the step's collectives."""
+    import torch.distributed as dist
+
+    from starpu_inference_server_tpu_torch.parallel.pipeline_decode import (
+        init_stage_cache,
+        pipelined_decode_step,
+        pipelined_prefill,
+    )
+
+    spec, params = _setup(mesh, case)
+    cache = init_stage_cache(spec, case["num_slots"], case["max_len"], mesh)
+    cache, logits = pipelined_prefill(spec, params, cache, torch.from_numpy(case["ids"]),
+                                      case["length"], 0, mesh, torch.float32)
+    first = torch.zeros((1,), dtype=torch.int64)
+    if mesh.rank == 0:
+        first[0] = int(torch.argmax(logits))
+    dist.broadcast(first, 0)
+    ids = torch.zeros((case["num_slots"],), dtype=torch.int32)
+    active = torch.zeros((case["num_slots"],), dtype=torch.bool)
+    ids[0], active[0] = int(first[0]), True
+    mesh.stats.reset()
+    cache, logits = pipelined_decode_step(spec, params, cache, ids, active, mesh, torch.float32)
+    return {"first": int(first[0]), "logits": None if logits is None else logits.numpy(),
+            "census": mesh.stats.snapshot()}
+
+
 def case_logits(mesh, case):
     from starpu_inference_server_tpu_torch.parallel.pipeline import pipelined_decoder_logits
 
@@ -142,17 +172,19 @@ def case_engine(mesh, case):
 
 
 CASES = {"prefill": case_prefill, "decode": case_decode, "logits": case_logits,
-         "forward": case_forward, "engine": case_engine}
+         "forward": case_forward, "engine": case_engine, "prefill_decode": case_prefill_decode}
 
 
-def world(rank, world_size, init_method, payload):
-    """Join a mesh of ``payload['axes']`` (pipe, model, expert) on the CPU
-    and run every case of ``payload['cases']`` in order on this rank.
-    Returns {case name: result}."""
+def world(rank, world_size, init_method, payload, launchers=1):
+    """Join a mesh of ``payload['axes']`` (pipe, model, expert) on the CPU,
+    started by ``launchers`` launchers, and run every case of
+    ``payload['cases']`` in order on this rank. Returns {case name:
+    result}, with the rank's coordinates, launcher and the axes crossing
+    launchers."""
     pipe, model, expert = payload["axes"]
     mesh = join_mesh(MeshAxes(pipe=pipe, model=model, expert=expert), rank, world_size,
-                     init_method, "cpu", timeout_s=120.0)
-    out = {"coords": dict(mesh.coords)}
+                     init_method, "cpu", timeout_s=120.0, launchers=launchers)
+    out = {"coords": dict(mesh.coords), "launcher": mesh.launcher, "crossing": mesh.crossing}
     for case in payload["cases"]:
         out[case["name"]] = CASES[case["kind"]](mesh, case)
     return out
