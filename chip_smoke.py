@@ -6,7 +6,7 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``starpu_inference_server_tpu_torch/csrc``
-(one nvcc per source, all at once), then drives seven groups of paths
+(one nvcc per source, all at once), then drives the groups of paths below
 and fails (exit 1) if any phase fails.
 
 The decoder path (configs/llama_decoder.yml: llama-1b, 128 slots,
@@ -163,8 +163,8 @@ after the flat group (15-16):
     host clock of a step against its device busy time and the device
     time of dequantizing the expert stacks; moe-tiny at FP32, kernels on
     against off, equal streams;
-16. serve_logits: llama-1b int4 on the batch pipeline, 4 requests of 512
-    ids over gRPC, the logits against forward_logits at batch 1 on the
+16. serve_logits: llama-1b int4 (cut to ``LOGITS_LAYERS`` layers) on the
+    batch pipeline, 4 requests of 512 ids over gRPC, the logits against forward_logits at batch 1 on the
     card, causal_attention once a layer a forward.
 
 Clients and checkpoints, last: every server is started from the CLI
@@ -241,7 +241,8 @@ K1-K8 at the shapes a rank's shard gives them, each against its plain
 version, into the kernels' ``per_shape`` lists (K6 on a row-parallel
 layer: the ranks' exact integer sums, scaled, equal to the whole row);
 ``llama_decoder.yml`` and ``bert_long.yml`` at data=2 x model=2 from the
-CLI as 4 ranks (the generation client's tok/s and TTFT, rank 0's decode
+CLI as 4 ranks (llama-1b cut to ``GSPMD_LAYERS`` layers here and in the
+rank world; the generation client's tok/s and TTFT, rank 0's decode
 step, every BERT response held against a batch-1 single-device apply,
 the census and launches by rank from the ``mesh statistics`` lines);
 and one world of 4 rank processes (``gspmd_world``) running eight meshes
@@ -273,6 +274,32 @@ pipe=2 x model=2, a stage a launcher, ``MH_REQUESTS`` greedy streams that
 must be equal, only the ``pipe`` hops crossing, K2, K3, K4 in both
 stages. A llama-tiny pair at data=2 x model=2 whose rank 3 is killed:
 both launchers exit non-zero within ``--timeout-s``.
+
+The head-layout group, last (``head_layout_kernel_rows``,
+``head_layouts_path``): every attention head layout the JAX package
+serves. First the eight decode-side kernels (K3, K9, K10, K11, K12a-d)
+and K5 and K4 at q/kv ratios 16, 32, 7 and 71 (head dim 64) and head dims
+80, 96 and 256 (q/kv 8), bf16 and f32, each against its plain version,
+bf16 bit-equal over two calls and flat to its standard twin; K1, K3, K4
+and K5 timed at the group's path shapes (K1 on every int4 layer of a
+model=4 rank and on the one-device qkv), K3 also at the config's 128
+slots; the row groups' cost: K3 at 71 heads over one kv head and K9 at
+W = 5 and q/kv 16 (two groups each) beside one group on the same cache,
+and K3 at D = 256. Then llama_decoder.yml with
+``kv_heads: 2`` set in code (llama-1b widths and depth, q/kv 16,
+``HL_SLOTS`` slots): the model kernels on vs off, 16 greedy requests
+(one of 600 tokens) through K1, K3, K4 and K5, and an FP32 witness of the
+same weights whose streams with the kernels on equal those with them
+off; the same tree at data=1 x model=4 as 4 rank processes (8 q heads and
+one kv head a rank, each kv head replicated on two ranks): streams and
+logits against one device and a decode step's census; and bert_long.yml
+(cut to ``HL_BERT_LAYERS`` layers) at model=8 as 8 rank processes, all 12
+heads through K7 on every rank, against one device. Each library's nvcc
+seconds are printed after the build.
+
+``python3 chip_smoke.py --phase head-layout-kernels`` runs the build and
+the group's kernel rows alone, ``--phase build-times TREE ...`` builds
+each checkout's kernel libraries in turn (``phase_main``).
 
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
@@ -2507,11 +2534,12 @@ def w4a8_path(int4_params, counters, card, dev):
 
 
 def _dequantized(tree):
-    """``tree`` with every quantized weight dequantized to f32."""
+    """``tree`` with every quantized weight (int8, or packed int4)
+    dequantized to f32."""
     from starpu_inference_server_tpu_torch.ops import nn
-    from starpu_inference_server_tpu_torch.ops.quant import is_quantized_leaf
+    from starpu_inference_server_tpu_torch.ops.quant import is_packed_int4_leaf, is_quantized_leaf
 
-    if is_quantized_leaf(tree):
+    if is_quantized_leaf(tree) or is_packed_int4_leaf(tree):
         import torch
 
         return nn.resolve_weight(tree, torch.float32)
@@ -2821,6 +2849,8 @@ def extras_path(spec, int4_params, counters, card, dev):
     """The model and serving phases of the third group: the W4A8 path;
     one int8 tree (and its rigged twin) for the speculative, lookup and
     paged configs, which share family, bits and seed."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from starpu_inference_server_tpu_torch.models.registry import build_model
     from starpu_inference_server_tpu_torch.utils.config import load_config
 
@@ -2829,9 +2859,12 @@ def extras_path(spec, int4_params, counters, card, dev):
     require(len({(c.model.family, c.model.quantization, c.seed) for c in cfgs}) == 1,
             "the int8 configs no longer share one tree")
     t0 = time.perf_counter()
-    params = build_model(cfgs[0].model, seed=cfgs[0].seed, device=dev).params
-    rigged = build_model(_rigged(cfgs[0]).model, seed=cfgs[0].seed, device=dev).params
-    print(f"int8 llama-1b trees (random and rigged) built in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(2) as pool:  # numpy draws both without the interpreter lock
+        trees = [pool.submit(lambda c: build_model(c.model, seed=c.seed, device=dev).params, c)
+                 for c in (cfgs[0], _rigged(cfgs[0]))]
+        params, rigged = (t.result() for t in trees)
+    print(f"int8 llama-1b trees (random and rigged, side by side) built in "
+          f"{time.perf_counter() - t0:.1f} s")
     per_step = window_model_phase(params, spec, counters, dev)
     spec_results, rig_prompts = speculation_path(spec, params, rigged, counters, card, dev)
     paged_launches, lookup_launches, paged_stats, paged_streams = paged_path(
@@ -3248,6 +3281,7 @@ VIT_IMAGES = 64
 # scale with it
 MOE_LAYERS = 1  # moe-8x1b cut from 16 layers for the run's time limit
 LOGITS_REQUESTS = 4
+LOGITS_LAYERS = 4  # serve_logits' llama-1b cut from 16 layers for the run's time limit
 
 
 def narrow_matmul_rows(dev, card):
@@ -3560,7 +3594,9 @@ def serve_logits_path(counters, card):
     from starpu_inference_server_tpu_torch.utils.config import load_config
 
     cfg = load_config(str(CONFIG))
-    opts = dict(cfg.model.options, serve_logits=True)
+    opts = dict(cfg.model.options, serve_logits=True, layers=LOGITS_LAYERS)
+    print(f"time cut: llama_decoder.yml with serve_logits at {LOGITS_LAYERS} of 16 layers "
+          "(formerly 16)")
     cfg = dataclasses.replace(cfg, name="llama_logits",
                               model=dataclasses.replace(cfg.model, options=opts))
     seq = cfg.inputs[0].dims[0]
@@ -4423,6 +4459,7 @@ def pipelined_path(card: str) -> dict:
     import os
     import signal
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -4448,17 +4485,28 @@ def pipelined_path(card: str) -> dict:
         try:
             for srv in servers:
                 srv.start()
-            # the tiny worlds, one after another, while the server builds
+            # the tiny worlds, all at once, while the server builds
             rng = np.random.default_rng(11)
             prompts = [rng.integers(1, 2048, (n,)).tolist() for n in (40, 64, 33, 57, 48, 61)]
             prompts[2] = (prompts[2][:11] * 3)[:33]  # repetition for the lookup drafts
             worlds = {}
-            for name, w in PIPE_WORLDS.items():
-                size = w["axes"].get("pipe", 1) * w["axes"].get("model", 1) * \
+
+            def size_of(w):
+                return w["axes"].get("pipe", 1) * w["axes"].get("model", 1) * \
                     w["axes"].get("expert", 1)
+
+            def tiny(name, w):
                 t1 = time.perf_counter()
-                ranks = run_world("chip_smoke:pipe_world", size, dict(w, prompts=prompts),
+                ranks = run_world("chip_smoke:pipe_world", size_of(w), dict(w, prompts=prompts),
                                   timeout_s=600.0, workdir=str(workdir / name))
+                return ranks, round(time.perf_counter() - t1, 1)
+
+            with ThreadPoolExecutor(len(PIPE_WORLDS)) as pool:
+                runs = {name: pool.submit(tiny, name, w) for name, w in PIPE_WORLDS.items()}
+                runs = {name: run.result() for name, run in runs.items()}
+            for name, w in PIPE_WORLDS.items():
+                size = size_of(w)
+                ranks, took = runs[name]
                 r0 = ranks[0]
                 require(all(r["backend"] == "gloo" for r in ranks),
                         f"{name}: backend {[r['backend'] for r in ranks]}")
@@ -4470,11 +4518,11 @@ def pipelined_path(card: str) -> dict:
                 for kname in kernels + ("int8_matmul", "chunk_prefill_attention"):
                     require(all(la.get(kname, 0) > 0 for la in launches),
                             f"{name}: {kname} not launched on every rank: {launches}")
-                worlds[name] = {"launches": launches, "s": round(time.perf_counter() - t1, 1),
+                worlds[name] = {"launches": launches, "s": took,
                                 "collectives": [st["collectives"] for st in r0["stats"]]}
-                print(f"{name} ({size} ranks on {card}, gloo, FP32 int8): streams of "
-                      f"{len(prompts)} greedy requests equal to the single-device engine's; "
-                      f"launches by rank {json.dumps(launches)}; "
+                print(f"{name} ({size} ranks on {card}, gloo, FP32 int8, the three worlds at "
+                      f"once): streams of {len(prompts)} greedy requests equal to the "
+                      f"single-device engine's; launches by rank {json.dumps(launches)}; "
                       f"{worlds[name]['s']} s")
             result["worlds"] = worlds
             result.update(pipelined_server_run(server, PIPE_LAYERS, card))
@@ -4508,6 +4556,10 @@ def pipelined_path(card: str) -> dict:
 # -- the GSPMD group: meshes without a pipe axis --------------------------------
 
 GSPMD_MESH = {"data": 2, "model": 2}   # the CLI servers' mesh
+# llama_decoder.yml and llama_w4a8.yml (llama-1b) cut from 16 layers to 4
+# at full width in the GSPMD group (its rank world and CLI server) and the
+# multi-host group's CLI launchers, for the run's time limit
+GSPMD_LAYERS = 4
 GSPMD_REQUESTS, GSPMD_TOKENS, GSPMD_PROMPT = 32, 32, 64
 GSPMD_BERT_REQUESTS = 64
 DATA4_REQUESTS, DATA4_LONG = 32, 300  # the data=4 world: 32 slots a group, 8 long prompts
@@ -4919,7 +4971,8 @@ def gspmd_world(rank, world, init_method, payload):
     the card (gloo), one mesh after another, each held against one device
     on rank 0:
 
-    1. llama_decoder.yml at data=4 (llama-1b int4, 128 slots, 32 a rank):
+    1. llama_decoder.yml at data=4 (llama-1b int4 cut to ``GSPMD_LAYERS``
+       layers, as every llama-1b tree here, 128 slots, 32 a rank):
        ``DATA4_REQUESTS`` greedy requests of 32 tokens (prompts of 64, eight
        of ``DATA4_LONG``: chunked prefill), every stream equal to the
        single-device engine that runs 32 slots;
@@ -4994,7 +5047,7 @@ def gspmd_world(rank, world, init_method, payload):
         return ModelEngine(cfg, model, mesh=m), model
 
     # 1. llama_decoder at data=4
-    base = load_config(paths["llama"])
+    base = _with_options(load_config(paths["llama"]), layers=GSPMD_LAYERS)
     cfg = _on_mesh(base, data=4)
     vocab = get_family(base.model.family, base.model.options).spec.vocab
     tree = build_model(cfg.model, seed=cfg.seed, device=dev).params if rank == 0 else None
@@ -5098,7 +5151,7 @@ def gspmd_world(rank, world, init_method, payload):
 
     # 3b. llama_w4a8.yml on the same int4 tree at data=2 x model=2: K6 on
     # every rank, the row-parallel o and down through its exact sums
-    w4_base = load_config(paths["w4a8"])
+    w4_base = _with_options(load_config(paths["w4a8"]), layers=GSPMD_LAYERS)
     require((w4_base.model.family, w4_base.seed) == (base.model.family, base.seed),
             "llama_w4a8.yml and llama_decoder.yml no longer share one int4 tree")
     cfg = _on_mesh(w4_base, **GSPMD_MESH)
@@ -5291,7 +5344,10 @@ def gspmd_server_run(server: "ServerProcess", card: str,
     _require_on_every_rank([{"launches": la} for la in window["launches"]],
                            ("int4_matmul", "decode_attention", "causal_attention"),
                            f"{what} (CLI)")
-    print(f"{what} (llama-1b int4, 128 slots, 4 ranks on {card}, "
+    import yaml
+
+    layers = yaml.safe_load(server.config.read_text())["model"]["options"].get("layers", 16)
+    print(f"{what} (llama-1b int4 x {layers} layers, 128 slots, 4 ranks on {card}, "
           f"{backend.group(1)}): started in {server.start_s:.1f} s; {GSPMD_REQUESTS} greedy "
           f"requests of {GSPMD_TOKENS} tokens (prompts of {GSPMD_PROMPT}), streaming: "
           f"{gen['tokens_per_s']:.1f} tok/s, TTFT ms {_pcts(gen['ttft_ms'])}; rank 0's decode "
@@ -5376,13 +5432,16 @@ def gspmd_path(card: str) -> dict:
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         workdir = Path(tmp)
-        llama = ServerProcess(CONFIG, workdir, "llama_gspmd", {"devices.mesh": GSPMD_MESH})
+        llama = ServerProcess(CONFIG, workdir, "llama_gspmd", {
+            "devices.mesh": GSPMD_MESH, "model.options.layers": GSPMD_LAYERS})
         bert = ServerProcess(BERT_CONFIG, workdir, "bert_gspmd", {"devices.mesh": GSPMD_MESH})
         servers = [llama, bert]
         try:
             for srv in servers:
                 srv.start()
             t1 = time.perf_counter()
+            print(f"time cut: llama_decoder.yml and llama_w4a8.yml at {GSPMD_LAYERS} of 16 layers "
+                  "in the GSPMD group and the multi-host CLI launchers (formerly 16)")
             world = run_world("chip_smoke:gspmd_world", 4, {}, timeout_s=900.0,
                               workdir=str(workdir / "gspmd_world"))[0]
             require(world["backend"] == "gloo", f"gspmd world backend {world['backend']}")
@@ -5710,7 +5769,8 @@ def multihost_path(card: str, one: dict) -> dict:
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         workdir = Path(tmp)
-        served = launcher_pair(CONFIG, workdir, "llama_multihost", {"devices.mesh": GSPMD_MESH})
+        served = launcher_pair(CONFIG, workdir, "llama_multihost", {
+            "devices.mesh": GSPMD_MESH, "model.options.layers": GSPMD_LAYERS})
         tiny = {"model.family": "llama-tiny", "model.compute_dtype": "FP32",
                 "model.options": {k: v for k, v in dict(TINY_PIPE, layers=2).items()
                                   if k != "pipe_microgroups"},
@@ -5737,6 +5797,605 @@ def multihost_path(card: str, one: dict) -> dict:
     return {"worlds": worlds, "llama": run, "killed": kill}
 
 
+# -- the head-layout group: every q/kv ratio and head width, model > kv heads ---
+
+HL_KV_HEADS = 2      # llama_decoder.yml's llama-1b with kv_heads 2 set in code: q/kv 16
+HL_SLOTS = 16        # its engines' slots (cut from 128: the phase serves 16 requests)
+HL_REQUESTS, HL_TOKENS, HL_PROMPT, HL_LONG = 16, 32, 64, 600  # one prompt of 600 chunks (K4)
+HL_MESH_TOKENS = 16  # the model=4 world's streams (cut from 32 for the run's time limit)
+HL_MODEL = 4         # the GSPMD world: data=1 x model=4, one replicated kv head a rank
+HL_BERT_MODEL = 8    # bert_long.yml at model=8: 12 heads over 8 ranks
+HL_BERT_LAYERS = 2   # bert_long.yml cut from 12 layers for the run's time limit
+HL_BERT_ROWS = 8
+# (q/kv ratio, head dim) of the kernel checks: ratios above 8 (ChatGLM2 and
+# Falcon-40B's 16, a 32, Qwen2.5-7B's 7, Falcon-7B's MQA 71) at llama-1b's
+# D = 64, then the widths of Phi-2 (80), Phi-3-mini (96) and Gemma (256)
+HL_CHECKS = ((16, 64), (32, 64), (7, 64), (71, 64), (8, 80), (8, 96), (8, 256))
+HL_CHECK_S, HL_CHECK_T, HL_CHECK_HKV, HL_CHECK_W, HL_PAGE = 8, 256, 2, 5, 16
+HL_KERNELS = ("int4_matmul", "decode_attention", "causal_attention", "chunk_prefill_attention")
+
+
+def _hl_cache(g, dev, s, t, hkv, d):
+    """An int8 cache [S, T, Hkv, D] with its f32 scales (logits of std ~4
+    against q ~ N(0, 1))."""
+    import torch
+
+    return (torch.randint(-127, 128, (s, t, hkv, d), device=dev, generator=g, dtype=torch.int8),
+            torch.randint(-127, 128, (s, t, hkv, d), device=dev, generator=g, dtype=torch.int8),
+            torch.rand(s, t, hkv, device=dev, generator=g) * 0.03 + 0.05,
+            torch.rand(s, t, hkv, device=dev, generator=g) / 127 + 1e-3)
+
+
+def _hl_paged(g, dense, page):
+    """``dense`` scattered into a shuffled pool of ``page``-row pages (page
+    0 unused, its scales NaN: a read of it shows) and the table."""
+    import torch
+
+    s, t = dense[0].shape[:2]
+    pps = t // page
+    dev = dense[0].device
+    table = (torch.randperm(s * pps, device=dev, generator=g) + 1).reshape(s, pps).to(torch.int32)
+    pools = []
+    for a in dense:
+        pool = torch.zeros((s * pps + 1, page) + tuple(a.shape[2:]), dtype=a.dtype, device=dev)
+        pool[table.reshape(-1).long()] = a.reshape((s * pps, page) + tuple(a.shape[2:]))
+        if a.dtype == torch.float32:
+            pool[0] = float("nan")
+        pools.append(pool)
+    return pools, table
+
+
+def _hl_flat(k, v, ks, vs):
+    """A standard cache or pool as the FLAT layout's tensors."""
+    return (k.flatten(-2), v.flatten(-2), ks.transpose(-1, -2).contiguous(),
+            vs.transpose(-1, -2).contiguous())
+
+
+def head_layout_checks(dev) -> dict:
+    """Every decode-side kernel (K3, K9, K10, K11 and their FLAT twins
+    K12a-d) and both prefill kernels (K5, K4) at each (q/kv ratio, head
+    dim) of ``HL_CHECKS``, on their bf16 (tensor-core) and f32 routes,
+    against their plain versions: S = ``HL_CHECK_S`` slots of T =
+    ``HL_CHECK_T`` positions over 2 kv heads, windows of 5, pages of 16,
+    mixed lengths (0 and the last position included); K5 at T = 128, K4 at
+    C = 64 from start 64. Each bf16 call is bit-equal over two calls, and
+    a flat kernel to its standard twin. Then K3 at rep 71 on 128 slots,
+    where the (KV head, row group, slot) items fill the card in one split.
+    Returns {kernel: [per_shape entries]}."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(1616)
+    s, t, hkv, w = HL_CHECK_S, HL_CHECK_T, HL_CHECK_HKV, HL_CHECK_W
+    out = {}
+
+    def check(name, what, call, plain, twin=None, **info):
+        got = call()
+        err = attn_check(f"{name} {what}", got, plain())
+        if got.dtype == torch.bfloat16:
+            require(torch.equal(got, call()), f"{name} {what} gave other bits on a second call")
+            if twin is not None:
+                require(torch.equal(got, twin), f"{name} {what} differs from its standard twin")
+        out.setdefault(name, []).append(dict(path="head_layouts", shape=what,
+                                             max_abs_err=err, **info))
+        return got
+
+    for rep, d in HL_CHECKS:
+        hq = hkv * rep
+        for dtype in (torch.bfloat16, torch.float32):
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            info = dict(rep=rep, head_dim=d, dtype=tag)
+            cache = _hl_cache(g, dev, s, t, hkv, d)
+            flat = _hl_flat(*cache)
+            lens = torch.randint(0, t, (s,), device=dev, generator=g, dtype=torch.int32)
+            lens[0], lens[-1] = 0, t - 1
+            q = torch.randn(s, hq, d, device=dev, generator=g).to(dtype)
+            groups = math.ceil(rep / da.decode_group_rows(rep, d))
+            splits = da.decode_split_plan(s, hkv, t, 1, rep, d).splits
+            shape = f"S={s} T={t} Hq={hq} Hkv={hkv} D={d} rep={rep} {tag}"
+            std = check("decode_attention", shape,
+                        lambda: da.decode_attention(q, *cache, lens, rep),
+                        lambda: da.decode_attention_plain(q, *cache, lens, rep),
+                        row_groups=groups, splits=splits, **info)
+            check("flat_decode_attention", shape,
+                  lambda: da.flat_decode_attention(q, *flat, lens, rep),
+                  lambda: da.flat_decode_attention_plain(q, *flat, lens, rep), twin=std, **info)
+            wl = torch.randint(0, t - w + 1, (s,), device=dev, generator=g, dtype=torch.int32)
+            wl[0], wl[-1] = 0, t - w
+            qw = torch.randn(s, w, hq, d, device=dev, generator=g).to(dtype)
+            groups = math.ceil(w * rep / da.decode_group_rows(w * rep, d))
+            splits = da.decode_split_plan(s, hkv, t, w, rep, d).splits
+            wshape = f"S={s} W={w} T={t} Hq={hq} Hkv={hkv} D={d} rep={rep} {tag}"
+            std = check("window_decode_attention", wshape,
+                        lambda: da.window_decode_attention(qw, *cache, wl, rep),
+                        lambda: da.window_decode_attention_plain(qw, *cache, wl, rep),
+                        row_groups=groups, splits=splits, **info)
+            check("flat_window_decode_attention", wshape,
+                  lambda: da.flat_window_decode_attention(qw, *flat, wl, rep),
+                  lambda: da.flat_window_decode_attention_plain(qw, *flat, wl, rep), twin=std,
+                  **info)
+            pools, table = _hl_paged(g, cache, HL_PAGE)
+            fpools = _hl_flat(*pools)
+            pshape = f"S={s} page={HL_PAGE} T={t} Hq={hq} Hkv={hkv} D={d} rep={rep} {tag}"
+            std = check("paged_decode_attention", pshape,
+                        lambda: da.paged_decode_attention(q, *pools, table, lens, rep),
+                        lambda: da.paged_decode_attention_plain(q, *pools, table, lens, rep),
+                        **info)
+            check("flat_paged_decode_attention", pshape,
+                  lambda: da.flat_paged_decode_attention(q, *fpools, table, lens, rep),
+                  lambda: da.flat_paged_decode_attention_plain(q, *fpools, table, lens, rep),
+                  twin=std, **info)
+            std = check("paged_window_decode_attention", f"W={w} {pshape}",
+                        lambda: da.paged_window_decode_attention(qw, *pools, table, wl, rep),
+                        lambda: da.paged_window_decode_attention_plain(qw, *pools, table, wl,
+                                                                       rep), **info)
+            check("flat_paged_window_decode_attention", f"W={w} {pshape}",
+                  lambda: da.flat_paged_window_decode_attention(qw, *fpools, table, wl, rep),
+                  lambda: da.flat_paged_window_decode_attention_plain(qw, *fpools, table, wl,
+                                                                      rep), twin=std, **info)
+            # K5 at T = 128 (two query tiles, a ragged key tile at D = 256)
+            tp = 128
+            qp = (3 * torch.randn(1, tp, hq, d, device=dev, generator=g)).to(dtype)
+            kp = torch.randn(1, tp, hkv, d, device=dev, generator=g).to(dtype)
+            vp = torch.randn(1, tp, hkv, d, device=dev, generator=g).to(dtype)
+            check("causal_attention", f"B=1 T={tp} Hq={hq} Hkv={hkv} D={d} rep={rep} {tag}",
+                  lambda: pa.causal_attention(qp, kp, vp, rep),
+                  lambda: pa.causal_attention_plain(qp, kp, vp, rep), **info)
+            # K4: a 64-row chunk from start 64 against a 256-row cache row
+            c, start = 64, 64
+            k_row, v_row, ks, vs = (a[0] for a in cache)
+            args = ((3 * torch.randn(c, hq, d, device=dev, generator=g)).to(dtype), k_row, v_row,
+                    ks * 0.2, vs, torch.randn(c, hkv, d, device=dev, generator=g).to(dtype),
+                    torch.randn(c, hkv, d, device=dev, generator=g).to(dtype), start, rep)
+            check("chunk_prefill_attention",
+                  f"C={c} start={start} T={t} Hq={hq} Hkv={hkv} D={d} rep={rep} {tag}",
+                  lambda: pa.chunk_prefill_attention(*args),
+                  lambda: pa.chunk_prefill_attention_plain(*args), **info)
+            del cache, flat, pools, fpools
+    # one split with row groups: rep 71 (2 groups) on 128 slots of 2 kv heads
+    big, rep, d = 128, 71, 64
+    cache = _hl_cache(g, dev, big, t, hkv, d)
+    lens = torch.randint(0, t, (big,), device=dev, generator=g, dtype=torch.int32)
+    q = torch.randn(big, hkv * rep, d, device=dev, generator=g).to(torch.bfloat16)
+    splits = da.decode_split_plan(big, hkv, t, 1, rep, d).splits
+    require(splits == 1, f"decode_split_plan gave {splits} splits at S={big} rep {rep}")
+    check("decode_attention", f"S={big} T={t} Hq={hkv * rep} Hkv={hkv} D={d} rep={rep} bf16",
+          lambda: da.decode_attention(q, *cache, lens, rep),
+          lambda: da.decode_attention_plain(q, *cache, lens, rep),
+          rep=rep, head_dim=d, dtype="bf16", row_groups=2, splits=splits)
+    return out
+
+
+def _hl_decode_row(g, dev, s, t, hq, hkv, d, label, card, w=1, caches=None, lens=None) -> dict:
+    """K3 (``w`` = 1) or K9 (``w`` > 1) at a path's or a row group's
+    shape, timed as in ``kernel_phase``: lengths drawn in [0, T - W]
+    unless given, cycled cache copies past the L2 (``caches``: a pair of
+    rows at the same K/V bytes shares them), SDPA on dequantized bf16
+    caches as the library yardstick. The bound reads each live K/V row
+    once, whatever the row groups."""
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import decode_attention as da
+
+    bf16, rep = torch.bfloat16, hq // hkv
+    if lens is None:
+        lens = torch.randint(0, t - w + 1, (s,), device=dev, generator=g, dtype=torch.int32)
+    last = lens.to(torch.int64)[:, None] + torch.arange(w, device=dev)[None, :]  # [S, W]
+    live = (lens.to(torch.int64) + w).sum().item()
+    nbytes = 2 * s * w * hq * d * 2 + live * hkv * (2 * d + 2 * 4) + 4 * s
+    if caches is None:
+        caches = [_hl_cache(g, dev, s, t, hkv, d) for _ in range(_copies(nbytes))]
+    copies = len(caches)
+    if w == 1:
+        q = torch.randn(s, hq, d, device=dev, generator=g).to(bf16)
+        name, kern, plain = "decode_attention", da.decode_attention, da.decode_attention_plain
+    else:
+        q = torch.randn(s, w, hq, d, device=dev, generator=g).to(bf16)
+        name, kern, plain = ("window_decode_attention", da.window_decode_attention,
+                             da.window_decode_attention_plain)
+    got = kern(q, *caches[0], lens, rep)
+    plan = da.decode_split_plan(s, hkv, t, w, rep, d)
+    groups = math.ceil(w * rep / da.decode_group_rows(w * rep, d))
+    shape = (f"S={s}{f' W={w}' if w > 1 else ''} T={t} Hq={hq} Hkv={hkv}"
+             f"{f' D={d}' if d != 64 else ''} rep={rep} live={live}")
+    err = attn_check(f"{name} {shape} ({label})", got, plain(q, *caches[0], lens, rep))
+    require(torch.equal(got, kern(q, *caches[0], lens, rep)),
+            f"{name} {shape} gave other bits on a second call")
+    ms = _time_cycled(lambda i: kern(q, *caches[i], lens, rep), copies)
+    plain_ms = _time_cycled(lambda i: plain(q, *caches[i], lens, rep), copies, iters=3)
+    deq = [((kc.float() * ks[..., None]).to(bf16).transpose(1, 2),
+            (vc.float() * vs[..., None]).to(bf16).transpose(1, 2))
+           for kc, vc, ks, vs in caches[:_copies(2 * s * t * hkv * d * 2)]]
+    mask = (torch.arange(t, device=dev)[None, None, :] <= last[:, :, None])[:, None]
+    qt = (q[:, None] if w == 1 else q).transpose(1, 2)  # [S, Hq, W, D]
+    lib_ms = _time_cycled(lambda i: F.scaled_dot_product_attention(
+        qt, *deq[i], attn_mask=mask, enable_gqa=True), len(deq))
+    b_ms, b_by = bound_ms(nbytes, 4.0 * (last + 1).sum().item() * hq * d)
+    print(f"time {name} {shape} ({label}, {plan.splits} splits, {groups} row group(s)) on "
+          f"{card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}); {copies} cache copies cycled")
+    return dict(path=label, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms, splits=plan.splits,
+                row_groups=groups)
+
+
+def _hl_k5_row(g, dev, t, hq, hkv, d, label, card) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+
+    bf16, rep = torch.bfloat16, hq // hkv
+    q = (3 * torch.randn(1, t, hq, d, device=dev, generator=g)).to(bf16)
+    k = torch.randn(1, t, hkv, d, device=dev, generator=g).to(bf16)
+    v = torch.randn(1, t, hkv, d, device=dev, generator=g).to(bf16)
+    shape = f"B=1 T={t} Hq={hq} Hkv={hkv} rep={rep}"
+    got = pa.causal_attention(q, k, v, rep)
+    err = attn_check(f"causal_attention {shape} ({label})", got,
+                     pa.causal_attention_plain(q, k, v, rep))
+    require(torch.equal(got, pa.causal_attention(q, k, v, rep)),
+            f"causal_attention {shape} gave other bits on a second call")
+    ms = time_ms(lambda: pa.causal_attention(q, k, v, rep))
+    plain_ms = time_ms(lambda: pa.causal_attention_plain(q, k, v, rep), iters=5)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                            enable_gqa=True))
+    b_ms, b_by = bound_ms(2 * t * hq * d * 2 + 2 * t * hkv * d * 2,
+                          4.0 * hq * d * t * (t + 1) / 2)
+    print(f"time causal_attention {shape} ({label}) on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(path=label, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def _hl_k4_row(g, dev, c, start, t, hq, hkv, d, label, card) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from starpu_inference_server_tpu_torch.ops import prefill_attention as pa
+
+    bf16, rep = torch.bfloat16, hq // hkv
+    k_row, v_row, ks, vs = (a[0] for a in _hl_cache(g, dev, 1, t, hkv, d))
+    ks = ks * 0.2  # the cached rows dequantize to std ~1, as the chunk's keys
+    q = (3 * torch.randn(c, hq, d, device=dev, generator=g)).to(bf16)
+    kc = torch.randn(c, hkv, d, device=dev, generator=g).to(bf16)
+    vc = torch.randn(c, hkv, d, device=dev, generator=g).to(bf16)
+    args = (q, k_row, v_row, ks, vs, kc, vc, start, rep)
+    shape = f"C={c} start={start} T={t} Hq={hq} Hkv={hkv} rep={rep}"
+    got = pa.chunk_prefill_attention(*args)
+    err = attn_check(f"chunk_prefill_attention {shape} ({label})", got,
+                     pa.chunk_prefill_attention_plain(*args))
+    require(torch.equal(got, pa.chunk_prefill_attention(*args)),
+            f"chunk_prefill_attention {shape} gave other bits on a second call")
+    ms = time_ms(lambda: pa.chunk_prefill_attention(*args))
+    plain_ms = time_ms(lambda: pa.chunk_prefill_attention_plain(*args), iters=5)
+    kd = torch.cat([(k_row[:start].float() * ks[:start, :, None]).to(bf16), kc]).transpose(0, 1)
+    vd = torch.cat([(v_row[:start].float() * vs[:start, :, None]).to(bf16), vc]).transpose(0, 1)
+    cols = torch.arange(start + c, device=dev)
+    mask = cols[None, :] <= (start + torch.arange(c, device=dev))[:, None]
+    qt = q.transpose(0, 1)[None]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kd[None], vd[None],
+                                                            attn_mask=mask, enable_gqa=True))
+    b_ms, b_by = bound_ms(2 * c * hq * d * 2 + start * hkv * (2 * d + 8) + 2 * c * hkv * d * 2,
+                          4.0 * hq * d * (c * start + c * (c + 1) / 2))
+    print(f"time chunk_prefill_attention {shape} ({label}) on {card}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(path=label, shape=shape, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def head_layout_kernel_rows(dev, card) -> dict:
+    """``head_layout_checks``, then timed rows. K1, K3, K5 and K4 at the
+    shapes the group's paths give them: llama-1b with 2 kv heads on one
+    device (32 q heads, q/kv 16; K1 on the fused qkv, N = 2304; K3 at
+    ``HL_SLOTS`` slots of 1024 positions and at llama_decoder.yml's own 128
+    slots; K5 at the 64-token bucket, K4 at a 256-row chunk from 256) and
+    a rank's shard at model=4 (8 q heads over 1 replicated kv head, q/kv
+    8; K1 on every int4 layer's shard). K1 at the decode M (16 slots), the
+    64-token prompt and the 256-token chunk (the lm head at M = 1 for a
+    prefill's last row), each held against its plain version (1e-4
+    max|ref|) and bit-equal over two calls. Then the row groups' cost:
+    K3 at Falcon-7B's MQA (71 heads over one kv head: 2 groups) beside 64
+    heads (one group) on the same cache, K9 at W = 5 and q/kv 16 (80 rows:
+    2 groups) beside q/kv 12 (60 rows: one group), and K3 at Gemma-2B's
+    D = 256 (8 heads over one kv head). Returns {kernel: [per_shape
+    entries]}; the timed ones have ``ms``."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = head_layout_checks(dev)
+    print(f"head layouts: {sum(len(v) for v in rows.values())} kernel checks at q/kv ratios and "
+          f"head dims {list(HL_CHECKS)} in {time.perf_counter() - t0:.1f} s, every one within its "
+          "tolerance of its plain version")
+    g = torch.Generator(device=dev).manual_seed(1617)
+    d, h, inter, vocab = 64, 2048, 5504, 32000  # llama-1b
+    one, shard = "head_layouts_rep16", f"head_layouts_model{HL_MODEL}_shard"
+    qh, kvh = 32 // HL_MODEL, 1
+    k1 = [(one, "qkv", m, h, (32 + 2 * HL_KV_HEADS) * d) for m in (HL_SLOTS, HL_PROMPT, 256)]
+    for m in (HL_SLOTS, HL_PROMPT, 256):
+        k1 += [(shard, "qkv", m, h, (qh + 2 * kvh) * d), (shard, "o", m, qh * d, h),
+               (shard, "gate_up", m, h, 2 * inter // HL_MODEL),
+               (shard, "down", m, inter // HL_MODEL, h)]
+    k1 += [(shard, "lm_head", m, h, vocab // HL_MODEL) for m in (HL_SLOTS, 1)]
+    rows.setdefault("int4_matmul", [])
+    for path, layer, m, k, n in k1:
+        rows["int4_matmul"].append(dict(_k1_entry(g, dev, m, k, n, f"{path} {layer}", card),
+                                        path=path))
+    for hq, hkv, label in ((32, HL_KV_HEADS, one), (qh, kvh, shard)):
+        rows["decode_attention"].append(_hl_decode_row(g, dev, HL_SLOTS, 1024, hq, hkv, d, label,
+                                                       card))
+        rows["causal_attention"].append(_hl_k5_row(g, dev, HL_PROMPT, hq, hkv, d, label, card))
+        rows["chunk_prefill_attention"].append(_hl_k4_row(g, dev, 256, 256, 1024, hq, hkv, d,
+                                                          label, card))
+    rows["decode_attention"].append(_hl_decode_row(g, dev, 128, 1024, 32, HL_KV_HEADS, d,
+                                                   "head_layouts_rep16_128_slots", card))
+    # row groups beside one group at the same K/V bytes (the same cache
+    # copies and lengths): each further group reads the KV head again
+    t = 1024
+    for name, s, w, hkv, (rep, rep1) in (("decode_attention", 128, 1, 1, (71, 64)),
+                                         ("window_decode_attention", 16, 5, 2, (16, 12))):
+        lens = torch.randint(0, t - w + 1, (s,), device=dev, generator=g, dtype=torch.int32)
+        caches = [_hl_cache(g, dev, s, t, hkv, d)
+                  for _ in range(_copies(s * t * hkv * (2 * d + 8) / 2))]
+        multi, single = (_hl_decode_row(g, dev, s, t, hkv * r, hkv, d, "head_layouts_row_groups",
+                                        card, w=w, caches=caches, lens=lens)
+                         for r in (rep, rep1))
+        require(multi["row_groups"] > 1 and single["row_groups"] == 1,
+                f"{name}: row groups {multi['row_groups']} / {single['row_groups']} at q/kv "
+                f"{rep} / {rep1}")
+        multi["one_group"] = dict(shape=single["shape"], ms=single["ms"],
+                                  bound_ms=single["bound_ms"])
+        print(f"row groups of {name} S={s} W={w} T={t} Hkv={hkv} on {card}: q/kv {rep} in "
+              f"{multi['row_groups']} groups {multi['ms']:.4f} ms "
+              f"({multi['ms'] / multi['bound_ms']:.2f}x its bound), q/kv {rep1} in one group "
+              f"{single['ms']:.4f} ms ({single['ms'] / single['bound_ms']:.2f}x); ratio "
+              f"{multi['ms'] / single['ms']:.2f}")
+        rows.setdefault(name, []).extend([multi, single])
+        del caches
+    rows["decode_attention"].append(_hl_decode_row(g, dev, 128, t, 8, 1, 256,
+                                                   "head_layouts_gemma_d256", card))
+    return rows
+
+
+def _hl_prompts(spec) -> list:
+    """The group's requests: prompts of 64 and, fourth, one of 600 (it
+    chunks: K4)."""
+    import numpy as np
+
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, spec.vocab, HL_PROMPT).astype(np.int32)
+               for _ in range(HL_REQUESTS - 1)]
+    prompts.insert(3, rng.integers(0, spec.vocab, HL_LONG).astype(np.int32))
+    return prompts
+
+
+def head_layout_one_device(engine, counters, card, dev) -> dict:
+    """``engine``: llama_decoder.yml with ``kv_heads: 2`` set in code
+    (llama-1b widths, 16 layers, int4 weights, int8 cache, q/kv 16) on one
+    device, ``HL_SLOTS`` slots. The model kernels on vs off
+    (``model_phase``), then ``HL_REQUESTS`` greedy requests of
+    ``HL_TOKENS`` (``_hl_prompts``) through K1, K3, K4 and K5 (every
+    prefill and chunk through its kernel, every block a graph replay);
+    then the same weights dequantized to f32 in an FP32 engine, kernels on
+    against off (``kernels_on_off_streams``: the f32 routes at q/kv 16),
+    whose streams must be equal. Returns the launches, the streams and
+    their prompts."""
+    import numpy as np
+    import torch
+
+    spec = engine.spec
+    require((spec.hidden, spec.q_heads, spec.kv_heads, spec.head_dim) == (2048, 32, 2, 64),
+            f"llama_decoder with kv_heads 2: spec {spec}")
+    what = f"llama_decoder q/kv {spec.q_heads}/{spec.kv_heads}"
+    per_step = model_phase(engine, dev, counters, what=f"int4 q/kv {spec.rep}")
+    prompts = _hl_prompts(spec)
+    outs, launches = generate_all(engine, prompts, HL_TOKENS, counters, HL_KERNELS, what, card,
+                                  dense_prefills=True, decode_kernel="decode_attention")
+    f32 = _dequantized(engine.params)
+    rng = np.random.default_rng(17)
+    lens = [10, 20, 50, 100, 200, 7, 64, 128]  # buckets 16-128; 200 in two chunks
+    witness = [rng.integers(0, spec.vocab, n).astype(np.int32) for n in lens]
+    kernels_on_off_streams(spec, f32, witness, counters, card, dev,
+                           f"{what} (its int4 weights dequantized)")
+    del f32
+    torch.cuda.empty_cache()
+    return {"per_step": per_step, "launches": launches, "outs": outs, "prompts": prompts}
+
+
+def head_layout_world(rank, world, init_method, payload):
+    """llama_decoder.yml with ``kv_heads: 2`` set in code at data=1 x
+    model=``HL_MODEL`` (4 ranks sharing the card, gloo): each rank computes
+    8 q heads and 1 kv head, replicated on the 2 ranks whose q heads read
+    it. Rank 0 draws the tree once and first serves it on one device
+    (``head_layout_one_device``, the followers waiting), then holds the
+    mesh against that engine: the same requests at ``HL_MESH_TOKENS``
+    tokens (streams equal to the one-device streams' first tokens counted,
+    not required: bf16 sums in another order), 16 first prefills and a
+    decode step within ``GSPMD_LOGITS_TOL``; K1, K3, K4, K5 on every rank;
+    and the census of one decode step on every rank (2 all-reduces over
+    ``model`` a layer and 2 all-gathers: none for the replicated heads).
+    ``payload`` may name another ``device`` and config (``llama``), and
+    the ``card``."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import local_heads
+    from starpu_inference_server_tpu_torch.models.registry import build_model, get_family
+    from starpu_inference_server_tpu_torch.ops import _build
+    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
+    from starpu_inference_server_tpu_torch.parallel.launch import follow, join_mesh
+    from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationRequest,
+        build_generation_engine,
+    )
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+    from starpu_inference_server_tpu_torch.weights import receive_shard, scatter_shards
+
+    mesh = join_mesh(MeshAxes(model=HL_MODEL), rank, world, init_method,
+                     payload.get("device", "cuda"), timeout_s=900.0)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    base = _cfg_with(load_config(str(payload.get("llama", CONFIG))), kv_heads=HL_KV_HEADS,
+                     num_slots=HL_SLOTS)
+    cfg = _on_mesh(base, model=HL_MODEL)
+    spec = get_family(cfg.model.family, cfg.model.options).spec
+    tree = build_model(cfg.model, seed=cfg.seed, device=dev).params if rank == 0 else None
+    shard = (scatter_shards(tree, spec, cfg.model.family, mesh) if rank == 0
+             else receive_shard(mesh))
+    eng = build_generation_engine(cfg, mesh=mesh, params=shard)
+    if rank != 0:
+        follow(eng.worker)
+        return {"backend": mesh.backend}
+    what = f"llama_decoder q/kv {spec.q_heads}/{spec.kv_heads} data=1 model={HL_MODEL}"
+    res = {"backend": mesh.backend, "local_heads": local_heads(spec, mesh)}
+    try:
+        require(res["local_heads"] == (spec.q_heads // HL_MODEL, 1),
+                f"{what}: a rank's (q, kv) heads {res['local_heads']}")
+        ref = build_generation_engine(base, device=dev, params=tree)
+        res["one"] = one = head_layout_one_device(ref, _build.launch_counters(),
+                                                  payload.get("card", "cpu"), dev)
+        reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=HL_MESH_TOKENS)
+                for p in one["prompts"]]
+        eng.worker.reset_stats()
+        for r in reqs:
+            eng.submit(r)
+        t1 = time.perf_counter()
+        eng.start()
+        try:
+            got = [r.result(timeout=600.0) for r in reqs]
+        finally:
+            eng.stop()
+        wall = time.perf_counter() - t1
+        stats = _phase_stats(eng.worker)
+        steps, step_s = eng.steps, eng.loop_timers["step"]
+        equal = sum(a == b[:HL_MESH_TOKENS] for a, b in zip(got, one["outs"]))
+        _require_on_every_rank(stats, HL_KERNELS, what, on_card)
+        short = [p for p in one["prompts"] if len(p) == HL_PROMPT]
+        res["logits"] = _decoder_logits_check(eng, ref, short, list(range(len(short))), what)
+        eng.worker.reset_stats()
+        ids = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
+        act = torch.zeros(eng.num_slots, dtype=torch.bool, device=dev)
+        act[:len(short)] = True
+        eng.worker.decode(ids, act)
+        step_census = [collectives_by_axis({"calls": s["census"]})
+                       for s in _phase_stats(eng.worker)]
+        for c in step_census:
+            require(c.get("all-reduce") == {"model": 2 * spec.layers},
+                    f"{what}: a decode step's all-reduces {c}")
+            require(c.get("all-gather", {}).get("model") == 2,
+                    f"{what}: a decode step's all-gathers {c}")
+            require(set(c) <= {"all-reduce", "all-gather", "broadcast"},
+                    f"{what}: a decode step's collectives {c}")
+        res.update(streams_equal=equal, wall_s=wall, steps=steps,
+                   step_ms=1e3 * step_s / max(steps, 1), stats=stats, step_census=step_census)
+        del ref
+    finally:
+        eng.worker.stop_followers()
+    return res
+
+
+def head_layout_bert_world(rank, world, init_method, payload):
+    """bert_long.yml (BERT-base W8A8, s = 512, cut to ``HL_BERT_LAYERS``
+    layers) at model=``HL_BERT_MODEL`` (8 ranks sharing the card, gloo)
+    through ``ModelEngine``: 12 heads that 8 ranks do not divide, so every
+    rank gathers q, k and v and runs all 12 heads through K7. Rank 0 holds
+    ``HL_BERT_ROWS`` padded samples against one device's apply within
+    ``GSPMD_LOGITS_TOL``; K7 once a layer on every rank. ``payload`` may
+    name another ``device`` and config (``bert``)."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.core.engine import ModelEngine
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
+    from starpu_inference_server_tpu_torch.parallel.launch import (
+        follow,
+        follower_engine,
+        join_mesh,
+    )
+    from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    mesh = join_mesh(MeshAxes(model=HL_BERT_MODEL), rank, world, init_method,
+                     payload.get("device", "cuda"), timeout_s=900.0)
+    dev = mesh.device
+    cfg = _on_mesh(_with_options(load_config(str(payload.get("bert", BERT_CONFIG))),
+                                 num_layers=HL_BERT_LAYERS), model=HL_BERT_MODEL)
+    if rank != 0:
+        follow(follower_engine(cfg, mesh).worker)
+        return {"backend": mesh.backend}
+    model = build_model(cfg.model, seed=cfg.seed, device=dev)
+    engine = ModelEngine(cfg, model, mesh=mesh)
+    what = (f"bert_long model={HL_BERT_MODEL} ({cfg.model.quantization.value}, "
+            f"{HL_BERT_LAYERS} of 12 layers)")
+    try:
+        seq = cfg.inputs[0].dims[0]
+        rng = np.random.default_rng(20)
+        ids = torch.from_numpy(rng.integers(1, 30522, (HL_BERT_ROWS, seq)))
+        mask = torch.ones((HL_BERT_ROWS, seq), dtype=torch.int64)
+        for i in range(HL_BERT_ROWS):
+            mask[i, int(rng.integers(seq // 8, seq + 1)):] = 0
+        inputs = {"input_ids": ids, "attention_mask": mask}
+        engine.worker.reset_stats()
+        got = engine.fetch(engine.run_padded(inputs))["last_hidden_state"]
+        stats = _phase_stats(engine.worker)
+        with torch.inference_mode():
+            want = model.apply({k: v.to(dev) for k, v in inputs.items()})["last_hidden_state"]
+        close = _logits_close(f"{what}: last hidden state", got, want.float().cpu())
+        launches = [s["launches"].get("bidirectional_attention", 0) for s in stats]
+        if dev.type == "cuda":
+            require(all(n == HL_BERT_LAYERS for n in launches),
+                    f"{what}: bidirectional_attention launches by rank {launches}")
+        census = [collectives_by_axis({"calls": s["census"]}) for s in stats]
+        print(f"{what}: K7 launches by rank {launches} (one a layer, all 12 heads); census by "
+              f"rank {json.dumps(census)}")
+        return {"backend": mesh.backend, "close": close, "stats": stats, "census": census}
+    finally:
+        engine.worker.stop_followers()
+
+
+def head_layouts_path(card: str) -> dict:
+    """The head-layout group's two rank worlds at once, sharing the card:
+    ``head_layout_world`` (4 ranks; rank 0 serves the one-device engine
+    first) and ``head_layout_bert_world`` (8 ranks)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from starpu_inference_server_tpu_torch.parallel.launch import run_world
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        def world(body, size, tag):
+            t1 = time.perf_counter()
+            rank0 = run_world(f"chip_smoke:{body}", size, {"card": card}, timeout_s=900.0,
+                              workdir=str(Path(tmp) / tag))[0]
+            return rank0, time.perf_counter() - t1
+
+        with ThreadPoolExecutor(2) as pool:
+            decoder = pool.submit(world, "head_layout_world", HL_MODEL, "decoder")
+            encoder = pool.submit(world, "head_layout_bert_world", HL_BERT_MODEL, "bert")
+            (mesh, mesh_s), (bert, bert_s) = decoder.result(), encoder.result()
+    require(mesh["backend"] == "gloo" and bert["backend"] == "gloo",
+            f"head-layout worlds' backends {mesh['backend']}, {bert['backend']}")
+    print(f"head layouts data=1 model={HL_MODEL} (4 ranks on {card}, gloo, {mesh_s:.1f} s, rank 0 "
+          f"first serving one device): (q, kv) heads a rank {mesh['local_heads']}; "
+          f"{mesh['streams_equal']} of {HL_REQUESTS} greedy streams of {HL_MESH_TOKENS} tokens "
+          f"equal to one device's (reported, not required: bf16 sums in another order); mesh "
+          f"{mesh['wall_s']:.1f} s ({mesh['steps']} steps, rank 0's step {mesh['step_ms']:.2f} "
+          f"ms host); launches by rank {json.dumps([s['launches'] for s in mesh['stats']])}; a "
+          f"decode step's census by rank {json.dumps(mesh['step_census'])}")
+    print(f"head layouts bert_long model={HL_BERT_MODEL} (8 ranks on {card}, gloo, {bert_s:.1f} "
+          f"s, beside the model={HL_MODEL} world): max |mesh - one device| / max |one device| "
+          f"{bert['close']['max_rel']:.3e}, mean rel {bert['close']['mean_rel']:.3e}")
+    return {"one": mesh["one"], "mesh": mesh, "bert": bert,
+            "seconds": {f"model{HL_MODEL}": round(mesh_s, 1),
+                        f"bert_model{HL_BERT_MODEL}": round(bert_s, 1)}}
+
+
 def _ptxas_kernels(report: str) -> list:
     """(mangled name, registers, spill store bytes) of each entry function
     in a ``ptxas -v`` report."""
@@ -5749,45 +6408,16 @@ def _ptxas_kernels(report: str) -> list:
     return out
 
 
-def timed(phase_s: dict, name: str, fn, *args):
-    """fn(*args), its host seconds kept in ``phase_s[name]``."""
-    t0 = time.perf_counter()
-    out = fn(*args)
-    phase_s[name] = round(time.perf_counter() - t0, 1)
-    return out
-
-
-def main() -> int:
-    pkg = ROOT / "starpu_inference_server_tpu_torch"
-    configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
-               PAGED_CONFIG, VIT_CONFIG, NHWC_CONFIG, MOE_CONFIG, PIPE_CONFIG)
-    if not pkg.is_dir() or not all(c.is_file() for c in configs):
-        print("chip_smoke: FAIL: run from a checkout of the repository "
-              "(starpu_inference_server_tpu_torch/ and configs/ not found)", file=sys.stderr)
-        return 1
-    import torch
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: FAIL: torch.cuda.is_available() is false", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(ROOT))
-    # the plain references compute f32 products in full f32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-    from starpu_inference_server_tpu_torch.ops import _build
-    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
-    from starpu_inference_server_tpu_torch.utils.config import load_config
-
-    t_run = time.perf_counter()
-    card = card_line()
-    print(f"card: {card}")
-    dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    reports = _build.build_all()
+def report_build(reports: dict, build_s: dict) -> dict:
+    """Print each library's nvcc seconds (all started at once on the
+    host's cores; ``--phase build-times`` sets them beside another tree's)
+    and its ptxas registers and spills: the attention libraries by route,
+    each ``decode_mma.cuh`` instantiation by head dim and m16 tiles.
+    Returns the per-instantiation tables of fused_stem and the decode-side
+    kernels."""
     ptxas = {}
-    phase_s = {"build": round(time.perf_counter() - t0, 1)}
-    print(f"build: {len(_build.KERNELS)} kernel libraries ready in {phase_s['build']} s")
+    print(f"build seconds by library: "
+          f"{json.dumps({k: round(v, 1) for k, v in build_s.items()})}")
     for name, report in reports.items():  # ptxas -v: registers and spills of each library
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores", report))
@@ -5814,9 +6444,124 @@ def main() -> int:
             print(f"ptxas {name} decode_mma.cuh [registers, spill store bytes]: "
                   f"{json.dumps(ptxas[name])}")
 
-    cfg = load_config(str(CONFIG))
+    return ptxas
+
+
+def timed(phase_s: dict, name: str, fn, *args):
+    """fn(*args), its host seconds kept in ``phase_s[name]``."""
     t0 = time.perf_counter()
-    engine = build_generation_engine(cfg, device="cuda")
+    out = fn(*args)
+    phase_s[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+PHASES = ("head-layout-kernels", "build-times")
+
+
+def phase_main(argv) -> int:
+    """One group alone, for a short call to the card:
+
+        python3 chip_smoke.py --phase head-layout-kernels
+        python3 chip_smoke.py --phase build-times TREE [TREE ...]
+
+    ``head-layout-kernels``: the build (nvcc seconds and ptxas reports)
+    and ``head_layout_kernel_rows``, every row printed as JSON.
+    ``build-times``: the kernel libraries of each TREE (the root of a
+    checkout; ``.`` for this one, another commit unpacked with ``git
+    archive <commit> | tar -x -C build/parent``) built in turn by
+    ``ops/_build.py``'s command, one nvcc per source all started together,
+    each tree into a fresh directory; give them as parent, change, change,
+    parent to see the spread. Exits 1 at the first failure."""
+    if len(argv) < 2 or argv[0] != "--phase" or argv[1] not in PHASES:
+        print(f"usage: chip_smoke.py [--phase {{{','.join(PHASES)}}} [TREE ...]]",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "starpu_inference_server_tpu_torch").is_dir():
+        print("chip_smoke: FAIL: run from a checkout of the repository", file=sys.stderr)
+        return 1
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from starpu_inference_server_tpu_torch.ops import _build
+
+    card = card_line()
+    print(f"card: {card}")
+    if argv[1] == "build-times":
+        for i, tree in enumerate(argv[2:] or ["."]):
+            out = ROOT / "build" / "build_times" / str(i)
+            if out.is_dir():
+                for lib in out.iterdir():
+                    lib.unlink()
+            seconds = {}
+            t0 = time.perf_counter()
+            _build.build_all(seconds=seconds, out=out,
+                             csrc=Path(tree).resolve() / "starpu_inference_server_tpu_torch" /
+                             "csrc")
+            print(f"build times of {tree} (run {i}) on {card}: wall "
+                  f"{time.perf_counter() - t0:.1f} s; by library "
+                  f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+        return 0
+    t0 = time.perf_counter()
+    build_s = {}
+    report_build(_build.build_all(seconds=build_s), build_s)
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+    rows = head_layout_kernel_rows(torch.device("cuda"), card)
+    print(json.dumps({"head_layout_rows": rows}))
+    return 0
+
+
+def main() -> int:
+    pkg = ROOT / "starpu_inference_server_tpu_torch"
+    configs = (CONFIG, BERT_CONFIG, RESNET_CONFIG, W4A8_CONFIG, SPEC_CONFIG, LOOKUP_CONFIG,
+               PAGED_CONFIG, VIT_CONFIG, NHWC_CONFIG, MOE_CONFIG, PIPE_CONFIG)
+    if not pkg.is_dir() or not all(c.is_file() for c in configs):
+        print("chip_smoke: FAIL: run from a checkout of the repository "
+              "(starpu_inference_server_tpu_torch/ and configs/ not found)", file=sys.stderr)
+        return 1
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    # the plain references compute f32 products in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    from starpu_inference_server_tpu_torch.models.registry import build_model
+    from starpu_inference_server_tpu_torch.ops import _build
+    from starpu_inference_server_tpu_torch.serving.generation import build_generation_engine
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+
+    t_run = time.perf_counter()
+    card = card_line()
+    print(f"card: {card}")
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    build_s = {}
+    cfg = load_config(str(CONFIG))
+    # nvcc runs while the host draws the decoder's int4 tree (numpy), which
+    # launches no kernel of the port
+    with ThreadPoolExecutor(1) as pool:
+        build = pool.submit(_build.build_all, seconds=build_s)
+        tree = build_model(cfg.model, seed=cfg.seed, device=dev).params
+        tree_s = time.perf_counter() - t0
+        reports = build.result()
+    phase_s = {"build": round(time.perf_counter() - t0, 1)}
+    print(f"build: {len(_build.KERNELS)} kernel libraries ready in {phase_s['build']} s (the "
+          f"{cfg.model.family} int4 tree drawn beside it in {tree_s:.1f} s)")
+    ptxas = report_build(reports, build_s)
+
+    t0 = time.perf_counter()
+    engine = build_generation_engine(cfg, device="cuda", params=tree)
+    del tree
     print(f"engine: {cfg.model.family} ({cfg.model.quantization.value}, "
           f"{cfg.model.compute_dtype}) built in {time.perf_counter() - t0:.1f} s")
 
@@ -5886,6 +6631,28 @@ def main() -> int:
     torch.cuda.empty_cache()
     multihost = timed(phase_s, "multihost (2 launchers of 2 ranks)", multihost_path, card,
                       gspmd["llama"])
+    torch.cuda.empty_cache()
+    hl_rows = timed(phase_s, "kernels (head layouts)", head_layout_kernel_rows, dev, card)
+    torch.cuda.empty_cache()
+    heads = timed(phase_s, "head layouts (q/kv 16; model=4 over 2 kv heads; bert model=8)",
+                  head_layouts_path, card)
+    # launches on the head-layout paths: the one-device engine's serving
+    # run, and by rank the model=4 world's streams and the bert world's
+    # forward; the timed rows carry the launches of the run they stand for
+    hm = heads["mesh"]["stats"]
+    head_launches = {name: {"llama_decoder_kv2_one_device": heads["one"]["launches"][name],
+                            "llama_decoder_kv2_model4_by_rank": [s["launches"].get(name, 0)
+                                                                 for s in hm]}
+                     for name in HL_KERNELS}
+    head_launches["bidirectional_attention"] = {"bert_long_model8_by_rank": [
+        s["launches"].get("bidirectional_attention", 0) for s in heads["bert"]["stats"]]}
+    for name, entries in hl_rows.items():
+        for e in entries:
+            if e["path"] == "head_layouts_rep16":
+                e["launches"] = heads["one"]["launches"][name]
+            elif e["path"].startswith("head_layouts_model"):
+                e["launches_by_rank"] = [s["launches"].get(name, 0) for s in hm]
+        rows[name].setdefault("per_shape", []).extend(entries)
     # launches on the multi-host paths, by rank: the two CLI launchers over
     # their client run, and each phase of the 2-launcher rank world
     mw = multihost["worlds"]
@@ -5980,6 +6747,8 @@ def main() -> int:
             extra["launches_on_the_gspmd_paths"] = gspmd_launches[name]
         if name in multihost_launches:
             extra["launches_on_the_multihost_paths"] = multihost_launches[name]
+        if name in head_launches:
+            extra["launches_on_the_head_layout_paths"] = head_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",
@@ -6022,6 +6791,14 @@ def main() -> int:
           f"{GSPMD_REQUESTS} streams equal to 1 launcher's; rank worlds bit-equal / equal to 1 "
           f"launcher's ({json.dumps(mw['walls'])} s); killed rank: exits "
           f"{multihost['killed']['codes']} in {multihost['killed']['s']:.1f} s")
+    ho = heads["one"]["per_step"]
+    print(f"head-layout paths on {card}: llama_decoder with kv_heads 2 (q/kv 16) on one device, "
+          f"launches a decode step {json.dumps({k: v for k, v in ho.items() if v})}; at model="
+          f"{HL_MODEL} {heads['mesh']['streams_equal']} of {HL_REQUESTS} streams equal to one "
+          f"device's, logits max rel prefill {heads['mesh']['logits']['prefill']['max_rel']:.3e} "
+          f"step {heads['mesh']['logits']['step']['max_rel']:.3e}; bert_long model="
+          f"{HL_BERT_MODEL} max rel {heads['bert']['close']['max_rel']:.3e}; worlds "
+          f"{json.dumps(heads['seconds'])} s")
     print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)
@@ -6035,7 +6812,7 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
-        sys.exit(main())
+        sys.exit(phase_main(sys.argv[1:]) if sys.argv[1:] else main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -30,14 +30,14 @@
 // query head a block, grid (Hq, 1, tiles), longest tiles first).
 //
 // f32: as causal_attention's f32 route, one block per (query tile, KV
-// head) with one query row per thread for all rep heads, the kernel of
-// the FP32 witnesses. Cache chunks are dequantized (int8 * scale -> f32)
+// head's head group) with one query row per thread for the group's heads
+// (all rep heads up to 128), the kernel of the FP32 witnesses. Cache chunks are dequantized (int8 * scale -> f32)
 // while they are staged in shared memory, once for all 128 rows.
 //
-// Both routes take head_dim 32, 64 and 128. At 32 (llama-tiny) the f32
-// route is instantiated too, rather than sending f32 inputs through the
-// tensor cores with bf16 operands: that would change the function the
-// FP32 witnesses compute.
+// Both routes take head_dim 32, 64, 80, 96, 128 and 256 and any rep. At
+// 32 (llama-tiny) the f32 route is instantiated too, rather than sending
+// f32 inputs through the tensor cores with bf16 operands: that would
+// change the function the FP32 witnesses compute.
 
 #include "flash_mma.cuh"
 
@@ -46,28 +46,35 @@ namespace {
 constexpr int kRows = 128;
 constexpr int kSB = 16;
 
+// the query heads of a block of the f32 route (all of a KV head's, up to
+// kRows), as causal_attention's
+inline int f32_heads(int rep) { return rep < kRows ? rep : kRows; }
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kRows)
 chunk_prefill_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_row,
                      const int8_t* __restrict__ v_row, const float* __restrict__ k_scale,
                      const float* __restrict__ v_scale, const T* __restrict__ k_cur,
                      const T* __restrict__ v_cur, T* __restrict__ out, int C, int Tmax,
-                     int Hkv, int rep, int start, float inv_sqrt_d) {
-  constexpr int BK = 4096 / D;
+                     int Hkv, int rep, int heads, int start, float inv_sqrt_d) {
+  constexpr int BK = 4096 / D / kSB * kSB;
   __shared__ __align__(16) float ks_s[BK * D];
   __shared__ __align__(16) float vs_s[BK * D];
 
-  const int bq = kRows / rep;
+  const int bq = kRows / heads;
+  const int groups = (rep + heads - 1) / heads;
   const int q0 = blockIdx.x * bq;
-  const int h = blockIdx.y;
+  const int h = blockIdx.y / groups;
+  const int r = (blockIdx.y % groups) * heads + threadIdx.x % heads;  // head of the KV head
   const int tid = threadIdx.x;
-  const int c = q0 + tid / rep;
-  const int head = h * rep + tid % rep;
+  const int c = q0 + tid / heads;
+  const int head = h * rep + r;
   const int hq = Hkv * rep;
+  const bool mine = tid < bq * heads && r < rep && c < C;
 
   sis::FlashRow<D, kSB> row;
   row.init();
-  if (c < C) {
+  if (mine) {
     const T* qr = q + ((size_t)c * hq + head) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) row.q[d] = sis::to_f(qr[d]);
@@ -117,29 +124,31 @@ chunk_prefill_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_row,
     __syncthreads();
     row.consume(ks_s, vs_s, nk, k0, c, inv_sqrt_d);
   }
-  if (c < C) row.store(out + ((size_t)c * hq + head) * D);
+  if (mine) row.store(out + ((size_t)c * hq + head) * D);
 }
 
 int launch_f32(const void* q, const void* kr, const void* vr, const void* ksc, const void* vsc,
                const void* kc, const void* vc, void* out, int C, int Tmax, int Hkv, int rep, int D,
                int start, cudaStream_t st) {
-  const int bq = kRows / rep;
-  const dim3 grid((C + bq - 1) / bq, Hkv);
+  const int heads = f32_heads(rep);
+  const int bq = kRows / heads;
+  const dim3 grid((C + bq - 1) / bq, Hkv * ((rep + heads - 1) / heads));
   const float inv = 1.f / sqrtf(static_cast<float>(D));
 #define SIS_CHUNK_LAUNCH(DD)                                                                  \
   chunk_prefill_kernel<float, DD><<<grid, kRows, 0, st>>>(                                    \
       static_cast<const float*>(q), static_cast<const int8_t*>(kr),                           \
       static_cast<const int8_t*>(vr), static_cast<const float*>(ksc),                         \
       static_cast<const float*>(vsc), static_cast<const float*>(kc),                          \
-      static_cast<const float*>(vc), static_cast<float*>(out), C, Tmax, Hkv, rep, start, inv)
-  if (D == 32) {
-    SIS_CHUNK_LAUNCH(32);
-  } else if (D == 64) {
-    SIS_CHUNK_LAUNCH(64);
-  } else if (D == 128) {
-    SIS_CHUNK_LAUNCH(128);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+      static_cast<const float*>(vc), static_cast<float*>(out), C, Tmax, Hkv, rep, heads,     \
+      start, inv)
+  switch (D) {
+    case 32: SIS_CHUNK_LAUNCH(32); break;
+    case 64: SIS_CHUNK_LAUNCH(64); break;
+    case 80: SIS_CHUNK_LAUNCH(80); break;
+    case 96: SIS_CHUNK_LAUNCH(96); break;
+    case 128: SIS_CHUNK_LAUNCH(128); break;
+    case 256: SIS_CHUNK_LAUNCH(256); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SIS_CHUNK_LAUNCH
   return static_cast<int>(cudaGetLastError());
@@ -162,7 +171,8 @@ chunk_prefill_mma(const __nv_bfloat16* __restrict__ q, const int8_t* __restrict_
   const ChunkKeys<D> keys{k_row + (size_t)hkv * D, v_row + (size_t)hkv * D,
                           k_scale + hkv, v_scale + hkv,
                           k_cur + (size_t)hkv * D, v_cur + (size_t)hkv * D,
-                          Hkv, min(start, Tmax), min(rows.q0 + kBQ, C) - 1, inv_sqrt_d};
+                          Hkv, min(start, Tmax), min(rows.q0 + kBQ, C) - 1, rows.q0,
+                          inv_sqrt_d};
   attend<D>(q, out, rows, keys, smem);
 }
 
@@ -188,18 +198,21 @@ extern "C" int sis_chunk_prefill_attention(const void* q, const void* k_row, con
                                            int C, int Tmax, int Hkv, int rep, int D, int start,
                                            int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || kRows % rep != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rep < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype != sis::kBF16)
     return launch_f32(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv, rep, D,
                       start, st);
-  if (D == 32)
-    return launch_mma<32>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
-                          rep, start, st);
-  if (D == 64)
-    return launch_mma<64>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
-                          rep, start, st);
-  if (D == 128)
-    return launch_mma<128>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv,
-                           rep, start, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+#define SIS_CHUNK_MMA(DD)                                                                  \
+  launch_mma<DD>(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur, out, C, Tmax, Hkv, rep, \
+                 start, st)
+  switch (D) {
+    case 32: return SIS_CHUNK_MMA(32);
+    case 64: return SIS_CHUNK_MMA(64);
+    case 80: return SIS_CHUNK_MMA(80);
+    case 96: return SIS_CHUNK_MMA(96);
+    case 128: return SIS_CHUNK_MMA(128);
+    case 256: return SIS_CHUNK_MMA(256);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SIS_CHUNK_MMA
 }

@@ -127,6 +127,10 @@ __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v 
 // the running max and the accumulator rescale once per sub-block.
 template <int D, int SB>
 struct FlashRow {
+  // the d loops' unroll: whole up to D = 128; at 256 (Gemma) the q row
+  // and accumulator live in local memory whatever the unroll, and a whole
+  // unroll of every d loop only multiplies the code and its build time
+  static constexpr int kU = D > 128 ? 8 : D;
   float q[D];
   float acc[D];
   float m;
@@ -135,7 +139,7 @@ struct FlashRow {
   __device__ __forceinline__ void init() {
     m = kNeg;
     l = 0.f;
-#pragma unroll
+#pragma unroll (kU)
     for (int d = 0; d < D; ++d) acc[d] = 0.f;
   }
 
@@ -162,7 +166,7 @@ struct FlashRow {
       for (int jj = 0; jj < SB; ++jj) {
         const float* kr = ks + (j0 + jj) * D;
         float dot = 0.f;
-#pragma unroll
+#pragma unroll (kU)
         for (int d = 0; d < D; d += 4) {
           const float4 kv = *reinterpret_cast<const float4*>(kr + d);
           dot = fmaf(q[d], kv.x, dot);
@@ -177,14 +181,14 @@ struct FlashRow {
       const float m_new = fmaxf(m, cmax);
       const float alpha = expf(m - m_new);
       l *= alpha;
-#pragma unroll
+#pragma unroll (kU)
       for (int d = 0; d < D; ++d) acc[d] *= alpha;
 #pragma unroll
       for (int jj = 0; jj < SB; ++jj) {
         const float p = expf(s[jj] - m_new);
         l += p;
         const float* vr = vs + (j0 + jj) * D;
-#pragma unroll
+#pragma unroll (kU)
         for (int d = 0; d < D; d += 4) {
           const float4 vv = *reinterpret_cast<const float4*>(vr + d);
           acc[d] = fmaf(p, vv.x, acc[d]);
@@ -200,7 +204,7 @@ struct FlashRow {
   template <typename T>
   __device__ __forceinline__ void store(T* out) const {
     const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
+#pragma unroll (kU)
     for (int d = 0; d < D; ++d) out[d] = from_f<T>(acc[d] * inv);
   }
 };
@@ -261,8 +265,11 @@ struct PagedRows {
 //   0..lengths[s] (the new token sits at lengths[s]). GQA: query head
 //   h*rep + r reads KV head h; nothing is repeated.
 //
-// One block per (KV head, slot) serves the head's `rep` query heads, so
-// each K/V byte is read from device memory once. The loop over
+// One block per (KV head, head group, slot) serves a group of the head's
+// `rep` query heads (`heads` of them, at most kDecMaxRep and kDecMaxOut *
+// kDecCH / D; the caller cuts the groups: ops/decode_attention.py
+// decode_group_rows), so each K/V byte is read from device memory once a
+// group; rep <= 8 at D <= 128 is one group. The loop over
 // 128-position chunks runs inside the block (the TPU carried m/l/acc
 // across sequential grid steps instead) and stops at the slot's length,
 // so the cost tracks the live context, not max_len. Per chunk: each
@@ -277,10 +284,11 @@ struct PagedRows {
 
 constexpr int kDecCH = 128;    // positions per chunk == threads per block
 constexpr int kDecMaxRep = 8;
-constexpr int kDecMaxOut = 8;  // rep * D <= kDecMaxOut * kDecCH
+constexpr int kDecMaxOut = 8;  // heads * D <= kDecMaxOut * kDecCH a block
 
-inline bool decode_shape_ok(int rep, int D) {
-  return D % 16 == 0 && rep >= 1 && rep <= kDecMaxRep && rep * D <= kDecMaxOut * kDecCH;
+inline bool decode_shape_ok(int rep, int heads, int D) {
+  return D % 16 == 0 && rep >= 1 && heads >= 1 && heads <= kDecMaxRep &&
+         heads * D <= kDecMaxOut * kDecCH;
 }
 
 inline size_t decode_smem_bytes(int rep, int D) {
@@ -293,7 +301,13 @@ __device__ __forceinline__ void decode_attention_body(
     const float* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ lengths, float* __restrict__ out, Rows rows, int T, int Hkv, int rep,
-    int D, float inv_sqrt_d) {
+    int heads, int D, float inv_sqrt_d) {
+  const int groups = (rep + heads - 1) / heads;
+  const int h = blockIdx.x / groups;
+  const int r0 = (blockIdx.x % groups) * heads;  // the group's first query head of h
+  const int hq = Hkv * rep;
+  rep = min(heads, rep - r0);  // from here on: the group's heads
+
   extern __shared__ __align__(16) unsigned char smem[];
   int8_t* v_s = reinterpret_cast<int8_t*>(smem);          // [CH][D]
   float* q_s = reinterpret_cast<float*>(smem + kDecCH * D);  // [rep][D]
@@ -303,17 +317,15 @@ __device__ __forceinline__ void decode_attention_body(
   float* l_s = m_s + rep;                                  // [rep]
   float* a_s = l_s + rep;                                  // [rep]
 
-  const int h = blockIdx.x;
   const int s = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int hq = Hkv * rep;
   const int rd = rep * D;
   int n = lengths[s] + 1;
   n = n < 1 ? 1 : (n > T ? T : n);
 
-  const size_t q_base = ((size_t)s * hq + (size_t)h * rep) * D;
+  const size_t q_base = ((size_t)s * hq + (size_t)h * (hq / Hkv) + r0) * D;
   for (int i = tid; i < rd; i += kDecCH) q_s[i] = q[q_base + i];
   if (tid < rep) {
     m_s[tid] = kNeg;
@@ -421,12 +433,14 @@ __device__ __forceinline__ void decode_attention_body(
 }
 
 // Launch `kernel` (a __global__ wrapper of decode_attention_body) on a
-// (Hkv, S) grid of kDecCH threads.
+// (Hkv * head groups, S) grid of kDecCH threads, `heads` query heads a
+// group.
 template <typename Kernel, typename... Args>
-inline int launch_decode(Kernel kernel, int S, int Hkv, int rep, int D, cudaStream_t stream,
-                         Args... args) {
-  if (!decode_shape_ok(rep, D)) return static_cast<int>(cudaErrorInvalidValue);
-  kernel<<<dim3(Hkv, S), kDecCH, decode_smem_bytes(rep, D), stream>>>(args...);
+inline int launch_decode(Kernel kernel, int S, int Hkv, int rep, int heads, int D,
+                         cudaStream_t stream, Args... args) {
+  if (!decode_shape_ok(rep, heads, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = (rep + heads - 1) / heads;
+  kernel<<<dim3(Hkv * groups, S), kDecCH, decode_smem_bytes(heads, D), stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -444,9 +458,12 @@ inline int launch_decode(Kernel kernel, int S, int Hkv, int rep, int D, cudaStre
 //   attends positions <= lengths[s] + w (the verify mask; W = 1 is the
 //   decode mask). GQA: query head h*rep + r reads KV head h.
 //
-// One block per (KV head, slot) serves all W * rep query rows of the head,
-// so each K/V byte is read from device memory once per call, not once per
-// window row. The chunk loop stops at the window's last live position,
+// One block per (KV head, row group, slot) serves a group of the head's
+// W * rep query rows ((w, rep) order; `group_rows` of them, at most
+// kWinMaxOut * kWinThreads / D: the caller cuts the groups,
+// ops/decode_attention.py decode_group_rows), so each K/V byte is read
+// from device memory once a group, not once per window row; W * rep * D
+// <= 4096 is one group. The chunk loop stops at the window's last live position,
 // lengths[s] + W - 1. Per 64-position chunk: K and V are dequantized into
 // shared memory as f32 (the scale applied once per element), every (row,
 // position) logit is one thread's dot product, one warp per row runs the
@@ -456,16 +473,17 @@ inline int launch_decode(Kernel kernel, int S, int Hkv, int rep, int D, cudaStre
 
 constexpr int kWinCH = 64;       // positions per staged chunk
 constexpr int kWinThreads = 256;
-constexpr int kWinMaxOut = 16;   // W * rep * D <= kWinMaxOut * kWinThreads
+constexpr int kWinMaxOut = 16;   // group rows * D <= kWinMaxOut * kWinThreads
 
 inline size_t window_smem_bytes(int R, int D) {
   return sizeof(float) * ((size_t)kWinCH * (D + 1) + (size_t)kWinCH * D + (size_t)R * D +
                           (size_t)R * kWinCH + 3 * (size_t)R);
 }
 
-inline bool window_shape_ok(int R, int D) {
-  return D % 16 == 0 && R >= 1 && R * D <= kWinMaxOut * kWinThreads &&
-         window_smem_bytes(R, D) <= 227 * 1024;
+inline bool window_shape_ok(int R, int group_rows, int D) {
+  return D % 16 == 0 && R >= 1 && group_rows >= 1 &&
+         group_rows * D <= kWinMaxOut * kWinThreads &&
+         window_smem_bytes(group_rows, D) <= 227 * 1024;
 }
 
 template <typename Rows>
@@ -473,9 +491,11 @@ __device__ __forceinline__ void window_attention(
     const float* __restrict__ q, const int8_t* __restrict__ k, const int8_t* __restrict__ v,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ lengths, float* __restrict__ out, Rows rows, int T, int W, int Hkv,
-    int rep, int D, float inv_sqrt_d) {
+    int rep, int most, int D, float inv_sqrt_d) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R = W * rep;
+  const int groups = (W * rep + most - 1) / most;
+  const int r0 = (blockIdx.x % groups) * most;  // the group's first row of the head
+  const int R = min(most, W * rep - r0);        // the group's rows
   const int KP = D + 1;  // padded K rows: a warp's 32 positions hit 32 banks
   float* k_s = reinterpret_cast<float*>(smem);  // [CH][D+1]
   float* v_s = k_s + kWinCH * KP;               // [CH][D]
@@ -485,7 +505,7 @@ __device__ __forceinline__ void window_attention(
   float* l_s = m_s + R;                         // [R]
   float* a_s = l_s + R;                         // [R]
 
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / groups;
   const int s = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -495,9 +515,9 @@ __device__ __forceinline__ void window_attention(
   int n = len + W;  // positions 0 .. len + W - 1 are live for some row
   n = n < 1 ? 1 : (n > T ? T : n);
 
-  // row r = w * rep + rr holds q[s, w, h * rep + rr, :]
+  // local row r is the head's row r0 + r = w * rep + rr: q[s, w, h * rep + rr, :]
   for (int i = tid; i < R * D; i += kWinThreads) {
-    const int r = i / D;
+    const int r = r0 + i / D;
     const int w = r / rep;
     q_s[i] = q[(((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + i % D];
   }
@@ -541,12 +561,12 @@ __device__ __forceinline__ void window_attention(
       }
     }
     __syncthreads();
-    // logits: row r attends positions <= len + r / rep
+    // logits: local row r attends positions <= len + (r0 + r) / rep
     for (int i = tid; i < R * kWinCH; i += kWinThreads) {
       const int r = i / kWinCH;
       const int j = i % kWinCH;
       float logit = kNeg;
-      if (j < nc && c0 + j <= len + r / rep) {
+      if (j < nc && c0 + j <= len + (r0 + r) / rep) {
         const float* qr = q_s + r * D;
         const float* kr = k_s + j * KP;
         float dot = 0.f;
@@ -598,27 +618,29 @@ __device__ __forceinline__ void window_attention(
     const int o = tid + jo * kWinThreads;
     if (o < R * D) {
       const int r = o / D;
-      const int w = r / rep;
-      const size_t dst = (((size_t)s * W + w) * hq + (size_t)h * rep + r % rep) * D + o % D;
+      const int w = (r0 + r) / rep;
+      const size_t dst =
+          (((size_t)s * W + w) * hq + (size_t)h * rep + (r0 + r) % rep) * D + o % D;
       out[dst] = acc[jo] / fmaxf(l_s[r], 1e-30f);
     }
   }
 }
 
 // Launch `kernel` (a __global__ wrapper of window_attention) on a
-// (Hkv, S) grid; raises the dynamic shared-memory limit when the window
-// needs more than the default 48 KB.
+// (Hkv * row groups, S) grid, `rows` of the head's R rows a group; raises
+// the dynamic shared-memory limit when the window needs more than the
+// default 48 KB.
 template <typename Kernel, typename... Args>
-inline int launch_window(Kernel kernel, int S, int Hkv, int R, int D, cudaStream_t stream,
-                         Args... args) {
-  if (!window_shape_ok(R, D)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = window_smem_bytes(R, D);
+inline int launch_window(Kernel kernel, int S, int Hkv, int R, int rows, int D,
+                         cudaStream_t stream, Args... args) {
+  if (!window_shape_ok(R, rows, D)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = window_smem_bytes(rows, D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(Hkv, S), kWinThreads, smem, stream>>>(args...);
+  kernel<<<dim3(Hkv * ((R + rows - 1) / rows), S), kWinThreads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

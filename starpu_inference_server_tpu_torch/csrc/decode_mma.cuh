@@ -17,10 +17,20 @@
 // would bind.
 //
 // Design.
-// - Work item: one (KV head, slot, context split). Its rows are all
-//   R = W * rep query rows of the KV head, in (w, rep) order, padded to
-//   MT m16 tiles; every row reads the same K/V, so a K/V byte is read
-//   from device memory once a call.
+// - Work item: one (KV head, row group, slot, context split). The rows of
+//   a KV head are its R = W * rep query rows in (w, rep) order; they are
+//   cut into row groups of at most 16 * (256 / D) rows (2 m16 tiles at
+//   D = 128, 8 at D = 32) so a thread's accumulators stay at 128 floats,
+//   and each group is padded to MT m16 tiles. Every row of a group reads
+//   the same K/V, so a K/V byte is read from device memory once a call
+//   and group: R fits one group wherever W * rep * D <= 4096 (every
+//   decode at D <= 128 up to rep 32, every verify at rep <= 8), and each
+//   further group (a verify window at rep 16, MQA's 71 heads, D = 256 at
+//   rep 32) reads the KV head's tiles again. The caller cuts the groups
+//   (ops/decode_attention.py decode_group_rows: as even as whole rows
+//   allow, only the last one shorter) from (R, D) alone, so the grid is
+//   fixed for a shape and a CUDA graph of the call replays with any
+//   lengths.
 // - The block's 4 warps split the keys: the block stages 64-position
 //   tiles (int8 K/V rows and their scales) by cp.async into a 2-stage
 //   ring (one tile lands while the warps work on the other; 3 and 4
@@ -36,8 +46,14 @@
 //   is staged in shared memory in the same order and read by ldmatrix),
 //   and in P V, column n of output n-tile t is d = n D/8 + t, so a lane
 //   reads D/8 consecutive bytes of four V rows. Rows are padded so each
-//   vector load is conflict-free. Where R <= 16 mt + 8 (decode at rep
-//   <= 8), the padding rows g + 8 of m-tile mt skip the softmax.
+//   vector load is conflict-free. Where a group's rows end at or before
+//   16 mt + 8 (decode at rep <= 8), the padding rows g + 8 of m-tile mt
+//   skip the softmax.
+// - Head dims 32, 64, 80, 96, 128 and 256. At 80 and 96 a lane's bytes of
+//   a row are not 16: K's D/4 (20, 24) load as 4- or 8-byte words, V's
+//   D/8 (10, 12) as 2- or 4-byte ones, the last word of 10 half used
+//   (n-tiles past D/8 are never formed); the staged rows stay whole
+//   16-byte copies (80 and 96 are multiples of 16).
 // - Scales and precision, as flash_mma.cuh's ChunkKeys: column j of S is
 //   multiplied by k_scale[j] and then 1/sqrt(D) in f32 after the mma; a
 //   position past a row's limit gets -1e30 and an exact 0 in P (never
@@ -71,11 +87,10 @@ constexpr int kTile = 64;  // positions a staged tile, 16 a warp
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;
-constexpr int kMaxOut = 4096;  // W * rep * D
 
 template <int D>
 struct Layout {
-  static constexpr int kKRow = D == 128 ? 144 : D;  // int8 K row pitch
+  static constexpr int kKRow = D % 128 ? D : D + 16;  // int8 K row pitch
   static constexpr int kVRow = D + 16;              // int8 V row pitch
   static constexpr int kQRow = D + 8;               // bf16 Q row pitch (elements)
   static constexpr int kStage = kTile * (kKRow + kVRow) + 2 * kTile * 4;
@@ -100,6 +115,7 @@ struct Args {
   __nv_bfloat16* out;
   float* ws;  // splits > 1: acc [splits, S, Hkv, R, D], then (m, l) [splits, S, Hkv, R, 2]
   int T, W, Hkv, rep, D, splits, span;
+  int groups, group_rows;  // row groups of a KV head (blockIdx.x = h * groups + group)
   float inv_sqrt_d;
 
   __device__ int live(int s) const {  // positions 0 .. live - 1 are attended by some row
@@ -112,15 +128,18 @@ struct Args {
   }
 };
 
+// most m16 tiles of a row group: 128 accumulators a thread at any D
+constexpr int max_tiles(int D) { return 256 / D; }
+
 // the body's arguments from a C entry point's pointers (bf16 q / out)
 inline Args make_args(const void* q, const void* k, const void* v, const void* ks,
                       const void* vs, const void* lengths, void* out, void* ws, int T, int W,
-                      int Hkv, int rep, int D, int splits) {
+                      int Hkv, int rep, int D, int splits, int group_rows) {
   return Args{static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
               static_cast<const int8_t*>(v), static_cast<const float*>(ks),
               static_cast<const float*>(vs), static_cast<const int*>(lengths),
               static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), T, W, Hkv, rep, D,
-              splits, 0, 1.f / sqrtf(static_cast<float>(D))};
+              splits, 0, 1, group_rows, 1.f / sqrtf(static_cast<float>(D))};
 }
 
 inline int positions(int T, int splits) {  // L of the plan
@@ -128,28 +147,24 @@ inline int positions(int T, int splits) {  // L of the plan
   return kTile * ((tiles + splits - 1) / splits);
 }
 
-// m16 tiles instantiated for R rows: D = 32 takes up to 8 (8 is built
-// for 5-8), D = 64 up to 4, D = 128 up to 2
+// m16 tiles instantiated for a group of R rows: up to max_tiles(D); D =
+// 32 builds 8 for 5-8
 inline int m_tiles(int R, int D) {
   const int mt = (R + 15) / 16;
   return (D == 32 && mt > 4) ? 8 : mt;
 }
 
-inline bool shape_ok(int R, int D) {
-  return (D == 32 || D == 64 || D == 128) && R >= 1 && R * D <= kMaxOut;
+inline bool shape_ok(int R, int group_rows, int D) {
+  return (D == 32 || D == 64 || D == 80 || D == 96 || D == 128 || D == 256) && R >= 1 &&
+         group_rows >= 1 && group_rows <= 16 * max_tiles(D);
 }
 
-// N bytes of shared memory (4, 8, 16 or 32; 16-byte aligned for 16 and
-// 32) as N / 4 words, by the widest loads
+// N bytes of shared memory as (N + 3) / 4 words (the last one's high bytes
+// zero when N % 4), by the widest loads N's offsets allow: 16 bytes when
+// N % 16 == 0, else 8, 4 or 2 (the caller keeps p aligned to them)
 template <int N>
-__device__ __forceinline__ void load_words(uint32_t (&w)[N / 4], const uint8_t* p) {
-  if constexpr (N == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (N == 8) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    w[0] = x.x;
-    w[1] = x.y;
-  } else {
+__device__ __forceinline__ void load_words(uint32_t (&w)[(N + 3) / 4], const uint8_t* p) {
+  if constexpr (N % 16 == 0) {
 #pragma unroll
     for (int i = 0; i < N / 16; ++i) {
       const uint4 x = *reinterpret_cast<const uint4*>(p + 16 * i);
@@ -158,6 +173,24 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[N / 4], const uint8_t* 
       w[4 * i + 2] = x.z;
       w[4 * i + 3] = x.w;
     }
+  } else if constexpr (N % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 8; ++i) {
+      const uint2 x = *reinterpret_cast<const uint2*>(p + 8 * i);
+      w[2 * i] = x.x;
+      w[2 * i + 1] = x.y;
+    }
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) w[i] = *reinterpret_cast<const uint32_t*>(p + 4 * i);
+  } else {
+    static_assert(N % 2 == 0, "2-byte loads at least");
+#pragma unroll
+    for (int i = 0; i < (N + 3) / 4; ++i) w[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      w[i / 2] |= static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(p + 2 * i))
+                  << (16 * (i % 2));
   }
 }
 
@@ -184,10 +217,11 @@ __device__ __forceinline__ void issue(const Args& a, const Rows& rows, unsigned 
   int8_t* v8 = k8 + kTile * L::kKRow;
   float* sc = reinterpret_cast<float*>(v8 + kTile * L::kVRow);
   const int p0 = start + it * kTile;
-  static_assert(kTile * CH % kThreads == 0 && kTile <= kThreads, "whole copies a thread");
+  static_assert(kTile <= kThreads, "a scale pair a thread");
 #pragma unroll
-  for (int k = 0; k < kTile * CH / kThreads; ++k) {  // a fixed count: no remainder code
+  for (int k = 0; k < (kTile * CH + kThreads - 1) / kThreads; ++k) {  // a fixed count
     const int i = threadIdx.x + k * kThreads;
+    if (kTile * CH % kThreads && i >= kTile * CH) break;  // D = 80: 2.5 copies a thread
     const int r = i / CH;
     const int ch = i % CH;
     const bool ok = p0 + r < end;
@@ -211,15 +245,17 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows) {
   constexpr int DT = D / 8;   // n8 tiles of O
   constexpr int KB = D / 4;   // bytes of a K row a lane reads
   constexpr int VB = D / 8;   // bytes of a V row a lane reads
+  constexpr int VW = (VB + 3) / 4;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / a.groups;
+  const int r0 = (blockIdx.x % a.groups) * a.group_rows;  // the group's first row of the head
   const int s = blockIdx.y;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int g = lane / 4;
   const int c4 = lane % 4;
-  const int R = a.W * a.rep;
+  const int R = min(a.group_rows, a.W * a.rep - r0);  // the group's rows
   const int n = a.live(s);
   const int start = blockIdx.z * a.span;
   if (start >= n) return;  // the merge skips this split
@@ -233,7 +269,7 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int r = 16 * mt + g + 8 * hh;
-      lim[mt][hh] = r < R ? min(a.lengths[s] + r / a.rep, n - 1) : -1;
+      lim[mt][hh] = r < R ? min(a.lengths[s] + (r0 + r) / a.rep, n - 1) : -1;
     }
   float o[MT][DT][4];
   float m_run[MT][2];
@@ -266,7 +302,7 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows) {
     const int r = i / (D / 8);
     const int d0 = 8 * (i % (D / 8));
     uint4 x = make_uint4(0, 0, 0, 0);
-    if (r < R) x = *reinterpret_cast<const uint4*>(a.q + a.row(s, h, r) * D + d0);
+    if (r < R) x = *reinterpret_cast<const uint4*>(a.q + a.row(s, h, r0 + r) * D + d0);
     const __nv_bfloat16* e8 = reinterpret_cast<const __nv_bfloat16*>(&x);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {  // byte e of a K word is k 2c + e / 2 (+ 8 for odd e)
@@ -379,15 +415,16 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows) {
 
     // O += P V: rows key0 + 2c, + 1 (b0) and + 8, + 9 (b1), bytes g VB ..
     const uint8_t* vr = v8 + (key0 + 2 * c4) * L::kVRow + g * VB;
-    uint32_t vw[4][VB / 4];
+    uint32_t vw[4][VW];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       load_words<VB>(vw[i], vr + ((i & 1) + 8 * (i / 2)) * L::kVRow);
     }
 #pragma unroll
-    for (int x = 0; x < VB / 4; ++x) {
+    for (int x = 0; x < VW; ++x) {
 #pragma unroll
       for (int jb = 0; jb < 4; ++jb) {  // byte jb of word x: output n-tile 4 x + jb
+        if (4 * x + jb >= DT) continue;  // D = 80: the last word's high half
         const uint32_t sel = jb | ((4 + jb) << 8);  // byte jb of rows a, a + 1 -> bits 0, 16
         const uint32_t b0 = int8x2_bf16x2(__byte_perm(vw[0][x], vw[1][x], sel));
         const uint32_t b1 = int8x2_bf16x2(__byte_perm(vw[2][x], vw[3][x], sel));
@@ -448,8 +485,9 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows) {
   }
   __syncthreads();
 
-  const size_t part_row = (((size_t)blockIdx.z * gridDim.y + s) * a.Hkv + h) * R;
-  const size_t ml_base = (size_t)a.splits * gridDim.y * a.Hkv * R * D;
+  const int head_rows = a.W * a.rep;  // the workspace's rows and the merge's
+  const size_t part_row = (((size_t)blockIdx.z * gridDim.y + s) * a.Hkv + h) * head_rows + r0;
+  const size_t ml_base = (size_t)a.splits * gridDim.y * a.Hkv * head_rows * D;
   for (int i = tid; i < R * D; i += kThreads) {
     const int r = i / D;
     const int d = i % D;
@@ -461,7 +499,7 @@ __device__ __forceinline__ void attend(const Args& a, const Rows& rows) {
     }
     const float l = part[kRows + r];
     if (a.splits == 1) {
-      a.out[a.row(s, h, r) * D + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-30f));
+      a.out[a.row(s, h, r0 + r) * D + d] = __float2bfloat16_rn(acc / fmaxf(l, 1e-30f));
     } else {
       a.ws[(part_row + r) * D + d] = acc;
       if (d == 0) {
@@ -504,7 +542,7 @@ __global__ void __launch_bounds__(kThreads) attend_kernel(Args a, Rows rows) {
   attend<D, MT>(a, rows);
 }
 
-__global__ void __launch_bounds__(128) merge_kernel(Args a) { merge(a); }
+__global__ void __launch_bounds__(256) merge_kernel(Args a) { merge(a); }
 
 template <int D, int MT, typename Rows>
 inline int launch_tiles(const Args& a, const Rows& rows, int S, cudaStream_t stream) {
@@ -515,20 +553,21 @@ inline int launch_tiles(const Args& a, const Rows& rows, int S, cudaStream_t str
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(a.Hkv, S, a.splits), kThreads, smem, stream>>>(a, rows);
+  kernel<<<dim3(a.Hkv * a.groups, S, a.splits), kThreads, smem, stream>>>(a, rows);
   if (a.splits > 1) merge_kernel<<<dim3(a.Hkv, S, a.W * a.rep), D, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, typename Rows>
 inline int launch_d(const Args& a, const Rows& rows, int S, int mt, cudaStream_t stream) {
-  switch (mt) {
-    case 1: return launch_tiles<D, 1>(a, rows, S, stream);
-    case 2: return launch_tiles<D, 2>(a, rows, S, stream);
-    default: break;
+  if (mt == 1) return launch_tiles<D, 1>(a, rows, S, stream);
+  if constexpr (max_tiles(D) >= 2) {
+    if (mt == 2) return launch_tiles<D, 2>(a, rows, S, stream);
   }
-  if constexpr (D <= 64) {
+  if constexpr (max_tiles(D) >= 3) {
     if (mt == 3) return launch_tiles<D, 3>(a, rows, S, stream);
+  }
+  if constexpr (max_tiles(D) >= 4) {
     if (mt == 4) return launch_tiles<D, 4>(a, rows, S, stream);
   }
   if constexpr (D == 32) {
@@ -537,21 +576,28 @@ inline int launch_d(const Args& a, const Rows& rows, int S, int mt, cudaStream_t
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Launch the body for `a` over S slots (a.T, a.splits set; a.span is
-// derived here). Refuses a shape outside the limits, a split count that
+// Launch the body for `a` over S slots (a.T, a.splits, a.group_rows set;
+// a.span and a.groups are derived here). Refuses a shape outside the
+// limits, a group of more than max_tiles(D) m16 tiles, a split count that
 // is not 1 .. ceil(T / 64), and splits > 1 without a workspace.
 template <typename Rows>
 inline int launch(Args a, const Rows& rows, int S, cudaStream_t stream) {
   const int R = a.W * a.rep;
   const int tiles = (a.T + kTile - 1) / kTile;
-  if (!shape_ok(R, a.D) || S < 1 || a.T < 1 || a.splits < 1 || a.splits > tiles ||
+  if (!shape_ok(R, a.group_rows, a.D) || S < 1 || a.T < 1 || a.splits < 1 || a.splits > tiles ||
       (a.splits > 1 && a.ws == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   a.span = positions(a.T, a.splits);
-  const int mt = m_tiles(R, a.D);
-  if (a.D == 32) return launch_d<32>(a, rows, S, mt, stream);
-  if (a.D == 64) return launch_d<64>(a, rows, S, mt, stream);
-  return launch_d<128>(a, rows, S, mt, stream);
+  a.groups = (R + a.group_rows - 1) / a.group_rows;
+  const int mt = m_tiles(a.group_rows, a.D);
+  switch (a.D) {
+    case 32: return launch_d<32>(a, rows, S, mt, stream);
+    case 64: return launch_d<64>(a, rows, S, mt, stream);
+    case 80: return launch_d<80>(a, rows, S, mt, stream);
+    case 96: return launch_d<96>(a, rows, S, mt, stream);
+    case 128: return launch_d<128>(a, rows, S, mt, stream);
+    default: return launch_d<256>(a, rows, S, mt, stream);
+  }
 }
 
 }  // namespace dmma

@@ -3,8 +3,11 @@
 // chunk_prefill_attention (K4).
 //
 // One block of 4 warps owns 64 query rows, 16 a warp. The rows' Q tile
-// comes in by cp.async and stays in registers as mma A fragments. Key
-// tiles of 64 positions arrive through a cp.async double buffer, bf16
+// comes in by cp.async and stays in registers as mma A fragments (at D =
+// 256 it stays in shared memory and is read again each key tile: 64 more
+// registers would spill). Key tiles of 64 positions (32 at D = 256, whose
+// shared memory would not hold two 64-key rings of K, V and their int8
+// staging) arrive through a cp.async double buffer, bf16
 // rows padded by 16 bytes so ldmatrix is conflict-free. S = Q K^T is
 // mma.sync m16n8k16 into f32; the online softmax runs on the accumulator
 // fragments (a row lives in one quad: max and sum take two shuffles);
@@ -22,9 +25,10 @@
 //   BiasKeys    (K7) every key tile; logit = s / sqrt(D) + bias[key]
 //               (an additive key mask, -1e9 for padding).
 //   CausalKeys  (K5) key tiles up to the block's last query position;
-//               tiles wholly above it are never loaded. Only the last
-//               (diagonal) tile masks per element, key > position ->
-//               -1e30, the plain version's mask value.
+//               tiles wholly above it are never loaded. Only the
+//               diagonal tiles (the last; the last two at D = 256, whose
+//               key tiles are half the block's rows) mask per element,
+//               key > position -> -1e30, the plain version's mask value.
 //   ChunkKeys   (K4) the slot's int8 cache positions < start, then the
 //               chunk's own keys causally, under one softmax. int8 tiles
 //               are staged as int8 by cp.async and widened to bf16 in
@@ -42,12 +46,15 @@
 // f32 dot products of a tile into logits in place) and pscale() (whether
 // P's columns take the per-key v factor).
 //
-// Head dims: D = 32 (llama-tiny), 64 and 128 are instantiated. At D = 32
-// Q K^T is two k16 steps and P V four n8 tiles; a bf16 row is 64 bytes,
-// padded to 80, so the 8 row addresses of an ldmatrix fall on 8 distinct
-// 16-byte bank groups (80 r mod 128 = 0, 80, 32, 112, 64, 16, 96, 48) and
-// every cp.async destination stays 16-byte aligned; an int8 staging row
-// is 32 bytes padded to 48.
+// Head dims: D = 32 (llama-tiny), 64, 80 (Phi-2), 96 (Phi-3-mini), 128
+// and 256 (Gemma) are instantiated. At D = 32 Q K^T is two k16 steps and
+// P V four n8 tiles; a bf16 row is 64 bytes, padded to 80, so the 8 row
+// addresses of an ldmatrix fall on 8 distinct 16-byte bank groups (80 r
+// mod 128 = 0, 80, 32, 112, 64, 16, 96, 48) and every cp.async
+// destination stays 16-byte aligned; an int8 staging row is 32 bytes
+// padded to 48. Every D + 8 of a multiple of 16 does the same (176, 208
+// and 528 bytes at 80, 96 and 256); 80 and 96 are five and six k16 steps
+// and ten and twelve n8 tiles, so no tile is partial.
 //
 // Query rows (QRows): q and out are [B, T, Hq, D]; row r of the block is
 // position q0 + r of one query head. On the H100 this measured 1-5% ahead
@@ -61,18 +68,19 @@ namespace sis {
 namespace flash {
 
 constexpr int kBQ = 64;   // query rows per block (16 per warp)
-constexpr int kBKV = 64;  // keys per staged tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kNT = kBKV / 8;  // n8 tiles of S
 
 template <int D>
 struct Layout {
+  static constexpr int kKeys = D > 128 ? 32 : 64;  // keys per staged tile
+  static constexpr int kNT = kKeys / 8;            // n8 tiles of S
+  static constexpr bool kQRegs = D <= 128;         // Q's fragments kept in registers
   static constexpr int kRow = D + 8;      // padded bf16 row (16 bytes past D)
   static constexpr int kI8Row = D + 16;   // padded int8 staging row
-  static constexpr size_t kBf16 = (size_t)(kBQ + 4 * kBKV) * kRow * 2;  // q, k[2], v[2]
-  static constexpr size_t kCols = 4 * kBKV * sizeof(float);              // kc[2], vc[2]
-  static constexpr size_t kI8 = (size_t)4 * kBKV * kI8Row;              // k8[2], v8[2]
+  static constexpr size_t kBf16 = (size_t)(kBQ + 4 * kKeys) * kRow * 2;  // q, k[2], v[2]
+  static constexpr size_t kCols = 4 * kKeys * sizeof(float);              // kc[2], vc[2]
+  static constexpr size_t kI8 = (size_t)4 * kKeys * kI8Row;              // k8[2], v8[2]
   static constexpr size_t bytes(bool int8) { return kBf16 + kCols + (int8 ? kI8 : 0); }
 };
 
@@ -80,28 +88,28 @@ struct Layout {
 template <int D>
 struct Smem {
   __nv_bfloat16* q;  // [kBQ][kRow]
-  __nv_bfloat16* k;  // [2][kBKV][kRow]
-  __nv_bfloat16* v;  // [2][kBKV][kRow]
-  float* kc;         // [2][kBKV] per-key factor of S's columns
-  float* vc;         // [2][kBKV] per-key factor of P's columns
-  int8_t* k8;        // [2][kBKV][kI8Row] int8 staging
+  __nv_bfloat16* k;  // [2][kKeys][kRow]
+  __nv_bfloat16* v;  // [2][kKeys][kRow]
+  float* kc;         // [2][kKeys] per-key factor of S's columns
+  float* vc;         // [2][kKeys] per-key factor of P's columns
+  int8_t* k8;        // [2][kKeys][kI8Row] int8 staging
   int8_t* v8;
 
   __device__ explicit Smem(unsigned char* base) {
     using L = Layout<D>;
     q = reinterpret_cast<__nv_bfloat16*>(base);
     k = q + kBQ * L::kRow;
-    v = k + 2 * kBKV * L::kRow;
-    kc = reinterpret_cast<float*>(v + 2 * kBKV * L::kRow);
-    vc = kc + 2 * kBKV;
-    k8 = reinterpret_cast<int8_t*>(vc + 2 * kBKV);
-    v8 = k8 + 2 * kBKV * L::kI8Row;
+    v = k + 2 * L::kKeys * L::kRow;
+    kc = reinterpret_cast<float*>(v + 2 * L::kKeys * L::kRow);
+    vc = kc + 2 * L::kKeys;
+    k8 = reinterpret_cast<int8_t*>(vc + 2 * L::kKeys);
+    v8 = k8 + 2 * L::kKeys * L::kI8Row;
   }
   __device__ __nv_bfloat16* krow(int slot, int r) const {
-    return k + (slot * kBKV + r) * Layout<D>::kRow;
+    return k + (slot * Layout<D>::kKeys + r) * Layout<D>::kRow;
   }
   __device__ __nv_bfloat16* vrow(int slot, int r) const {
-    return v + (slot * kBKV + r) * Layout<D>::kRow;
+    return v + (slot * Layout<D>::kKeys + r) * Layout<D>::kRow;
   }
 };
 
@@ -122,7 +130,7 @@ __device__ __forceinline__ void issue_bf16_rows(__nv_bfloat16* dst_k, __nv_bfloa
                                                 size_t stride, int n, int tid) {
   constexpr int CH = D / 8;
   constexpr int RW = Layout<D>::kRow;
-  for (int i = tid; i < kBKV * CH; i += kThreads) {
+  for (int i = tid; i < Layout<D>::kKeys * CH; i += kThreads) {
     const int r = i / CH;
     const bool ok = r < n;
     const size_t off = (size_t)(ok ? r : 0) * stride + (i % CH) * 8;
@@ -141,13 +149,15 @@ struct BiasKeys {
   int T;
   float scale;
 
-  __device__ int tiles() const { return (T + kBKV - 1) / kBKV; }
+  static constexpr int kKeys = Layout<D>::kKeys;
+  static constexpr int kNT = Layout<D>::kNT;
+  __device__ int tiles() const { return (T + kKeys - 1) / kKeys; }
   __device__ void issue(int it, int slot, const Smem<D>& sm, int tid) const {
-    const int j0 = it * kBKV;
+    const int j0 = it * kKeys;
     issue_bf16_rows<D>(sm.krow(slot, 0), sm.vrow(slot, 0), k + j0 * stride, v + j0 * stride,
                        stride, T - j0, tid);
-    for (int j = tid; j < kBKV; j += kThreads)
-      sm.kc[slot * kBKV + j] = j0 + j < T ? bias[j0 + j] : kNeg;
+    for (int j = tid; j < kKeys; j += kThreads)
+      sm.kc[slot * kKeys + j] = j0 + j < T ? bias[j0 + j] : kNeg;
   }
   __device__ bool widen(int, int, const Smem<D>&, int) const { return false; }
   __device__ bool pscale(int) const { return false; }
@@ -166,12 +176,13 @@ struct BiasKeys {
   }
 };
 
-// scale every logit; on the diagonal tile (keys from j0) a key past the
+// scale every logit; on a diagonal tile (keys from j0) a key past the
 // row's position gets kNeg
-__device__ __forceinline__ void causal_logits(float (&s)[kNT][4], float scale, bool diagonal,
+template <int NT>
+__device__ __forceinline__ void causal_logits(float (&s)[NT][4], float scale, bool diagonal,
                                               int j0, int c4, const int (&pos)[2]) {
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = j0 + j * 8 + 2 * c4 + (e & 1);
@@ -180,18 +191,22 @@ __device__ __forceinline__ void causal_logits(float (&s)[kNT][4], float scale, b
 }
 
 // K5: causal over one sequence; `last` is the last key any row of the
-// block attends (its last valid position)
+// block attends (its last valid position), `first` the block's first
+// position: a key tile reaching past it is diagonal
 template <int D>
 struct CausalKeys {
   const __nv_bfloat16* k;  // (b, position 0, kv head) of [B, T, Hkv, D]
   const __nv_bfloat16* v;
   size_t stride;           // Hkv * D
   int last;
+  int first;
   float scale;
 
-  __device__ int tiles() const { return last / kBKV + 1; }
+  static constexpr int kKeys = Layout<D>::kKeys;
+  static constexpr int kNT = Layout<D>::kNT;
+  __device__ int tiles() const { return last / kKeys + 1; }
   __device__ void issue(int it, int slot, const Smem<D>& sm, int tid) const {
-    const int j0 = it * kBKV;
+    const int j0 = it * kKeys;
     issue_bf16_rows<D>(sm.krow(slot, 0), sm.vrow(slot, 0), k + j0 * stride, v + j0 * stride,
                        stride, last + 1 - j0, tid);
   }
@@ -199,12 +214,14 @@ struct CausalKeys {
   __device__ bool pscale(int) const { return false; }
   __device__ void logits(float (&s)[kNT][4], int it, const float*, int c4,
                          const int (&pos)[2]) const {
-    causal_logits(s, scale, it == tiles() - 1, it * kBKV, c4, pos);
+    const int j0 = it * kKeys;
+    causal_logits(s, scale, j0 + kKeys - 1 > first, j0, c4, pos);
   }
 };
 
 // K4: the slot's int8 cache row (positions < past), then the chunk's own
-// keys causally (chunk-relative positions, `last` as in CausalKeys)
+// keys causally (chunk-relative positions, `last` and `first` as in
+// CausalKeys)
 template <int D>
 struct ChunkKeys {
   const int8_t* k8;        // (position 0, kv head) of the int8 row [T, Hkv, D]
@@ -216,14 +233,17 @@ struct ChunkKeys {
   int hkv_count;           // Hkv: rows of one position
   int past;
   int last;
+  int first;
   float scale;
 
-  __device__ int past_tiles() const { return (past + kBKV - 1) / kBKV; }
-  __device__ int tiles() const { return past_tiles() + last / kBKV + 1; }
+  static constexpr int kKeys = Layout<D>::kKeys;
+  static constexpr int kNT = Layout<D>::kNT;
+  __device__ int past_tiles() const { return (past + kKeys - 1) / kKeys; }
+  __device__ int tiles() const { return past_tiles() + last / kKeys + 1; }
   __device__ void issue(int it, int slot, const Smem<D>& sm, int tid) const {
     const int np = past_tiles();
     if (it >= np) {
-      const int j0 = (it - np) * kBKV;
+      const int j0 = (it - np) * kKeys;
       const size_t stride = (size_t)hkv_count * D;
       issue_bf16_rows<D>(sm.krow(slot, 0), sm.vrow(slot, 0), k + j0 * stride,
                          v + j0 * stride, stride, last + 1 - j0, tid);
@@ -231,19 +251,19 @@ struct ChunkKeys {
     }
     constexpr int CH = D / 16;  // 16-byte chunks of an int8 row
     constexpr int RW = Layout<D>::kI8Row;
-    const int j0 = it * kBKV;
-    for (int i = tid; i < kBKV * CH; i += kThreads) {
+    const int j0 = it * kKeys;
+    for (int i = tid; i < kKeys * CH; i += kThreads) {
       const int r = i / CH;
       const bool ok = j0 + r < past;
       const size_t off = (size_t)(ok ? j0 + r : 0) * hkv_count * D + (i % CH) * 16;
-      cp_async16(sm.k8 + (slot * kBKV + r) * RW + (i % CH) * 16, k8 + off, ok);
-      cp_async16(sm.v8 + (slot * kBKV + r) * RW + (i % CH) * 16, v8 + off, ok);
+      cp_async16(sm.k8 + (slot * kKeys + r) * RW + (i % CH) * 16, k8 + off, ok);
+      cp_async16(sm.v8 + (slot * kKeys + r) * RW + (i % CH) * 16, v8 + off, ok);
     }
-    for (int j = tid; j < kBKV; j += kThreads) {
+    for (int j = tid; j < kKeys; j += kThreads) {
       const bool ok = j0 + j < past;
       const size_t p = (size_t)(ok ? j0 + j : 0) * hkv_count;
-      sm.kc[slot * kBKV + j] = ok ? ks[p] : 0.f;
-      sm.vc[slot * kBKV + j] = ok ? vs[p] : 0.f;
+      sm.kc[slot * kKeys + j] = ok ? ks[p] : 0.f;
+      sm.vc[slot * kKeys + j] = ok ? vs[p] : 0.f;
     }
   }
   // int8 staging of a past tile -> bf16 rows, 8 values a thread a step
@@ -251,11 +271,11 @@ struct ChunkKeys {
     if (it >= past_tiles()) return false;
     constexpr int CH = D / 8;
     constexpr int RW8 = Layout<D>::kI8Row;
-    for (int i = tid; i < 2 * kBKV * CH; i += kThreads) {
-      const int src = i / (kBKV * CH);  // 0: K, 1: V
-      const int r = (i / CH) % kBKV;
+    for (int i = tid; i < 2 * kKeys * CH; i += kThreads) {
+      const int src = i / (kKeys * CH);  // 0: K, 1: V
+      const int r = (i / CH) % kKeys;
       const int c = i % CH;
-      const int8_t* from = (src ? sm.v8 : sm.k8) + (slot * kBKV + r) * RW8 + c * 8;
+      const int8_t* from = (src ? sm.v8 : sm.k8) + (slot * kKeys + r) * RW8 + c * 8;
       const uint2 raw = *reinterpret_cast<const uint2*>(from);
       const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
       uint4 w;
@@ -273,10 +293,11 @@ struct ChunkKeys {
                          const int (&pos)[2]) const {
     const int np = past_tiles();
     if (it >= np) {
-      causal_logits(s, scale, it == tiles() - 1, (it - np) * kBKV, c4, pos);
+      const int j0 = (it - np) * kKeys;
+      causal_logits(s, scale, j0 + kKeys - 1 > first, j0, c4, pos);
       return;
     }
-    const int j0 = it * kBKV;
+    const int j0 = it * kKeys;
 #pragma unroll
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
@@ -293,10 +314,13 @@ template <int D, typename Keys>
 __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
                                        __nv_bfloat16* __restrict__ out, const QRows& rows,
                                        const Keys& keys, unsigned char* smem) {
-  constexpr int RW = Layout<D>::kRow;
+  using L = Layout<D>;
+  constexpr int RW = L::kRow;
   constexpr int CH = D / 8;   // 16-byte chunks per bf16 row
   constexpr int KC = D / 16;  // k16 steps of Q K^T
   constexpr int DT = D / 8;   // n8 tiles of O
+  constexpr int kKeys = L::kKeys;
+  constexpr int kNT = L::kNT;
   const Smem<D> sm(smem);
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -315,7 +339,7 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
   cp_async_commit();
 
   const int pos[2] = {rows.pos(warp * 16 + g), rows.pos(warp * 16 + g + 8)};
-  uint32_t qf[KC][4];
+  uint32_t qf[L::kQRegs ? KC : 1][4];
   float o[DT][4];
 #pragma unroll
   for (int i = 0; i < DT; ++i)
@@ -331,9 +355,9 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
     cp_async_wait<1>();
     __syncthreads();
     if (keys.widen(it, slot, sm, tid)) __syncthreads();
-    if (it == 0) {
+    if (L::kQRegs && it == 0) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
+      for (int kc = 0; kc < (L::kQRegs ? KC : 1); ++kc)
         ldmatrix_x4(qf[kc], sm.q + (warp * 16 + lane % 16) * RW + kc * 16 + (lane / 16) * 8);
     }
     const __nv_bfloat16* ks = sm.krow(slot, 0);
@@ -347,16 +371,23 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      uint32_t qk[4];
+      if constexpr (L::kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qk[e] = qf[kc][e];
+      } else {
+        ldmatrix_x4(qk, sm.q + (warp * 16 + lane % 16) * RW + kc * 16 + (lane / 16) * 8);
+      }
 #pragma unroll
       for (int np = 0; np < kNT / 2; ++np) {
         uint32_t kb[4];
         ldmatrix_x4(kb, ks + (np * 16 + lane % 8 + (lane / 16) * 8) * RW + kc * 16 +
                             ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kc], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], kb[2], kb[3]);
+        mma_bf16(s[2 * np], qk, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qk, kb[2], kb[3]);
       }
     }
-    keys.logits(s, it, sm.kc + slot * kBKV, c4, pos);
+    keys.logits(s, it, sm.kc + slot * kKeys, c4, pos);
 
     // online-softmax update of rows g, g + 8
     float mx[2] = {kNeg, kNeg};
@@ -385,9 +416,9 @@ __device__ __forceinline__ void attend(const __nv_bfloat16* __restrict__ q,
     // O += P V, 16 keys at a time; P (times the key's v factor, where the
     // source has one) as hi + lo bf16 A fragments straight from S
     const bool pscale = keys.pscale(it);
-    const float* vc = sm.vc + slot * kBKV;
+    const float* vc = sm.vc + slot * kKeys;
 #pragma unroll
-    for (int kc = 0; kc < kBKV / 16; ++kc) {
+    for (int kc = 0; kc < kKeys / 16; ++kc) {
       uint32_t ph[4], pl[4];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {  // n-tiles 2 kc (a0, a1) and 2 kc + 1 (a2, a3)

@@ -28,10 +28,10 @@ __global__ void __launch_bounds__(sis::kDecCH)
 flat_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
                           const int8_t* __restrict__ v, const float* __restrict__ ks,
                           const float* __restrict__ vs, const int* __restrict__ lengths,
-                          float* __restrict__ out, int T, int Hkv, int rep, int D,
+                          float* __restrict__ out, int T, int Hkv, int rep, int group, int D,
                           float inv_sqrt_d) {
   sis::decode_attention_body(q, k, v, ks, vs, lengths, out, sis::DenseRows<true>{T, Hkv}, T,
-                             Hkv, rep, D, inv_sqrt_d);
+                             Hkv, rep, group, D, inv_sqrt_d);
 }
 
 }  // namespace
@@ -39,17 +39,19 @@ flat_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict_
 extern "C" int sis_flat_decode_attention(const void* q, const void* k, const void* v,
                                          const void* ks, const void* vs, const void* lengths,
                                          void* out, void* ws, int S, int T, int Hkv, int rep,
-                                         int D, int q_dtype, int splits, void* stream) {
+                                         int D, int q_dtype, int splits, int group_rows,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == sis::kBF16) {
     return sis::dmma::launch(
-        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, 1, Hkv, rep, D, splits),
+        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, 1, Hkv, rep, D, splits,
+                             group_rows),
         sis::DenseRows<true>{T, Hkv}, S, st);
   }
   return sis::launch_decode(
-      flat_decode_attention_f32, S, Hkv, rep, D, st, static_cast<const float*>(q),
+      flat_decode_attention_f32, S, Hkv, rep, group_rows, D, st, static_cast<const float*>(q),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(lengths), static_cast<float*>(out), T, Hkv, rep, D,
+      static_cast<const int*>(lengths), static_cast<float*>(out), T, Hkv, rep, group_rows, D,
       1.f / sqrtf(static_cast<float>(D)));
 }

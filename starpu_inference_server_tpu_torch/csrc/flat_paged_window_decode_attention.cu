@@ -27,10 +27,10 @@ __global__ void __launch_bounds__(sis::kWinThreads)
 flat_paged_window_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
     const int8_t* __restrict__ v, const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ table, const int* __restrict__ lengths, float* __restrict__ out,
-    int max_pages, int page, int W, int Hkv, int rep, int D, float inv_sqrt_d) {
+    int max_pages, int page, int W, int Hkv, int rep, int group, int D, float inv_sqrt_d) {
   sis::window_attention(q, k, v, ks, vs, lengths, out,
                         sis::PagedRows<true>{table, max_pages, page, Hkv}, max_pages * page, W,
-                        Hkv, rep, D, inv_sqrt_d);
+                        Hkv, rep, group, D, inv_sqrt_d);
 }
 
 }  // namespace
@@ -38,19 +38,21 @@ flat_paged_window_decode_attention_f32(const float* __restrict__ q, const int8_t
 extern "C" int sis_flat_paged_window_decode_attention(
     const void* q, const void* k, const void* v, const void* ks, const void* vs,
     const void* table, const void* lengths, void* out, void* ws, int S, int max_pages,
-    int page, int W, int Hkv, int rep, int D, int q_dtype, int splits, void* stream) {
+    int page, int W, int Hkv, int rep, int D, int q_dtype, int splits, int group_rows,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const sis::PagedRows<true> rows{static_cast<const int*>(table), max_pages, page, Hkv};
   if (q_dtype == sis::kBF16) {
     return sis::dmma::launch(sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws,
-                                                  max_pages * page, W, Hkv, rep, D, splits),
+                                                  max_pages * page, W, Hkv, rep, D, splits,
+                                                  group_rows),
                              rows, S, st);
   }
   return sis::launch_window(
       flat_paged_window_decode_attention_f32, S,
-      Hkv, W * rep, D, st, static_cast<const float*>(q),
+      Hkv, W * rep, group_rows, D, st, static_cast<const float*>(q),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs), rows.table,
       static_cast<const int*>(lengths), static_cast<float*>(out), max_pages, page, W, Hkv,
-      rep, D, 1.f / sqrtf(static_cast<float>(D)));
+      rep, group_rows, D, 1.f / sqrtf(static_cast<float>(D)));
 }

@@ -26,10 +26,11 @@ __global__ void __launch_bounds__(sis::kWinThreads)
 flat_window_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
                                  const int8_t* __restrict__ v, const float* __restrict__ ks,
                                  const float* __restrict__ vs, const int* __restrict__ lengths,
-                                 float* __restrict__ out, int T, int W, int Hkv, int rep, int D,
+                                 float* __restrict__ out, int T, int W, int Hkv, int rep,
+                                 int group, int D,
                                  float inv_sqrt_d) {
   sis::window_attention(q, k, v, ks, vs, lengths, out, sis::DenseRows<true>{T, Hkv}, T, W, Hkv,
-                        rep, D, inv_sqrt_d);
+                        rep, group, D, inv_sqrt_d);
 }
 
 }  // namespace
@@ -38,17 +39,20 @@ extern "C" int sis_flat_window_decode_attention(const void* q, const void* k, co
                                                 const void* ks, const void* vs,
                                                 const void* lengths, void* out, void* ws, int S,
                                                 int T, int W, int Hkv, int rep, int D,
-                                                int q_dtype, int splits, void* stream) {
+                                                int q_dtype, int splits, int group_rows,
+                                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == sis::kBF16) {
     return sis::dmma::launch(
-        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, W, Hkv, rep, D, splits),
+        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, W, Hkv, rep, D, splits,
+                             group_rows),
         sis::DenseRows<true>{T, Hkv}, S, st);
   }
   return sis::launch_window(
-      flat_window_decode_attention_f32, S, Hkv, W * rep, D, st, static_cast<const float*>(q),
+      flat_window_decode_attention_f32, S, Hkv, W * rep, group_rows, D, st,
+      static_cast<const float*>(q),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(lengths), static_cast<float*>(out), T, W, Hkv, rep, D,
+      static_cast<const int*>(lengths), static_cast<float*>(out), T, W, Hkv, rep, group_rows, D,
       1.f / sqrtf(static_cast<float>(D)));
 }

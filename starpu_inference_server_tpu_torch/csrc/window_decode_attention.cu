@@ -18,7 +18,9 @@
 // Design (decode_mma.cuh for bf16 queries): one work item per (KV head,
 // slot, context split) serves all W * rep query rows (20 or 36 at
 // llama-1b: 2 or 3 m16 tiles) on the tensor cores, so the window reads
-// the KV once; the 4 warps split each 64-position tile's keys; the
+// the KV once (rows past 16 * (256 / D) go to further row groups, each
+// reading the head's K/V again); the 4 warps split each 64-position
+// tile's keys; the
 // context is split over blocks at the verify's 16 slots
 // (ops/decode_attention.py decode_split_plan) and the splits merged in
 // order; tiles stop at lengths[s] + W - 1, as the TPU kernel's clamped kv
@@ -33,10 +35,11 @@ __global__ void __launch_bounds__(sis::kWinThreads)
 window_decode_attention_f32(const float* __restrict__ q, const int8_t* __restrict__ k,
                             const int8_t* __restrict__ v, const float* __restrict__ ks,
                             const float* __restrict__ vs, const int* __restrict__ lengths,
-                            float* __restrict__ out, int T, int W, int Hkv, int rep, int D,
+                            float* __restrict__ out, int T, int W, int Hkv, int rep, int group,
+                            int D,
                             float inv_sqrt_d) {
   sis::window_attention(q, k, v, ks, vs, lengths, out, sis::DenseRows<false>{T, Hkv}, T, W, Hkv,
-                        rep, D, inv_sqrt_d);
+                        rep, group, D, inv_sqrt_d);
 }
 
 }  // namespace
@@ -45,17 +48,18 @@ extern "C" int sis_window_decode_attention(const void* q, const void* k, const v
                                            const void* ks, const void* vs,
                                            const void* lengths, void* out, void* ws, int S,
                                            int T, int W, int Hkv, int rep, int D, int q_dtype,
-                                           int splits, void* stream) {
+                                           int splits, int group_rows, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (q_dtype == sis::kBF16) {
     return sis::dmma::launch(
-        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, W, Hkv, rep, D, splits),
+        sis::dmma::make_args(q, k, v, ks, vs, lengths, out, ws, T, W, Hkv, rep, D, splits,
+                             group_rows),
         sis::DenseRows<false>{T, Hkv}, S, st);
   }
   return sis::launch_window(
-      window_decode_attention_f32, S, Hkv, W * rep, D, st, static_cast<const float*>(q),
+      window_decode_attention_f32, S, Hkv, W * rep, group_rows, D, st, static_cast<const float*>(q),
       static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
       static_cast<const float*>(ks), static_cast<const float*>(vs),
-      static_cast<const int*>(lengths), static_cast<float*>(out), T, W, Hkv, rep, D,
+      static_cast<const int*>(lengths), static_cast<float*>(out), T, W, Hkv, rep, group_rows, D,
       1.f / sqrtf(static_cast<float>(D)));
 }

@@ -254,10 +254,14 @@ def init_params(spec: DecoderSpec, rng: np.random.Generator):
 
 def local_heads(spec: DecoderSpec, mesh=None):
     """(q heads, kv heads) a rank computes: all of them, or on a mesh its
-    ``1 / model`` block (the fused projections are block-aligned by
-    ``parallel/tp_layout.py``)."""
+    ``1 / model`` block of the q heads and the kv heads they read (the
+    fused projections are block-aligned by ``parallel/tp_layout.py``):
+    ``kv_heads / model`` of them, or one where ``model`` is a multiple of
+    ``kv_heads`` (each kv head replicated on ``model / kv_heads`` ranks,
+    ``tp_layout.validate_gspmd_decoder_tp``). The rank's GQA ratio is
+    ``q / kv`` of these."""
     tp = mesh.size("model") if mesh is not None else 1
-    return spec.q_heads // tp, spec.kv_heads // tp
+    return spec.q_heads // tp, max(1, spec.kv_heads // tp)
 
 
 def _project_qkv(spec: DecoderSpec, layer, h, dtype, mesh=None):
@@ -438,7 +442,7 @@ def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype,
     positions = torch.arange(t, dtype=torch.int32, device=dev)[None, :].expand(b, t)
     x = _embed(params, ids, dtype, mesh)
     causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()[None, None]
-    rep = spec.rep
+    rep = qh // kvh
     for layer in params["layers"]:
         h = rms_norm(layer["attn_norm"], x)
         qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
@@ -480,7 +484,7 @@ def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     x = _embed(params, ids[None, :], dtype, mesh)  # [1, P, D]
     valid = positions < length
     causal = (torch.ones((p, p), dtype=torch.bool, device=dev).tril() & valid[None, :])[None, None]
-    rep = spec.rep
+    rep = qh // kvh
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
         qf, kf, vf = _project_qkv(spec, layer, h, dtype, mesh)
@@ -537,7 +541,7 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     past_mask = (key_pos[None, :] < start)[None, None]
     cur_mask = torch.ones((c, c), dtype=torch.bool, device=dev).tril()[None, None]
     inv = 1.0 / math.sqrt(spec.head_dim)
-    rep = spec.rep
+    rep = qh // kvh
     fit = min(c, t_max - start)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
@@ -610,7 +614,7 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
     # block interleaved with another slot's chunked prefill never
     # clobbers that slot's fresh prompt rows (decoder.py:686-693)
     write_pos = torch.where(active, positions, torch.full_like(positions, t_max - 1)).to(torch.int64)
-    rep = spec.rep
+    rep = qh // kvh
     fused = _use_fused_decode_attention(spec, t_max, ids)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
@@ -678,7 +682,7 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
                             torch.full_like(positions, t_max - 1)).clamp(max=t_max - 1)
     write_pos = write_pos.to(torch.int64)
     inv = 1.0 / math.sqrt(spec.head_dim)
-    rep = spec.rep
+    rep = qh // kvh
     fused = _use_fused_decode_attention(spec, t_max, ids)
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(layer["attn_norm"], x)
@@ -777,11 +781,13 @@ def _build_decoder(variant: str, options) -> ModelDefinition:
         return {"logits": pipelined_decoder_logits(spec, shard, ids, mesh, num_microbatches,
                                                    dtype, sharded=True)}
 
-    def tp_layer_shuffle(layer, tp):
-        from ..parallel.tp_layout import shuffle_decoder_layer_for_tp, validate_decoder_tp
+    def tp_layer_shuffle(layer, tp, pipe=False):
+        from ..parallel import tp_layout
 
-        validate_decoder_tp(spec, tp)
-        return shuffle_decoder_layer_for_tp(spec, layer, tp)
+        if pipe:  # the stage programs split whole kv heads, as JAX's
+            tp_layout.validate_decoder_tp(spec, tp)
+            return tp_layout.shuffle_decoder_layer_for_tp(spec, layer, tp)
+        return tp_layout.gspmd_decoder_layer_for_tp(spec, layer, tp)
 
     return ModelDefinition(
         family=variant,

@@ -48,9 +48,10 @@ class ModelDefinition:
     # cut of ``parallel.pipeline.prepare_pipelined_params``. Families
     # without it refuse a pipe axis in the batch engine
     pipeline_apply: Optional[Callable] = None
-    # (layer_params, tp) -> layer_params: the block-alignment permutation
-    # of fused projections for ``tp``-way tensor parallelism
-    # (parallel/tp_layout.py), applied to every layer before the cut
+    # (layer_params, tp, pipe=False) -> layer_params: the block-alignment
+    # permutation of fused projections for ``tp``-way tensor parallelism
+    # (parallel/tp_layout.py; ``pipe``: a pipe-mode stage's layout, else
+    # GSPMD mode's), applied to every layer before the cut
     tp_layer_shuffle: Optional[Callable] = None
 
 

@@ -26,8 +26,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
@@ -41,7 +42,7 @@ KERNELS = ("int4_matmul", "decode_attention", "causal_attention",
 F32 = 0
 BF16 = 1
 
-_lock = threading.Lock()
+_lock = threading.RLock()  # held by build_all and load: one build at a time
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
@@ -62,45 +63,67 @@ def nvcc_path() -> str:
     )
 
 
-def _source_hash(name: str) -> str:
+def _source_hash(name: str, csrc: Path = CSRC) -> str:
     h = hashlib.sha256()
-    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for path in sorted(csrc.glob("*.cuh")) + [csrc / f"{name}.cu"]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _target(name: str) -> Path:
-    return build_dir() / f"{name}-{_source_hash(name)}.so"
+def _target(name: str, csrc: Path = CSRC, out: Optional[Path] = None) -> Path:
+    return (out or build_dir()) / f"{name}-{_source_hash(name, csrc)}.so"
 
 
-def _nvcc_cmd(name: str, out: Path) -> List[str]:
+def _nvcc_cmd(name: str, out: Path, csrc: Path = CSRC) -> List[str]:
     return [
         nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu"),
+        "-I", str(csrc), "-o", str(out), str(csrc / f"{name}.cu"),
     ]
 
 
-def build_all(names: Iterable[str] = KERNELS) -> Dict[str, str]:
+def build_all(names: Iterable[str] = KERNELS,
+              seconds: Optional[Dict[str, float]] = None, csrc: Path = CSRC,
+              out: Optional[Path] = None) -> Dict[str, str]:
     """Compile every kernel library that is not built yet, one ``nvcc``
     per source, all started together. Returns ``{name: ptxas report}``
-    for the ones compiled now; raises with nvcc's output on failure."""
-    build_dir().mkdir(parents=True, exist_ok=True)
+    for the ones compiled now (and puts each one's nvcc wall seconds in
+    ``seconds``, when given); raises with nvcc's output on failure. A
+    thread may run it while others call :func:`load`, which waits.
+    ``csrc`` and ``out``: another tree's sources, built into a directory
+    of their own by the same command (to compare build times; the port
+    loads only its own)."""
+    with _lock:
+        return _build_missing(names, seconds, csrc, out or build_dir())
+
+
+def _build_missing(names, seconds, csrc, out_dir) -> Dict[str, str]:
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
+    done = {}
+
+    def wait(name, proc, t0):
+        out, _ = proc.communicate()
+        done[name] = (out, time.perf_counter() - t0)
+
     for name in names:
-        target = _target(name)
+        target = _target(name, csrc, out_dir)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp.so")
-        procs[name] = (tmp, target, subprocess.Popen(
-            _nvcc_cmd(name, tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True,
-        ))
+        proc = subprocess.Popen(_nvcc_cmd(name, tmp, csrc), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        waiter = threading.Thread(target=wait, args=(name, proc, time.perf_counter()))
+        waiter.start()
+        procs[name] = (tmp, target, proc, waiter)
     reports = {}
     failures = []
-    for name, (tmp, target, proc) in procs.items():
-        out, _ = proc.communicate()
+    for name, (tmp, target, proc, waiter) in procs.items():
+        waiter.join()
+        out, took = done[name]
+        if seconds is not None:
+            seconds[name] = took
         if proc.returncode != 0:
             failures.append(f"nvcc failed for {name}.cu:\n{out}")
             continue

@@ -42,6 +42,11 @@ serves every query row of the head (``rep`` heads, times W for a
 window) as m16 tiles of ``mma.sync``, so each K/V byte is read once;
 its 4 warps split the keys of each 64-position tile, the int8 rows
 widen to bf16 in registers, and tiles stop at the last live position.
+Any ``rep`` and head dims 32, 64, 80, 96, 128 and 256: a KV head's rows
+are cut into row groups of at most ``16 * (256 // D)`` rows
+(:func:`decode_group_rows`), one block row each in the same launch, and
+each group reads the head's K/V (a decode at D <= 128 up to rep 32 is one
+group; MQA's 71 heads, a verify window at rep 16 and D = 256 are more).
 f32 queries (the FP32 witnesses) keep the CUDA-core bodies of
 ``csrc/common.cuh``: ``decode_attention_body`` for K3 and its flat twin,
 ``window_attention`` for the other six. The layout is the address
@@ -83,12 +88,9 @@ launches = {"decode_attention": 0, "window_decode_attention": 0,
 
 _fns = {}
 
-# the window kernels' limits (csrc/common.cuh: kWinThreads * kWinMaxOut
-# outputs per block; csrc/decode_mma.cuh kMaxOut)
-_WINDOW_MAX_OUT = 16 * 256
 # the tensor-core body (csrc/decode_mma.cuh): head dims, positions a
 # staged tile, and the blocks an SM that the split plan aims for
-DECODE_HEAD_DIMS = (32, 64, 128)
+DECODE_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 DECODE_TILE = 64
 DECODE_FILL = 2
 H100_SMS = 132
@@ -100,6 +102,21 @@ class DecodeSplitPlan(NamedTuple):
     workspace: int  # f32 elements of the split partials (0 with one split)
 
 
+def decode_group_rows(rows: int, d: int, f32_heads: bool = False) -> int:
+    """The query rows of a row group, which every launch passes to its
+    kernel (the bodies only check it against their limits): a KV head's
+    ``rows`` (W * rep) cut into as few groups as fit a block, as even as
+    whole rows allow (``ceil(rows / group rows)`` groups, only the last
+    one shorter). A block takes at most 16 * (256 // d) rows on the
+    tensor-core body (``csrc/decode_mma.cuh``: m16 tiles whose
+    accumulators stay at 128 floats a thread) and on the f32 window body
+    (``csrc/common.cuh``: 16 outputs a thread), and min(8, 1024 // d)
+    heads on the f32 decode body of K3 and K12a (``f32_heads``)."""
+    most = min(8, 1024 // d) if f32_heads else 16 * (256 // d)
+    groups = math.ceil(rows / most)
+    return math.ceil(rows / groups)
+
+
 @functools.lru_cache(maxsize=None)
 def decode_split_plan(s: int, hkv: int, t: int, w: int, rep: int, d: int,
                       sms: int = H100_SMS) -> DecodeSplitPlan:
@@ -107,38 +124,41 @@ def decode_split_plan(s: int, hkv: int, t: int, w: int, rep: int, d: int,
     ``t`` positions (``hkv`` KV heads, ``w`` query rows a slot, ``rep``
     query heads a KV head, head dim ``d``) on a card of ``sms`` SMs.
 
-    One split where the (KV head, slot) pairs already give
-    ``DECODE_FILL`` blocks an SM; else at least as many splits as make
-    up that count, at most one a 64-position tile, each a whole number of
-    tiles.
+    One split where the (KV head, row group, slot) work items already
+    give ``DECODE_FILL`` blocks an SM; else at least as many splits as
+    make up that count, at most one a 64-position tile, each a whole
+    number of tiles.
     Static quantities only: the plan never sees ``lengths``, so a CUDA
     graph of a call replays with any lengths. The workspace holds each
     split's accumulator [R, D] and (max, sum) [R, 2] per (KV head, slot),
-    R = w * rep. Raises outside the body's limits (``d`` in
-    ``DECODE_HEAD_DIMS``, ``w * rep * d <= 4096``)."""
+    R = w * rep, whatever the row groups. Raises outside the body's
+    limits (``d`` in ``DECODE_HEAD_DIMS``)."""
     rows = w * rep
-    if d not in DECODE_HEAD_DIMS or rows < 1 or rows * d > _WINDOW_MAX_OUT or min(s, hkv, t) < 1:
-        raise ValueError(f"decode kernels need D in {DECODE_HEAD_DIMS} and W * rep * D <= "
-                         f"{_WINDOW_MAX_OUT} (S={s}, Hkv={hkv}, T={t}, W={w}, rep={rep}, D={d})")
+    if d not in DECODE_HEAD_DIMS or rows < 1 or min(s, hkv, t) < 1:
+        raise ValueError(f"decode kernels need D in {DECODE_HEAD_DIMS} "
+                         f"(S={s}, Hkv={hkv}, T={t}, W={w}, rep={rep}, D={d})")
     tiles = math.ceil(t / DECODE_TILE)
-    items = s * hkv
+    items = s * hkv * math.ceil(rows / decode_group_rows(rows, d))
     want = min(tiles, math.ceil(DECODE_FILL * sms / items))
     splits = 1 if want <= 1 else math.ceil(tiles / (tiles // want))
     positions = DECODE_TILE * math.ceil(tiles / splits)
-    workspace = splits * items * rows * (d + 2) if splits > 1 else 0
+    workspace = splits * s * hkv * rows * (d + 2) if splits > 1 else 0
     return DecodeSplitPlan(splits, positions, workspace)
 
 
-def _split(q, s, hkv, t, w, rep, d):
-    """(workspace or None, split count) of a launch: the plan's on the
-    bf16 route, one split and no workspace on the f32 route. The caller
+def _plan(q, s, hkv, t, w, rep, d, f32_heads=False):
+    """(workspace or None, split count, group rows) of a launch: the
+    plan's splits on the bf16 route, one split and no workspace on the
+    f32 route (``f32_heads``: the f32 decode body's groups). The caller
     holds the workspace until the launch is enqueued."""
     if q.dtype != torch.bfloat16:
-        return None, 1
+        return None, 1, decode_group_rows(w * rep, d, f32_heads)
+    group_rows = decode_group_rows(w * rep, d)
     plan = decode_split_plan(s, hkv, t, w, rep, d, _sm_count(q.device))
     if plan.splits == 1:
-        return None, 1
-    return torch.empty(plan.workspace, dtype=torch.float32, device=q.device), plan.splits
+        return None, 1, group_rows
+    return (torch.empty(plan.workspace, dtype=torch.float32, device=q.device), plan.splits,
+            group_rows)
 
 
 def _ptr(t):
@@ -178,10 +198,11 @@ def _aligned(q):
     return q.clone() if q.data_ptr() % 16 else q
 
 
-def _check_window(name, w, rep, d) -> None:
-    if d % 16 or w * rep * d > _WINDOW_MAX_OUT:
-        raise ValueError(f"{name} kernel needs D % 16 == 0 and W * rep * D <= "
-                         f"{_WINDOW_MAX_OUT} (W={w}, rep={rep}, D={d})")
+def _check_head_dim(name, d) -> None:
+    """Both routes of the eight kernels take any rep and W (row groups)
+    and the head dims their bodies are built for."""
+    if d not in DECODE_HEAD_DIMS:
+        raise ValueError(f"{name} kernel needs D in {DECODE_HEAD_DIMS} (D={d})")
 
 
 def _finish(name, rc, out, out_dtype):
@@ -243,17 +264,15 @@ def _decode_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
     """decode_attention and its flat twin: one C signature."""
     s, hq, d = q.shape
     code = _dtype_code(name, q)
-    if d % 16 or rep > 8 or rep * d > 1024:
-        raise ValueError(f"{name} kernel needs D % 16 == 0, rep <= 8 and "
-                         f"rep * D <= 1024 (D={d}, rep={rep})")
+    _check_head_dim(name, d)
     caches = _int8_caches(name, caches)
     q = _aligned(q)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty((s, hq, d), dtype=q.dtype, device=q.device)
-    ws, splits = _split(q, s, hkv, t, 1, rep, d)
-    rc = _bound(name, 8, 7)(
+    ws, splits, group_rows = _plan(q, s, hkv, t, 1, rep, d, f32_heads=True)
+    rc = _bound(name, 8, 8)(
         q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
-        _ptr(ws), s, t, hkv, rep, d, code, splits, _build.stream_ptr(q))
+        _ptr(ws), s, t, hkv, rep, d, code, splits, group_rows, _build.stream_ptr(q))
     return _finish(name, rc, out, out_dtype)
 
 
@@ -327,15 +346,15 @@ def _window_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
     """window_decode_attention and its flat twin: one C signature."""
     s, w, hq, d = q.shape
     code = _dtype_code(name, q)
-    _check_window(name, w, rep, d)
+    _check_head_dim(name, d)
     caches = _int8_caches(name, caches)
     q = _aligned(q)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    ws, splits = _split(q, s, hkv, t, w, rep, d)
-    rc = _bound(name, 8, 8)(
+    ws, splits, group_rows = _plan(q, s, hkv, t, w, rep, d)
+    rc = _bound(name, 8, 9)(
         q.data_ptr(), *(a.data_ptr() for a in caches), lengths.data_ptr(), out.data_ptr(),
-        _ptr(ws), s, t, w, hkv, rep, d, code, splits, _build.stream_ptr(q))
+        _ptr(ws), s, t, w, hkv, rep, d, code, splits, group_rows, _build.stream_ptr(q))
     return _finish(name, rc, out, out_dtype)
 
 
@@ -441,15 +460,15 @@ def _paged_launch(name, q, caches, table, lengths, page, hkv, rep, out_dtype):
     window = q.dim() == 4
     w, d = (q.shape[1] if window else 1), q.shape[-1]
     code = _dtype_code(name, q)
-    _check_window(name, w, rep, d)
+    _check_head_dim(name, d)
     caches = _int8_caches(name, caches)
     q = _aligned(q)
     table = table.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    ws, splits = _split(q, q.shape[0], hkv, table.shape[1] * page, w, rep, d)
+    ws, splits, group_rows = _plan(q, q.shape[0], hkv, table.shape[1] * page, w, rep, d)
     ints = ((q.shape[0], table.shape[1], page) + ((w,) if window else ())
-            + (hkv, rep, d, code, splits))
+            + (hkv, rep, d, code, splits, group_rows))
     rc = _bound(name, 9, len(ints))(
         q.data_ptr(), *(a.data_ptr() for a in caches), table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), _ptr(ws), *ints, _build.stream_ptr(q))

@@ -445,13 +445,23 @@ def multi_head_attention(p, x: torch.Tensor, mask: Optional[torch.Tensor], num_h
     output projection; ``p = {'q', 'k', 'v', 'o'}``, each a dense layer.
     The projections run weight-only (``act_quant=False``) under W8A8, as
     in the JAX package. On a ``mesh`` q/k/v are the rank's column shards
-    (its ``num_heads / model`` heads), the attention runs on those local
-    heads and o is row-parallel."""
-    heads = num_heads // (mesh.size("model") if mesh is not None else 1)
+    and o is row-parallel. Where ``model`` divides the heads, the shards
+    are the rank's ``num_heads / model`` heads and the attention runs on
+    them; otherwise a shard cuts heads (bert-base's 12 at model=8: 96
+    columns each), so, as GSPMD reshards there, the shards are gathered
+    over ``model``, every rank runs all the heads, and it keeps its block
+    of the result's columns, the rows of its shard of o."""
+    tp = mesh.size("model") if mesh is not None else 1
     q = dense(p["q"], x, dtype, act_quant=False)
     k = dense(p["k"], x, dtype, act_quant=False)
     v = dense(p["v"], x, dtype, act_quant=False)
-    out = _attention(q, k, v, mask, heads, dtype)
+    if num_heads % tp == 0:
+        out = _attention(q, k, v, mask, num_heads // tp, dtype)
+    else:
+        width = q.shape[-1]
+        q, k, v = (gather_features(t, mesh) for t in (q, k, v))
+        off = mesh.coord("model") * width
+        out = _attention(q, k, v, mask, num_heads, dtype)[..., off:off + width].contiguous()
     return dense(p["o"], out, dtype, act_quant=False, mesh=mesh)
 
 

@@ -34,8 +34,9 @@ PyTorch: CPU tensors take them, and on the card they are only the
 references the kernels are checked against.
 Layouts are the JAX package's: q ``[B, T, Hq, D]`` / ``[C, Hq, D]``, K/V
 with ``Hkv`` heads and no GQA repeats. The causal and chunked kernels
-take head_dim 32 (llama-tiny), 64 and 128, the encoder kernel 64 and
-128; another head_dim raises in the wrapper.
+take any rep and head_dim 32 (llama-tiny), 64, 80 (Phi-2), 96
+(Phi-3-mini), 128 and 256 (Gemma; key tiles of 32 there), the encoder
+kernel 64 and 128; another head_dim raises in the wrapper.
 """
 
 from __future__ import annotations
@@ -63,16 +64,18 @@ def _bound(name: str, symbol: str, n_ptrs: int, n_ints: int):
 
 # head dims each kernel is instantiated for; any other raises in the
 # wrapper (there is no plain fallback on the card)
-PREFILL_HEAD_DIMS = (32, 64, 128)
+PREFILL_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 ENCODER_HEAD_DIMS = (64, 128)
 
 
-def _check_kernel_args(q, rep: int, d: int, what: str, dims=PREFILL_HEAD_DIMS) -> None:
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what} takes f32 or bf16, got {q.dtype}")
-    if d not in dims or 128 % rep:
-        raise ValueError(f"{what} kernel needs D in {dims} and rep dividing 128 "
-                         f"(D={d}, rep={rep})")
+def check_kernel_args(dtype, rep: int, d: int, what: str, dims=PREFILL_HEAD_DIMS) -> None:
+    """What a prefill kernel takes: f32 or bf16, a head dim it is built
+    for, any ``rep >= 1``; raises otherwise (there is no plain fallback on
+    the card)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} takes f32 or bf16, got {dtype}")
+    if d not in dims or rep < 1:
+        raise ValueError(f"{what} kernel needs D in {dims} and rep >= 1 (D={d}, rep={rep})")
 
 
 def causal_attention_plain(q, k, v, rep: int, out_dtype=None) -> torch.Tensor:
@@ -99,7 +102,7 @@ def causal_attention(q, k, v, rep: int, out_dtype=None) -> torch.Tensor:
     out_dtype = out_dtype or q.dtype
     if not q.is_cuda:
         return causal_attention_plain(q, k, v, rep, out_dtype)
-    _check_kernel_args(q, rep, d, "causal_attention")
+    check_kernel_args(q.dtype, rep, d, "causal_attention")
     q, k, v = (a.to(q.dtype).contiguous() for a in (q, k, v))
     out = torch.empty_like(q)
     fn = _bound("causal_attention", "sis_causal_attention", 4, 6)
@@ -152,7 +155,7 @@ def chunk_prefill_attention(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur,
     if not q.is_cuda:
         return chunk_prefill_attention_plain(q, k_row, v_row, k_scale, v_scale,
                                              k_cur, v_cur, start, rep, out_dtype)
-    _check_kernel_args(q, rep, d, "chunk_prefill_attention")
+    check_kernel_args(q.dtype, rep, d, "chunk_prefill_attention")
     if k_row.dtype != torch.int8 or v_row.dtype != torch.int8:
         raise TypeError("chunk_prefill_attention needs an int8 cache row")
     tensors = [q.contiguous(), k_row.contiguous(), v_row.contiguous(),
@@ -194,7 +197,9 @@ def bidirectional_attention(q, k, v, key_bias, rep: int = 1, out_dtype=None) -> 
     out_dtype = out_dtype or q.dtype
     if not q.is_cuda:
         return bidirectional_attention_plain(q, k, v, key_bias, rep, out_dtype)
-    _check_kernel_args(q, rep, d, "bidirectional_attention", ENCODER_HEAD_DIMS)
+    check_kernel_args(q.dtype, rep, d, "bidirectional_attention", ENCODER_HEAD_DIMS)
+    if 128 % rep:  # its f32 route packs rep heads' rows into a 128-row tile
+        raise ValueError(f"bidirectional_attention kernel needs rep dividing 128 (rep={rep})")
     q, k, v = (a.to(q.dtype).contiguous() for a in (q, k, v))
     bias = key_bias.to(torch.float32).contiguous()
     out = torch.empty_like(q)

@@ -293,7 +293,7 @@ class PipeWorker(_DecoderWorker):
 class GspmdWorker(_DecoderWorker):
     """One rank's GSPMD-mode decoder: its parameter shard (decoder rules,
     fused projections block-aligned), the cache of its data group's
-    ``num_slots / data`` slots at its ``kv_heads / model`` heads, and the
+    ``num_slots / data`` slots at its kv heads (``models.decoder.local_heads``), and the
     slot lengths of ALL slots (``cache.lengths``, replicated by every
     command; the engine on rank 0 reads and writes them). The programs are
     ``models/decoder.py``'s with ``mesh``: on rank 0 :meth:`prefill`,

@@ -7,7 +7,12 @@ the same indices): the decoder stores FUSED projections (qkv as one
 ``[H, (Hq + 2 Hkv) D]`` matrix, gate+up as one ``[H, 2 I]``), and a rank
 of a ``model`` group holds one contiguous column slice of each, so the
 columns are permuted once at placement until rank ``d``'s slice is
-exactly ``[q_d | k_d | v_d]`` (resp. ``[gate_d | up_d]``).
+exactly ``[q_d | k_d | v_d]`` (resp. ``[gate_d | up_d]``). Where
+``model`` is a multiple of the kv heads (GSPMD mode only,
+:func:`gspmd_decoder_layer_for_tp`), each kv head's K and V columns are
+first repeated ``model / kv_heads`` times, so rank ``d``'s ``k_d`` /
+``v_d`` is kv head ``d * kv_heads // model``, the one its q heads read:
+the ranks sharing a kv head compute the same K and V.
 Per-output-channel scales permute alongside, so the shuffle commutes
 with quantization. Row-parallel weights (``attn.o``, ``mlp.down``) keep
 their rows; pairwise-packed int4 ones row-shard cleanly when every
@@ -17,6 +22,7 @@ shard holds an even number of original rows, which
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Sequence
 
 import numpy as np
@@ -86,6 +92,34 @@ def repack_int4_rows(wnode, tp: int):
     return wnode
 
 
+def replicated_kv_columns(spec, tp: int) -> np.ndarray:
+    """The fused qkv columns with each kv head's K and V columns repeated
+    ``tp // kv_heads`` times (the identity where ``tp`` does not exceed
+    the kv heads): ``new[j] = old[idx[j]]``, ``[q | k x r | v x r]``."""
+    d = spec.head_dim
+    r = max(1, tp // spec.kv_heads)
+    q = np.arange(spec.q_heads * d)
+    heads = np.repeat(np.arange(spec.kv_heads), r)  # kv head of each replica, in order
+    cols = (heads[:, None] * d + np.arange(d)[None, :]).reshape(-1)
+    k0 = spec.q_heads * d
+    return np.concatenate([q, k0 + cols, k0 + spec.kv_heads * d + cols])
+
+
+def gspmd_decoder_layer_for_tp(spec, layer, tp: int):
+    """GSPMD mode's layout of one decoder layer over ``tp`` ranks: checked
+    by :func:`validate_gspmd_decoder_tp`; where ``tp`` exceeds the kv
+    heads, each kv head's K and V columns are repeated first
+    (:func:`replicated_kv_columns`; bf16, int8 and packed int4 weights
+    alike, int4 packing along K), so the shuffle sees ``tp`` kv heads;
+    then :func:`shuffle_decoder_layer_for_tp`."""
+    validate_gspmd_decoder_tp(spec, tp)
+    if tp > spec.kv_heads:
+        qkv = permute_out_columns(layer["attn"]["qkv"]["w"], replicated_kv_columns(spec, tp))
+        layer = dict(layer, attn=dict(layer["attn"], qkv={"w": qkv}))
+        spec = dataclasses.replace(spec, kv_heads=tp)
+    return shuffle_decoder_layer_for_tp(spec, layer, tp)
+
+
 def shuffle_decoder_layer_for_tp(spec, layer, tp: int):
     """A copy of one decoder layer's params with the fused projections
     column-shuffled (and packed int4 row-parallel weights checked) for
@@ -139,6 +173,31 @@ def validate_decoder_tp(spec, tp: int) -> None:
         raise ValueError(
             f"per-device GQA ratio must stay integral: q_heads/tp="
             f"{spec.q_heads // tp}, kv_heads/tp={spec.kv_heads // tp}"
+        )
+    if spec.intermediate % tp:
+        raise ValueError(
+            f"tensor-parallel size {tp} must divide intermediate "
+            f"({spec.intermediate})"
+        )
+
+
+def validate_gspmd_decoder_tp(spec, tp: int) -> None:
+    """The decoder meshes GSPMD mode serves: :func:`validate_decoder_tp`'s,
+    and also ``tp`` a multiple of ``kv_heads`` (each kv head replicated on
+    ``tp / kv_heads`` ranks) with ``tp`` dividing ``q_heads``. The JAX
+    package's GSPMD cuts the fused qkv columns as they come and lets XLA
+    reshard, so it also serves ``tp`` not dividing ``q_heads`` and ``tp``
+    neither dividing nor a multiple of ``kv_heads``; the port refuses
+    those, naming the shape."""
+    if tp <= 1 or spec.kv_heads % tp == 0:
+        validate_decoder_tp(spec, tp)
+        return
+    if spec.q_heads % tp or tp % spec.kv_heads:
+        raise ValueError(
+            f"GSPMD tensor-parallel size {tp} with q_heads {spec.q_heads} and kv_heads "
+            f"{spec.kv_heads}: the port splits whole q heads over model and either whole "
+            f"kv heads or replicas of them, so model must divide q_heads and divide or be "
+            f"a multiple of kv_heads"
         )
     if spec.intermediate % tp:
         raise ValueError(

@@ -1549,7 +1549,7 @@ def check_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
     mode's stage and decode-microgroup counts ((0, 0) in GSPMD mode)."""
     from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, PIPE_AXIS
     from ..parallel.pipeline_decode import _axis, _microgroups, validate_pipe_mesh
-    from ..parallel.tp_layout import validate_decoder_tp
+    from ..parallel.tp_layout import validate_decoder_tp, validate_gspmd_decoder_tp
 
     if flat:
         raise ValueError(
@@ -1563,7 +1563,9 @@ def check_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
                 f"num_slots ({num_slots}) must be divisible by the "
                 f"mesh data axis ({data}) to shard the KV slots"
             )
-        validate_decoder_tp(spec, _axis(mesh, MODEL_AXIS))
+        # model above the kv heads replicates them (the JAX GSPMD engine
+        # runs no head check; pipe mode keeps it, below)
+        validate_gspmd_decoder_tp(spec, _axis(mesh, MODEL_AXIS))
         if kv_page_size:
             raise ValueError(
                 "paged KV cache does not compose with mesh decoding "

@@ -50,10 +50,11 @@ def rank_shard(tree, spec, family: str, coords, sizes):
     """The shard of a whole tree (numpy or torch leaves) of ``family``
     (``spec``: its DecoderSpec, None for other families) that the mesh
     position ``coords`` holds. With ``sizes['model']`` > 1 every layer is
-    first column-shuffled by the family's ``tp_layer_shuffle`` hook
-    (decoders' fused projections, ``parallel/tp_layout.py``). Pipe mode
-    (``sizes['pipe']`` > 1): this stage's layers stacked and every leaf
-    cut by the family's partition rules
+    first column-shuffled by the family's ``tp_layer_shuffle`` hook in
+    the mesh's mode (decoders' fused projections, ``parallel/tp_layout.py``;
+    in GSPMD mode kv heads are replicated where ``model`` exceeds them).
+    Pipe mode (``sizes['pipe']`` > 1): this stage's layers stacked and
+    every leaf cut by the family's partition rules
     (``parallel/pipeline.py:prepare_pipelined_params``); GSPMD mode: the
     tree cut by the rules as it is (``parallel/partition.py:shard_params``).
     The same block as the JAX leaf's ``addressable_shards`` there, but for
@@ -68,9 +69,10 @@ def rank_shard(tree, spec, family: str, coords, sizes):
     options = dataclasses.asdict(spec) if spec is not None else {}
     hook = get_family(family, options).tp_layer_shuffle
     tp = sizes.get(MODEL_AXIS, 1)
-    shuffle = (lambda layer: hook(layer, tp)) if tp > 1 and hook is not None else None
+    pipe = sizes.get(PIPE_AXIS, 1) > 1
+    shuffle = (lambda layer: hook(layer, tp, pipe=pipe)) if tp > 1 and hook is not None else None
     rules = partition_rules_for(family)
-    if sizes.get(PIPE_AXIS, 1) > 1:
+    if pipe:
         return prepare_pipelined_params(tree, coords, sizes, rules, layer_shuffle=shuffle)
     if shuffle is not None:
         tree = dict(tree, layers=[shuffle(layer) for layer in tree["layers"]])

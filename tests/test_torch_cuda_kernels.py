@@ -536,8 +536,8 @@ def test_flat_kernels_match_plain_and_standard_twin(dev, dtype, case):
 # and 4 at T = 1024 take 16 splits of 64 positions. Lengths 0, 63 and 64
 # put a slot's last live position at the edge of a tile and of a split,
 # T - W in the last one. Heads: llama-1b's (8 KV heads, rep 4, D 64),
-# llama-tiny's (D 32) and rep 8 at D 128; windows of 9 rows (4 at D 128,
-# the 4096-output limit). Paged caches use pages of 16 rows, so a tile
+# llama-tiny's (D 32) and rep 8 at D 128; windows of 9 rows (4 at D 128:
+# 32 rows, one row group of two m16 tiles). Paged caches use pages of 16 rows, so a tile
 # crosses four pages, with the garbage page's scales NaN.
 
 DECODE_SIDE = ("decode_attention", "window_decode_attention", "paged_decode_attention",
@@ -1034,11 +1034,12 @@ def test_prefill_at_head_dim_32_runs_the_kernels(dev):
             == spec.layers)
 
 
-@pytest.mark.parametrize("head_dim", [48, 96])
+@pytest.mark.parametrize("head_dim", [48, 112])
 def test_prefill_outside_the_kernels_limits_raises(dev, head_dim):
     """On the card a prefill never turns to the plain attention: a
-    head_dim the kernels do not take (they take 32, 64 and 128) raises in
-    the causal kernel's wrapper, and the kernel is never launched."""
+    head_dim the kernels do not take (they take 32, 64, 80, 96, 128 and
+    256) raises in the causal kernel's wrapper, and the kernel is never
+    launched."""
     import numpy as np
 
     from starpu_inference_server_tpu_torch.models import decoder as td

@@ -9,10 +9,10 @@ processes (llama-tiny at its spec there, CPU ranks over gloo):
   bit-equal to the same world started by one launcher;
 - ``:184``: FP32 greedy streams of the GSPMD engine, ``data`` across the
   launchers, equal to the JAX engine's;
-- ``:460``: 2 launchers of 4 ranks at data=2 x model=4 (kv_heads 4: the
-  port's tensor parallelism splits whole kv heads, the JAX spec's 2 are
-  refused at model=4), each data row in one launcher, streams equal to
-  JAX, every all-reduce over ``model`` and only ``data`` crossing;
+- ``:460``: 2 launchers of 4 ranks at data=2 x model=4, each data row in
+  one launcher, streams equal to JAX, every all-reduce over ``model`` and
+  only ``data`` crossing: at kv_heads 4 (whole kv heads a rank) and at the
+  JAX spec's 2 (``:489``; each kv head replicated on two ranks);
 - ``:509``: pipe=2 x model=2, one stage a launcher: the first token is the
   JAX plain prefill's argmax, the next logits within 5e-3 of JAX
   ``decode_step``, and only the ``pipe`` hops cross;
@@ -58,7 +58,7 @@ from starpu_inference_server_tpu_torch.parallel.mesh import (
     crossing_axes,
     local_size,
 )
-from starpu_inference_server_tpu_torch.serving.generation import GenerationEngine
+from starpu_inference_server_tpu_torch.serving.generation import check_mesh
 from starpu_inference_server_tpu_torch.utils.config import (
     CLUSTER_VARIABLES,
     DistributedSettings,
@@ -71,7 +71,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # the JAX bring-up tests' llama-tiny
 SPEC = {"layers": 2, "hidden": 128, "q_heads": 4, "kv_heads": 2, "intermediate": 256,
         "vocab": 128}
-SPEC4 = dict(SPEC, kv_heads=4)  # model=4 splits whole kv heads
+SPEC4 = dict(SPEC, kv_heads=4)  # model=4 splits whole kv heads (at SPEC's 2: replicas)
 PROMPTS = [[3, 7, 11], [5, 2], [9, 1, 4]]
 ENGINE = dict(num_slots=4, max_len=64, prefill_buckets=[8], steps_per_sync=2)
 IDS = np.tile(np.arange(1, 9, dtype=np.int64), (4, 1))
@@ -91,7 +91,7 @@ WORLDS = {
            [FORWARD, _gen("generate", SPEC)]),
     "dm_one_launcher": ("torch_mesh_cases:world", {"data": 2, "model": 2}, 4, 1, [FORWARD]),
     "tiered": ("torch_mesh_cases:world", {"data": 2, "model": 4}, 8, 2,
-               [_gen("generate", SPEC4)]),
+               [_gen("generate", SPEC4), _gen("generate_jax_spec", SPEC)]),
     "pipe": ("torch_parallel_cases:world", (2, 2, 1), 4, 2,
              [{"name": "prefill_decode", "kind": "prefill_decode", "family": "llama-tiny",
                "opts": SPEC, "seed": 0, "ids": PIPE_PROMPT, "length": 5, "num_slots": 4,
@@ -472,10 +472,19 @@ def test_axes_crossing_launchers(axes, local, want):
     assert crossing_axes(axes, local) == want
 
 
-def test_the_jax_spec_at_model_4_is_refused():
-    """The expected divergence behind SPEC4: the port splits whole kv heads
-    over ``model``, so the JAX spec's 2 kv heads cannot go over 4 ranks
-    (JAX's GSPMD shards the fused projection's columns instead)."""
-    with pytest.raises(ValueError, match="must divide"):
-        GenerationEngine(get_spec("llama-tiny", SPEC), None, num_slots=4, max_len=64,
-                         prefill_buckets=[8], mesh=MeshAxes(data=2, model=4), device="cpu")
+def test_the_jax_spec_at_model_4_is_refused(worlds):
+    """JAX ``:489`` exactly: the JAX spec's 2 kv heads over model=4, which
+    the port once refused (the name is that test's). Each kv head is now
+    replicated on the two ranks whose q heads read it; the engine accepts
+    the mesh and, over 2 launchers, its streams equal the JAX engine's,
+    with every all-reduce over ``model`` and none crossing launchers."""
+    assert check_mesh(get_spec("llama-tiny", SPEC), MeshAxes(data=2, model=4), flat=False,
+                      prefill_chunk=0, prefill_buckets=[8], num_slots=4, pipe_microgroups=0,
+                      kv_page_size=0) == (0, 0)
+    res = worlds["tiered"]["generate_jax_spec"][0]
+    assert res["tokens"] == jax_tokens(SPEC, PROMPTS, ENGINE)
+    for stats in res["stats"]:
+        census = collectives_by_axis(stats["collectives"])
+        assert set(census["all-reduce"]) == {"model"}
+        crossing = crossing_calls(census, stats["crossing"])
+        assert set(crossing) == {"all-gather"} and set(crossing["all-gather"]) == {"data"}
