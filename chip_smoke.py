@@ -185,7 +185,8 @@ read from its server's log (the counts after warmup and at shutdown):
     ci_perf_resnet.csv is not replayed, for the run's time limit); one
     image's response equal, bit for bit, on both servers; int8_matmul (the
     fc) launched, fused_stem not;
-18. configs/llama_decoder.yml: the generation client, unary first (32
+18. configs/llama_decoder.yml (its server cut to ``CLIENT_LAYERS`` of 16
+    layers for the run's time limit): the generation client, unary first (32
     requests of 32 tokens at concurrency 32, cut from 128 for the run's
     time limit; it pays for the decode graph's capture), then streaming
     (128 requests at concurrency 128, time to first token); a direct
@@ -286,7 +287,7 @@ model=4 rank and on the one-device qkv), K3 also at the config's 128
 slots; the row groups' cost: K3 at 71 heads over one kv head and K9 at
 W = 5 and q/kv 16 (two groups each) beside one group on the same cache,
 and K3 at D = 256. Then llama_decoder.yml with
-``kv_heads: 2`` set in code (llama-1b widths and depth, q/kv 16,
+``kv_heads: 2`` set in code (llama-1b widths, ``HL_LAYERS`` layers, q/kv 16,
 ``HL_SLOTS`` slots): the model kernels on vs off, 16 greedy requests
 (one of 600 tokens) through K1, K3, K4 and K5, and an FP32 witness of the
 same weights whose streams with the kernels on equal those with them
@@ -297,9 +298,29 @@ logits against one device and a decode step's census; and bert_long.yml
 heads through K7 on every rank, against one device. Each library's nvcc
 seconds are printed after the build.
 
+The cut-heads group, last, its rank worlds beside the head-layout
+group's (``cut_heads_kernel_rows``, ``cut_heads_path``): GSPMD decoders whose heads ``model`` cuts, served
+through the gathered-heads route (each rank's contiguous cut of the
+fused qkv gathered over ``model``, every head on every rank, the cache
+replicated over ``model``). K1 at every int4 shard shape of the group's
+two worlds, K3, K5 and K4 at the whole models' head layouts (D = 128, q/kv
+4 and 7) and K9 at W = 5, each against its plain version and bit-equal
+over two calls; then two rank worlds side by side, each set in code on a
+copy of llama_decoder.yml at a published model's widths (depth cut for
+the run's time limit, ``time cut:`` lines): Phi-3-medium's layout (40 q
+over 10 kv heads) at data=1 x model=4, 16 requests (one of 600 tokens:
+K4) served by rank 0's engine against the same tree on one device, with
+first-prefill and step logits within ``GSPMD_LOGITS_TOL``; and
+Qwen2.5-7B's (28 q over 4 kv heads) at model=8, first-prefill and step
+logits against one device; each with a decode step's census on every
+rank (all-reduce/model 2L, all-gather/model L + 2) and the kernels'
+launches on every rank.
+
 ``python3 chip_smoke.py --phase head-layout-kernels`` runs the build and
-the group's kernel rows alone, ``--phase build-times TREE ...`` builds
-each checkout's kernel libraries in turn (``phase_main``).
+the head-layout group's kernel rows alone, ``--phase gspmd-cut-heads``
+the build and the cut-heads group with all its checks, ``--phase
+build-times TREE ...`` builds each checkout's kernel libraries in turn
+(``phase_main``).
 
 Every engine runs at its config's ``decode_pipeline_depth`` (4 for the
 decoder configs) unless stated. Requests are queued before the engine
@@ -3632,6 +3653,7 @@ MAX_P95_MS = 500
 MIN_RPS = 10
 GEN_TOKENS, GEN_PROMPT, GEN_REQUESTS = 32, 64, 128
 GEN_UNARY_REQUESTS = 32  # the unary client run's, cut from 128 for the run's time limit
+CLIENT_LAYERS = 4  # the clients' llama_decoder.yml server, cut from 16 layers for the same
 BERT_TEXTS = ("The quick brown fox jumps over the lazy dog.",
               "Serving a long BERT sequence through the port's bidirectional attention kernel.")
 # the subprocesses read no model hub: the BERT client's tokenizer falls back offline
@@ -3990,7 +4012,10 @@ def clients_path(card: str) -> dict:
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         workdir = Path(tmp)
         resnet = resnet152_checkpoint_phase(workdir, card)
-        llama = ServerProcess(CONFIG, workdir, "llama_decoder")
+        print(f"time cut: the clients' llama_decoder.yml server at {CLIENT_LAYERS} of 16 layers "
+              f"(formerly 16)")
+        llama = ServerProcess(CONFIG, workdir, "llama_decoder",
+                              {"model.options.layers": CLIENT_LAYERS})
         bert = ServerProcess(BERT_CONFIG, workdir, "bert_long_fp32",
                              {"model.quantization": "none", "model.compute_dtype": "FP32",
                               "seed": 42})
@@ -5800,6 +5825,7 @@ def multihost_path(card: str, one: dict) -> dict:
 # -- the head-layout group: every q/kv ratio and head width, model > kv heads ---
 
 HL_KV_HEADS = 2      # llama_decoder.yml's llama-1b with kv_heads 2 set in code: q/kv 16
+HL_LAYERS = 4        # its 16 layers cut to 4 in the group's engines for the run's time limit
 HL_SLOTS = 16        # its engines' slots (cut from 128: the phase serves 16 requests)
 HL_REQUESTS, HL_TOKENS, HL_PROMPT, HL_LONG = 16, 32, 64, 600  # one prompt of 600 chunks (K4)
 HL_MESH_TOKENS = 16  # the model=4 world's streams (cut from 32 for the run's time limit)
@@ -6174,7 +6200,7 @@ def _hl_prompts(spec) -> list:
 
 def head_layout_one_device(engine, counters, card, dev) -> dict:
     """``engine``: llama_decoder.yml with ``kv_heads: 2`` set in code
-    (llama-1b widths, 16 layers, int4 weights, int8 cache, q/kv 16) on one
+    (llama-1b widths, ``HL_LAYERS`` layers, int4 weights, int8 cache, q/kv 16) on one
     device, ``HL_SLOTS`` slots. The model kernels on vs off
     (``model_phase``), then ``HL_REQUESTS`` greedy requests of
     ``HL_TOKENS`` (``_hl_prompts``) through K1, K3, K4 and K5 (every
@@ -6219,12 +6245,9 @@ def head_layout_world(rank, world, init_method, payload):
     ``model`` a layer and 2 all-gathers: none for the replicated heads).
     ``payload`` may name another ``device`` and config (``llama``), and
     the ``card``."""
-    import torch
-
     from starpu_inference_server_tpu_torch.models.decoder import local_heads
     from starpu_inference_server_tpu_torch.models.registry import build_model, get_family
     from starpu_inference_server_tpu_torch.ops import _build
-    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
     from starpu_inference_server_tpu_torch.parallel.launch import follow, join_mesh
     from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes
     from starpu_inference_server_tpu_torch.serving.generation import (
@@ -6239,7 +6262,7 @@ def head_layout_world(rank, world, init_method, payload):
     dev = mesh.device
     on_card = dev.type == "cuda"
     base = _cfg_with(load_config(str(payload.get("llama", CONFIG))), kv_heads=HL_KV_HEADS,
-                     num_slots=HL_SLOTS)
+                     num_slots=HL_SLOTS, layers=HL_LAYERS)
     cfg = _on_mesh(base, model=HL_MODEL)
     spec = get_family(cfg.model.family, cfg.model.options).spec
     tree = build_model(cfg.model, seed=cfg.seed, device=dev).params if rank == 0 else None
@@ -6275,20 +6298,7 @@ def head_layout_world(rank, world, init_method, payload):
         _require_on_every_rank(stats, HL_KERNELS, what, on_card)
         short = [p for p in one["prompts"] if len(p) == HL_PROMPT]
         res["logits"] = _decoder_logits_check(eng, ref, short, list(range(len(short))), what)
-        eng.worker.reset_stats()
-        ids = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
-        act = torch.zeros(eng.num_slots, dtype=torch.bool, device=dev)
-        act[:len(short)] = True
-        eng.worker.decode(ids, act)
-        step_census = [collectives_by_axis({"calls": s["census"]})
-                       for s in _phase_stats(eng.worker)]
-        for c in step_census:
-            require(c.get("all-reduce") == {"model": 2 * spec.layers},
-                    f"{what}: a decode step's all-reduces {c}")
-            require(c.get("all-gather", {}).get("model") == 2,
-                    f"{what}: a decode step's all-gathers {c}")
-            require(set(c) <= {"all-reduce", "all-gather", "broadcast"},
-                    f"{what}: a decode step's collectives {c}")
+        step_census = _step_census(eng, spec, len(short), what)
         res.update(streams_equal=equal, wall_s=wall, steps=steps,
                    step_ms=1e3 * step_s / max(steps, 1), stats=stats, step_census=step_census)
         del ref
@@ -6366,6 +6376,8 @@ def head_layouts_path(card: str) -> dict:
 
     from starpu_inference_server_tpu_torch.parallel.launch import run_world
 
+    print(f"time cut: llama_decoder.yml with kv_heads 2 at {HL_LAYERS} of 16 layers in the "
+          f"head-layout group (formerly 16)")
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build) as tmp:
@@ -6394,6 +6406,286 @@ def head_layouts_path(card: str) -> dict:
     return {"one": mesh["one"], "mesh": mesh, "bert": bert,
             "seconds": {f"model{HL_MODEL}": round(mesh_s, 1),
                         f"bert_model{HL_BERT_MODEL}": round(bert_s, 1)}}
+
+
+# -- the cut-heads group: GSPMD decoders whose heads model cuts -------------------
+
+# published widths set in code on copies of llama_decoder.yml (int4, int8
+# cache, its 1024 positions and prefill_chunk 256): Phi-3-medium (40 q over
+# 10 kv heads, D = 128; 40 layers) at model=4, whose 10 kv heads 4 ranks
+# neither divide nor multiply, and Qwen2.5-7B (28 q over 4 kv heads, D =
+# 128; 28 layers) at model=8, which does not divide its q heads
+CH_LAYOUTS = {
+    "phi3": {"name": "Phi-3-medium", "model": 4, "published_layers": 40,
+             "widths": {"hidden": 5120, "q_heads": 40, "kv_heads": 10, "intermediate": 17920,
+                        "vocab": 32064}},
+    "qwen": {"name": "Qwen2.5-7B", "model": 8, "published_layers": 28,
+             "widths": {"hidden": 3584, "q_heads": 28, "kv_heads": 4, "intermediate": 18944,
+                        "vocab": 152064}},
+}
+CH_LAYERS = {"phi3": 1, "qwen": 1}  # cut from 40 and 28 layers for the run's time limit
+CH_SLOTS = 16        # every engine's slots (data=1: all of them on every rank)
+CH_TOKENS = 16       # the Phi-3-medium layout's 16 requests, one device and the mesh
+CH_QWEN_PROMPTS = 4  # the Qwen2.5-7B layout's first prefills and decode step
+
+
+def cut_heads_cache_gb(widths: dict, layers: int, model: int, slots: int, positions: int):
+    """A rank's int8 KV cache (K and V bytes, an f32 scale each a token and
+    kv head) in GB, (gathered route, a per-rank route, kv heads a rank in
+    that route): the gathered route holds every kv head; a per-rank route
+    would hold the kv heads its block of q heads (q_heads / model of
+    them, rounded up) reads, padded to the most any rank reads."""
+    hq, hkv = widths["q_heads"], widths["kv_heads"]
+    d, rep, block = widths["hidden"] // hq, hq // hkv, -(-hq // model)
+    per_rank = max(len({q // rep for q in range(r * block, min((r + 1) * block, hq))})
+                   for r in range(model))
+    row = layers * slots * positions * 2 * (d + 4)  # bytes a kv head
+    return hkv * row / 1e9, per_rank * row / 1e9, per_rank
+
+
+def _ch_path(key) -> str:
+    return f"cut_heads_{key}_model{CH_LAYOUTS[key]['model']}"
+
+
+def cut_heads_kernel_rows(dev, card) -> dict:
+    """Every kernel of the cut-heads worlds at the shapes they give it. K1
+    at a rank's int4 shard of each layer (the fused qkv's contiguous
+    columns, o's rows, gate_up's and down's blocks) at the decode M
+    (``CH_SLOTS``), the 64-token prefill bucket's M (``HL_PROMPT``) and
+    the chunk M (256), and at the lm head's vocab shard
+    at M = ``CH_SLOTS`` and 1 (a prefill's last row); K3 at ``CH_SLOTS``
+    slots of 1024 positions, K5 at the 64-token bucket and K4 at a
+    256-row chunk from 256, at the whole model's head layout every rank
+    runs (Hq 40 over Hkv 10, Hq 28 over Hkv 4, D = 128); K9 at W = 5 at
+    Phi-3-medium's. Each held against its plain version (K1 1e-4 max|ref|,
+    the attention kernels element by element) and bit-equal over two
+    calls, and timed. Returns {kernel: [per_shape entries]}, each tagged
+    with its world's path."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(1717)
+    rows = {}
+    for key, lay in CH_LAYOUTS.items():
+        w, tp, path = lay["widths"], lay["model"], _ch_path(key)
+        h, hq, hkv = w["hidden"], w["q_heads"], w["kv_heads"]
+        d = h // hq
+        shard = {"qkv": (h, (hq + 2 * hkv) * d // tp), "o": (hq * d // tp, h),
+                 "gate_up": (h, 2 * w["intermediate"] // tp), "down": (w["intermediate"] // tp, h)}
+        k1 = [(layer, m, k, n) for m in (CH_SLOTS, HL_PROMPT, 256)
+              for layer, (k, n) in shard.items()]
+        k1 += [("lm_head", m, h, w["vocab"] // tp) for m in (CH_SLOTS, 1)]
+        for layer, m, k, n in k1:
+            rows.setdefault("int4_matmul", []).append(
+                dict(_k1_entry(g, dev, m, k, n, f"{path} {layer}", card), path=path))
+        rows.setdefault("decode_attention", []).append(
+            _hl_decode_row(g, dev, CH_SLOTS, 1024, hq, hkv, d, path, card))
+        rows.setdefault("causal_attention", []).append(
+            _hl_k5_row(g, dev, HL_PROMPT, hq, hkv, d, path, card))
+        rows.setdefault("chunk_prefill_attention", []).append(
+            _hl_k4_row(g, dev, 256, 256, 1024, hq, hkv, d, path, card))
+    w = CH_LAYOUTS["phi3"]["widths"]
+    rows["window_decode_attention"] = [_hl_decode_row(
+        g, dev, CH_SLOTS, 1024, w["q_heads"], w["kv_heads"], w["hidden"] // w["q_heads"],
+        _ch_path("phi3"), card, w=5)]
+    return rows
+
+
+def _step_census(eng, spec, n, what) -> list:
+    """One decode step of ``n`` active slots on a data=1 GSPMD mesh, every
+    rank's census of it: all-reduce/model 2L (o and down), all-gather/model
+    2 (the embedding and the lm head) and L more where the ranks gather
+    heads (the fused qkv a layer), nothing over ``data`` and nothing
+    else."""
+    import torch
+
+    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
+    from starpu_inference_server_tpu_torch.parallel.tp_layout import gathered_heads
+
+    dev = eng.device
+    gathers = 2 + (spec.layers if gathered_heads(spec, eng.worker.mesh.size("model")) else 0)
+    eng.worker.reset_stats()
+    ids = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
+    act = torch.zeros(eng.num_slots, dtype=torch.bool, device=dev)
+    act[:n] = True
+    eng.worker.decode(ids, act)
+    census = [collectives_by_axis({"calls": s["census"]}) for s in _phase_stats(eng.worker)]
+    for c in census:
+        require(c.get("all-reduce") == {"model": 2 * spec.layers},
+                f"{what}: a decode step's all-reduces {c}")
+        require(c.get("all-gather") == {"model": gathers},
+                f"{what}: a decode step's all-gathers {c}")
+        require(set(c) <= {"all-reduce", "all-gather", "broadcast"},
+                f"{what}: a decode step's collectives {c}")
+        require(not any("data" in axis for ops in c.values() for axis in ops),
+                f"{what}: a decode step's collectives over data {c}")
+    return census
+
+
+def cut_heads_world(rank, world, init_method, payload):
+    """One world of the cut-heads group: ``payload['layout']`` (a key of
+    ``CH_LAYOUTS``) set in code on a copy of llama_decoder.yml at
+    ``CH_LAYERS`` layers and ``CH_SLOTS`` slots, at data=1 x model=its
+    size (the ranks sharing the card, gloo). Rank 0 draws the tree once,
+    sends each rank its shard, and holds the mesh (every rank every head,
+    the fused qkv gathered over ``model``) against one device of the same
+    tree: Phi-3-medium's layout serves ``HL_REQUESTS`` requests (one of 600
+    tokens) of ``CH_TOKENS`` tokens through both engines (the one-device
+    run through K1, K3, K4 and K5, every prefill and chunk through its
+    kernel, every block a graph replay; the mesh's streams equal to it
+    counted, not required: bf16 sums in another order) with K1, K3, K4 and
+    K5 on every rank; both layouts check first-prefill and step logits
+    within ``GSPMD_LOGITS_TOL`` (Qwen2.5-7B's then with K1, K3 and K5 on
+    every rank in one more prefill and a decode step of the mesh alone)
+    and a decode step's census (``_step_census``). ``payload``
+    may name another ``device`` and config (``llama``), and the ``card``."""
+    import numpy as np
+    import torch
+
+    from starpu_inference_server_tpu_torch.models.decoder import local_heads
+    from starpu_inference_server_tpu_torch.models.registry import build_model, get_family
+    from starpu_inference_server_tpu_torch.ops import _build
+    from starpu_inference_server_tpu_torch.parallel.launch import follow, join_mesh
+    from starpu_inference_server_tpu_torch.parallel.mesh import MeshAxes
+    from starpu_inference_server_tpu_torch.parallel.tp_layout import gathered_heads
+    from starpu_inference_server_tpu_torch.serving.generation import (
+        GenerationRequest,
+        build_generation_engine,
+    )
+    from starpu_inference_server_tpu_torch.utils.config import load_config
+    from starpu_inference_server_tpu_torch.weights import receive_shard, scatter_shards
+
+    key = payload["layout"]
+    lay = CH_LAYOUTS[key]
+    tp, serve = lay["model"], key == "phi3"
+    mesh = join_mesh(MeshAxes(model=tp), rank, world, init_method,
+                     payload.get("device", "cuda"), timeout_s=900.0)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    base = _cfg_with(load_config(str(payload.get("llama", CONFIG))), num_slots=CH_SLOTS,
+                     layers=CH_LAYERS[key], **lay["widths"])
+    cfg = _on_mesh(base, model=tp)
+    spec = get_family(cfg.model.family, cfg.model.options).spec
+    t0 = time.perf_counter()
+    tree = build_model(cfg.model, seed=cfg.seed, device=dev).params if rank == 0 else None
+    tree_s = time.perf_counter() - t0
+    shard = (scatter_shards(tree, spec, cfg.model.family, mesh) if rank == 0
+             else receive_shard(mesh))
+    eng = build_generation_engine(cfg, mesh=mesh, params=shard)
+    if rank != 0:
+        follow(eng.worker)
+        return {"backend": mesh.backend}
+    what = (f"{lay['name']}'s layout (q/kv {spec.q_heads}/{spec.kv_heads}, "
+            f"{spec.layers} of {lay['published_layers']} layers) data=1 model={tp}")
+    res = {"backend": mesh.backend, "local_heads": local_heads(spec, mesh), "tree_s": tree_s,
+           "layers": spec.layers}
+    try:
+        widths = {k: getattr(spec, k) for k in lay["widths"]}
+        require(widths == lay["widths"] and spec.head_dim == 128, f"{what}: spec {spec}")
+        require(gathered_heads(spec, tp) and res["local_heads"] == (spec.q_heads, spec.kv_heads),
+                f"{what}: a rank's (q, kv) heads {res['local_heads']}")
+        require(eng.worker.cache.k[0].shape[2] == spec.kv_heads,
+                f"{what}: a rank's cache holds {eng.worker.cache.k[0].shape[2]} kv heads")
+        ref = build_generation_engine(base, device=dev, params=tree)
+        del tree
+        if serve:
+            prompts = _hl_prompts(spec)
+            one, res["one_launches"] = generate_all(
+                ref, prompts, CH_TOKENS, _build.launch_counters(), HL_KERNELS,
+                f"{what} on one device", payload.get("card", "cpu"), dense_prefills=True,
+                decode_kernel="decode_attention")
+            reqs = [GenerationRequest(prompt_ids=p, max_new_tokens=CH_TOKENS) for p in prompts]
+            eng.worker.reset_stats()
+            for r in reqs:
+                eng.submit(r)
+            t1 = time.perf_counter()
+            eng.start()
+            try:
+                got = [r.result(timeout=600.0) for r in reqs]
+            finally:
+                eng.stop()
+            res["wall_s"] = time.perf_counter() - t1
+            res["stats"] = stats = _phase_stats(eng.worker)
+            res["steps"], step_s = eng.steps, eng.loop_timers["step"]
+            res["step_ms"] = 1e3 * step_s / max(eng.steps, 1)
+            res["streams_equal"] = sum(a == b for a, b in zip(got, one))
+            for i, out in enumerate(got):
+                require(len(out) == CH_TOKENS and all(0 <= t < spec.vocab for t in out),
+                        f"{what}: request {i} returned {out}")
+            _require_on_every_rank(stats, HL_KERNELS, what, on_card)
+            short = [p for p in prompts if len(p) == HL_PROMPT]
+            res["logits"] = _decoder_logits_check(eng, ref, short, list(range(len(short))), what)
+        else:
+            rng = np.random.default_rng(17)
+            short = [rng.integers(0, spec.vocab, HL_PROMPT).astype(np.int32)
+                     for _ in range(CH_QWEN_PROMPTS + 1)]
+            res["logits"] = _decoder_logits_check(eng, ref, short[:-1],
+                                                  list(range(CH_QWEN_PROMPTS)), what)
+            # the mesh alone (rank 0's counters also count the one-device
+            # engine of its process): one more prefill, then a decode step
+            eng.worker.reset_stats()
+            eng.worker.prefill(torch.from_numpy(short[-1]).to(dev), HL_PROMPT, CH_QWEN_PROMPTS)
+            ids = torch.zeros(eng.num_slots, dtype=torch.int32, device=dev)
+            act = torch.arange(eng.num_slots, device=dev) <= CH_QWEN_PROMPTS
+            eng.worker.decode(ids, act)
+            res["stats"] = stats = _phase_stats(eng.worker)
+            _require_on_every_rank(stats, ("int4_matmul", "decode_attention", "causal_attention"),
+                                   what, on_card)
+        res["step_census"] = _step_census(eng, spec, len(short), what)
+        del ref
+    finally:
+        eng.worker.stop_followers()
+    return res
+
+
+def cut_heads_path(card: str) -> dict:
+    """The cut-heads group's two rank worlds at once, sharing the card:
+    ``cut_heads_world`` at Phi-3-medium's layout (4 ranks) and at
+    Qwen2.5-7B's (8 ranks)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from starpu_inference_server_tpu_torch.parallel.launch import run_world
+
+    for key, lay in CH_LAYOUTS.items():
+        print(f"time cut: {lay['name']}'s layout at {CH_LAYERS[key]} of {lay['published_layers']} "
+              f"layers (widths as published), {CH_SLOTS} slots, in the cut-heads group")
+        whole, part, heads = cut_heads_cache_gb(lay["widths"], lay["published_layers"],
+                                                lay["model"], 128, 4096)
+        print(f"{lay['name']} at model={lay['model']}, {lay['published_layers']} layers, 128 slots "
+              f"of 4096 positions: a rank's int8 KV cache {whole:.1f} GB on the gathered route "
+              f"(every kv head), {part:.1f} GB on a per-rank route ({heads} of "
+              f"{lay['widths']['kv_heads']} kv heads)")
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        def world(key):
+            t1 = time.perf_counter()
+            rank0 = run_world("chip_smoke:cut_heads_world", CH_LAYOUTS[key]["model"],
+                              {"card": card, "layout": key}, timeout_s=900.0,
+                              workdir=str(Path(tmp) / key))[0]
+            return rank0, time.perf_counter() - t1
+
+        with ThreadPoolExecutor(2) as pool:
+            futures = {key: pool.submit(world, key) for key in CH_LAYOUTS}
+            done = {key: f.result() for key, f in futures.items()}
+    out = {key: r for key, (r, _) in done.items()}
+    out["seconds"] = {_ch_path(key): round(s, 1) for key, (_, s) in done.items()}
+    for key, res in done.items():
+        res, seconds = res
+        lay = CH_LAYOUTS[key]
+        require(res["backend"] == "gloo", f"{lay['name']} world's backend {res['backend']}")
+        served = (f"{res['streams_equal']} of {HL_REQUESTS} greedy streams of {CH_TOKENS} tokens "
+                  f"equal to one device's (reported, not required: bf16 sums in another order); "
+                  f"mesh {res['wall_s']:.1f} s ({res['steps']} steps, rank 0's step "
+                  f"{res['step_ms']:.2f} ms host); " if "streams_equal" in res else "")
+        print(f"cut heads {lay['name']}'s layout data=1 model={lay['model']} ({lay['model']} ranks "
+              f"on {card}, gloo, {seconds:.1f} s, the tree drawn in {res['tree_s']:.1f} s): (q, kv) "
+              f"heads a rank {res['local_heads']}; {served}logits max rel prefill "
+              f"{res['logits']['prefill']['max_rel']:.3e} step "
+              f"{res['logits']['step']['max_rel']:.3e}; launches by rank "
+              f"{json.dumps([s['launches'] for s in res['stats']])}; a decode step's census by rank "
+              f"{json.dumps(res['step_census'])}")
+    return out
 
 
 def _ptxas_kernels(report: str) -> list:
@@ -6455,17 +6747,21 @@ def timed(phase_s: dict, name: str, fn, *args):
     return out
 
 
-PHASES = ("head-layout-kernels", "build-times")
+PHASES = ("head-layout-kernels", "gspmd-cut-heads", "build-times")
 
 
 def phase_main(argv) -> int:
     """One group alone, for a short call to the card:
 
         python3 chip_smoke.py --phase head-layout-kernels
+        python3 chip_smoke.py --phase gspmd-cut-heads
         python3 chip_smoke.py --phase build-times TREE [TREE ...]
 
     ``head-layout-kernels``: the build (nvcc seconds and ptxas reports)
     and ``head_layout_kernel_rows``, every row printed as JSON.
+    ``gspmd-cut-heads``: the build and the cut-heads group with every
+    check the whole run makes there (``cut_heads_kernel_rows``,
+    ``cut_heads_path``), every row printed as JSON.
     ``build-times``: the kernel libraries of each TREE (the root of a
     checkout; ``.`` for this one, another commit unpacked with ``git
     archive <commit> | tar -x -C build/parent``) built in turn by
@@ -6510,6 +6806,14 @@ def phase_main(argv) -> int:
     build_s = {}
     report_build(_build.build_all(seconds=build_s), build_s)
     print(f"build: {time.perf_counter() - t0:.1f} s")
+    if argv[1] == "gspmd-cut-heads":
+        rows = cut_heads_kernel_rows(torch.device("cuda"), card)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cut_heads_path(card)
+        print(f"cut-heads worlds: {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({"cut_heads_rows": rows}))
+        return 0
     rows = head_layout_kernel_rows(torch.device("cuda"), card)
     print(json.dumps({"head_layout_rows": rows}))
     return 0
@@ -6633,9 +6937,17 @@ def main() -> int:
                       gspmd["llama"])
     torch.cuda.empty_cache()
     hl_rows = timed(phase_s, "kernels (head layouts)", head_layout_kernel_rows, dev, card)
+    ch_rows = timed(phase_s, "kernels (cut heads)", cut_heads_kernel_rows, dev, card)
     torch.cuda.empty_cache()
-    heads = timed(phase_s, "head layouts (q/kv 16; model=4 over 2 kv heads; bert model=8)",
-                  head_layouts_path, card)
+
+    def head_and_cut_worlds():  # the two groups' four rank worlds side by side on the card
+        with ThreadPoolExecutor(2) as pool:
+            heads_f, cut_f = pool.submit(head_layouts_path, card), pool.submit(cut_heads_path, card)
+            return heads_f.result(), cut_f.result()
+
+    heads, cut = timed(phase_s, "head layouts (q/kv 16; model=4 over 2 kv heads; bert model=8) "
+                       "beside gspmd cut heads (Phi-3-medium model=4; Qwen2.5-7B model=8)",
+                       head_and_cut_worlds)
     # launches on the head-layout paths: the one-device engine's serving
     # run, and by rank the model=4 world's streams and the bert world's
     # forward; the timed rows carry the launches of the run they stand for
@@ -6652,6 +6964,22 @@ def main() -> int:
                 e["launches"] = heads["one"]["launches"][name]
             elif e["path"].startswith("head_layouts_model"):
                 e["launches_by_rank"] = [s["launches"].get(name, 0) for s in hm]
+        rows[name].setdefault("per_shape", []).extend(entries)
+    # launches on the cut-heads paths: Phi-3-medium's one-device run, and by
+    # rank each world's counted run (the served requests; Qwen2.5-7B's
+    # prefills and step); the timed rows carry their world's by rank
+    cut_launches = {name: {f"{_ch_path(key)}_by_rank": [s["launches"].get(name, 0)
+                                                         for s in cut[key]["stats"]]
+                           for key in CH_LAYOUTS
+                           if any(s["launches"].get(name, 0) for s in cut[key]["stats"])}
+                    for name in HL_KERNELS}
+    for name in HL_KERNELS:
+        cut_launches[name]["cut_heads_phi3_one_device"] = cut["phi3"]["one_launches"][name]
+    for name, entries in ch_rows.items():
+        for e in entries:
+            key = next(k for k in CH_LAYOUTS if e["path"] == _ch_path(k))
+            e["launches_by_rank"] = ([s["launches"].get(name, 0) for s in cut[key]["stats"]]
+                                     if name in HL_KERNELS else "not on a path (no verify window)")
         rows[name].setdefault("per_shape", []).extend(entries)
     # launches on the multi-host paths, by rank: the two CLI launchers over
     # their client run, and each phase of the 2-launcher rank world
@@ -6749,6 +7077,8 @@ def main() -> int:
             extra["launches_on_the_multihost_paths"] = multihost_launches[name]
         if name in head_launches:
             extra["launches_on_the_head_layout_paths"] = head_launches[name]
+        if name in cut_launches:
+            extra["launches_on_the_cut_heads_paths"] = cut_launches[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"starpu_inference_server_tpu_torch/csrc/{name}.cu",
@@ -6799,6 +7129,14 @@ def main() -> int:
           f"step {heads['mesh']['logits']['step']['max_rel']:.3e}; bert_long model="
           f"{HL_BERT_MODEL} max rel {heads['bert']['close']['max_rel']:.3e}; worlds "
           f"{json.dumps(heads['seconds'])} s")
+    cp, cq = cut["phi3"], cut["qwen"]
+    print(f"cut-heads paths on {card}: Phi-3-medium's layout at model={CH_LAYOUTS['phi3']['model']} "
+          f"{cp['streams_equal']} of {HL_REQUESTS} streams equal to one device's, logits max rel "
+          f"prefill {cp['logits']['prefill']['max_rel']:.3e} step "
+          f"{cp['logits']['step']['max_rel']:.3e}, rank 0's step {cp['step_ms']:.2f} ms host; "
+          f"Qwen2.5-7B's at model={CH_LAYOUTS['qwen']['model']} prefill "
+          f"{cq['logits']['prefill']['max_rel']:.3e} step {cq['logits']['step']['max_rel']:.3e}; "
+          f"worlds {json.dumps(cut['seconds'])} s")
     print(f"phase seconds (host clock): {json.dumps(phase_s)}")
     print(f"wall time of the run: {time.perf_counter() - t_run:.1f} s")
     print(card)

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from ..ops import nn
 from ..ops.decode_attention import std_kv_view
 from ..ops.decode_attention import std_scale_view as _std_scale_view
+from ..parallel import tp_layout
 from ..utils.config import TensorSpec
 from .registry import ModelDefinition, register_family
 
@@ -257,19 +258,38 @@ def local_heads(spec: DecoderSpec, mesh=None):
     ``1 / model`` block of the q heads and the kv heads they read (the
     fused projections are block-aligned by ``parallel/tp_layout.py``):
     ``kv_heads / model`` of them, or one where ``model`` is a multiple of
-    ``kv_heads`` (each kv head replicated on ``model / kv_heads`` ranks,
-    ``tp_layout.validate_gspmd_decoder_tp``). The rank's GQA ratio is
-    ``q / kv`` of these."""
+    ``kv_heads`` (each kv head replicated on ``model / kv_heads`` ranks).
+    Where ``model`` cuts heads otherwise (``tp_layout.gathered_heads``), all of
+    them again: every rank runs every head and holds the cache of every kv
+    head, as the JAX package's cache sharded over ``data`` only. The
+    rank's GQA ratio is ``q / kv`` of these."""
     tp = mesh.size("model") if mesh is not None else 1
+    if tp_layout.gathered_heads(spec, tp):
+        return spec.q_heads, spec.kv_heads
     return spec.q_heads // tp, max(1, spec.kv_heads // tp)
 
 
 def _project_qkv(spec: DecoderSpec, layer, h, dtype, mesh=None):
+    """The fused qkv projection split into q, k and v at the rank's heads.
+    In the gathered route the rank's column shard is made whole by one
+    all-gather over ``model``."""
     fused = nn.dense(layer["attn"]["qkv"], h, dtype)
+    if mesh is not None and tp_layout.gathered_heads(spec, mesh.size("model")):
+        fused = nn.gather_features(fused, mesh)
     qh, kvh = local_heads(spec, mesh)
     dq = qh * spec.head_dim
     dkv = kvh * spec.head_dim
     return fused[..., :dq], fused[..., dq:dq + dkv], fused[..., dq + dkv:]
+
+
+def _attn_out(spec: DecoderSpec, layer, attn, dtype, mesh=None):
+    """The output projection of the attention's ``[..., heads * D]``
+    result, row-parallel on a mesh. In the gathered route every rank holds
+    every head's output and keeps its block of the columns, the rows of
+    its ``o`` shard (a block may cut a head)."""
+    if mesh is not None and tp_layout.gathered_heads(spec, mesh.size("model")):
+        attn = nn.model_block(attn, mesh)
+    return nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
 
 
 def _fused_mlp(layer, x, dtype, mesh=None):
@@ -461,7 +481,7 @@ def forward_logits(spec: DecoderSpec, params, ids: torch.Tensor, dtype,
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
         attn = attn.reshape(b, t, qh * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
+        x = x + _attn_out(spec, layer, attn, dtype, mesh)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype, mesh)
     x = rms_norm(params["final_norm"], x)
@@ -510,7 +530,7 @@ def prefill(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
         attn = attn.reshape(1, p, qh * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
+        x = x + _attn_out(spec, layer, attn, dtype, mesh)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype, mesh)
     cache.lengths[slot] = length
@@ -583,7 +603,7 @@ def prefill_chunk(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             attn = torch.einsum("bhqk,bkhd->bqhd", p_past, _f32(row_v))
             attn = attn + torch.einsum("bhqk,bkhd->bqhd", p_cur, _f32(vc))
             attn = attn.reshape(1, c, qh * spec.head_dim)
-        x = x + nn.dense(layer["attn"]["o"], attn.to(dtype), dtype, mesh=mesh)
+        x = x + _attn_out(spec, layer, attn.to(dtype), dtype, mesh)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype, mesh)
     cache.lengths[slot] = start + valid
@@ -641,7 +661,7 @@ def decode_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("shqk,skhd->sqhd", probs, _f32(v_all)).reshape(
                 s, 1, qh * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
+        x = x + _attn_out(spec, layer, attn, dtype, mesh)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype, mesh)
     x = rms_norm(params["final_norm"], x)
@@ -709,7 +729,7 @@ def verify_step(spec: DecoderSpec, params, cache: KVCache, ids: torch.Tensor,
             probs = _softmax_cast(logits, dtype)
             attn = torch.einsum("shwk,skhd->swhd", probs, _f32(v_all)).reshape(
                 s, w, qh * spec.head_dim).to(dtype)
-        x = x + nn.dense(layer["attn"]["o"], attn, dtype, mesh=mesh)
+        x = x + _attn_out(spec, layer, attn, dtype, mesh)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype, mesh)
     x = rms_norm(params["final_norm"], x)
@@ -782,8 +802,6 @@ def _build_decoder(variant: str, options) -> ModelDefinition:
                                                    dtype, sharded=True)}
 
     def tp_layer_shuffle(layer, tp, pipe=False):
-        from ..parallel import tp_layout
-
         if pipe:  # the stage programs split whole kv heads, as JAX's
             tp_layout.validate_decoder_tp(spec, tp)
             return tp_layout.shuffle_decoder_layer_for_tp(spec, layer, tp)

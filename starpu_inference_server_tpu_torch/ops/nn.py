@@ -458,10 +458,8 @@ def multi_head_attention(p, x: torch.Tensor, mask: Optional[torch.Tensor], num_h
     if num_heads % tp == 0:
         out = _attention(q, k, v, mask, num_heads // tp, dtype)
     else:
-        width = q.shape[-1]
         q, k, v = (gather_features(t, mesh) for t in (q, k, v))
-        off = mesh.coord("model") * width
-        out = _attention(q, k, v, mask, num_heads, dtype)[..., off:off + width].contiguous()
+        out = model_block(_attention(q, k, v, mask, num_heads, dtype), mesh)
     return dense(p["o"], out, dtype, act_quant=False, mesh=mesh)
 
 
@@ -477,6 +475,14 @@ def gather_features(x: torch.Tensor, mesh=None) -> torch.Tensor:
     return all_gather(mesh, x, MODEL_AXIS, dim=-1)
 
 
+
+def model_block(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The rank's ``1 / model`` block of a whole last dim, the inverse of
+    :func:`gather_features`: the rows of its shard of the row-parallel
+    layer that follows (a block may cut a head)."""
+    width = x.shape[-1] // mesh.size("model")
+    off = mesh.coord("model") * width
+    return x[..., off:off + width].contiguous()
 def max_pool(x: torch.Tensor, window: int, stride: int, padding="SAME") -> torch.Tensor:
     """NHWC max pool; padding positions hold -inf (``lax.reduce_window``
     with the max identity)."""

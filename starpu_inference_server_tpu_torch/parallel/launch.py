@@ -292,8 +292,10 @@ class PipeWorker(_DecoderWorker):
 
 class GspmdWorker(_DecoderWorker):
     """One rank's GSPMD-mode decoder: its parameter shard (decoder rules,
-    fused projections block-aligned), the cache of its data group's
-    ``num_slots / data`` slots at its kv heads (``models.decoder.local_heads``), and the
+    fused projections block-aligned, or cut as they come where ``model``
+    cuts heads), the cache of its data group's ``num_slots / data`` slots
+    at its kv heads (``models.decoder.local_heads``: every kv head where
+    ``model`` cuts heads, the cache replicated over ``model``), and the
     slot lengths of ALL slots (``cache.lengths``, replicated by every
     command; the engine on rank 0 reads and writes them). The programs are
     ``models/decoder.py``'s with ``mesh``: on rank 0 :meth:`prefill`,

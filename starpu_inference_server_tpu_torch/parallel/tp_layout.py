@@ -12,7 +12,13 @@ exactly ``[q_d | k_d | v_d]`` (resp. ``[gate_d | up_d]``). Where
 :func:`gspmd_decoder_layer_for_tp`), each kv head's K and V columns are
 first repeated ``model / kv_heads`` times, so rank ``d``'s ``k_d`` /
 ``v_d`` is kv head ``d * kv_heads // model``, the one its q heads read:
-the ranks sharing a kv head compute the same K and V.
+the ranks sharing a kv head compute the same K and V. Every other
+GSPMD shape (``model`` not dividing the q heads, or the kv heads neither
+divided by nor dividing ``model``: :func:`gathered_heads`) keeps the
+fused qkv columns as they come, rank ``d`` holding the contiguous
+``1 / model`` of them, as the JAX package's ``P(None, MODEL)`` cut: the
+decoder gathers the projection over ``model`` and every rank runs every
+head (``models/decoder.py:local_heads``).
 Per-output-channel scales permute alongside, so the shuffle commutes
 with quantization. Row-parallel weights (``attn.o``, ``mlp.down``) keep
 their rows; pairwise-packed int4 ones row-shard cleanly when every
@@ -105,14 +111,33 @@ def replicated_kv_columns(spec, tp: int) -> np.ndarray:
     return np.concatenate([q, k0 + cols, k0 + spec.kv_heads * d + cols])
 
 
+def gathered_heads(spec, tp: int) -> bool:
+    """GSPMD mode's route for a decoder over ``tp`` model ranks, from the
+    shape alone. False, local heads: every rank holds whole q heads and
+    the kv heads they read, ``tp`` dividing the q heads and either
+    dividing the kv heads or a multiple of them (replicas). True, gathered
+    heads: every other shape, where a rank's contiguous cut of the fused
+    qkv columns cuts heads; the rank gathers the projection over
+    ``model``, runs every head and keeps its block of the output's
+    columns, what XLA's reshard computes for the JAX package."""
+    if tp <= 1:
+        return False
+    return bool(spec.q_heads % tp or (spec.kv_heads % tp and tp % spec.kv_heads))
+
+
 def gspmd_decoder_layer_for_tp(spec, layer, tp: int):
     """GSPMD mode's layout of one decoder layer over ``tp`` ranks: checked
-    by :func:`validate_gspmd_decoder_tp`; where ``tp`` exceeds the kv
-    heads, each kv head's K and V columns are repeated first
-    (:func:`replicated_kv_columns`; bf16, int8 and packed int4 weights
-    alike, int4 packing along K), so the shuffle sees ``tp`` kv heads;
-    then :func:`shuffle_decoder_layer_for_tp`."""
+    by :func:`validate_gspmd_decoder_tp`. Gathered heads
+    (:func:`gathered_heads`): the fused qkv columns stay as they come, so
+    the rank's contiguous shard is the JAX package's; ``o``, ``gate_up``
+    and ``down`` as :func:`shuffle_decoder_layer_for_tp` lays them out.
+    Local heads: where ``tp`` exceeds the kv heads, each kv head's K and V
+    columns are repeated first (:func:`replicated_kv_columns`; bf16, int8
+    and packed int4 weights alike, int4 packing along K), so the shuffle
+    sees ``tp`` kv heads; then :func:`shuffle_decoder_layer_for_tp`."""
     validate_gspmd_decoder_tp(spec, tp)
+    if gathered_heads(spec, tp):
+        return _layer_for_tp(spec, layer, tp, layer["attn"]["qkv"]["w"])
     if tp > spec.kv_heads:
         qkv = permute_out_columns(layer["attn"]["qkv"]["w"], replicated_kv_columns(spec, tp))
         layer = dict(layer, attn=dict(layer["attn"], qkv={"w": qkv}))
@@ -130,10 +155,18 @@ def shuffle_decoder_layer_for_tp(spec, layer, tp: int):
     qkv_perm = block_tp_permutation(
         [spec.q_heads * d, spec.kv_heads * d, spec.kv_heads * d], tp
     )
+    return _layer_for_tp(spec, layer, tp,
+                         permute_out_columns(layer["attn"]["qkv"]["w"], qkv_perm))
+
+
+def _layer_for_tp(spec, layer, tp: int, qkv):
+    """The layer with ``qkv`` (its fused qkv weight, laid out for ``tp``)
+    in place, ``gate_up`` block-shuffled and the packed int4 row-parallel
+    weights checked."""
     out = {
         "attn_norm": layer["attn_norm"],
         "attn": {
-            "qkv": {"w": permute_out_columns(layer["attn"]["qkv"]["w"], qkv_perm)},
+            "qkv": {"w": qkv},
             "o": {"w": repack_int4_rows(layer["attn"]["o"]["w"], tp)},
         },
         "mlp_norm": layer["mlp_norm"],
@@ -182,25 +215,25 @@ def validate_decoder_tp(spec, tp: int) -> None:
 
 
 def validate_gspmd_decoder_tp(spec, tp: int) -> None:
-    """The decoder meshes GSPMD mode serves: :func:`validate_decoder_tp`'s,
-    and also ``tp`` a multiple of ``kv_heads`` (each kv head replicated on
-    ``tp / kv_heads`` ranks) with ``tp`` dividing ``q_heads``. The JAX
-    package's GSPMD cuts the fused qkv columns as they come and lets XLA
-    reshard, so it also serves ``tp`` not dividing ``q_heads`` and ``tp``
-    neither dividing nor a multiple of ``kv_heads``; the port refuses
-    those, naming the shape."""
-    if tp <= 1 or spec.kv_heads % tp == 0:
-        validate_decoder_tp(spec, tp)
+    """The decoder meshes GSPMD mode serves: every head layout, as the JAX
+    package's GSPMD (:func:`gathered_heads` picks the route). What is
+    refused is the JAX package's own refusal, that of ``device_put``: a dimension the
+    decoder rules cut over ``model`` that ``tp`` does not divide, named
+    here before any weight is built (the fused qkv columns where they are
+    cut as they come: the local route cuts its block-aligned groups)."""
+    if tp <= 1:
         return
-    if spec.q_heads % tp or tp % spec.kv_heads:
-        raise ValueError(
-            f"GSPMD tensor-parallel size {tp} with q_heads {spec.q_heads} and kv_heads "
-            f"{spec.kv_heads}: the port splits whole q heads over model and either whole "
-            f"kv heads or replicas of them, so model must divide q_heads and divide or be "
-            f"a multiple of kv_heads"
-        )
-    if spec.intermediate % tp:
-        raise ValueError(
-            f"tensor-parallel size {tp} must divide intermediate "
-            f"({spec.intermediate})"
-        )
+    gathered = gathered_heads(spec, tp)
+    d = spec.head_dim
+    dims = [("the o rows (q_heads * head_dim)", spec.q_heads * d),
+            ("intermediate", spec.intermediate),
+            ("hidden (the embedding's columns)", spec.hidden),
+            ("vocab (the lm head's columns)", spec.vocab)]
+    if gathered:
+        dims.insert(0, ("the fused qkv columns", (spec.q_heads + 2 * spec.kv_heads) * d))
+    for name, n in dims:
+        if n % tp:
+            raise ValueError(
+                f"tensor-parallel size {tp} must divide {name} ({n}): GSPMD mode cuts it "
+                f"over model"
+            )

@@ -1563,8 +1563,10 @@ def check_mesh(spec: DecoderSpec, mesh, *, flat: bool, prefill_chunk: int,
                 f"num_slots ({num_slots}) must be divisible by the "
                 f"mesh data axis ({data}) to shard the KV slots"
             )
-        # model above the kv heads replicates them (the JAX GSPMD engine
-        # runs no head check; pipe mode keeps it, below)
+        # every head layout: whole heads a rank where model allows, else
+        # gathered heads (the JAX GSPMD engine runs no head check; pipe
+        # mode keeps it, below); a cut dimension model does not divide
+        # raises, as JAX's device_put
         validate_gspmd_decoder_tp(spec, _axis(mesh, MODEL_AXIS))
         if kv_page_size:
             raise ValueError(

@@ -52,13 +52,15 @@ def rank_shard(tree, spec, family: str, coords, sizes):
     position ``coords`` holds. With ``sizes['model']`` > 1 every layer is
     first column-shuffled by the family's ``tp_layer_shuffle`` hook in
     the mesh's mode (decoders' fused projections, ``parallel/tp_layout.py``;
-    in GSPMD mode kv heads are replicated where ``model`` exceeds them).
+    in GSPMD mode kv heads are replicated where ``model`` exceeds them, and
+    the fused qkv stays as it comes where ``model`` cuts heads).
     Pipe mode (``sizes['pipe']`` > 1): this stage's layers stacked and
     every leaf cut by the family's partition rules
     (``parallel/pipeline.py:prepare_pipelined_params``); GSPMD mode: the
     tree cut by the rules as it is (``parallel/partition.py:shard_params``).
     The same block as the JAX leaf's ``addressable_shards`` there, but for
-    the block-aligned fused projections (GSPMD's split is contiguous)."""
+    the block-aligned fused projections (GSPMD's split is contiguous; the
+    gathered-heads route's qkv shard is JAX's)."""
     import dataclasses
 
     from .models.registry import get_family

@@ -12,7 +12,8 @@ CPU against the JAX package on the same numpy inputs:
   (gloo): the JAX bring-up test's llama-tiny (2 kv heads) at data=2 x
   model=4 and MQA at model=4 and model=2, greedy streams equal to the JAX
   single-device engine's, and ``forward_logits`` against JAX's; kv heads
-  are replicated, not split, and no collective is added for them;
+  are replicated, not split, and no collective is added for them (the
+  shapes ``model`` cuts otherwise: ``tests/test_torch_gspmd_cut_heads.py``);
 - encoders whose heads ``model`` does not divide (bert-base and
   vit_b_16, 12 heads, at model=8): every rank runs all heads on the
   gathered q/k/v, within the JAX package's mesh tolerances of the JAX
@@ -384,19 +385,6 @@ def test_rank_heads_and_shards_replicate_the_kv_heads():
         want = np.concatenate([np.arange(r * d, (r + 1) * d), k0 + (r // 2) * d + np.arange(d),
                                v0 + (r // 2) * d + np.arange(d)])
         np.testing.assert_array_equal(shard, want)
-
-
-@pytest.mark.parametrize("opts,tp", [(dict(SPEC, q_heads=6, hidden=192), 4),
-                                     (dict(SPEC, q_heads=6, kv_heads=3, hidden=192), 2),
-                                     (dict(SPEC, q_heads=12, kv_heads=6, hidden=384), 4)])
-def test_gspmd_shapes_the_port_still_refuses_name_the_shape(opts, tp):
-    """JAX's GSPMD also serves these (XLA reshards the fused qkv columns):
-    ``model`` not dividing the q heads, or the kv heads neither divided
-    by nor dividing ``model``. The port refuses them, naming the shape."""
-    spec = get_spec("llama-tiny", opts)
-    with pytest.raises(ValueError, match=f"size {tp} with q_heads {spec.q_heads} and "
-                                         f"kv_heads {spec.kv_heads}"):
-        tp_layout.validate_gspmd_decoder_tp(spec, tp)
 
 
 def test_pipe_mode_keeps_the_jax_head_check():

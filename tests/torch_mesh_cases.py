@@ -249,21 +249,28 @@ def case_generate(mesh, case):
             "prefix_hits": eng.prefix_hits, "k6_calls": k6_calls[0]}
 
 
-def case_copy_rows(mesh, case):
-    """A prefill into slot 0 (data group 0), its rows copied over the last
-    slot (the last group) by ``GspmdWorker.copy_rows``, then one decode
-    step on both: rank 0's two logits rows and the all-gathers over data
-    the copy made."""
+def _gspmd_engine(mesh, case):
+    """(spec, the GSPMD-mode generation engine) of the case's seeded FP32
+    tree, every rank keeping its shard."""
     from starpu_inference_server_tpu_torch.models.decoder import get_spec, init_params
-    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
     from starpu_inference_server_tpu_torch.serving.generation import GenerationEngine
     from starpu_inference_server_tpu_torch.weights import rank_shard
 
     spec = get_spec(case["family"], case["opts"])
     tree = init_params(spec, np.random.default_rng(case["seed"]))
     shard = rank_shard(tree, spec, case["family"], mesh.coords, mesh.shape)
-    eng = GenerationEngine(spec, shard, dtype=torch.float32, mesh=mesh, family=case["family"],
-                           device="cpu", **case["engine"])
+    return spec, GenerationEngine(spec, shard, dtype=torch.float32, mesh=mesh,
+                                  family=case["family"], device="cpu", **case["engine"])
+
+
+def case_copy_rows(mesh, case):
+    """A prefill into slot 0 (data group 0), its rows copied over the last
+    slot (the last group) by ``GspmdWorker.copy_rows``, then one decode
+    step on both: rank 0's two logits rows and the all-gathers over data
+    the copy made."""
+    from starpu_inference_server_tpu_torch.parallel.census import collectives_by_axis
+
+    _, eng = _gspmd_engine(mesh, case)
     if mesh.rank != 0:
         follow(eng.worker)
         return None
@@ -283,6 +290,32 @@ def case_copy_rows(mesh, case):
     finally:
         w.stop_followers()
     return {"logits": logits.numpy(), "gathered": min(gathered)}
+
+
+def case_step_census(mesh, case):
+    """One decode step of the GSPMD worker after a prefill into slot 0:
+    every rank's collectives in that step alone, and the rank's (q, kv)
+    heads."""
+    from starpu_inference_server_tpu_torch.models.decoder import local_heads
+
+    spec, eng = _gspmd_engine(mesh, case)
+    if mesh.rank != 0:
+        follow(eng.worker)
+        return None
+    w = eng.worker
+    try:
+        prompt = torch.tensor(case["prompt"], dtype=torch.int32)
+        w.prefill(prompt, len(prompt), 0)
+        w.reset_stats()
+        ids = torch.zeros(eng.num_slots, dtype=torch.int32)
+        active = torch.zeros(eng.num_slots, dtype=torch.bool)
+        ids[0], active[0] = 5, True
+        w.decode(ids, active)
+        stats = w.gather_stats()
+    finally:
+        w.stop_followers()
+    return {"census": [st["collectives"] for st in stats], "heads": local_heads(spec, mesh),
+            "cache_heads": w.cache.k[0].shape[2]}
 
 
 def _reset_modes() -> None:
@@ -330,7 +363,8 @@ def case_seqpar(mesh, case):
 
 CASES = {"forward": case_forward, "row_dense": case_row_dense,
          "engine_forward": case_engine_forward, "runner": case_runner,
-         "generate": case_generate, "copy_rows": case_copy_rows, "ring": case_ring,
+         "generate": case_generate, "copy_rows": case_copy_rows,
+         "step_census": case_step_census, "ring": case_ring,
          "seqpar": case_seqpar}
 
 
