@@ -438,14 +438,19 @@ class InferenceServicer:
         t.datatype = "INT32"
         t.shape.extend([1, len(out)])
         response.raw_output_contents.append(out.tobytes())
+        # the answer's queue: submit to admission (a slot and pages
+        # granted); inference: admission to the last token
+        admitted = gen.admitted_at or gen.finished_at
         ttft_ms = max(0.0, (gen.first_token_at - gen.submitted_at) * 1000.0)
         total_ms = max(0.0, (gen.finished_at - gen.submitted_at) * 1000.0)
         fill_timing_fields(
             response,
-            {"queue_ms": ttft_ms, "inference_ms": max(0.0, total_ms - ttft_ms),
+            {"queue_ms": max(0.0, (admitted - gen.submitted_at) * 1000.0),
+             "inference_ms": max(0.0, (gen.finished_at - admitted) * 1000.0),
              "total_ms": total_ms},
             server_receive_ms=server_receive,
         )
+        # the statistics keep the JAX package's split: the TTFT as queue
         self.stats.record_success(
             {"total_ms": total_ms, "inference_ms": total_ms, "queue_ms": ttft_ms}, len(out))
         self._count_status("OK")
@@ -489,6 +494,8 @@ class InferenceServicer:
                     t.shape.extend([1, 1])
                     resp.raw_output_contents.append(np.asarray([token], np.int32).tobytes())
                     yield pb.ModelStreamInferResponse(infer_response=resp)
+                    if emitted == 1:  # the first token is on its way to the client
+                        self.generation_engine.record_first_send(gen)
                 else:
                     get_task.cancel()
                 if gen.done.is_set() and token_queue.empty() and emitted >= len(gen.tokens):

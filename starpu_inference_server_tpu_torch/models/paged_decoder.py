@@ -34,6 +34,7 @@ from typing import List
 
 import torch
 
+from ..monitoring.trace import device_range
 from ..ops import nn
 from ..ops.decode_attention import (
     gather_flat_scale_pages,
@@ -206,14 +207,15 @@ def paged_prefill(spec: DecoderSpec, params, cache: PagedKVCache, ids: torch.Ten
         kq, kscale = _quantize_kv(k[0])
         vq, vscale = _quantize_kv(v[0])
         _write_rows(cache, li, pid, off, kq, vq, kscale, vscale)
-        # in-prompt attention needs no cache read
-        kr = k.repeat_interleave(rep, dim=2)
-        vr = v.repeat_interleave(rep, dim=2)
-        logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kr)) / math.sqrt(spec.head_dim)
-        logits = torch.where(causal, logits, torch.full_like(logits, -1e9))
-        probs = _softmax_cast(logits, dtype)
-        attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
-        attn = attn.reshape(1, p, spec.q_heads * spec.head_dim).to(dtype)
+        with device_range("ops.attn"):
+            # in-prompt attention needs no cache read
+            kr = k.repeat_interleave(rep, dim=2)
+            vr = v.repeat_interleave(rep, dim=2)
+            logits = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kr)) / math.sqrt(spec.head_dim)
+            logits = torch.where(causal, logits, torch.full_like(logits, -1e9))
+            probs = _softmax_cast(logits, dtype)
+            attn = torch.einsum("bhqk,bkhd->bqhd", probs, _f32(vr))
+            attn = attn.reshape(1, p, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype)
@@ -257,20 +259,21 @@ def paged_prefill_chunk(spec: DecoderSpec, params, cache: PagedKVCache, ids: tor
         kq, kscale = _quantize_kv(k[0])
         vq, vscale = _quantize_kv(v[0])
         _write_rows(cache, li, pid, off, kq, vq, kscale, vscale)
-        row_k, row_v = _gather_std(spec, cache, li, dtype, row)
-        row_k = row_k.repeat_interleave(rep, dim=2)
-        row_v = row_v.repeat_interleave(rep, dim=2)
-        s_past = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(row_k)) * inv
-        s_past = torch.where(past_mask, s_past, torch.full_like(s_past, -1e9))
-        kc = k.repeat_interleave(rep, dim=2)
-        vc = v.repeat_interleave(rep, dim=2)
-        s_cur = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kc)) * inv
-        s_cur = torch.where(cur_mask, s_cur, torch.full_like(s_cur, -1e9))
-        probs = _softmax_cast(torch.cat([s_past, s_cur], dim=-1), dtype)
-        p_past, p_cur = probs[..., :t_max], probs[..., t_max:]
-        attn = torch.einsum("bhqk,bkhd->bqhd", p_past, _f32(row_v))
-        attn = attn + torch.einsum("bhqk,bkhd->bqhd", p_cur, _f32(vc))
-        attn = attn.reshape(1, c, spec.q_heads * spec.head_dim).to(dtype)
+        with device_range("ops.attn"):  # the past read back through the table
+            row_k, row_v = _gather_std(spec, cache, li, dtype, row)
+            row_k = row_k.repeat_interleave(rep, dim=2)
+            row_v = row_v.repeat_interleave(rep, dim=2)
+            s_past = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(row_k)) * inv
+            s_past = torch.where(past_mask, s_past, torch.full_like(s_past, -1e9))
+            kc = k.repeat_interleave(rep, dim=2)
+            vc = v.repeat_interleave(rep, dim=2)
+            s_cur = torch.einsum("bqhd,bkhd->bhqk", _f32(q), _f32(kc)) * inv
+            s_cur = torch.where(cur_mask, s_cur, torch.full_like(s_cur, -1e9))
+            probs = _softmax_cast(torch.cat([s_past, s_cur], dim=-1), dtype)
+            p_past, p_cur = probs[..., :t_max], probs[..., t_max:]
+            attn = torch.einsum("bhqk,bkhd->bqhd", p_past, _f32(row_v))
+            attn = attn + torch.einsum("bhqk,bkhd->bqhd", p_cur, _f32(vc))
+            attn = attn.reshape(1, c, spec.q_heads * spec.head_dim).to(dtype)
         x = x + nn.dense(layer["attn"]["o"], attn, dtype)
         h = rms_norm(layer["mlp_norm"], x)
         x = x + _mlp_block(spec, layer, h, dtype)

@@ -21,15 +21,29 @@ unchanged: the same events, rows and files for the same jobs. The
 deep-kernel tier (the reference's StarPU FXT + NVTX tiers) is
 ``torch.profiler`` on the card, run by the caller; this logger covers the
 batching/serving tier.
+
+The generation engine's tier is :class:`SpanTotals`: named host spans
+whose seconds (and, where a reader needs it, count) add up in the engine's
+``loop_timers``, each also
+a ``torch.profiler`` range ``gen.<name>`` while the profiler records, and
+:func:`device_range`, the ranges of the model's layers (``ops.dense``,
+``ops.attn``) and :func:`ranged`, a function's. With no profiler a span
+reads the clock twice and a flag once, and a layer's range reads the flag
+once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
+import functools
 import json
 import os
 import threading
-from typing import List, Optional
+from typing import Iterable, List, Optional
+
+import torch.autograd.profiler as _autograd_profiler
+from torch.profiler import record_function
 
 from ..core.job import InferenceJob
 from ..utils.clock import now_s
@@ -214,3 +228,91 @@ class BatchingTraceLogger:
 class NullTraceLogger(BatchingTraceLogger):
     def __init__(self):
         super().__init__(output_dir="", enabled=False)
+
+
+# -- the generation engine's spans -------------------------------------------------
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def device_range(name: str):
+    """A ``torch.profiler`` range ``name`` while the profiler records, else
+    a no-op context: the ranges of the model's layers, which keep no
+    totals (a layer's host time is its enqueue, not its work)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return record_function(name)
+    return _NO_RANGE
+
+
+def ranged(name: str):
+    """Decorator: each call of the function in a :func:`device_range`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with device_range(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+class _Span:
+    __slots__ = ("_totals", "_keys", "_args", "_range", "_t0")
+
+    def __init__(self, totals: dict, keys: tuple, args: Optional[str]):
+        self._totals = totals
+        self._keys = keys
+        self._args = args
+
+    def __enter__(self) -> "_Span":
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = record_function(self._keys[2], self._args)
+            self._range.__enter__()
+            if self._args:
+                # the chrome trace drops a range's string args: an empty
+                # range at the span's start names the request(s) instead
+                with record_function("gen.request " + self._args):
+                    pass
+        self._t0 = now_s()
+        return self
+
+    def __exit__(self, kind, exc, tb) -> None:
+        if kind is None:
+            name, count, _ = self._keys
+            self._totals[name] += now_s() - self._t0
+            if count is not None:
+                self._totals[count] += 1
+        if self._range is not None:
+            self._range.__exit__(kind, exc, tb)
+
+
+class SpanTotals:
+    """Cumulative host seconds (``now_s``) of named spans in ``totals``,
+    and, for the names in ``counted``, under ``<name>.n`` how many ended.
+    ``spans(name)`` is a context manager for a span of the calling thread
+    (one writer a name: the engine's thread); :meth:`add` adds a span timed
+    elsewhere, under a lock (the front door's thread and the engine's share
+    those names). A span that raises adds nothing."""
+
+    def __init__(self, names: Iterable[str], counted: Iterable[str] = ()):
+        counted = set(counted)
+        self.totals: dict = {}
+        self._keys = {}
+        for name in names:
+            self.totals[name] = 0.0
+            count = None
+            if name in counted:
+                count = name + ".n"
+                self.totals[count] = 0
+            self._keys[name] = (name, count, "gen." + name)
+        self._lock = threading.Lock()
+
+    def __call__(self, name: str, args: Optional[str] = None) -> _Span:
+        return _Span(self.totals, self._keys[name], args)
+
+    def add(self, name: str, seconds: float) -> None:
+        _, count, _ = self._keys[name]
+        with self._lock:
+            self.totals[name] += seconds
+            if count is not None:
+                self.totals[count] += 1

@@ -78,6 +78,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..monitoring.trace import ranged
 from . import _build
 from .matmul_kernels import _sm_count
 
@@ -276,6 +277,7 @@ def _decode_launch(name, q, caches, lengths, t, hkv, rep, out_dtype):
     return _finish(name, rc, out, out_dtype)
 
 
+@ranged("ops.attn")
 def decode_attention(q, k_cache, v_cache, k_scale, v_scale, lengths,
                      rep: int, out_dtype=None) -> torch.Tensor:
     """q [S, Hq, D] against the int8 cache; returns [S, Hq, D] in
@@ -475,6 +477,7 @@ def _paged_launch(name, q, caches, table, lengths, page, hkv, rep, out_dtype):
     return _finish(name, rc, out, out_dtype)
 
 
+@ranged("ops.attn")
 def paged_decode_attention(q, k_pool, v_pool, k_scale, v_scale, table, lengths,
                            rep: int, out_dtype=None) -> torch.Tensor:
     """q [S, Hq, D] against the paged int8 cache (pools [N, page, Hkv, D],

@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..monitoring.trace import ranged
 from . import matmul_kernels as mk
 from . import prefill_attention as pa
 from .quant import (
@@ -148,6 +149,7 @@ def _quantize_rows(x2: torch.Tensor, mesh=None):
     return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
 
 
+@ranged("ops.dense")
 def dense(p, x: torch.Tensor, dtype=torch.bfloat16, act_quant: bool = True,
           mesh=None) -> torch.Tensor:
     """y = x @ w + b with ``p = {'w': [in, out] dense or quantized, 'b'?}``.

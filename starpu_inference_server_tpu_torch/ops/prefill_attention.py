@@ -45,6 +45,7 @@ import math
 
 import torch
 
+from ..monitoring.trace import ranged
 from . import _build
 
 launches = {"causal_attention": 0, "chunk_prefill_attention": 0,
@@ -91,6 +92,7 @@ def causal_attention_plain(q, k, v, rep: int, out_dtype=None) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", probs, vf).to(out_dtype)
 
 
+@ranged("ops.attn")
 def causal_attention(q, k, v, rep: int, out_dtype=None) -> torch.Tensor:
     """Flash causal attention, q [B, T, Hq, D] against k/v [B, T, Hkv, D].
     Rows attend keys at positions <= their own; padding rows come out as
@@ -140,6 +142,7 @@ def chunk_prefill_attention_plain(q, k_row, v_row, k_scale, v_scale, k_cur, v_cu
     return out.to(out_dtype)
 
 
+@ranged("ops.attn")
 def chunk_prefill_attention(q, k_row, v_row, k_scale, v_scale, k_cur, v_cur,
                             start: int, rep: int, out_dtype=None) -> torch.Tensor:
     """One prompt chunk q [C, Hq, D] against the slot's int8 cache row

@@ -107,11 +107,24 @@ from ..models.paged_decoder import (
     set_table_row,
 )
 from ..models.registry import resolve_device
+from ..monitoring.trace import SpanTotals
 from ..ops import _build, nn
 from ..ops.quant import pack_int4_tree
 from ..utils.clock import now_s
 from ..utils.logger import get_logger
 from . import sampling
+
+# the engine loop's phases, host seconds in ``loop_timers`` (and the
+# Prometheus gauge): "step" splits into "dispatch" and "consume", the
+# "admit.*" spans are parts of "admit", "wait" is a fetch that blocked
+LOOP_PHASES = ("admit", "step", "land", "dispatch", "consume",
+               "admit.lookup", "admit.grant", "admit.chunk", "admit.prefill", "wait")
+# each request's time to its first token, in three parts: submit to
+# admission, admission to first token, first token to its stream response
+REQUEST_SPANS = ("request.queue", "request.prefill", "request.send")
+# the spans that also count, under "<name>.n", how many ended: per-request
+# means, the chunks dispatched, the fetches that blocked
+COUNTED_SPANS = ("admit.chunk", "wait") + REQUEST_SPANS
 
 
 @dataclasses.dataclass
@@ -129,6 +142,7 @@ class GenerationRequest:
     error: Optional[BaseException] = None
     on_token: Optional[Callable[[int], None]] = None  # streaming hook
     submitted_at: float = 0.0
+    admitted_at: float = 0.0
     first_token_at: float = 0.0
     finished_at: float = 0.0
     cancel_flag: threading.Event = dataclasses.field(default_factory=threading.Event)
@@ -541,10 +555,10 @@ class GenerationEngine:
         self._thread: Optional[threading.Thread] = None
         self.steps = 0
         self.generated_tokens = 0
-        # cumulative engine-loop phase timers (seconds, host clock);
-        # "step" splits into "dispatch" and "consume"
-        self.loop_timers = {"admit": 0.0, "step": 0.0, "land": 0.0,
-                            "dispatch": 0.0, "consume": 0.0}
+        # cumulative spans: seconds (host clock) of the loop's phases and
+        # the requests' parts and, under "<name>.n", the COUNTED_SPANS' counts
+        self.spans = SpanTotals(LOOP_PHASES + REQUEST_SPANS, COUNTED_SPANS)
+        self.loop_timers = self.spans.totals
         self._metrics = metrics
 
     # -- placement ---------------------------------------------------------
@@ -613,18 +627,19 @@ class GenerationEngine:
         raises, and the loop fails the open requests instead of hanging
         on a card that stopped answering."""
         if not self._fetch_ready(event):
-            deadline = time.monotonic() + self.fetch_timeout_s
-            pause = 2e-5
-            while not self._fetch_ready(event):
-                if time.monotonic() >= deadline:
-                    if self._metrics is not None:
-                        self._metrics.fetch_timeouts_total.inc()
-                    raise RuntimeError(
-                        f"device fetch did not complete within {self.fetch_timeout_s:g} s; "
-                        "failing open requests"
-                    )
-                time.sleep(pause)
-                pause = min(2 * pause, 1e-3)
+            with self.spans("wait"):
+                deadline = time.monotonic() + self.fetch_timeout_s
+                pause = 2e-5
+                while not self._fetch_ready(event):
+                    if time.monotonic() >= deadline:
+                        if self._metrics is not None:
+                            self._metrics.fetch_timeouts_total.inc()
+                        raise RuntimeError(
+                            f"device fetch did not complete within {self.fetch_timeout_s:g} s; "
+                            "failing open requests"
+                        )
+                    time.sleep(pause)
+                    pause = min(2 * pause, 1e-3)
         return host.numpy()
 
     @property
@@ -878,20 +893,16 @@ class GenerationEngine:
                     return
 
     def _serve(self) -> None:
-        t = self.loop_timers
+        span = self.spans
         while not self._stop.is_set():
-            t0 = now_s()
-            admitted = self._admit_pending()
-            t1 = now_s()
-            stepped = self._step_active()
-            t2 = now_s()
+            with span("admit"):
+                admitted = self._admit_pending()
+            with span("step"):
+                stepped = self._step_active()
             # land the prefills a consumed block has proven done; with no
             # block in flight there is nothing to overlap, so force them
-            landed = self._land_prefills(force=not stepped)
-            t3 = now_s()
-            t["admit"] += t1 - t0
-            t["step"] += t2 - t1
-            t["land"] += t3 - t2
+            with span("land"):
+                landed = self._land_prefills(force=not stepped)
             if not admitted and not stepped and not landed:
                 with self._work:
                     if not self._pending and not self._stop.is_set():
@@ -978,7 +989,8 @@ class GenerationEngine:
             # prompt index entry is valid again only at prefill completion
             stale_prompt = self._slot_prompts[free]
             self._slot_prompts[free] = None
-            hit = self._find_prefix(prompt, free, stale_prompt)
+            with self.spans("admit.lookup", request.request_id):
+                hit = self._find_prefix(prompt, free, stale_prompt)
             if self.kv_page_size:
                 # paged prefix reuse is PAGE-GRANULAR and zero-copy: the
                 # new slot's table points at the hit's whole pages
@@ -992,7 +1004,9 @@ class GenerationEngine:
                     else:
                         hit = (src_slot, n_shared * self.kv_page_size)
                         shared = self._slot_pages[src_slot][:n_shared]
-                if not self._grant_pages(free, request, shared, src_slot):
+                with self.spans("admit.grant", request.request_id):
+                    granted = self._grant_pages(free, request, shared, src_slot)
+                if not granted:
                     # pool exhausted: requeue at the FRONT and stop
                     # admitting until a release frees pages
                     self._slot_prompts[free] = stale_prompt
@@ -1000,6 +1014,8 @@ class GenerationEngine:
                         self._pending.appendleft(request)
                     return admitted
             admitted = True
+            request.admitted_at = now_s()
+            self.spans.add("request.queue", request.admitted_at - request.submitted_at)
             self._reserved.add(free)  # until the prefill lands (or aborts)
             if self._lookup_ngram:
                 # seed the slot's history with the prompt; stale tokens
@@ -1164,23 +1180,24 @@ class GenerationEngine:
             pf.request.finished_at = now_s()
             pf.request.done.set()
             return
-        c = self.prefill_chunk
-        chunk = pf.prompt[pf.offset:pf.offset + c]
-        valid = len(chunk)
-        padded = np.zeros((c,), np.int32)
-        padded[:valid] = chunk
-        ids = self._upload(padded)
-        _, logits = self._chunk_fn(self.spec, self.params, self.cache, ids, pf.offset, valid,
-                                   pf.slot, self.dtype)
-        if self._draft_params is not None:
-            # each chunk advances both caches: the draft must hold the
-            # prompt before it can draft
-            prefill_chunk_step(self.draft_spec, self._draft_params, self._draft_cache, ids,
-                               pf.offset, valid, pf.slot, self.dtype)
-        pf.offset += valid
-        if pf.offset >= len(pf.prompt):
-            self._prefilling = None
-            self._add_landings([(pf.slot, pf.request)], logits[None])
+        with self.spans("admit.chunk", pf.request.request_id):
+            c = self.prefill_chunk
+            chunk = pf.prompt[pf.offset:pf.offset + c]
+            valid = len(chunk)
+            padded = np.zeros((c,), np.int32)
+            padded[:valid] = chunk
+            ids = self._upload(padded)
+            _, logits = self._chunk_fn(self.spec, self.params, self.cache, ids, pf.offset,
+                                       valid, pf.slot, self.dtype)
+            if self._draft_params is not None:
+                # each chunk advances both caches: the draft must hold the
+                # prompt before it can draft
+                prefill_chunk_step(self.draft_spec, self._draft_params, self._draft_cache, ids,
+                                   pf.offset, valid, pf.slot, self.dtype)
+            pf.offset += valid
+            if pf.offset >= len(pf.prompt):
+                self._prefilling = None
+                self._add_landings([(pf.slot, pf.request)], logits[None])
 
     def _add_landings(self, items, logits: torch.Tensor) -> None:
         """Queue the landings of prefills just dispatched (``items``:
@@ -1196,22 +1213,26 @@ class GenerationEngine:
         """Dispatch the admissions collected in one loop, grouped by
         bucket (same-bucket prompts run back to back and their logits come
         back in one [N, V] fetch)."""
-        groups: dict = {}
-        for bucket, slot, request, prompt in batch:
-            groups.setdefault(bucket, []).append((slot, request, prompt))
-        for bucket, items in groups.items():
-            try:
-                logits_all = self._prefill_many(bucket, items)
-            except BaseException as exc:  # noqa: BLE001
-                for slot, request, _ in items:
-                    self._reserved.discard(slot)
-                    self._free_slot_pages(slot)
-                    request.error = exc
-                    request.done.set()
-                if not isinstance(exc, ValueError):
-                    raise
-                continue
-            self._add_landings([(slot, request) for slot, request, _ in items], logits_all)
+        if not batch:
+            return
+        ids = ",".join(filter(None, (r.request_id for _, _, r, _ in batch)))
+        with self.spans("admit.prefill", ids):
+            groups: dict = {}
+            for bucket, slot, request, prompt in batch:
+                groups.setdefault(bucket, []).append((slot, request, prompt))
+            for bucket, items in groups.items():
+                try:
+                    logits_all = self._prefill_many(bucket, items)
+                except BaseException as exc:  # noqa: BLE001
+                    for slot, request, _ in items:
+                        self._reserved.discard(slot)
+                        self._free_slot_pages(slot)
+                        request.error = exc
+                        request.done.set()
+                    if not isinstance(exc, ValueError):
+                        raise
+                    continue
+                self._add_landings([(slot, request) for slot, request, _ in items], logits_all)
 
     def _prefill_many(self, bucket: int, items) -> torch.Tensor:
         """N same-bucket prefills (counterpart of ``_prefill_many_fn``);
@@ -1268,6 +1289,7 @@ class GenerationEngine:
         self._membership_dirty = True  # the in-flight carry lacks this slot
         first = self._sample_first(logits, request)
         request.first_token_at = now_s()
+        self.spans.add("request.prefill", request.first_token_at - request.admitted_at)
         m = self._metrics
         if m is not None:
             m.generation_ttft.observe((request.first_token_at - request.submitted_at) * 1e3)
@@ -1380,28 +1402,35 @@ class GenerationEngine:
                 "snap": snap, "seq": self._dispatch_seq, "chain": chain}
 
     def _step_active(self) -> bool:
-        t0 = now_s()
-        if not self._inflight:
-            snap = self._snapshot_active()
-            if snap is None:
-                return False
-            self._membership_dirty = False
-            self._inflight.append(self._dispatch_block(snap["ids_dev"], snap["progress_dev"],
-                                                       snap))
-        # pump: chain blocks off the newest carry until the pipeline is
-        # full (or every slot's budget ends before the next block); the
-        # card runs them back to back while the host commits the oldest
-        while (self.decode_overlap and not self._membership_dirty
-               and len(self._inflight) < self.pipeline_depth
-               and self._inflight[-1]["chain"] + 1 < self._inflight[-1]["snap"]["blocks"]):
-            last = self._inflight[-1]
-            self._inflight.append(self._dispatch_block(last["nxt"], last["prog"], last["snap"],
-                                                       last["alive"], last["chain"] + 1))
-        t1 = now_s()
-        self.loop_timers["dispatch"] += t1 - t0
-        self._consume_block(self._inflight.popleft())  # may set the dirty flag
-        self.loop_timers["consume"] += now_s() - t1
+        if not self._inflight and not any(s is not None for s in self._slots):
+            return False  # no slot is active: no step, no dispatch time
+        with self.spans("dispatch"):
+            if not self._inflight:
+                snap = self._snapshot_active()
+                if snap is None:  # the last slot was released meanwhile
+                    return False
+                self._membership_dirty = False
+                self._inflight.append(self._dispatch_block(snap["ids_dev"],
+                                                           snap["progress_dev"], snap))
+            # pump: chain blocks off the newest carry until the pipeline is
+            # full (or every slot's budget ends before the next block); the
+            # card runs them back to back while the host commits the oldest
+            while (self.decode_overlap and not self._membership_dirty
+                   and len(self._inflight) < self.pipeline_depth
+                   and self._inflight[-1]["chain"] + 1 < self._inflight[-1]["snap"]["blocks"]):
+                last = self._inflight[-1]
+                self._inflight.append(self._dispatch_block(last["nxt"], last["prog"],
+                                                           last["snap"], last["alive"],
+                                                           last["chain"] + 1))
+        with self.spans("consume"):
+            self._consume_block(self._inflight.popleft())  # may set the dirty flag
         return True
+
+    def record_first_send(self, request: GenerationRequest) -> None:
+        """The front door handed ``request``'s first token to its stream:
+        adds the time since the token was sampled to ``request.send``
+        (called from the server's thread)."""
+        self.spans.add("request.send", now_s() - request.first_token_at)
 
     def _count_drafts(self, packed: np.ndarray, snap) -> None:
         """Acceptance counters of a speculative block: a (block, slot) pair
@@ -1442,8 +1471,9 @@ class GenerationEngine:
         steps_n = tokens.shape[0]
         self.steps += steps_n
         if self._metrics is not None and self.steps % 64 < steps_n:
-            for phase, secs in self.loop_timers.items():
-                self._metrics.generation_loop_seconds.labels(phase=phase).set(secs)
+            for phase in LOOP_PHASES:
+                self._metrics.generation_loop_seconds.labels(phase=phase).set(
+                    self.loop_timers[phase])
         finished = set()
         for i in range(self.num_slots):
             if not active[i]:

@@ -111,6 +111,9 @@ def test_model_infer_returns_the_engine_tokens(harness, prompt):
     assert resp.outputs[0].name == "output_ids" and list(resp.outputs[0].shape) == [1, 5]
     assert tokens == harness.server.generation_engine.generate(np.asarray(prompt), 5)
     assert resp.server_total_ms > 0
+    # queue: submit to admission; inference: admission to the last token
+    assert 0 <= resp.server_queue_ms <= resp.server_total_ms
+    assert resp.server_queue_ms + resp.server_inference_ms == pytest.approx(resp.server_total_ms)
 
 
 SERVING_OPTIONS = {
@@ -171,10 +174,15 @@ def test_stream_infer_matches_model_infer(harness):
                     resp.infer_response.raw_output_contents[0], np.int32)[0]))
             return out
 
+    timers = harness.server.generation_engine.loop_timers
+    sends = timers["request.send.n"], timers["request.send"]
     streamed = run(stream())
+    # the stream's first response was handed to gRPC once
+    assert timers["request.send.n"] == sends[0] + 1 and timers["request.send"] > sends[1]
     unary = run(_unary(harness.target, "ModelInfer", _request(PROMPTS[0], 6),
                        pb.ModelInferResponse))
     assert streamed == np.frombuffer(unary.raw_output_contents[0], np.int32).tolist()
+    assert timers["request.send.n"] == sends[0] + 1  # a unary answer sends no stream
 
 
 def test_liveness_and_metadata(harness):

@@ -97,7 +97,9 @@ def test_streams_are_the_same_at_any_depth(target, draft, case, depth):
     assert got == _DEPTH_1[case]
     assert all(len(out) == 14 for out in got)
     timers = eng.loop_timers
-    assert set(timers) == {"admit", "step", "land", "dispatch", "consume"}
+    spans = tgen.LOOP_PHASES + tgen.REQUEST_SPANS
+    assert set(timers) == set(spans) | {name + ".n" for name in tgen.COUNTED_SPANS}
+    assert {"admit", "step", "land", "dispatch", "consume"} <= set(tgen.LOOP_PHASES)
 
 
 @pytest.mark.parametrize("paged", [False, True])
